@@ -39,6 +39,10 @@ _SIGNATURES = {
     "quant_int8_launch": [_P, _I, _LL, _P, _P, _LL, _P],
     # q, q_dtype, s, size, out, out_dtype, stream
     "dequant_int8_launch": [_P, _I, _P, _LL, _P, _I, _P],
+    # x, x_dtype, size, amax, n_blocks, stream
+    "amax_block_launch": [_P, _I, _LL, _P, _LL, _P],
+    # x, x_dtype, size, s, q, n_blocks, stream
+    "quant_scaled_launch": [_P, _I, _LL, _P, _P, _LL, _P],
     # q, k, v, o, dtype, B, H, K, Sq, Skv, dh,
     # 12 strides (b, h, s for q, k, v, o), scale, causal, window,
     # q_offset, valid_kv, stream

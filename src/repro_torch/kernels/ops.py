@@ -15,7 +15,9 @@ from . import quant as _q
 
 KERNELS = {"flash_attention_bhsd": _fa.flash_attention_bhsd,
            "quant_int8": _q.quant_int8_call,
-           "dequant_int8": _q.dequant_int8_call}
+           "dequant_int8": _q.dequant_int8_call,
+           "amax_block": _q.amax_block_call,
+           "quant_scaled": _q.quant_scaled_call}
 
 
 def launch_counts() -> dict[str, int]:

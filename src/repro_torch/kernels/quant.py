@@ -1,14 +1,16 @@
-"""Blockwise int8 quantize / dequantize: the codec of the disaggregated
-KV-cache transfer.
+"""Blockwise int8 quantize / dequantize: the local-scale codec of the
+disaggregated KV-cache transfer and the shared-scale codec of the
+gradient sync.
 
 Symmetric int8 per 1024-element block with an f32 scale, as in the JAX
-package's ``kernels/quant.py``.  ``quant_int8_call`` and
-``dequant_int8_call`` launch the CUDA kernels of ``csrc/quant.cu`` for a
-tensor on the card and use their plain versions (``*_plain``) for a
-tensor on the CPU; each counts its kernel launches in ``.launches``.
-The shared-scale collective codec (``amax_block_call``,
-``quant_scaled_call``) and the packing kernels belong to the training
-path and are not ported yet.
+package's ``kernels/quant.py``.  Each ``*_call`` launches its CUDA kernel
+of ``csrc/quant.cu`` for a tensor on the card and uses its plain version
+(``*_plain``) for a tensor on the CPU; each counts its kernel launches in
+``.launches``.  The shared-scale codec is two kernels: ``amax_block_call``
+(per-block max |x|, agreed across the pod group by the caller) and
+``quant_scaled_call`` (quantize with that scale).  Every input is read
+as it is, bf16 or f32, with the ragged tail counted as zeros.  The
+packing kernels are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,14 +24,29 @@ _CODES = {torch.float32: _build.F32, torch.bfloat16: _build.BF16,
           torch.int8: _build.INT8, torch.int32: _build.INT32}
 
 
-def quant_int8_plain(x: torch.Tensor):
-    """x: any shape, bf16 or f32 -> (q (nb, BLOCK) int8, s (nb,) f32); the
-    ragged tail counts as zeros (``ref.quant_int8_block`` per block)."""
+def _padded_f32(x: torch.Tensor) -> torch.Tensor:
+    """Flat f32 copy of ``x`` zero-padded to a multiple of BLOCK."""
     flat = x.reshape(-1).float()
     pad = (-flat.numel()) % BLOCK
     if pad:
         flat = torch.cat([flat, flat.new_zeros(pad)])
-    return ref.quant_int8_block(flat, BLOCK)
+    return flat
+
+
+def quant_int8_plain(x: torch.Tensor):
+    """x: any shape, bf16 or f32 -> (q (nb, BLOCK) int8, s (nb,) f32); the
+    ragged tail counts as zeros (``ref.quant_int8_block`` per block)."""
+    return ref.quant_int8_block(_padded_f32(x), BLOCK)
+
+
+def amax_block_plain(x: torch.Tensor) -> torch.Tensor:
+    """x: any shape, bf16 or f32 -> per-block max |x|, (nb,) f32."""
+    return ref.amax_block(_padded_f32(x), BLOCK)
+
+
+def quant_scaled_plain(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x: any shape, bf16 or f32; scale (nb,) f32 -> q (nb, BLOCK) int8."""
+    return ref.quant_scaled_block(_padded_f32(x), scale, BLOCK)
 
 
 def dequant_int8_plain(q: torch.Tensor, s: torch.Tensor, size: int,
@@ -41,19 +58,24 @@ def dequant_int8_plain(q: torch.Tensor, s: torch.Tensor, size: int,
     return ref.dequant_int8_block(q, s)[:size].to(dtype)
 
 
+def _codec_input(x: torch.Tensor, what: str) -> int:
+    """Checks a codec kernel's payload; returns its number of blocks."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: bf16 or f32 input, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: input must be contiguous")
+    if x.numel() == 0:
+        raise ValueError(f"{what}: empty input")
+    return -(-x.numel() // BLOCK)
+
+
 def quant_int8_call(x: torch.Tensor):
     """Fused amax + scale + round + clip, one pass per block.
     x: any shape, bf16 or f32 -> (q (nb, BLOCK) int8, s (nb,) f32)."""
     if x.device.type == "cpu":
         return quant_int8_plain(x)
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"quant_int8: bf16 or f32 input, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("quant_int8: input must be contiguous")
+    nb = _codec_input(x, "quant_int8")
     size = x.numel()
-    if size == 0:
-        raise ValueError("quant_int8: empty input")
-    nb = -(-size // BLOCK)
     q = torch.empty((nb, BLOCK), dtype=torch.int8, device=x.device)
     s = torch.empty((nb,), dtype=torch.float32, device=x.device)
     lib = _build.library()
@@ -66,6 +88,50 @@ def quant_int8_call(x: torch.Tensor):
 
 
 quant_int8_call.launches = 0
+
+
+def amax_block_call(x: torch.Tensor) -> torch.Tensor:
+    """Per-block max |x| in one read pass.  x: any shape, bf16 or f32 ->
+    (nb,) f32; the shared-scale codec's caller agrees it across the pod
+    group before quantizing."""
+    if x.device.type == "cpu":
+        return amax_block_plain(x)
+    nb = _codec_input(x, "amax_block")
+    a = torch.empty((nb,), dtype=torch.float32, device=x.device)
+    err = _build.library().amax_block_launch(
+        x.data_ptr(), _CODES[x.dtype], x.numel(), a.data_ptr(), nb,
+        _build.stream_handle(x.device))
+    _build.check(err, "amax_block")
+    amax_block_call.launches += 1
+    return a
+
+
+amax_block_call.launches = 0
+
+
+def quant_scaled_call(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Quantize ``x`` (any shape, bf16 or f32) with the caller's per-block
+    ``scale`` (nb,) f32 in one fused scale+round+clip+cast pass ->
+    (nb, BLOCK) int8.  A scale <= 0 divides as 1."""
+    if x.device.type == "cpu":
+        return quant_scaled_plain(x, scale)
+    nb = _codec_input(x, "quant_scaled")
+    if scale.shape != (nb,) or scale.dtype != torch.float32:
+        raise ValueError(f"quant_scaled: scale {tuple(scale.shape)} {scale.dtype}, "
+                         f"want ({nb},) float32")
+    if scale.device != x.device:
+        raise ValueError("quant_scaled: x and scale on different devices")
+    scale = scale.contiguous()
+    q = torch.empty((nb, BLOCK), dtype=torch.int8, device=x.device)
+    err = _build.library().quant_scaled_launch(
+        x.data_ptr(), _CODES[x.dtype], x.numel(), scale.data_ptr(), q.data_ptr(),
+        nb, _build.stream_handle(x.device))
+    _build.check(err, "quant_scaled")
+    quant_scaled_call.launches += 1
+    return q
+
+
+quant_scaled_call.launches = 0
 
 
 def dequant_int8_call(q: torch.Tensor, s: torch.Tensor, size: int,

@@ -46,6 +46,13 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
 INV127 = 1.0 / 127.0
 
 
+def _to_int8(r: torch.Tensor) -> torch.Tensor:
+    """clip(round_half_even(r), -127, 127) as int8, NaN as 0 (XLA's float
+    to int conversion; a cast of NaN is otherwise undefined)."""
+    q = torch.clamp(torch.round(r), -127, 127)
+    return torch.where(q.isnan(), 0.0, q).to(torch.int8)
+
+
 def quant_int8_block(x: torch.Tensor, block: int = 1024):
     """x: flat (N,) with N % block == 0 -> (q int8 (N//block, block),
     scales f32 (N//block,)).  s = amax * f32(1/127) (1 where amax is 0);
@@ -55,8 +62,26 @@ def quant_int8_block(x: torch.Tensor, block: int = 1024):
     blocks = x.float().reshape(-1, block)
     amax = blocks.abs().amax(dim=1)
     scale = torch.where(amax > 0, amax * INV127, torch.ones_like(amax))
-    q = torch.clamp(torch.round(blocks / scale[:, None]), -127, 127)
-    return q.to(torch.int8), scale
+    return _to_int8(blocks / scale[:, None]), scale
+
+
+def amax_block(x: torch.Tensor, block: int = 1024) -> torch.Tensor:
+    """x: flat (N,) with N % block == 0 -> per-block max |x|, (N//block,) f32."""
+    if x.ndim != 1 or x.numel() % block:
+        raise ValueError(f"amax_block: flat multiple of {block}, got {tuple(x.shape)}")
+    return x.float().reshape(-1, block).abs().amax(dim=1)
+
+
+def quant_scaled_block(x: torch.Tensor, scale: torch.Tensor,
+                       block: int = 1024) -> torch.Tensor:
+    """Quantize flat ``x`` (N % block == 0) with per-block ``scale``:
+    clip(round_half_even(x / s'), -127, 127) as int8 (nb, block), where
+    s' = s if s > 0 else 1, by true division."""
+    if x.ndim != 1 or x.numel() % block:
+        raise ValueError(f"quant_scaled_block: flat multiple of {block}, "
+                         f"got {tuple(x.shape)}")
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    return _to_int8(x.float().reshape(-1, block) / safe[:, None])
 
 
 def dequant_int8_block(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,18 @@
-"""GQA attention: prefill (writes the KV cache) and decode.
+"""GQA attention: training, prefill (writes the KV cache) and decode.
 
 Parameters, as in the JAX package: ``wq (D, H*dh)``, ``wk/wv (D, K*dh)``,
 ``wo (H*dh, D)``, optional ``bq/bk/bv``.  Prefill attention goes through
 the flash kernel (``kernels/ops.flash_attention``) with a plain integer
 offset; short prompts and decode use plain PyTorch, as the reference
 does.
+
+Training attention is plain PyTorch under autograd: the plain attention
+below ``CHUNKED_ATTN_MIN_KV`` keys, the chunked online softmax (each kv
+chunk checkpointed) from there on.  That is what the reference computes
+in training: its ``attention_train`` passes a traced ``q_offset``, so its
+kernel dispatch returns the plain attention (ROADMAP.md R4), and the JAX
+package has no attention backward kernel.  The flash forward kernel is
+never called in training.
 
 Caches are updated in place: prefill writes a freshly allocated cache,
 and decode writes one slot of the cache it is given (the reference's
@@ -13,10 +21,12 @@ decode step donates its cache, so no caller sees the old one either).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
@@ -26,6 +36,7 @@ from . import layers
 
 NEG_INF = -1e30
 FLASH_MIN_Q = 128     # prefill shorter than this takes sdpa_reference
+CHUNKED_ATTN_MIN_KV = 2048
 
 
 class KVCache(NamedTuple):
@@ -91,6 +102,74 @@ def sdpa_reference(q, k, v, *, causal: bool, window: int | None,
     q[0]."""
     return kref.attention(q, k, v, causal=causal, window=window,
                           q_offset=q_offset)
+
+
+def _chunk_step(m, l, acc, kci, vci, *, ci: int, chunk: int, qf, qpos, Skv: int,
+                causal: bool, window: int | None):
+    """One kv chunk of the online softmax (the reference's scan body)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kci.float())
+    kpos = ci * chunk + torch.arange(chunk, device=qf.device)
+    mask = kpos[None, :] < Skv
+    if causal:
+        mask = mask & (kpos[None, :] <= qpos[:, None])
+    if window is not None:
+        mask = mask & (kpos[None, :] > qpos[:, None] - window)
+    s = torch.where(mask[None, None], s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    safe = m_new > -1e29
+    p = torch.exp(torch.where(safe[..., None], s - m_new[..., None], NEG_INF))
+    alpha = torch.exp(torch.where(safe, m - m_new, 0.0))
+    l_new = l * alpha + p.sum(dim=-1)
+    acc_new = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vci.float())
+    return m_new, l_new, acc_new
+
+
+def chunked_attention(q, k, v, *, causal: bool, window: int | None,
+                      q_offset: int = 0, chunk: int = 512) -> torch.Tensor:
+    """Memory-efficient attention: an online-softmax loop over kv chunks,
+    each checkpointed (the reference's ``lax.scan(jax.checkpoint(step))``),
+    so the live set is (B, H, Sq, chunk) instead of (B, H, Sq, Skv).
+    q: (B, Sq, H, dh); k/v: (B, Skv, K, dh) -> (B, Sq, H, dh)."""
+    B, Sq, H, dh = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    k, v = _repeat_kv(k, H // K), _repeat_kv(v, H // K)
+    pad = (-Skv) % chunk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    nck = (Skv + pad) // chunk
+    kc = k.reshape(B, nck, chunk, H, dh)
+    vc = v.reshape(B, nck, chunk, H, dh)
+    qf = q.float() / math.sqrt(dh)
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+    m = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, Sq, dh), dtype=torch.float32, device=q.device)
+    for ci in range(nck):
+        step = functools.partial(_chunk_step, ci=ci, chunk=chunk, qf=qf, qpos=qpos,
+                                 Skv=Skv, causal=causal, window=window)
+        m, l, acc = checkpoint(step, m, l, acc, kc[:, ci], vc[:, ci],
+                               use_reentrant=False)
+    l = torch.where(l == 0, 1.0, l)
+    out = (acc / l[..., None]).to(q.dtype)
+    return out.transpose(1, 2)
+
+
+def attention_train(p, x, cfg: ModelConfig, rt: Runtime, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Full-sequence self-attention for training, x: (B, S, D)."""
+    x = copy_to_tp(x, rt.tp_group)
+    q, k, v = _project_qkv(p, x, x, cfg, rt)
+    B, S = x.shape[0], x.shape[1]
+    pos = torch.arange(S, device=x.device)[None, :]
+    q = layers.apply_rope(q, pos, cfg.rope_theta)
+    k = layers.apply_rope(k, pos, cfg.rope_theta)
+    if k.shape[1] >= CHUNKED_ATTN_MIN_KV:
+        out = chunked_attention(q, k, v, causal=causal, window=cfg.sliding_window)
+    else:
+        out = sdpa_reference(q, k, v, causal=causal, window=cfg.sliding_window)
+    out = out.reshape(B, S, -1) @ p["wo"]
+    return reduce_from_tp(out, rt.tp_group)
 
 
 def _attn_core(q, k, v, cfg: ModelConfig) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Top-level model for serving: init, caches, prefill and decode.
+"""Top-level model: init, training forward, caches, prefill and decode.
 
 ``Model`` is an ``nn.Module`` whose parameters mirror the JAX package's
 param pytree: ``embed``, ``layers`` (one ``ModuleDict`` per layer where
@@ -83,6 +83,44 @@ class Model(nn.Module):
 
     def _head(self) -> torch.Tensor:
         return self.embed if self.cfg.tie_embeddings else self.lm_head
+
+    # -------------------------------------------------------- training --
+
+    def train_leaves(self) -> list:
+        """The parameters in the order of the reference's flattened param
+        pytree (dict keys sorted): each leaf a tensor, or, for a per-layer
+        parameter, the list of its L layer tensors (the reference's
+        stacked (L, ...) leaf).  Gradient sync and Adam walk this order."""
+        def walk(tree):
+            for key in sorted(tree.keys()):
+                v = tree[key]
+                if isinstance(v, torch.Tensor):
+                    yield v
+                else:
+                    yield from walk(v)
+
+        top = {"embed": self.embed, "final_norm": self.final_norm, "layers": None}
+        if not self.cfg.tie_embeddings:
+            top["lm_head"] = self.lm_head
+        leaves: list = []
+        for key in sorted(top):
+            if key == "layers":
+                per_layer = [list(walk(lp)) for lp in self.layers]
+                leaves.extend(list(ts) for ts in zip(*per_layer))
+            elif isinstance(top[key], torch.Tensor):
+                leaves.append(top[key])
+            else:
+                leaves.extend(walk(top[key]))
+        return leaves
+
+    def apply_train(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (B, S) -> logits (B, S, V) f32, differentiable in the
+        parameters."""
+        cfg, rt = self.cfg, self.rt
+        x = layers.embed_lookup(self.embed, tokens, rt)
+        x = transformer.decoder_stack(self.layers, x, cfg, rt)
+        x = layers.apply_norm(self.final_norm, x, cfg.norm)
+        return layers.lm_head_logits(x, self._head(), rt)
 
     # --------------------------------------------------------- serving --
 

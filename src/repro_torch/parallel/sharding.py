@@ -2,8 +2,10 @@
 the JAX package's mesh axis names.
 
 ``Runtime`` carries one ``torch.distributed`` process group per role
-(``None`` is a group of one); the data-parallel group and the MoE knobs
-come with the training slice.  ``copy_to_tp``/``reduce_from_tp`` mark
+(``None`` is a group of one): tensor parallel ("model"), the cluster
+("pod"), the intra-cluster data-parallel group ("data") and the group
+of every data-parallel rank (the reference's ``dp_axes``, pod x data).
+The MoE knobs come with their slice.  ``copy_to_tp``/``reduce_from_tp`` mark
 the edges of a tensor-parallel region as in the JAX package; at a TP
 group of one they are the identity, and tensor parallelism across
 processes is not ported yet, so a larger group raises.  Kernels are chosen by the
@@ -25,6 +27,8 @@ class Runtime:
 
     tp_group: Any = None            # tensor-parallel group ("model")
     pod_group: Any = None           # cluster group ("pod"): the KV-transfer ring
+    data_group: Any = None          # intra-cluster data-parallel group ("data")
+    dp_group: Any = None            # every data-parallel rank (pod x data)
 
 
 def group_size(group) -> int:

@@ -11,12 +11,11 @@ from __future__ import annotations
 import functools
 
 import torch
-import torch.distributed as dist
 
-from repro_torch.core import compression
+from repro_torch.core import compression, primitives
 from repro_torch.models.attention import KVCache
 from repro_torch.models.model import Model
-from repro_torch.parallel.sharding import Runtime, group_size
+from repro_torch.parallel.sharding import Runtime
 from repro_torch.train.loss import sharded_argmax
 
 
@@ -43,25 +42,6 @@ def make_serve_steps(model: Model):
     return prefill, decode
 
 
-def _shift(tensors: list[torch.Tensor], group, shift: int) -> list[torch.Tensor]:
-    """Send each tensor to pod rank (r + shift) % n and receive the same
-    shapes from (r - shift) % n, in one ``batch_isend_irecv``.  With a
-    group of one, or a shift that is a multiple of n, the permutation is
-    the identity and the tensors come back as they are."""
-    n = group_size(group)
-    if shift % n == 0:
-        return tensors
-    r = dist.get_rank(group)
-    dst = dist.get_global_rank(group, (r + shift) % n)
-    src = dist.get_global_rank(group, (r - shift) % n)
-    received = [torch.empty_like(t) for t in tensors]
-    ops = ([dist.P2POp(dist.isend, t.contiguous(), dst, group) for t in tensors]
-           + [dist.P2POp(dist.irecv, t, src, group) for t in received])
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return received
-
-
 @torch.inference_mode()
 def kv_transfer_body(caches: KVCache, rt: Runtime, compress: str | None = None,
                      shift: int = 1) -> KVCache:
@@ -74,10 +54,10 @@ def kv_transfer_body(caches: KVCache, rt: Runtime, compress: str | None = None,
         if compress == "int8" and leaf.dtype in (torch.bfloat16, torch.float32) \
                 and leaf.numel() >= compression.BLOCK:
             q, s = compression.quantize_int8(leaf)
-            q2, s2 = _shift([q, s], rt.pod_group, shift)
+            q2, s2 = primitives.shift([q, s], rt.pod_group, shift)
             out = compression.dequantize_int8(q2, s2, leaf.numel(), leaf.dtype)
             return out.reshape(leaf.shape)
-        (out,) = _shift([leaf], rt.pod_group, shift)
+        (out,) = primitives.shift([leaf], rt.pod_group, shift)
         return out.clone() if out is leaf else out
 
     if compress not in (None, "int8"):

@@ -5,7 +5,9 @@ file imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-The int8 codec is bit-equal; flash attention agrees within
+The int8 codecs (local-scale and shared-scale) are bit-equal, NaN and
+infinite blocks included (a NaN scale or amax in the same place); flash
+attention agrees within
 tests/test_kernels.py's tolerances (f32 2e-3, bf16 3e-2).
 """
 
@@ -44,6 +46,52 @@ def test_quant_dequant_bit_equal(cuda, n, dt):
     for qq, gain in ((q, None), (q.int() * 3, 0.25)):
         got = tquant.dequant_int8_call(qq, s, n, TDT[dt], gain)
         assert torch.equal(got, tquant.dequant_int8_plain(qq, s, n, TDT[dt], gain))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [1024, 1000, 5 * 1024 + 7, 3 * 1024 * 1024 + 5])
+def test_shared_scale_codec_bit_equal(cuda, n, dt):
+    x = torch.randn(n, device=cuda).to(TDT[dt]) * 3
+    x[:1024] = 0                                  # an all-zero block
+    a = tquant.amax_block_call(x)
+    assert torch.equal(a, tquant.amax_block_plain(x))
+    scale = a / 127
+    scale[1:3] = torch.tensor([0.0, -1.0], device=cuda)[: scale.numel() - 1]
+    q = tquant.quant_scaled_call(x, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(q, tquant.quant_scaled_plain(x, scale))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_codecs_nan_and_inf_blocks_bit_equal(cuda, dt):
+    """A NaN block max propagates (scale 1 after the > 0 test), NaN
+    quotients quantize to 0, infinities clip."""
+    x = torch.randn(4 * 1024 + 9, device=cuda).to(TDT[dt])
+    x[5], x[1024 + 7], x[2048 + 9], x[3072 + 1] = (float("nan"), float("inf"),
+                                                   -float("inf"), float("nan"))
+    x[3072 + 2] = float("inf")
+    a = tquant.amax_block_call(x)             # equal, NaN in the same places
+    torch.testing.assert_close(a, tquant.amax_block_plain(x), rtol=0, atol=0,
+                               equal_nan=True)
+    assert a[[0, 3]].isnan().all() and a[[1, 2]].isinf().all()
+    inf, nan = float("inf"), float("nan")
+    for scale in (a / 127, torch.tensor([1.0, inf, 0.5, nan, 2.0], device=cuda)):
+        q = tquant.quant_scaled_call(x, scale)
+        assert torch.equal(q, tquant.quant_scaled_plain(x, scale))
+    q, s = tquant.quant_int8_call(x)
+    pq, ps = tquant.quant_int8_plain(x)
+    assert torch.equal(q, pq)
+    torch.testing.assert_close(s, ps, rtol=0, atol=0, equal_nan=True)
+
+
+def test_quant_scaled_ties_and_clipping(cuda):
+    k = torch.arange(2048, device=cuda) % 300 - 150
+    x = (k + 0.5) * 0.25                          # exact .5 ties at scale 0.25
+    x[1024:] = torch.where(k[1024:] % 2 == 0, 127 * 0.25, -200 * 0.25)
+    scale = torch.full((2,), 0.25, device=cuda)
+    q = tquant.quant_scaled_call(x, scale)
+    assert torch.equal(q, tquant.quant_scaled_plain(x, scale))
+    assert q[1].abs().eq(127).all()
 
 
 FLASH_CASES = [
