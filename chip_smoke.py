@@ -4,20 +4,28 @@
 
 1. Environment: the card's name and power limit, torch and CUDA
    versions, and the time the kernels took to build from csrc/.
-2. Each CUDA kernel of the serving path against its plain PyTorch
+2. Each CUDA kernel of the serving paths against its plain PyTorch
    version on the card, at the serving shapes: the int8 codec bit-equal,
-   flash attention within 3e-2 (bf16) and 2e-3 (f32).  Each kernel is
-   timed with CUDA events beside its bound, its plain version and, for
-   flash attention, one PyTorch call computing the same function (timed
-   only; the port never calls it).
-3. A smoke-size model on the card against the same model on the CPU:
-   prefill and decode, and 3 training steps (hier, int8 on the pod hop)
+   flash attention within 3e-2 (bf16) and 2e-3 (f32), the SSD chunk
+   within 1e-4 of its plain output's largest magnitude (at the JAX
+   suite's SSD shapes, at p = 100 / n = 16, and at mamba2-2.7b's prefill
+   shape in bf16 and f32).  Each kernel is timed with CUDA events beside
+   its bound, its plain version and, for flash attention, one PyTorch call
+   computing the same function (timed only; the port never calls it).
+3. Smoke-size models on the card against the same models on the CPU:
+   qwen2.5-3b and mamba2-2.7b prefill and decode (f32, logits within 1e-3,
+   equal tokens), and 3 qwen training steps (hier, int8 on the pod hop)
    through the same process groups (gloo for the CPU, NCCL for the card),
    losses and parameters within 1e-4.
-4. The serving path at full width: qwen2.5-3b (36 layers, random weights
-   from a seed) prefills 4 requests of 1024 tokens, moves the KV cache
-   raw and int8 on the wire, and decodes 16 tokens greedily from each.
-   The launch counters must show every kernel on that path.
+4. The serving paths at full width, random weights from a seed: qwen2.5-3b
+   (36 layers) and mamba2-2.7b (64 layers) each prefill 4 requests of
+   1024 tokens, move the cache (KV, or conv + SSM state) raw and int8 on
+   the wire, and decode 16 tokens greedily from each.  The launch counters,
+   per phase, must show every kernel on each path: flash attention or
+   ssd_chunk once per layer per prefill, quant/dequant twice per int8
+   transfer, nothing per decode step.  Then, per model, a profile of one
+   prefill and four decode steps, and how far int8 on the wire moves the
+   first decode step's logits and the greedy tokens, leaf by leaf.
 5. The training path at full width: ``repro_torch.launch.train.run``
    trains qwen2.5-3b (hier, int8 on the pod hop) on 4 x 1024 tokens for
    4 steps in a world of one, through real pod and data groups of one
@@ -29,9 +37,9 @@
    (ragged, all-zero block, scale <= 0, .5 ties, +-127 s, NaN and +-inf
    blocks and scales, for both int8 codecs) bit-equal, and
    amax / quant_scaled / the int32 -> bf16 decode timed beside their bounds.
-7. Where the time goes: one prefill, four decode steps and one training
-   step under torch.profiler, device time by kernel group and the
-   device's idle share of the wall time.
+7. Where the time goes: one training step under torch.profiler, device
+   time by kernel group and the device's idle share of the wall time (the
+   serving profiles are part of phase 4).
 
 Any failed check raises, and the script exits non-zero without printing
 its result line.  The last line is the result:
@@ -63,12 +71,13 @@ from repro_torch.data.pipeline import DataConfig, synth_batch  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import quant  # noqa: E402
+from repro_torch.kernels import ssd  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.launch.mesh import runtime_for_groups  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.serve import disaggregated  # noqa: E402
-from repro_torch.serve.serve_step import make_serve_steps  # noqa: E402
+from repro_torch.serve.serve_step import make_kv_transfer, make_serve_steps  # noqa: E402
 from repro_torch.train import optimizer as opt_lib  # noqa: E402
 from repro_torch.train.train_step import TrainConfig, make_train_step  # noqa: E402
 
@@ -78,10 +87,13 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-3}
 
 ARCH = "qwen2.5-3b"
+SSM_ARCH = "mamba2-2.7b"
+# the kernel each serving path launches once per layer per prefill
+PATH_KERNEL = {ARCH: "flash_attention_bhsd", SSM_ARCH: "ssd_chunk"}
 BATCH, PROMPT, GEN = 4, 1024, 16
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 4
 TRAIN_KERNELS = {"amax_block": 1, "quant_scaled": 1, "dequant_int8": 1,
-                 "quant_int8": 0, "flash_attention_bhsd": 0}
+                 "quant_int8": 0, "flash_attention_bhsd": 0, "ssd_chunk": 0}
 
 
 def card() -> str:
@@ -228,18 +240,91 @@ def check_flash(dev, gen) -> dict:
     }}
 
 
+SSD_CASES = [
+    # (b, s, h, p, g, n, chunk, dtype): tests/test_kernels.py:46-52, then
+    # p = 100 and n = 16 (a shape check), then the mamba2-2.7b prefill
+    (2, 256, 4, 32, 1, 64, 64, torch.float32),
+    (1, 128, 2, 64, 2, 32, 32, torch.float32),
+    (1, 256, 8, 64, 1, 128, 128, torch.float32),
+    (2, 128, 4, 32, 1, 64, 64, torch.bfloat16),
+    (2, 256, 4, 100, 1, 16, 128, torch.bfloat16),
+    (BATCH, PROMPT, 80, 64, 1, 128, 128, torch.bfloat16),
+    (BATCH, PROMPT, 80, 64, 1, 128, 128, torch.float32),
+]
+SSD_TOL = 1e-4      # of the plain output's largest magnitude
+
+
+def ssd_inputs(dev, gen, b, s, h, p, g, n, dt):
+    x = torch.randn(b, s, h, p, device=dev, generator=gen).to(dt)
+    dtv = torch.rand(b, s, h, device=dev, generator=gen) * 0.19 + 0.01
+    A = -(torch.rand(h, device=dev, generator=gen) * 3.5 + 0.5)
+    Bm = torch.randn(b, s, g, n, device=dev, generator=gen).to(dt)
+    Cm = torch.randn(b, s, g, n, device=dev, generator=gen).to(dt)
+    return x, dtv, A, Bm, Cm
+
+
+def ssd_bound_ms(b, s, h, p, g, n, q, dt) -> tuple[float, str]:
+    """x, dt, A, B and C read once, y_diag and states written once in f32,
+    against the products C B^T, scores x and x^T (B w) of every (b, chunk,
+    head) at the peak rate of the input type."""
+    elem = torch.finfo(dt).bits // 8
+    nc = s // q
+    nbytes = (elem * b * s * (h * p + 2 * g * n) + 4 * b * s * h + 4 * h
+              + 4 * b * s * h * p + 4 * b * nc * h * p * n)
+    flops = 2.0 * b * nc * h * (q * q * n + q * q * p + q * p * n)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[dt]
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
+
+
+def check_ssd(dev, gen, smi: str) -> dict:
+    row = {}
+    for b, s, h, p, g, n, q, dt in SSD_CASES:
+        args = ssd_inputs(dev, gen, b, s, h, p, g, n, dt)
+        got = ssd.ssd_chunk_call(*args, q)
+        want = ssd.ssd_chunk_plain(*args, q)
+        errs = [(a - w).abs().max().item() for a, w in zip(got, want)]
+        mags = [w.abs().max().item() for w in want]
+        for what, err, mag in zip(("y_diag", "states"), errs, mags):
+            check(err <= SSD_TOL * mag, f"ssd_chunk {b, s, h, p, g, n, q, dt} {what}: "
+                                        f"err {err} against |max| {mag}")
+        print(f"[check] ssd_chunk (b, s, h, p, g, n) = {(b, s, h, p, g, n)}, q {q}, {dt}: "
+              f"max abs err y_diag {errs[0]:.3g} (|y| <= {mags[0]:.3g}), states "
+              f"{errs[1]:.3g} (<= {mags[1]:.3g}); tol {SSD_TOL} of the largest")
+        if s != PROMPT:
+            continue
+        timing = {"max_abs_err": max(errs),
+                  "ms": time_ms(lambda: ssd.ssd_chunk_call(*args, q), 20),
+                  "plain_ms": time_ms(lambda: ssd.ssd_chunk_plain(*args, q), 5)}
+        timing["bound_ms"], timing["bound_by"] = ssd_bound_ms(b, s, h, p, g, n, q, dt)
+        print(f"[time] [{smi}] ssd_chunk mamba2-2.7b prefill shape, {dt}: "
+              f"{timing['ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms "
+              f"({timing['bound_by']}), plain {timing['plain_ms']:.4f} ms")
+        if dt == torch.bfloat16:
+            row = {"name": "ssd_chunk", "route": "cuda", "source": "src/repro_torch/csrc/ssd.cu",
+                   "replaces": "src/repro/kernels/ssd.py:59", **timing,
+                   "library_ms": None}       # no one PyTorch call computes it
+        else:
+            row["f32"] = timing
+    return {"ssd_chunk": row}
+
+
 # ---------------------------------------------------------------------------
 # 3. a small model on the card against the CPU
 # ---------------------------------------------------------------------------
 
-def check_small_model(dev) -> None:
-    cfg = dataclasses.replace(get_config(ARCH, smoke=True), dtype=torch.float32)
+def check_small_model(dev, arch: str) -> None:
+    """Prefill + 4 decode steps of the f32 smoke model; the path's kernel
+    launches once per layer in the prefill and never in decode."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32)
     cpu = Model(cfg, device="cpu").init(0)
     gpu = copy.deepcopy(cpu).to(dev)
     toks = torch.randint(0, cfg.vocab_size, (2, 130),
                          generator=torch.Generator().manual_seed(0))
+    kernel = PATH_KERNEL[arch]
+    before = ops.launch_counts()[kernel]
     lc, cc = cpu.apply_prefill(toks, max_len=136)
     lg, cg = gpu.apply_prefill(toks.to(dev), max_len=136)
+    check(ops.launch_counts()[kernel] == before + cfg.n_layers, f"small {kernel} launches")
     err = (lg.cpu() - lc).abs().max().item()
     check(err < 1e-3, f"small prefill logits differ by {err}")
     tok = lc.argmax(-1)
@@ -251,8 +336,10 @@ def check_small_model(dev) -> None:
         check(torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1)), "small decode tokens")
         tok = lc.argmax(-1)
     check(err < 1e-3, f"small decode logits differ by {err}")
+    check(ops.launch_counts()[kernel] == before + cfg.n_layers, f"decode launched {kernel}")
     print(f"[check] {cfg.name} f32 on the card vs the CPU: prefill + 4 decode "
-          f"steps, max logit diff {err:.3g}, greedy tokens equal")
+          f"steps, max logit diff {err:.3g}, greedy tokens equal, {kernel} "
+          f"launched {cfg.n_layers} times (prefill only)")
 
 
 def check_small_training(dev, rt) -> None:
@@ -402,69 +489,190 @@ def check_shared_codec(dev, gen, n: int) -> dict:
 # 7. where the time goes
 # ---------------------------------------------------------------------------
 
-KERNEL_GROUPS = (("flash_attention", ("flash_attention_kernel",)),
-                 ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "splitk")),
-                 ("int8 codec", ("quant_int8_kernel",)))
+MATMUL_KEYS = ("gemm", "nvjet", "xmma", "cutlass", "cublas", "splitk")
+SERVE_GROUPS = (("flash_attention", ("flash_attention_kernel",)),
+                ("ssd_chunk", ("ssd_chunk_kernel",)),
+                ("matmul", MATMUL_KEYS),
+                ("int8 codec", ("quant_int8_kernel",)))
+SERVE_RANGES = ("ssd_inter_chunk", "causal_conv1d")
+TRAIN_GROUPS = (("codec", ("amax_block_kernel", "quant_scaled_kernel",
+                           "dequant_int8_kernel")),
+                ("matmul", MATMUL_KEYS))
+TRAIN_RANGES = ("grad_sync", "optimizer")
 
 
-def _breakdown(prof, wall_ms: float, label: str, smi: str) -> dict:
-    """Device time per kernel group from a profile over ``wall_ms``."""
-    groups: dict[str, float] = {}
-    top = []
+def _name_group(name: str, name_groups) -> str | None:
+    return next((g for g, keys in name_groups if any(k in name.lower() for k in keys)),
+                None)
+
+
+def _in_range(ev, ranges) -> str | None:
+    while ev is not None:
+        if ev.name in ranges:
+            return ev.name
+        ev = ev.cpu_parent
+    return None
+
+
+def _breakdown(prof, name_groups, ranges) -> tuple[dict, dict, float, int, list]:
+    """Device time by group: kernels matching ``name_groups`` by name; the
+    rest by the record_function range (of ``ranges``) their launching op
+    ran in; everything else as "other".  The kernels that the ctypes
+    wrappers launch have no launching aten op, so device time and names
+    come from the device events, and the ranges only from the kernels an
+    aten op launched.  Also the host time spent inside each range."""
+    groups = {g: 0.0 for g, _ in name_groups}
+    busy, n_kernels, top = 0.0, 0, []
     for ev in prof.key_averages():
         us = ev.self_device_time_total
-        if us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
+        # a record_function range also shows as a device-side span
+        if (us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA
+                or ev.is_user_annotation):
             continue
-        name = ev.key
-        group = next((g for g, keys in KERNEL_GROUPS
-                      if any(k in name.lower() for k in keys)), "other")
-        groups[group] = groups.get(group, 0.0) + us / 1e3
-        top.append((us / 1e3, ev.count, name[:70]))
-    busy = sum(groups.values())
-    idle = 1.0 - busy / wall_ms if wall_ms > 0 else float("nan")
+        busy += us / 1e3
+        n_kernels += ev.count
+        top.append((us / 1e3, ev.count, ev.key[:70]))
+        g = _name_group(ev.key, name_groups)
+        if g is not None:
+            groups[g] += us / 1e3
+    for g in ranges:
+        groups[g] = 0.0
+    host = {g: 0.0 for g in ranges}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        if ev.name in ranges:
+            host[ev.name] += ev.cpu_time_total / 1e3
+        rng = _in_range(ev, ranges)
+        for kern in ev.kernels:
+            if rng is not None and _name_group(kern.name, name_groups) is None:
+                groups[rng] += kern.duration / 1e3
+    groups["other"] = busy - sum(groups.values())
+    return groups, host, busy, n_kernels, sorted(top, reverse=True)[:6]
+
+
+def _report(prof, wall_ms: float, label: str, smi: str, name_groups, ranges) -> dict:
+    groups, host, busy, n_kernels, top = _breakdown(prof, name_groups, ranges)
+    idle = 1.0 - busy / wall_ms
     shares = ", ".join(f"{g} {ms:.3f} ms ({ms / busy:.1%})"
-                       for g, ms in sorted(groups.items(), key=lambda t: -t[1]))
-    print(f"[profile] [{smi}] {label}: wall {wall_ms:.3f} ms, device busy "
-          f"{busy:.3f} ms, idle share {idle:.1%}; {shares}")
-    for ms, count, name in sorted(top, reverse=True)[:6]:
+                       for g, ms in sorted(groups.items(), key=lambda t: -t[1]) if ms > 0)
+    hosts = ", ".join(f"host time in {g} {ms:.3f} ms" for g, ms in host.items())
+    print(f"[profile] [{smi}] {label}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, "
+          f"idle share {idle:.1%}, {n_kernels} kernels; {shares}"
+          + (f"; {hosts}" if hosts else ""))
+    for ms, count, name in top:
         print(f"[profile]   {ms:9.3f} ms  x{count:<5d} {name}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": idle,
-            "groups_ms": groups}
+            "groups_ms": groups, "kernels": n_kernels, "host_ms": host}
 
 
-def serve_full_width(dev, smi: str) -> tuple[dict, dict]:
-    """The serving main path; the launch counts are read just before and
-    just after it."""
+def serve_full_width(dev, smi: str, arch: str) -> tuple[dict, dict]:
+    """A serving main path; the launch counts are set to 0 just before it
+    and read just after, and each phase's launches are checked."""
     ops.reset_launch_counts()
-    res = disaggregated.run(ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN,
-                            device=dev)
+    res = disaggregated.run(arch, batch=BATCH, prompt_len=PROMPT, gen=GEN, device=dev)
     counts = ops.launch_counts()
-    cfg = get_config(ARCH)
-    check(counts["flash_attention_bhsd"] == cfg.n_layers * res["prefills"],
-          f"flash launches {counts}")
-    check(counts["quant_int8"] == 2 * res["int8_transfers"], f"quant launches {counts}")
-    check(counts["dequant_int8"] == 2 * res["int8_transfers"], f"dequant launches {counts}")
-    check(counts["amax_block"] == counts["quant_scaled"] == 0, f"launches {counts}")
-    check(res["kv_cache_shape"] == [cfg.n_layers, BATCH, PROMPT, cfg.n_kv_heads,
-                                    cfg.head_dim], f"cache {res['kv_cache_shape']}")
-    check(res["cache_finite"], "non-finite KV cache")
+    cfg = get_config(arch)
+    kernel = PATH_KERNEL[arch]
+    phases = res["launches"]
+    expect = {"prefill": {kernel: cfg.n_layers * res["prefills"]},
+              # two leaves of at least 1024 values cross as int8 (k and v,
+              # or conv and ssm); the lengths travel raw
+              "int8_transfer": {"quant_int8": 2 * res["int8_transfers"],
+                                "dequant_int8": 2 * res["int8_transfers"]},
+              "raw_transfer": {}, "decode": {}}
+    for phase, want in expect.items():
+        got = {k: n for k, n in phases[phase].items() if n}
+        check(got == want, f"{arch} {phase} launches {got}, expected {want}")
+    check(counts == {k: sum(p[k] for p in phases.values()) for k in counts},
+          f"{arch} launches {counts} against the phases {phases}")
+    shapes = res["cache_shapes"]
+    if cfg.family == "ssm":
+        ch = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+        want_shapes = {"conv": [cfg.n_layers, BATCH, cfg.conv_width - 1, ch],
+                       "ssm": [cfg.n_layers, BATCH, cfg.d_inner // cfg.ssm_head_dim,
+                               cfg.ssm_head_dim, cfg.ssm_state]}
+    else:
+        leaf = [cfg.n_layers, BATCH, PROMPT, cfg.n_kv_heads, cfg.head_dim]
+        want_shapes = {"k": leaf, "v": leaf}
+    check(all(shapes[k] == v for k, v in want_shapes.items())
+          and shapes["length"] == [cfg.n_layers], f"{arch} cache {shapes}")
+    check(res["cache_finite"], f"{arch}: non-finite cache")
     tokens = torch.tensor(res["tokens"])
     check(tokens.shape == (BATCH, GEN + 1), f"tokens {tuple(tokens.shape)}")
     check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "token ids")
-    check(res["raw_transfer_exact"], "raw KV transfer changed the generation")
-    print(f"[serve] [{smi}] {res['arch']} ({res['params'] / 1e9:.3f} B params, bf16), "
-          f"{BATCH} x {PROMPT}-token prompts: TTFT {res['ttft_ms']:.2f} ms, "
-          f"decode {res['decode_ms_per_step']:.2f} ms/step, int8 KV transfer "
-          f"{res['int8_transfer_ms']:.2f} ms, peak memory {res['peak_mem_gb']:.2f} GB, "
-          f"int8 token agreement {res['int8_token_agreement']:.4f}, raw transfer exact")
-    per_request = {name: n / res["prefills"] for name, n in counts.items()}
-    print(f"[serve] kernel launches {counts} over {res['prefills']} prefills and "
-          f"{res['int8_transfers']} int8 transfers ({per_request} per request batch)")
+    check(res["raw_transfer_exact"], f"{arch}: the raw transfer changed the generation")
+    print(f"[serve] [{smi}] {res['arch']} ({res['params'] / 1e9:.3f} B params, bf16, "
+          f"{cfg.n_layers} layers), {BATCH} x {PROMPT}-token prompts: TTFT "
+          f"{res['ttft_ms']:.2f} ms, decode {res['decode_ms_per_step']:.2f} ms/step, int8 "
+          f"transfer of {res['cache_bytes']} cache bytes {res['int8_transfer_ms']:.2f} ms, "
+          f"peak memory {res['peak_mem_gb']:.2f} GB, int8 token agreement "
+          f"{res['int8_token_agreement']:.4f}, raw transfer exact")
+    print(f"[serve] {res['arch']} kernel launches {counts}: by phase {phases} "
+          f"({res['prefills']} prefills, {res['int8_transfers']} int8 transfers, "
+          f"{res['decode_steps']} decode steps)")
     return res, counts
 
 
-def profile_serving(dev, smi: str) -> dict:
-    cfg = get_config(ARCH)
+def _first_step(model, tok, caches, decode):
+    """First decode step's logits (B, V), then the greedy tokens of GEN
+    steps; ``caches`` is consumed."""
+    logits, caches = model.apply_decode(tok, caches)
+    toks = [logits.argmax(-1)]
+    for _ in range(GEN - 1):
+        t, caches = decode(toks[-1], caches)
+        toks.append(t)
+    return logits[:, 0], torch.cat(toks, dim=1)
+
+
+def int8_sensitivity(model, prompt, smi: str) -> dict:
+    """How far int8 on the wire moves decoding, leaf by leaf: each cache
+    leaf of at least 1024 values crosses alone as int8, then all do (the
+    served transfer).  For each: the leaf's relative RMS error after the
+    round trip, the first decode step's relative RMS logit error and
+    argmax flips, and the agreement of the GEN decoded tokens (not the
+    prefill's own, which every variant shares) with raw decoding."""
+    prefill, decode = make_serve_steps(model)
+    transfer, transfer_q = make_kv_transfer(model), make_kv_transfer(model, compress="int8")
+    tok, caches = prefill(prompt)
+    names = type(caches)._fields
+    raw_logits, raw_toks = _first_step(model, tok, transfer(caches), decode)
+    top2 = raw_logits.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).median().item()
+    # the leaves the int8 transfer quantizes (kv_transfer_body's rule)
+    leaves = [n for n, a in zip(names, caches)
+              if a.is_floating_point() and a.numel() >= quant.BLOCK]
+    out = {"raw_top2_margin_median": margin,
+           "raw_logit_rms": raw_logits.pow(2).mean().sqrt().item()}
+    for variant in [[n] for n in leaves] + [leaves]:
+        raw, q = transfer(caches), transfer_q(caches)
+        moved = type(caches)(*(q[i] if n in variant else raw[i]
+                               for i, n in enumerate(names)))
+        del raw, q
+        leaf_err = {n: ((moved[names.index(n)].float() - caches[names.index(n)].float())
+                        .norm() / caches[names.index(n)].float().norm()).item()
+                    for n in variant}
+        logits, toks = _first_step(model, tok, moved, decode)
+        key = "+".join(variant)
+        out[key] = {"leaf_rel_rms_err": leaf_err,
+                    "first_step_logit_rel_rms_err": ((logits - raw_logits).norm()
+                                                     / raw_logits.norm()).item(),
+                    "first_step_flips": int((logits.argmax(-1) != raw_logits.argmax(-1)).sum()),
+                    "decoded_token_agreement": (toks == raw_toks).float().mean().item()}
+        print(f"[int8] [{smi}] {model.cfg.name}, int8 on {key}: leaf rel RMS err "
+              f"{ {k: f'{v:.3g}' for k, v in leaf_err.items()} }, first-step logits rel "
+              f"RMS err {out[key]['first_step_logit_rel_rms_err']:.3g}, argmax flips "
+              f"{out[key]['first_step_flips']}/{BATCH}, decoded-token agreement "
+              f"{out[key]['decoded_token_agreement']:.4f} over {BATCH} x {GEN}")
+    print(f"[int8] {model.cfg.name}: raw first-step logits RMS {out['raw_logit_rms']:.4g}, "
+          f"median top-1/top-2 margin {margin:.4g}")
+    return out
+
+
+def profile_serving(dev, smi: str, arch: str) -> dict:
+    """One prefill and four decode steps under torch.profiler (after a
+    warm-up), then the int8 sensitivity, on one full-width model."""
+    cfg = get_config(arch)
     model = Model(cfg, device=dev).init(0)
     prefill, decode = make_serve_steps(model)
     prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
@@ -479,7 +687,8 @@ def profile_serving(dev, smi: str) -> dict:
         tok, caches = prefill(prompt)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    out["prefill"] = _breakdown(prof, wall, f"prefill {BATCH}x{PROMPT}", smi)
+    out["prefill"] = _report(prof, wall, f"{cfg.name} prefill {BATCH}x{PROMPT}", smi,
+                             SERVE_GROUPS, SERVE_RANGES)
     steps = 4
     with torch.profiler.profile(activities=acts) as prof:
         torch.cuda.synchronize()
@@ -488,65 +697,11 @@ def profile_serving(dev, smi: str) -> dict:
             tok, caches = decode(tok, caches)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    out["decode"] = _breakdown(prof, wall, f"{steps} decode steps", smi)
+    out["decode"] = _report(prof, wall, f"{cfg.name} {steps} decode steps", smi,
+                            SERVE_GROUPS, SERVE_RANGES)
+    del caches
+    out["int8"] = int8_sensitivity(model, prompt, smi)
     return out
-
-
-TRAIN_GROUPS = (("codec", ("amax_block_kernel", "quant_scaled_kernel",
-                            "dequant_int8_kernel")),
-                ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "splitk")))
-TRAIN_RANGES = ("grad_sync", "optimizer")
-
-
-def _name_group(name: str) -> str | None:
-    return next((g for g, keys in TRAIN_GROUPS if any(k in name.lower() for k in keys)),
-                None)
-
-
-def _in_range(ev) -> str | None:
-    while ev is not None:
-        if ev.name in TRAIN_RANGES:
-            return ev.name
-        ev = ev.cpu_parent
-    return None
-
-
-def _train_breakdown(prof) -> tuple[dict, dict, float, int, list]:
-    """Device time by group: codec and matmul by kernel name; the rest of
-    the gradient sync and the optimizer by the record_function range
-    their launching op ran in; everything else.  The kernels that the
-    ctypes wrappers launch have no launching aten op, so device time and
-    names come from the device events, and the ranges only from the
-    kernels an aten op launched.  Also the host time spent inside each
-    range."""
-    groups = {"codec": 0.0, "matmul": 0.0}
-    busy, n_kernels, top = 0.0, 0, []
-    for ev in prof.key_averages():
-        us = ev.self_device_time_total
-        # a record_function range also shows as a device-side span
-        if (us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA
-                or ev.is_user_annotation):
-            continue
-        busy += us / 1e3
-        n_kernels += ev.count
-        top.append((us / 1e3, ev.count, ev.key[:70]))
-        g = _name_group(ev.key)
-        if g is not None:
-            groups[g] += us / 1e3
-    for g in TRAIN_RANGES:
-        groups[g] = 0.0
-    host = {g: 0.0 for g in TRAIN_RANGES}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CPU:
-            continue
-        if ev.name in TRAIN_RANGES:
-            host[ev.name] += ev.cpu_time_total / 1e3
-        rng = _in_range(ev)
-        for kern in ev.kernels:
-            if rng is not None and _name_group(kern.name) is None:
-                groups[rng] += kern.duration / 1e3
-    groups["other"] = busy - sum(groups.values())
-    return groups, host, busy, n_kernels, sorted(top, reverse=True)[:6]
 
 
 def attention_ms(dev, cfg) -> float:
@@ -590,23 +745,14 @@ def profile_training(dev, rt, smi: str) -> dict:
         step_fn(opt, b)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    groups, host, busy, n_kernels, top = _train_breakdown(prof)
-    idle = 1.0 - busy / wall
+    out = _report(prof, wall, f"training step {TRAIN_BATCH}x{TRAIN_SEQ}", smi,
+                  TRAIN_GROUPS, TRAIN_RANGES)
     del model, opt, step_fn, init_fn
     free_memory()
-    attn = attention_ms(dev, cfg) * cfg.n_layers
-    shares = ", ".join(f"{g} {ms:.3f} ms ({ms / busy:.1%})"
-                       for g, ms in sorted(groups.items(), key=lambda t: -t[1]))
-    print(f"[profile] [{smi}] training step {TRAIN_BATCH}x{TRAIN_SEQ}: wall {wall:.3f} ms, "
-          f"device busy {busy:.3f} ms, idle share {idle:.1%}; {shares}; attention "
-          f"(timed apart, {cfg.n_layers} layers x (forward + forward/backward)) "
-          f"{attn:.3f} ms, inside matmul and other; {n_kernels} kernels; host time "
-          f"in grad_sync {host['grad_sync']:.3f} ms, in optimizer {host['optimizer']:.3f} ms")
-    for ms, count, name in top:
-        print(f"[profile]   {ms:9.3f} ms  x{count:<5d} {name}")
-    return {"wall_ms": wall, "device_busy_ms": busy, "idle_share": idle,
-            "groups_ms": groups, "kernels": n_kernels, "host_ms": host,
-            "attention_ms_timed_apart": attn}
+    out["attention_ms_timed_apart"] = attn = attention_ms(dev, cfg) * cfg.n_layers
+    print(f"[profile] [{smi}] training attention, timed apart ({cfg.n_layers} layers x "
+          f"(forward + forward/backward)): {attn:.3f} ms, inside matmul and other")
+    return out
 
 
 def train_full_width(dev, smi: str) -> dict:
@@ -649,20 +795,26 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
           f"python {sys.version.split()[0]}")
     lib = _build.library()
-    print(f"[build] {len(_build.sources())} sources -> {lib.path.name} in "
+    print(f"[build] [{smi}] {len(_build.sources())} sources -> {lib.path.name} in "
           f"{lib.build_seconds:.1f} s (one nvcc call, sm_90a)")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = check_codec(dev, gen)
     rows.update(check_flash(dev, gen))
-    check_small_model(dev)
+    rows.update(check_ssd(dev, gen, smi))
+    free_memory()
+    check_small_model(dev, ARCH)
+    check_small_model(dev, SSM_ARCH)
     train_launch.init_world(dev)        # a world of one: gloo for CPU, NCCL for CUDA
     try:
         rt = runtime_for_groups(pods=1, data_per_pod=1)
         check_small_training(dev, rt)
-        res, serve_counts = serve_full_width(dev, smi)
-        serve_profile = profile_serving(dev, smi)
-        free_memory()
+        serve, serve_counts, serve_profile = {}, {}, {}
+        for arch in (ARCH, SSM_ARCH):
+            serve[arch], serve_counts[arch] = serve_full_width(dev, smi, arch)
+            free_memory()
+            serve_profile[arch] = profile_serving(dev, smi, arch)
+            free_memory()
         train = train_full_width(dev, smi)
         free_memory()
         n_segment = packing.aligned_size(train["params"], packing.comm_alignment(1, 4, 1024))
@@ -675,8 +827,10 @@ def main() -> int:
 
     rows["dequant_int8"]["int32_grad_segment"] = deq
     for name, row in rows.items():
-        row["paths"] = {"serve": serve_counts[name], "train": train["counts"][name]}
-        row["launches"] = serve_counts[name] + train["counts"][name]
+        row["paths"] = {"serve": serve_counts[ARCH][name],
+                        "serve_mamba2": serve_counts[SSM_ARCH][name],
+                        "train": train["counts"][name]}
+        row["launches"] = sum(row["paths"].values())
         lib_ms = "-" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
         print(f"[time] [{smi}] {name}: {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, library {lib_ms} ms, "
@@ -684,9 +838,10 @@ def main() -> int:
     print(f"[time] [{smi}] dequant_int8 int32 -> bf16, {n_segment} values: "
           f"{deq['ms']:.4f} ms, bound {deq['bound_ms']:.4f} ms (bytes), "
           f"plain {deq['plain_ms']:.4f} ms")
-    print(json.dumps({"serve": {k: res[k] for k in (
+    print(json.dumps({"serve": {arch: {k: res[k] for k in (
         "ttft_ms", "decode_ms_per_step", "int8_transfer_ms", "peak_mem_gb",
-        "int8_token_agreement")}, "serve_profile": serve_profile,
+        "int8_token_agreement", "cache_bytes", "params")} for arch, res in serve.items()},
+        "serve_profile": serve_profile,
         "train": {k: train[k] for k in ("step_ms", "tokens_per_s", "peak_mem_gb",
                                          "global_batch", "seq", "params")},
         "train_losses": [r["loss"] for r in train["records"]],

@@ -48,6 +48,10 @@ _SIGNATURES = {
     # q_offset, valid_kv, stream
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I]
     + [_LL] * 12 + [_F, _I, _I, _I, _I, _P],
+    # x, dt, A, B, C, dtype, y, states, batch, S, H, G, P, N, Q,
+    # 12 strides (b, s, h|g for x, dt, B, C), stream
+    "ssd_chunk_launch": [_P, _P, _P, _P, _P, _I, _P, _P] + [_I] * 7
+    + [_LL] * 12 + [_P],
 }
 
 

@@ -86,3 +86,89 @@ def quant_scaled_block(x: torch.Tensor, scale: torch.Tensor,
 
 def dequant_int8_block(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return (q.float() * scale[:, None]).reshape(-1)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD (state-space duality): chunked scan, decode step, front conv
+# ---------------------------------------------------------------------------
+
+def ssd_chunked(x, dt, A, B, C, chunk: int = 64):
+    """Chunked SSD (Mamba-2, arXiv:2405.21060 listing 1), in the order of
+    operations of the reference's ``ref.ssd_chunked``.
+
+    x: (b, s, h, p); dt: (b, s, h) (softplus'd, > 0); A: (h,) negative;
+    B/C: (b, s, g, n), heads share their group's rows -> y (b, s, h, p)
+    in x's dtype, final state (b, h, p, n) f32.  The state starts at 0.
+    """
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if s % chunk:
+        raise ValueError(f"ssd_chunked: length {s} is not a multiple of {chunk}")
+    nc, q = s // chunk, chunk
+    rep = h // g
+
+    xc = x.float().reshape(b, nc, q, h, p)
+    dtc = dt.float().reshape(b, nc, q, h)
+    Bc = B.float().repeat_interleave(rep, dim=2).reshape(b, nc, q, h, n)
+    Cc = C.float().repeat_interleave(rep, dim=2).reshape(b, nc, q, h, n)
+
+    dA = dtc * A.float()                                      # (b, nc, q, h)
+    dA_cs = torch.cumsum(dA, dim=2)
+
+    # 1) intra-chunk: causal "attention" with decay, masked BEFORE exp
+    seg = dA_cs[:, :, :, None, :] - dA_cs[:, :, None, :, :]   # (b,nc,q_i,q_j,h)
+    causal = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    seg = torch.where(causal[None, None, :, :, None], seg, NEG_INF)
+    L = torch.exp(seg)
+    scores = torch.einsum("bcihn,bcjhn->bcijh", Cc, Bc) * L
+    y_diag = torch.einsum("bcijh,bcjh,bcjhp->bcihp", scores, dtc, xc)
+
+    # 2) chunk states: decay-weighted outer products at the chunk's end
+    decay_to_end = torch.exp(dA_cs[:, :, -1:, :] - dA_cs)     # (b, nc, q, h)
+    states = torch.einsum("bcqh,bcqh,bcqhn,bcqhp->bchpn",
+                          decay_to_end, dtc, Bc, xc)
+
+    # 3) inter-chunk recurrence, emitting the state before each chunk
+    chunk_decay = torch.exp(dA.sum(dim=2))                    # (b, nc, h)
+    hstate = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    before = []
+    for c in range(nc):
+        before.append(hstate)
+        hstate = hstate * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_before = torch.stack(before, dim=1)                     # (b, nc, h, p, n)
+
+    # 4) inter-chunk contribution
+    in_decay = torch.exp(dA_cs)
+    y_off = torch.einsum("bcqhn,bcqh,bchpn->bcqhp", Cc, in_decay, h_before)
+    y = (y_diag + y_off).reshape(b, s, h, p)
+    return y.to(x.dtype), hstate
+
+
+def ssd_decode_step(state, x_t, dt_t, A, B_t, C_t):
+    """One-token SSD update.  state: (b, h, p, n) f32; x_t: (b, h, p);
+    dt_t: (b, h); B_t/C_t: (b, g, n) -> y_t (b, h, p) in x_t's dtype,
+    new state (b, h, p, n) f32."""
+    rep = x_t.shape[1] // B_t.shape[1]
+    Bf = B_t.float().repeat_interleave(rep, dim=1)            # (b, h, n)
+    Cf = C_t.float().repeat_interleave(rep, dim=1)
+    dtf = dt_t.float()
+    dA = torch.exp(dtf * A.float())                           # (b, h)
+    upd = dtf[..., None, None] * x_t.float()[..., None] * Bf[:, :, None, :]
+    new = state * dA[..., None, None] + upd
+    y = torch.einsum("bhpn,bhn->bhp", new, Cf)
+    return y.to(x_t.dtype), new
+
+
+def causal_conv1d(x, w, bias=None):
+    """Depthwise causal conv, x: (b, s, ch); w: (ch, width) -> (b, s, ch):
+    the left-padded tap loop in f32, cast back to x's dtype."""
+    b, s, ch = x.shape
+    width = w.shape[1]
+    xp = torch.nn.functional.pad(x.float(), (0, 0, width - 1, 0))
+    wf = w.float()
+    out = torch.zeros((b, s, ch), dtype=torch.float32, device=x.device)
+    for i in range(width):
+        out = out + xp[:, i:i + s] * wf[:, i]
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)

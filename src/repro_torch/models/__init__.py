@@ -1,3 +1,4 @@
-"""Model code for the dense decoder family (the serving path)."""
+"""Model code for the dense decoder family (serving and training) and the
+SSM family (Mamba2, serving)."""
 
 from .model import Model  # noqa: F401

@@ -5,9 +5,11 @@ param pytree: ``embed``, ``layers`` (one ``ModuleDict`` per layer where
 the reference stacks a leading (L, ...) axis), ``final_norm`` and, when
 embeddings are not tied, ``lm_head``.  ``init(seed)`` draws them from a
 ``torch.Generator`` on the model's device; ``convert.params_from_jax``
-loads the reference's arrays instead.  Caches are stacked per leaf,
-(L, B, W, kl, dh) for k and v and (L,) for the length, as in the
-reference, so the KV transfer moves the same blocks.
+loads the reference's arrays instead.  Caches are stacked per leaf, as
+in the reference, so the transfer cuts the same int8 blocks: a
+``KVCache`` of (L, B, W, kl, dh) k and v for the dense family, an
+``SSMState`` of (L, B, W-1, ch) conv and (L, B, h, p, n) ssm leaves for
+the SSM family, each with an (L,) length.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.parallel.sharding import Runtime, group_size
-from . import attention, layers, transformer
+from . import attention, layers, ssm, transformer
 
 
 def resolve_device(device) -> torch.device:
@@ -42,7 +44,7 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, rt: Runtime | None = None,
                  device="cuda"):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in transformer.PORTED_FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} ({cfg.name}) is not ported yet")
         self.cfg = cfg
@@ -124,9 +126,42 @@ class Model(nn.Module):
 
     # --------------------------------------------------------- serving --
 
-    def make_caches(self, batch: int, seq_len: int) -> attention.KVCache:
-        return attention.make_cache(self.cfg, self.cfg.n_layers, batch,
-                                    self.tp, seq_len, self.cfg.dtype, self.device)
+    def make_caches(self, batch: int, seq_len: int):
+        """Empty caches stacked over layers: a ``KVCache`` of ``seq_len``
+        slots, or for the SSM family an ``SSMState`` (no length to size)."""
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            return ssm.make_ssm_state(cfg, cfg.n_layers, batch, self.tp, self.device)
+        return attention.make_cache(cfg, cfg.n_layers, batch, self.tp, seq_len,
+                                    cfg.dtype, self.device)
+
+    def _layer_prefill(self, lp, x: torch.Tensor, cache) -> torch.Tensor:
+        """One layer over the prompt; writes the layer's cache views."""
+        cfg, rt = self.cfg, self.rt
+        if cfg.family == "ssm":
+            h = layers.apply_norm(lp["norm_ssm"], x, cfg.norm)
+            out, st = ssm.apply_ssm(lp["ssm"], h, cfg, rt)
+            for dst, src in zip(cache, st):
+                dst.copy_(src)
+            return x + out
+        h = layers.apply_norm(lp["norm_attn"], x, cfg.norm)
+        a, _ = attention.attention_prefill(lp["attn"], h, cfg, rt, cache)
+        x = x + a
+        h = layers.apply_norm(lp["norm_mlp"], x, cfg.norm)
+        return x + layers.apply_mlp(lp["mlp"], h, rt)
+
+    def _layer_decode(self, lp, x: torch.Tensor, cache) -> torch.Tensor:
+        """One layer, one token; updates the layer's cache views in place."""
+        cfg, rt = self.cfg, self.rt
+        if cfg.family == "ssm":
+            h = layers.apply_norm(lp["norm_ssm"], x, cfg.norm)
+            out, _ = ssm.apply_ssm_decode(lp["ssm"], h, cfg, rt, cache)
+            return x + out
+        h = layers.apply_norm(lp["norm_attn"], x, cfg.norm)
+        a, _ = attention.attention_decode(lp["attn"], h, cfg, rt, cache)
+        x = x + a
+        h = layers.apply_norm(lp["norm_mlp"], x, cfg.norm)
+        return x + layers.apply_mlp(lp["mlp"], h, rt)
 
     @torch.inference_mode()
     def apply_prefill(self, tokens: torch.Tensor, max_len: int | None = None):
@@ -137,27 +172,17 @@ class Model(nn.Module):
         caches = self.make_caches(B, max_len or S)
         x = layers.embed_lookup(self.embed, tokens, rt)
         for i, lp in enumerate(self.layers):
-            h = layers.apply_norm(lp["norm_attn"], x, cfg.norm)
-            a, _ = attention.attention_prefill(lp["attn"], h, cfg, rt,
-                                               caches.layer(i))
-            x = x + a
-            h = layers.apply_norm(lp["norm_mlp"], x, cfg.norm)
-            x = x + layers.apply_mlp(lp["mlp"], h, rt)
+            x = self._layer_prefill(lp, x, caches.layer(i))
         x = layers.apply_norm(self.final_norm, x[:, -1:], cfg.norm)
         return layers.lm_head_logits(x, self._head(), rt), caches
 
     @torch.inference_mode()
-    def apply_decode(self, token: torch.Tensor, caches: attention.KVCache):
+    def apply_decode(self, token: torch.Tensor, caches):
         """One decode step, token (B, 1) -> (logits (B, 1, V) f32, caches);
         ``caches`` is updated in place and returned."""
         cfg, rt = self.cfg, self.rt
         x = layers.embed_lookup(self.embed, token, rt)
         for i, lp in enumerate(self.layers):
-            h = layers.apply_norm(lp["norm_attn"], x, cfg.norm)
-            a, _ = attention.attention_decode(lp["attn"], h, cfg, rt,
-                                              caches.layer(i))
-            x = x + a
-            h = layers.apply_norm(lp["norm_mlp"], x, cfg.norm)
-            x = x + layers.apply_mlp(lp["mlp"], h, rt)
+            x = self._layer_decode(lp, x, caches.layer(i))
         x = layers.apply_norm(self.final_norm, x, cfg.norm)
         return layers.lm_head_logits(x, self._head(), rt), caches

@@ -1,6 +1,7 @@
 """Per-layer init, the training layer and the layer stack.  The dense
-decoder family is ported; the other families (MoE, SSM, hybrid,
-encoder-decoder, VLM) come with their slices."""
+decoder family is ported for serving and training, the SSM family
+(Mamba2) for serving; the other families (MoE, hybrid, encoder-decoder,
+VLM) and SSM training come with their slices."""
 
 from __future__ import annotations
 
@@ -11,15 +12,20 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.parallel.sharding import Runtime
-from . import attention, layers
+from . import attention, layers, ssm
+
+PORTED_FAMILIES = ("dense", "ssm")
 
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, tp: int, dtype) -> dict:
     """One decoder layer's params, the reference's pytree leaf for leaf."""
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet; only "
-            f"'dense' is")
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet; "
+            f"{PORTED_FAMILIES} are")
+    if cfg.family == "ssm":
+        return {"norm_ssm": layers.init_norm(cfg.norm, cfg.d_model, dtype, gen.device),
+                "ssm": ssm.init_ssm(gen, cfg, tp, dtype)}
     return {
         "norm_attn": layers.init_norm(cfg.norm, cfg.d_model, dtype, gen.device),
         "attn": attention.init_attention(gen, cfg, tp, dtype),
@@ -32,6 +38,11 @@ def apply_layer(p, x: torch.Tensor, cfg: ModelConfig, rt: Runtime, *,
                 causal: bool = True) -> torch.Tensor:
     """One dense decoder layer for training, x: (B, S, D) -> (B, S, D).
     The dense family has no auxiliary loss; it comes with MoE."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"training the {cfg.family!r} family ({cfg.name}) is not ported "
+            f"yet: it comes with the SSM training slice (the SSD kernel has "
+            f"no backward)")
     h = layers.apply_norm(p["norm_attn"], x, cfg.norm)
     x = x + attention.attention_train(p["attn"], h, cfg, rt, causal=causal)
     h = layers.apply_norm(p["norm_mlp"], x, cfg.norm)

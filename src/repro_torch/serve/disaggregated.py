@@ -1,16 +1,19 @@
 """Disaggregated prefill/decode serving (paper §6.2.2), one process.
 
-Prefill a batch of prompts, move the KV cache to the decode side through
+Prefill a batch of prompts, move the cache to the decode side through
 ``kv_transfer_body`` (raw, and int8 on the wire), then decode greedily
-from the moved caches and from the original one.  The raw transfer must
-reproduce same-side generation token for token; the int8 transfer
-reports its token agreement.  Weights are random, drawn from ``--seed``.
+from the moved caches and from the original one.  The cache is the KV
+cache of a dense model or the conv and SSM state of a Mamba2 model.  The
+raw transfer must reproduce same-side generation token for token; the
+int8 transfer reports its token agreement.  Weights are random, drawn
+from ``--seed``.
 
 It runs in one process, so the pod group has one member: the
 permutation is the identity and only the codec kernels run on the
 transfer (``kv_transfer_body`` shifts over a real pod group).
 
     python -m repro_torch.serve.disaggregated                  # qwen2.5-3b on the GPU
+    python -m repro_torch.serve.disaggregated --arch mamba2-2.7b
     python -m repro_torch.serve.disaggregated --smoke --device cpu
 """
 
@@ -23,6 +26,7 @@ import time
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.kernels import ops
 from repro_torch.models.model import Model, resolve_device
 from repro_torch.serve.serve_step import make_kv_transfer, make_serve_steps
 
@@ -30,6 +34,22 @@ from repro_torch.serve.serve_step import make_kv_transfer, make_serve_steps
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+class _PhaseLaunches:
+    """Kernel launches per phase of a run, from the wrappers' counters
+    (which count only launches on the card)."""
+
+    def __init__(self):
+        self.by_phase: dict[str, dict[str, int]] = {}
+
+    def __call__(self, phase: str, fn, *args):
+        before = ops.launch_counts()
+        out = fn(*args)
+        counts = self.by_phase.setdefault(phase, dict.fromkeys(before, 0))
+        for name, n in ops.launch_counts().items():
+            counts[name] += n - before[name]
+        return out
 
 
 def _generate(decode, token, caches, steps: int) -> torch.Tensor:
@@ -61,48 +81,54 @@ def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, batch: int = 4,
     transfer = make_kv_transfer(model)
     transfer_q = make_kv_transfer(model, compress="int8")
 
-    tok, caches = prefill(prompt)          # warm-up
-    transfer_q(caches)
+    phase = _PhaseLaunches()
+    tok, caches = phase("prefill", prefill, prompt)          # warm-up
+    phase("int8_transfer", transfer_q, caches)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     _sync(device)
     t0 = time.perf_counter()
-    tok, caches = prefill(prompt)
+    tok, caches = phase("prefill", prefill, prompt)
     _sync(device)
     ttft_s = time.perf_counter() - t0
 
     # transfer first: decoding writes the cache it is given
-    moved = transfer(caches)
+    moved = phase("raw_transfer", transfer, caches)
     _sync(device)
     t0 = time.perf_counter()
-    moved_q = transfer_q(caches)
+    moved_q = phase("int8_transfer", transfer_q, caches)
     _sync(device)
     transfer_s = time.perf_counter() - t0
+    cache_finite = all(bool(torch.isfinite(leaf).all())
+                       for c in (caches, moved_q) for leaf in c
+                       if leaf.is_floating_point())
 
     t0 = time.perf_counter()
-    ref = _generate(decode, tok, caches, gen)
+    ref = phase("decode", _generate, decode, tok, caches, gen)
     _sync(device)
     decode_s = time.perf_counter() - t0
-    dis = _generate(decode, tok, moved, gen)
-    dis_q = _generate(decode, tok, moved_q, gen)
+    dis = phase("decode", _generate, decode, tok, moved, gen)
+    dis_q = phase("decode", _generate, decode, tok, moved_q, gen)
     _sync(device)
 
     return {
         "arch": cfg.name, "device": str(device), "batch": batch,
         "prompt_len": prompt_len, "gen": gen,
         "params": sum(p.numel() for p in model.parameters()),
-        "prefills": 2, "int8_transfers": 2,
+        "prefills": 2, "int8_transfers": 2, "decode_steps": 3 * gen,
+        "launches": phase.by_phase,
         "ttft_ms": ttft_s * 1e3,
         "decode_ms_per_step": decode_s * 1e3 / gen,
         "int8_transfer_ms": transfer_s * 1e3,
         "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 1e9
                         if device.type == "cuda" else None),
         "raw_transfer_exact": bool(torch.equal(ref, dis)),
-        "cache_finite": bool(torch.isfinite(caches.k).all()
-                             and torch.isfinite(moved_q.k).all()),
+        "cache_finite": cache_finite,
         "int8_token_agreement": float((ref == dis_q).float().mean()),
         "tokens": ref.cpu().tolist(),
-        "kv_cache_shape": list(caches.k.shape),
+        "cache_shapes": {name: list(leaf.shape)
+                         for name, leaf in caches._asdict().items()},
+        "cache_bytes": sum(leaf.numel() * leaf.element_size() for leaf in caches),
     }
 
 

@@ -1,9 +1,11 @@
 """Serving: prefill / decode steps and the disaggregated KV transfer.
 
 The paper's §6.2.2 scenario: prefill on one cluster, decode on another,
-with the KV cache crossing between them through the HetCCL SendRecv
+with the cache crossing between them through the HetCCL SendRecv
 (``kv_transfer_body``: a shift over the pod group, optionally with int8
-on the wire) instead of forwarding through the hosts.
+on the wire) instead of forwarding through the hosts.  The cache is a
+``KVCache`` (dense family) or an ``SSMState`` (Mamba2); the transfer
+moves every leaf of either.
 """
 
 from __future__ import annotations
@@ -13,7 +15,6 @@ import functools
 import torch
 
 from repro_torch.core import compression, primitives
-from repro_torch.models.attention import KVCache
 from repro_torch.models.model import Model
 from repro_torch.parallel.sharding import Runtime
 from repro_torch.train.loss import sharded_argmax
@@ -43,9 +44,10 @@ def make_serve_steps(model: Model):
 
 
 @torch.inference_mode()
-def kv_transfer_body(caches: KVCache, rt: Runtime, compress: str | None = None,
-                     shift: int = 1) -> KVCache:
-    """Move every cache leaf from pod i to pod (i + shift).  With
+def kv_transfer_body(caches, rt: Runtime, compress: str | None = None,
+                     shift: int = 1):
+    """Move every leaf of ``caches`` (a NamedTuple of tensors) from pod i
+    to pod (i + shift), returned as the same NamedTuple type.  With
     ``compress="int8"`` a bf16 or f32 leaf of at least 1024 elements
     crosses as int8 blocks plus f32 scales (the codec kernels run even
     when the permutation is the identity); other leaves travel raw.
@@ -62,7 +64,7 @@ def kv_transfer_body(caches: KVCache, rt: Runtime, compress: str | None = None,
 
     if compress not in (None, "int8"):
         raise ValueError(f"unknown KV codec {compress!r}")
-    return KVCache(*(move(leaf) for leaf in caches))
+    return type(caches)(*(move(leaf) for leaf in caches))
 
 
 def make_kv_transfer(model: Model, compress: str | None = None, shift: int = 1):

@@ -8,7 +8,9 @@ file imports no JAX, so it runs on a machine that has only PyTorch:
 The int8 codecs (local-scale and shared-scale) are bit-equal, NaN and
 infinite blocks included (a NaN scale or amax in the same place); flash
 attention agrees within
-tests/test_kernels.py's tolerances (f32 2e-3, bf16 3e-2).
+tests/test_kernels.py's tolerances (f32 2e-3, bf16 3e-2); the SSD chunk
+within 1e-4 of its plain output's largest magnitude (f32 arithmetic in
+both, summed in another order).
 """
 
 import copy
@@ -20,6 +22,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant as tquant
+from repro_torch.kernels import ssd as tssd
 from repro_torch.models import Model
 
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -148,3 +151,91 @@ def test_smoke_model_on_card_matches_cpu(cuda):
     assert ops.launch_counts()["flash_attention_bhsd"] == before + cfg.n_layers
     assert (lg.cpu() - lc).abs().max().item() < 1e-3
     assert torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1))
+
+
+SSD_CASES = [
+    # (b, s, h, p, g, n, chunk, dtype): tests/test_kernels.py:46-52, then
+    # p = 100, n = 16 (shape only) and the mamba2-2.7b prefill's shape
+    (2, 256, 4, 32, 1, 64, 64, "f32"),
+    (1, 128, 2, 64, 2, 32, 32, "f32"),
+    (1, 256, 8, 64, 1, 128, 128, "f32"),
+    (2, 128, 4, 32, 1, 64, 64, "bf16"),
+    (2, 256, 4, 100, 1, 16, 128, "bf16"),
+    (4, 1024, 80, 64, 1, 128, 128, "bf16"),
+]
+
+
+def _ssd_inputs(case, dev):
+    b, s, h, p, g, n, chunk, dt = case
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(b, s, h, p, device=dev, generator=gen).to(TDT[dt])
+    dtv = torch.rand(b, s, h, device=dev, generator=gen) * 0.19 + 0.01
+    A = -(torch.rand(h, device=dev, generator=gen) * 3.5 + 0.5)
+    Bm = torch.randn(b, s, g, n, device=dev, generator=gen).to(TDT[dt])
+    Cm = torch.randn(b, s, g, n, device=dev, generator=gen).to(TDT[dt])
+    return x, dtv, A, Bm, Cm, chunk
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_chunk_vs_plain(cuda, case):
+    before = tssd.ssd_chunk_call.launches
+    args = _ssd_inputs(case, cuda)
+    got = tssd.ssd_chunk_call(*args)
+    want = tssd.ssd_chunk_plain(*args)
+    torch.cuda.synchronize()
+    assert tssd.ssd_chunk_call.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+def test_ssd_chunked_strided_views(cuda):
+    """x, B and C as column slices of one conv output, as the model hands
+    them over: the same bits as contiguous copies."""
+    b, s, h, p, n = 2, 256, 8, 64, 32
+    conv = torch.randn(b, s, h * p + 2 * n, device=cuda).to(torch.bfloat16)
+    x = conv[..., :h * p].reshape(b, s, h, p)
+    Bm = conv[..., h * p:h * p + n].reshape(b, s, 1, n)
+    Cm = conv[..., h * p + n:].reshape(b, s, 1, n)
+    dt = torch.rand(b, s, h, device=cuda) * 0.1 + 0.01
+    A = -torch.linspace(1.0, 16.0, h, device=cuda)
+    got = ops.ssd_chunked(x, dt, A, Bm, Cm)
+    want = ops.ssd_chunked(x.contiguous(), dt, A, Bm.contiguous(), Cm.contiguous())
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+
+
+def test_ssd_chunk_refuses_shapes(cuda):
+    args = list(_ssd_inputs((1, 96, 2, 32, 1, 16, 48, "f32"), cuda))
+    with pytest.raises(ValueError):
+        tssd.ssd_chunk_call(*args)                # chunk 48: not a multiple of 32
+    args[-1] = 64
+    with pytest.raises(ValueError):
+        tssd.ssd_chunk_call(*args)                # 96 is not a multiple of 64
+    args[-1] = 32
+    conv = torch.randn(1, 96, 2 * 32 + 2 * 16 + 1, device=cuda)
+    args[0] = conv[..., :64].reshape(1, 96, 2, 32)
+    with pytest.raises(ValueError):
+        tssd.ssd_chunk_call(*args)                # rows 97 elements apart
+
+
+def test_mamba2_smoke_on_card_matches_cpu(cuda):
+    cfg = get_config("mamba2-2.7b", smoke=True)
+    cfg = type(cfg)(**{**cfg.__dict__, "dtype": torch.float32})
+    cpu = Model(cfg, device="cpu").init(0)
+    gpu = copy.deepcopy(cpu).to(cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 130))
+    before = ops.launch_counts()["ssd_chunk"]
+    lc, cc = cpu.apply_prefill(toks)
+    lg, cg = gpu.apply_prefill(toks.to(cuda))
+    assert ops.launch_counts()["ssd_chunk"] == before + cfg.n_layers
+    assert (lg.cpu() - lc).abs().max().item() < 1e-3
+    tok = lc.argmax(-1)
+    assert torch.equal(lg.argmax(-1).cpu(), tok)
+    for _ in range(4):
+        lc, cc = cpu.apply_decode(tok, cc)
+        lg, cg = gpu.apply_decode(tok.to(cuda), cg)
+        assert (lg.cpu() - lc).abs().max().item() < 1e-3
+        assert torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1))
+        tok = lc.argmax(-1)
+    assert ops.launch_counts()["ssd_chunk"] == before + cfg.n_layers   # decode: none
+    assert torch.equal(cg.length.cpu(), cc.length)

@@ -105,6 +105,20 @@ def test_init_is_seeded_and_shaped():
     assert n == cfg.param_count() + bias + norms
 
 
-def test_families_not_ported_raise():
+def _train_forward(arch: str):
+    model = Model(get_config(arch, smoke=True), device="cpu").init(0)
+    model.apply_train(torch.zeros((1, 8), dtype=torch.long))
+
+
+@pytest.mark.parametrize("what, build", [
+    ("mixtral-8x7b (moe)", lambda: Model(get_config("mixtral-8x7b", smoke=True),
+                                         device="cpu")),
+    ("hymba-1.5b (hybrid)", lambda: Model(get_config("hymba-1.5b", smoke=True),
+                                          device="cpu")),
+    ("whisper-tiny (encdec)", lambda: Model(get_config("whisper-tiny", smoke=True),
+                                            device="cpu")),
+    ("mamba2-2.7b training forward", lambda: _train_forward("mamba2-2.7b")),
+])
+def test_families_not_ported_raise(what, build):
     with pytest.raises(NotImplementedError):
-        Model(get_config("mixtral-8x7b", smoke=True), device="cpu")
+        build()

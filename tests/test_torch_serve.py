@@ -175,7 +175,7 @@ def test_entry_point_smoke_on_cpu():
                             device="cpu")
     assert res["raw_transfer_exact"]
     assert 0.0 <= res["int8_token_agreement"] <= 1.0
-    assert res["kv_cache_shape"] == [2, 2, 130, 2, 16]
+    assert res["cache_shapes"]["k"] == [2, 2, 130, 2, 16]
     assert len(res["tokens"][0]) == 4
 
 
