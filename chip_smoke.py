@@ -24,8 +24,7 @@
    per phase, must show every kernel on each path: flash attention or
    ssd_chunk once per layer per prefill, quant/dequant twice per int8
    transfer, nothing per decode step.  Then, per model, a profile of one
-   prefill and four decode steps, and how far int8 on the wire moves the
-   first decode step's logits and the greedy tokens, leaf by leaf.
+   prefill and four decode steps.
 5. The training path at full width: ``repro_torch.launch.train.run``
    trains qwen2.5-3b (hier, int8 on the pod hop) on 4 x 1024 tokens for
    4 steps in a world of one, through real pod and data groups of one
@@ -77,7 +76,7 @@ from repro_torch.launch.mesh import runtime_for_groups  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.serve import disaggregated  # noqa: E402
-from repro_torch.serve.serve_step import make_kv_transfer, make_serve_steps  # noqa: E402
+from repro_torch.serve.serve_step import make_serve_steps  # noqa: E402
 from repro_torch.train import optimizer as opt_lib  # noqa: E402
 from repro_torch.train.train_step import TrainConfig, make_train_step  # noqa: E402
 
@@ -265,13 +264,15 @@ def ssd_inputs(dev, gen, b, s, h, p, g, n, dt):
 
 def ssd_bound_ms(b, s, h, p, g, n, q, dt) -> tuple[float, str]:
     """x, dt, A, B and C read once, y_diag and states written once in f32,
-    against the products C B^T, scores x and x^T (B w) of every (b, chunk,
-    head) at the peak rate of the input type."""
+    against the products the function needs at the peak rate of the input
+    type: C B^T once per (b, chunk, group) and scores x once per head,
+    each over the causal half (j <= i), and x^T (B w) once per head."""
     elem = torch.finfo(dt).bits // 8
     nc = s // q
     nbytes = (elem * b * s * (h * p + 2 * g * n) + 4 * b * s * h + 4 * h
               + 4 * b * s * h * p + 4 * b * nc * h * p * n)
-    flops = 2.0 * b * nc * h * (q * q * n + q * q * p + q * p * n)
+    pairs = q * (q + 1) // 2
+    flops = 2.0 * b * nc * (g * pairs * n + h * (pairs * p + q * p * n))
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[dt]
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
@@ -614,64 +615,9 @@ def serve_full_width(dev, smi: str, arch: str) -> tuple[dict, dict]:
     return res, counts
 
 
-def _first_step(model, tok, caches, decode):
-    """First decode step's logits (B, V), then the greedy tokens of GEN
-    steps; ``caches`` is consumed."""
-    logits, caches = model.apply_decode(tok, caches)
-    toks = [logits.argmax(-1)]
-    for _ in range(GEN - 1):
-        t, caches = decode(toks[-1], caches)
-        toks.append(t)
-    return logits[:, 0], torch.cat(toks, dim=1)
-
-
-def int8_sensitivity(model, prompt, smi: str) -> dict:
-    """How far int8 on the wire moves decoding, leaf by leaf: each cache
-    leaf of at least 1024 values crosses alone as int8, then all do (the
-    served transfer).  For each: the leaf's relative RMS error after the
-    round trip, the first decode step's relative RMS logit error and
-    argmax flips, and the agreement of the GEN decoded tokens (not the
-    prefill's own, which every variant shares) with raw decoding."""
-    prefill, decode = make_serve_steps(model)
-    transfer, transfer_q = make_kv_transfer(model), make_kv_transfer(model, compress="int8")
-    tok, caches = prefill(prompt)
-    names = type(caches)._fields
-    raw_logits, raw_toks = _first_step(model, tok, transfer(caches), decode)
-    top2 = raw_logits.topk(2, dim=-1).values
-    margin = (top2[:, 0] - top2[:, 1]).median().item()
-    # the leaves the int8 transfer quantizes (kv_transfer_body's rule)
-    leaves = [n for n, a in zip(names, caches)
-              if a.is_floating_point() and a.numel() >= quant.BLOCK]
-    out = {"raw_top2_margin_median": margin,
-           "raw_logit_rms": raw_logits.pow(2).mean().sqrt().item()}
-    for variant in [[n] for n in leaves] + [leaves]:
-        raw, q = transfer(caches), transfer_q(caches)
-        moved = type(caches)(*(q[i] if n in variant else raw[i]
-                               for i, n in enumerate(names)))
-        del raw, q
-        leaf_err = {n: ((moved[names.index(n)].float() - caches[names.index(n)].float())
-                        .norm() / caches[names.index(n)].float().norm()).item()
-                    for n in variant}
-        logits, toks = _first_step(model, tok, moved, decode)
-        key = "+".join(variant)
-        out[key] = {"leaf_rel_rms_err": leaf_err,
-                    "first_step_logit_rel_rms_err": ((logits - raw_logits).norm()
-                                                     / raw_logits.norm()).item(),
-                    "first_step_flips": int((logits.argmax(-1) != raw_logits.argmax(-1)).sum()),
-                    "decoded_token_agreement": (toks == raw_toks).float().mean().item()}
-        print(f"[int8] [{smi}] {model.cfg.name}, int8 on {key}: leaf rel RMS err "
-              f"{ {k: f'{v:.3g}' for k, v in leaf_err.items()} }, first-step logits rel "
-              f"RMS err {out[key]['first_step_logit_rel_rms_err']:.3g}, argmax flips "
-              f"{out[key]['first_step_flips']}/{BATCH}, decoded-token agreement "
-              f"{out[key]['decoded_token_agreement']:.4f} over {BATCH} x {GEN}")
-    print(f"[int8] {model.cfg.name}: raw first-step logits RMS {out['raw_logit_rms']:.4g}, "
-          f"median top-1/top-2 margin {margin:.4g}")
-    return out
-
-
 def profile_serving(dev, smi: str, arch: str) -> dict:
     """One prefill and four decode steps under torch.profiler (after a
-    warm-up), then the int8 sensitivity, on one full-width model."""
+    warm-up) on one full-width model."""
     cfg = get_config(arch)
     model = Model(cfg, device=dev).init(0)
     prefill, decode = make_serve_steps(model)
@@ -699,8 +645,6 @@ def profile_serving(dev, smi: str, arch: str) -> dict:
         wall = (time.perf_counter() - t0) * 1e3
     out["decode"] = _report(prof, wall, f"{cfg.name} {steps} decode steps", smi,
                             SERVE_GROUPS, SERVE_RANGES)
-    del caches
-    out["int8"] = int8_sensitivity(model, prompt, smi)
     return out
 
 

@@ -6,7 +6,8 @@ transfer is bit-equal; in f32 the generated tokens are equal.  A 2-rank
 gloo run checks the pod ring itself: rank r receives the int8 round
 trip of rank r-1's cache.  Also: the port imports neither JAX nor the
 JAX package, and its entry point refuses to run without a card unless
-told to use the CPU.
+told to use the CPU.  The int8 sweep (``serve/int8_sensitivity.py``)
+runs on the CPU for both serving models.
 """
 
 import dataclasses
@@ -35,7 +36,7 @@ from repro_torch.kernels import quant as tquant
 from repro_torch.launch.mesh import runtime_for_groups
 from repro_torch.models.attention import KVCache
 from repro_torch.parallel.sharding import Runtime
-from repro_torch.serve import disaggregated
+from repro_torch.serve import disaggregated, int8_sensitivity
 from repro_torch.serve.serve_step import (kv_transfer_body, make_kv_transfer,
                                           make_serve_steps)
 
@@ -177,6 +178,25 @@ def test_entry_point_smoke_on_cpu():
     assert 0.0 <= res["int8_token_agreement"] <= 1.0
     assert res["cache_shapes"]["k"] == [2, 2, 130, 2, 16]
     assert len(res["tokens"][0]) == 4
+
+
+@pytest.mark.parametrize("arch, leaves", [("qwen2.5-3b", ["k", "v"]),
+                                          ("mamba2-2.7b", ["conv", "ssm"])])
+def test_int8_sensitivity_smoke_on_cpu(arch, leaves):
+    res = int8_sensitivity.run(arch, smoke=True, batch=2, prompt_len=130, gen=3,
+                               device="cpu")
+    variants = res["variants"]
+    assert list(variants) == leaves + ["+".join(leaves)]
+    both = variants["+".join(leaves)]
+    for leaf in leaves:
+        # a leaf's blocks are quantized alone: the same error in every variant
+        assert variants[leaf]["leaf_rel_rms_err"] == {leaf: both["leaf_rel_rms_err"][leaf]}
+        assert 0.0 < both["leaf_rel_rms_err"][leaf] < 0.05
+    for v in variants.values():
+        assert 0.0 < v["first_step_logit_rel_rms_err"] < 0.1
+        assert 0 <= v["first_step_flips"] <= 2
+        assert 0.0 <= v["decoded_token_agreement"] <= 1.0
+    assert res["raw_logit_rms"] > 0 and res["raw_top2_margin_median"] >= 0
 
 
 _IMPORT_CHECK = """
