@@ -14,9 +14,10 @@
    computing the same function (timed only; the port never calls it).
 3. Smoke-size models on the card against the same models on the CPU:
    qwen2.5-3b and mamba2-2.7b prefill and decode (f32, logits within 1e-3,
-   equal tokens), and 3 qwen training steps (hier, int8 on the pod hop)
-   through the same process groups (gloo for the CPU, NCCL for the card),
-   losses and parameters within 1e-4.
+   equal tokens), and 3 qwen training steps for each gradient sync of
+   TRAIN_RUNS (hier and hier_pipelined with int8 on the pod hop,
+   hier_border_rs with bf16) through the same process groups (gloo for the
+   CPU, NCCL for the card), losses and parameters within 1e-4.
 4. The serving paths at full width, random weights from a seed: qwen2.5-3b
    (36 layers) and mamba2-2.7b (64 layers) each prefill 4 requests of
    1024 tokens, move the cache (KV, or conv + SSM state) raw and int8 on
@@ -25,20 +26,29 @@
    ssd_chunk once per layer per prefill, quant/dequant twice per int8
    transfer, nothing per decode step.  Then, per model, a profile of one
    prefill and four decode steps.
-5. The training path at full width: ``repro_torch.launch.train.run``
-   trains qwen2.5-3b (hier, int8 on the pod hop) on 4 x 1024 tokens for
-   4 steps in a world of one, through real pod and data groups of one
-   member.  Every step must launch amax_block, quant_scaled and
-   dequant_int8 once for its one bf16 gradient segment and no flash
-   attention, with finite loss and grad norm and the finite gate open.
+5. The training paths at full width: ``repro_torch.launch.train.run``
+   trains qwen2.5-3b on 4 x 1024 tokens for 4 steps in a world of one,
+   through real pod and data groups of one member, once per gradient sync
+   of TRAIN_RUNS.  Every step must launch pack_slots once for its one bf16
+   gradient segment, amax_block, quant_scaled and dequant_int8 once per
+   pod-hop chunk with int8 (hier: 1, hier_pipelined: 4) and not with bf16,
+   and no flash attention, with finite loss and grad norm and the finite
+   gate open.
 6. The shared-scale codec at the gradient segment's size (more than 2^31
    elements): bit-equal to the plain versions chunk by chunk, edge cases
    (ragged, all-zero block, scale <= 0, .5 ties, +-127 s, NaN and +-inf
    blocks and scales, for both int8 codecs) bit-equal, and
    amax / quant_scaled / the int32 -> bf16 decode timed beside their bounds.
-7. Where the time goes: one training step under torch.profiler, device
-   time by kernel group and the device's idle share of the wall time (the
-   serving profiles are part of phase 4).
+7. Slot packing on the qwen2.5-3b gradient layout (one bf16 segment of
+   more than 2^31 values) and at small sizes (f32 and bf16 leaves, list
+   leaves, ragged leaves, an all-zero block): pack_slots bit-equal to its
+   plain version, fused_pack_quant bit-equal to its plain version and to
+   pack -> quant_int8; then the conformance check of the reference
+   (OK-F: fused pack+quantize equals the composition) as a path of its
+   own at the full layout; each timed beside its bound.
+8. Where the time goes: one training step per gradient sync under
+   torch.profiler, device time by kernel group and the device's idle
+   share of the wall time (the serving profiles are part of phase 4).
 
 Any failed check raises, and the script exits non-zero without printing
 its result line.  The last line is the result:
@@ -65,7 +75,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 import torch.distributed as dist  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import compression, packing  # noqa: E402
+from repro_torch.core import collectives, compression, packing  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, synth_batch  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -91,8 +101,18 @@ SSM_ARCH = "mamba2-2.7b"
 PATH_KERNEL = {ARCH: "flash_attention_bhsd", SSM_ARCH: "ssd_chunk"}
 BATCH, PROMPT, GEN = 4, 1024, 16
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 4
-TRAIN_KERNELS = {"amax_block": 1, "quant_scaled": 1, "dequant_int8": 1,
-                 "quant_int8": 0, "flash_attention_bhsd": 0, "ssd_chunk": 0}
+# (gradient sync, pod-hop codec) of the training paths
+TRAIN_RUNS = [("hier", "int8"), ("hier_pipelined", "int8"), ("hier_border_rs", "bf16")]
+
+
+def train_kernels(mode: str, codec: str | None) -> dict[str, int]:
+    """Launches per training step of a model with one gradient segment:
+    one pack, and the shared-scale codec once per pod-hop chunk."""
+    chunks = TrainConfig().n_chunks if mode == "hier_pipelined" else 1
+    n = chunks if codec == "int8" else 0
+    return {"pack_slots": 1, "amax_block": n, "quant_scaled": n, "dequant_int8": n,
+            "quant_int8": 0, "fused_pack_quant": 0, "flash_attention_bhsd": 0,
+            "ssd_chunk": 0}
 
 
 def card() -> str:
@@ -240,10 +260,12 @@ def check_flash(dev, gen) -> dict:
 
 
 SSD_CASES = [
-    # (b, s, h, p, g, n, chunk, dtype): tests/test_kernels.py:46-52, then
-    # p = 100 and n = 16 (a shape check), then the mamba2-2.7b prefill
+    # (b, s, h, p, g, n, chunk, dtype): tests/test_kernels.py:46-52, G = 2
+    # with H = 8 (h // (H / G) is not h % G), p = 100 and n = 16 (a shape
+    # check), then the mamba2-2.7b prefill
     (2, 256, 4, 32, 1, 64, 64, torch.float32),
     (1, 128, 2, 64, 2, 32, 32, torch.float32),
+    (1, 128, 8, 32, 2, 32, 32, torch.float32),
     (1, 256, 8, 64, 1, 128, 128, torch.float32),
     (2, 128, 4, 32, 1, 64, 64, torch.bfloat16),
     (2, 256, 4, 100, 1, 16, 128, torch.bfloat16),
@@ -343,14 +365,15 @@ def check_small_model(dev, arch: str) -> None:
           f"launched {cfg.n_layers} times (prefill only)")
 
 
-def check_small_training(dev, rt) -> None:
-    """3 hier+int8 steps of a smoke f32 model on the card and on the CPU,
-    from the same parameters and batches, through the same groups."""
+def check_small_training(dev, rt, mode: str, codec: str | None) -> None:
+    """3 steps of a smoke f32 model on the card and on the CPU, from the
+    same parameters and batches, through the same groups."""
     cfg = dataclasses.replace(get_config(ARCH, smoke=True), dtype=torch.float32)
     cpu = Model(cfg, rt, device="cpu").init(0)
     gpu = copy.deepcopy(cpu, {id(rt): rt}).to(dev)
-    tcfg = TrainConfig(comm_mode="hier", dcn_compression="int8",
+    tcfg = TrainConfig(comm_mode=mode, dcn_compression=codec,
                        opt=opt_lib.OptConfig(lr=1e-3, warmup_steps=1))
+    want = train_kernels(mode, codec)
     runs = []
     for model in (cpu, gpu):
         step_fn, _ = make_train_step(model, tcfg)
@@ -364,8 +387,8 @@ def check_small_training(dev, rt) -> None:
             m = step_fn(opt, b)
             after = ops.launch_counts()
             if model is gpu:
-                launched = {k: after[k] - before[k] for k in TRAIN_KERNELS}
-                check(launched == TRAIN_KERNELS, f"small training launches {launched}")
+                launched = {k: after[k] - before[k] for k in want}
+                check(launched == want, f"small training {mode} launches {launched}")
             check(not m["gated"], "small training: finite gate tripped")
             losses.append(m["loss"])
         runs.append(losses)
@@ -375,9 +398,9 @@ def check_small_training(dev, rt) -> None:
         torch.stack(c) if isinstance(c, list) else c).abs().max().item()
         for g, c in zip(gpu.train_leaves(), cpu.train_leaves()))
     check(perr < 1e-4, f"small training params differ by {perr}")
-    print(f"[check] {cfg.name} f32 training, hier + int8, 3 steps on the card vs "
+    print(f"[check] {cfg.name} f32 training, {mode} + {codec}, 3 steps on the card vs "
           f"the CPU: losses {[f'{l:.6f}' for l in runs[1]]}, max relative loss diff "
-          f"{err:.3g}, max param diff {perr:.3g} (tol 1e-4)")
+          f"{err:.3g}, max param diff {perr:.3g} (tol 1e-4), launches per step {want}")
 
 
 # ---------------------------------------------------------------------------
@@ -487,7 +510,120 @@ def check_shared_codec(dev, gen, n: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 7. where the time goes
+# 7. slot packing, alone and fused with the int8 codec
+# ---------------------------------------------------------------------------
+
+def _small_tree(dev, gen, dtypes) -> list:
+    """Leaves taking ``dtypes`` in turn: a 16-byte-aligned leaf, a list leaf
+    of three ragged layers, ragged leaves, a scalar and an all-zero leaf."""
+    def r(*shape):
+        return torch.randn(shape, device=dev, generator=gen) * 3
+
+    made = [r(64, 32), [r(129) for _ in range(3)], r(5), r(2048), r(), r(37, 11),
+            torch.zeros(2048 + 257, device=dev)]
+    return [[p.to(dtypes[i % len(dtypes)]) for p in x] if isinstance(x, list)
+            else x.to(dtypes[i % len(dtypes)]) for i, x in enumerate(made)]
+
+
+def check_pack_small(dev, gen) -> None:
+    f32, bf16 = torch.float32, torch.bfloat16
+    for dtypes in ((f32,), (bf16,), (f32, bf16)):
+        leaves = _small_tree(dev, gen, dtypes)
+        layout = packing.plan_layout(packing.tree_metas(leaves), world=4, n_chunks=4,
+                                     block=quant.BLOCK)
+        got = packing.pack(layout, leaves)
+        for name, pieces in packing.segment_pieces(layout, leaves).items():
+            padded = layout.segment(name).padded
+            buf = got[name]
+            check(torch.equal(buf, quant.pack_slots_plain(pieces, padded, buf.dtype)),
+                  f"pack_slots {name} segment of {dtypes}")
+            other = bf16 if buf.dtype == f32 else f32           # a cast as it copies
+            check(torch.equal(quant.pack_slots_call(pieces, padded, other),
+                              quant.pack_slots_plain(pieces, padded, other)),
+                  f"pack_slots {name} into {other}")
+            fq, fs = quant.fused_pack_quant_call(pieces, padded)
+            pq, ps = quant.fused_pack_quant_plain(pieces, padded)
+            cq, cs = quant.quant_int8_call(buf)
+            check(torch.equal(fq, pq) and torch.equal(fs, ps),
+                  f"fused_pack_quant {name} of {dtypes} against plain")
+            check(torch.equal(fq, cq) and torch.equal(fs, cs),
+                  f"fused_pack_quant {name} of {dtypes} against pack -> quant_int8")
+    print("[check] pack_slots and fused_pack_quant, f32, bf16 and mixed trees (list "
+          "leaves, ragged leaves, a scalar, an all-zero leaf, casts both ways): "
+          "bit-equal to the plain versions and to pack -> quant_int8")
+
+
+def check_pack(dev, gen, rt, smi: str) -> tuple[dict, dict]:
+    """Small cases, then the qwen2.5-3b gradient layout (the parameters of
+    a full-width model stand for its gradients): the conformance path with
+    its launch counts set to 0 just before it and read just after, the
+    kernels against their plain versions, and the timings."""
+    check_pack_small(dev, gen)
+    model = Model(get_config(ARCH), rt, dev).init(0)
+    leaves = model.train_leaves()
+    layout = collectives.comm_layout(leaves, collectives.CommConfig(compression="int8"),
+                                     world=1)
+    check(len(layout.segments) == 1, f"segments {layout.segments}")
+    seg = layout.segments[0]
+    pieces = packing.segment_pieces(layout, leaves)[seg.dtype]
+    n, padded, nb = seg.used, seg.padded, seg.padded // quant.BLOCK
+    check(padded > 2 ** 31 and seg.dtype == "bfloat16", f"segment {seg}")
+
+    # the reference's OK-F conformance row: fused pack+quantize == pack -> quant
+    ops.reset_launch_counts()
+    buf = packing.pack(layout, leaves)[seg.dtype]
+    cq, cs = quant.quant_int8_call(buf)
+    fq, fs = quant.fused_pack_quant_call(pieces, padded)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check(torch.equal(fq, cq) and torch.equal(fs, cs), "OK-F: fused != pack -> quant_int8")
+    want = {k: 0 for k in counts}
+    want.update(pack_slots=1, quant_int8=1, fused_pack_quant=1)
+    check(counts == want, f"conformance launches {counts}")
+    del cq, cs
+    check(torch.equal(buf, quant.pack_slots_plain(pieces, padded, torch.bfloat16)),
+          "pack_slots at the gradient layout")
+    del buf
+    free_memory()
+    pq, ps = quant.fused_pack_quant_plain(pieces, padded)
+    check(torch.equal(fq, pq) and torch.equal(fs, ps), "fused_pack_quant at the gradient layout")
+    del pq, ps, fq, fs
+    free_memory()
+    print(f"[check] conformance (OK-F) at the qwen2.5-3b gradient layout, {len(pieces)} "
+          f"parameter tensors, {n} bf16 values padded to {padded} (> 2^31): fused "
+          f"pack+quantize == pack -> quant_int8, and both kernels == their plain "
+          f"versions, bit for bit; launches {want}")
+
+    parts = [p.reshape(-1) for _, p in pieces]
+    parts.append(torch.zeros(padded - n, dtype=torch.bfloat16, device=dev))
+    rows = {
+        "pack_slots": {
+            "name": "pack_slots", "route": "cuda", "source": "src/repro_torch/csrc/pack.cu",
+            "replaces": "src/repro/kernels/quant.py:137", "max_abs_err": 0.0,
+            "ms": time_ms(lambda: quant.pack_slots_call(pieces, padded, torch.bfloat16), 10),
+            "plain_ms": time_ms(lambda: quant.pack_slots_plain(pieces, padded, torch.bfloat16),
+                                3, warmup=1),
+            # read every parameter tensor once, write the padded segment once
+            "bound_ms": (2 * n + 2 * padded) / PEAK_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "library_ms": time_ms(lambda: torch.cat(parts), 10)},
+        "fused_pack_quant": {
+            "name": "fused_pack_quant", "route": "cuda", "source": "src/repro_torch/csrc/pack.cu",
+            "replaces": "src/repro/kernels/quant.py:158", "max_abs_err": 0.0,
+            "ms": time_ms(lambda: quant.fused_pack_quant_call(pieces, padded), 10),
+            "plain_ms": time_ms(lambda: quant.fused_pack_quant_plain(pieces, padded), 1,
+                                warmup=1),
+            # read every parameter tensor once, write the int8 blocks and scales
+            "bound_ms": (2 * n + padded + 4 * nb) / PEAK_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None},
+    }
+    del model, leaves, pieces, parts
+    free_memory()
+    return rows, counts
+
+
+# ---------------------------------------------------------------------------
+# 8. where the time goes
 # ---------------------------------------------------------------------------
 
 MATMUL_KEYS = ("gemm", "nvjet", "xmma", "cutlass", "cublas", "splitk")
@@ -498,6 +634,7 @@ SERVE_GROUPS = (("flash_attention", ("flash_attention_kernel",)),
 SERVE_RANGES = ("ssd_inter_chunk", "causal_conv1d")
 TRAIN_GROUPS = (("codec", ("amax_block_kernel", "quant_scaled_kernel",
                            "dequant_int8_kernel")),
+                ("pack", ("pack_slots_kernel",)),
                 ("matmul", MATMUL_KEYS))
 TRAIN_RANGES = ("grad_sync", "optimizer")
 
@@ -668,15 +805,16 @@ def attention_ms(dev, cfg) -> float:
     return fwd + time_ms(fwd_bwd, 5)
 
 
-def profile_training(dev, rt, smi: str) -> dict:
+def profile_training(dev, rt, smi: str, mode: str, codec: str | None,
+                     with_attention: bool) -> dict:
     """One full-width training step under torch.profiler, after one
-    warm-up step: device time by kernel group (the codec kernels, matmul,
-    the rest of the gradient sync, the optimizer, everything else) and
-    the device's idle share."""
+    warm-up step: device time by kernel group (the codec kernels, the
+    pack, matmul, the rest of the gradient sync, the optimizer,
+    everything else) and the device's idle share."""
     cfg = get_config(ARCH)
     model = Model(cfg, rt, dev)
     step_fn, init_fn = make_train_step(model, TrainConfig(
-        comm_mode="hier", dcn_compression="int8", opt=opt_lib.OptConfig(warmup_steps=20)))
+        comm_mode=mode, dcn_compression=codec, opt=opt_lib.OptConfig(warmup_steps=20)))
     opt = init_fn(0)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, global_batch=TRAIN_BATCH,
                       seq_len=TRAIN_SEQ)
@@ -689,37 +827,42 @@ def profile_training(dev, rt, smi: str) -> dict:
         step_fn(opt, b)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    out = _report(prof, wall, f"training step {TRAIN_BATCH}x{TRAIN_SEQ}", smi,
-                  TRAIN_GROUPS, TRAIN_RANGES)
+    out = _report(prof, wall, f"training step {TRAIN_BATCH}x{TRAIN_SEQ}, {mode} + {codec}",
+                  smi, TRAIN_GROUPS, TRAIN_RANGES)
     del model, opt, step_fn, init_fn
     free_memory()
+    if not with_attention:
+        return out
     out["attention_ms_timed_apart"] = attn = attention_ms(dev, cfg) * cfg.n_layers
     print(f"[profile] [{smi}] training attention, timed apart ({cfg.n_layers} layers x "
           f"(forward + forward/backward)): {attn:.3f} ms, inside matmul and other")
     return out
 
 
-def train_full_width(dev, smi: str) -> dict:
-    """The training main path; the launch counts are read just before
-    and just after it."""
+def train_full_width(dev, smi: str, mode: str, codec: str | None) -> dict:
+    """A training main path; the launch counts are set to 0 just before
+    it and read just after."""
     ops.reset_launch_counts()
-    res = train_launch.run(ARCH, steps=TRAIN_STEPS, mode="hier", compression="int8",
+    res = train_launch.run(ARCH, steps=TRAIN_STEPS, mode=mode, compression=codec,
                            global_batch=TRAIN_BATCH, seq=TRAIN_SEQ, device=dev,
                            log=lambda line: print(f"[train] {line}"))
     counts = ops.launch_counts()
+    want = train_kernels(mode, codec)
+    check(counts == {k: n * TRAIN_STEPS for k, n in want.items()},
+          f"{mode} launches {counts} over {TRAIN_STEPS} steps")
     for rec in res["records"]:
-        launched = {k: rec["launches"][k] for k in TRAIN_KERNELS}
-        check(launched == TRAIN_KERNELS, f"step {rec['step']} launches {launched}")
+        launched = {k: rec["launches"][k] for k in want}
+        check(launched == want, f"{mode} step {rec['step']} launches {launched}")
         check(math.isfinite(rec["loss"]) and math.isfinite(rec["gnorm"]),
               f"step {rec['step']}: loss {rec['loss']}, grad norm {rec['gnorm']}")
         check(not rec["gated"], f"step {rec['step']}: the finite gate tripped")
     check(res["params"] == 3_085_938_688, f"params {res['params']}")
     losses = [r["loss"] for r in res["records"]]
-    print(f"[train] [{smi}] {res['arch']} ({res['params']} params, bf16, 36 layers), hier + "
-          f"int8 over a pod and a data group of one, {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
+    print(f"[train] [{smi}] {res['arch']} ({res['params']} params, bf16, 36 layers), {mode} + "
+          f"{codec} over a pod and a data group of one, {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
           f"step {res['step_ms']:.3f} ms (median of steps 1-{TRAIN_STEPS - 1}), "
           f"{res['tokens_per_s']:.1f} tokens/s, peak memory {res['peak_mem_gb']:.3f} GB, "
-          f"losses {losses}; launches {counts} over {TRAIN_STEPS} steps")
+          f"losses {losses}; launches per step {want}")
     res["counts"] = counts
     return res
 
@@ -727,6 +870,7 @@ def train_full_width(dev, smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -740,7 +884,7 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
     lib = _build.library()
     print(f"[build] [{smi}] {len(_build.sources())} sources -> {lib.path.name} in "
-          f"{lib.build_seconds:.1f} s (one nvcc call, sm_90a)")
+          f"{lib.build_seconds:.1f} s (one nvcc per source, in parallel, sm_90a)")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = check_codec(dev, gen)
@@ -752,29 +896,42 @@ def main() -> int:
     train_launch.init_world(dev)        # a world of one: gloo for CPU, NCCL for CUDA
     try:
         rt = runtime_for_groups(pods=1, data_per_pod=1)
-        check_small_training(dev, rt)
+        for mode, codec in TRAIN_RUNS:
+            check_small_training(dev, rt, mode, codec)
         serve, serve_counts, serve_profile = {}, {}, {}
         for arch in (ARCH, SSM_ARCH):
             serve[arch], serve_counts[arch] = serve_full_width(dev, smi, arch)
             free_memory()
             serve_profile[arch] = profile_serving(dev, smi, arch)
             free_memory()
-        train = train_full_width(dev, smi)
-        free_memory()
-        n_segment = packing.aligned_size(train["params"], packing.comm_alignment(1, 4, 1024))
+        train = {}
+        for mode, codec in TRAIN_RUNS:
+            train[mode] = train_full_width(dev, smi, mode, codec)
+            free_memory()
+        peaks = ", ".join(f"{m} {r['peak_mem_gb']:.3f} GB" for m, r in train.items())
+        print(f"[train] [{smi}] peak memory by gradient sync: {peaks}")
+        n_segment = packing.aligned_size(train["hier"]["params"],
+                                         packing.comm_alignment(1, 4, 1024))
         codec_rows, deq = check_shared_codec(dev, gen, n_segment)
         rows.update(codec_rows)
         free_memory()
-        train_profile = profile_training(dev, rt, smi)
+        pack_rows, conformance_counts = check_pack(dev, gen, rt, smi)
+        rows.update(pack_rows)
+        free_memory()
+        train_profile = {mode: profile_training(dev, rt, smi, mode, codec,
+                                                with_attention=mode == "hier")
+                         for mode, codec in TRAIN_RUNS}
     finally:
         dist.destroy_process_group()
 
     rows["dequant_int8"]["int32_grad_segment"] = deq
+    paths = {"serve": serve_counts[ARCH], "serve_mamba2": serve_counts[SSM_ARCH],
+             **{f"train_{mode}": res["counts"] for mode, res in train.items()},
+             "conformance": conformance_counts}
     for name, row in rows.items():
-        row["paths"] = {"serve": serve_counts[ARCH][name],
-                        "serve_mamba2": serve_counts[SSM_ARCH][name],
-                        "train": train["counts"][name]}
+        row["paths"] = {path: counts[name] for path, counts in paths.items()}
         row["launches"] = sum(row["paths"].values())
+        check(row["launches"] > 0, f"{name} launched on no path")
         lib_ms = "-" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
         print(f"[time] [{smi}] {name}: {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, library {lib_ms} ms, "
@@ -786,10 +943,13 @@ def main() -> int:
         "ttft_ms", "decode_ms_per_step", "int8_transfer_ms", "peak_mem_gb",
         "int8_token_agreement", "cache_bytes", "params")} for arch, res in serve.items()},
         "serve_profile": serve_profile,
-        "train": {k: train[k] for k in ("step_ms", "tokens_per_s", "peak_mem_gb",
-                                         "global_batch", "seq", "params")},
-        "train_losses": [r["loss"] for r in train["records"]],
+        "train": {mode: {k: res[k] for k in ("compression", "step_ms", "tokens_per_s",
+                                              "peak_mem_gb", "global_batch", "seq", "params")}
+                  for mode, res in train.items()},
+        "train_losses": {mode: [r["loss"] for r in res["records"]]
+                         for mode, res in train.items()},
         "train_profile": train_profile, "card": smi}))
+    print(f"[time] chip_smoke: {time.perf_counter() - t_start:.1f} s from start to result")
     print(smi)
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -15,13 +15,15 @@ Where the reference names mesh axes, ``CommConfig`` holds groups; a
 their codec), while a real pod group of one member runs them, as an
 axis of size one does in the reference.
 
-Ported: the ``flat`` and ``hier`` schedules of the all-reduce (with the
-bf16 and int8 codecs and cluster weights) and the packed pytree entry
-point.  Every entry point consumes its input: buffers are reduced in
-place where the collective allows it.  The chunk pipeline (``hier_pipelined``), the
-border-communicator legs (``hier_border_rs``), the copy ring of the
-all-gather and the All2All steps raise ``NotImplementedError`` naming
-the slice that brings them.
+Ported: the ``flat``, ``hier``, ``hier_pipelined`` (the chunk loop of
+``core/pipelined.py``) and ``hier_border_rs`` (the border-communicator
+legs: a combining reduce-scatter, then an all-gather, over the pod
+group) schedules of the all-reduce, with the bf16 and int8 codecs (int8
+not with ``hier_border_rs``, as in the reference) and cluster weights,
+and the packed pytree entry point.  Every entry point consumes its
+input: buffers are reduced in place where the collective allows it.
+The raw-shard copy ring of the all-gather and the All2All steps raise
+``NotImplementedError`` naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-from . import compression, packing, primitives
+from . import compression, packing, pipelined, primitives
 from . import schedule as schedule_ir
 
 
@@ -41,7 +43,8 @@ class CommConfig:
     """How the gradient all-reduce is scheduled (see the reference's
     ``CommConfig``).
 
-    mode — a registered schedule mode; ``flat`` and ``hier`` run here.
+    mode — a registered schedule mode; ``flat``, ``hier``,
+      ``hier_pipelined`` and ``hier_border_rs`` run here.
     pod_group — the cluster group the C2C hop runs over (``None``: one
       cluster, no C2C hop).
     intra_group — the intra-cluster group of the start and end homColl
@@ -57,7 +60,7 @@ class CommConfig:
     pod_group: Any = None
     intra_group: Any = None
     dp_group: Any = None
-    n_chunks: int = 4
+    n_chunks: int = 4                   # pod-hop chunks of hier_pipelined
     compression: str | None = None
     cluster_weights: tuple[float, ...] | None = None
 
@@ -112,10 +115,22 @@ def _flat_psum(x: torch.Tensor, cfg: CommConfig) -> torch.Tensor:
 @dataclasses.dataclass
 class _ExecCtx:
     """Walk state: the pending wire codec (set by Compress, cleared by
-    Decompress) and the deferred cluster weight (set by Scale, consumed
-    by the combining C2C step on the shard or inside the codec)."""
+    Decompress), the pod-alignment padding the border exchange's two
+    legs round-trip, and the deferred cluster weight (set by Scale,
+    consumed by the combining C2C step on the shard or inside the
+    codec)."""
     codec: str | None = None
+    pod_pad: int = 0
     weight: torch.Tensor | None = None
+
+
+def _wire_cast(buf: torch.Tensor, codec: str | None, fn) -> torch.Tensor:
+    """Run collective ``fn`` with the payload cast to the wire codec: only
+    bf16 composes with a native collective (int8 rides its own ring in
+    ``compression.compressed_psum``)."""
+    if codec == "bf16":
+        return fn(buf.to(torch.bfloat16)).to(buf.dtype)
+    return fn(buf)
 
 
 def _not_ported(what: str, slice_: str):
@@ -157,10 +172,18 @@ def _exec_step(step: schedule_ir.Step, buf: torch.Tensor, cfg: CommConfig,
     if isinstance(step, schedule_ir.C2CRed):
         if pod is None:
             return buf
-        if step.scatter:
-            raise _not_ported("the border-communicator C2C legs", "hier_border_rs")
         buf = primitives.apply_inject(buf, "c2c")
         w, ctx.weight = ctx.weight, None
+        if step.scatter:
+            # border-communicator leg 1: a combining reduce-scatter over the
+            # pod group leaves each cluster owning 1/P of the shard
+            ctx.pod_pad = (-buf.numel()) % primitives.axis_size(pod)
+            if ctx.pod_pad:
+                buf = torch.cat([buf, buf.new_zeros(ctx.pod_pad)])
+            if w is not None:
+                buf = buf * w.to(device=buf.device, dtype=buf.dtype)
+            return _wire_cast(buf, ctx.codec,
+                              lambda b: primitives.hom_reduce_scatter(b, pod))
         if ctx.codec is not None:
             # the weight folds into the codec's nb-sized scale vector
             return compression.compressed_psum(buf, pod, ctx.codec, weight=w)
@@ -170,9 +193,20 @@ def _exec_step(step: schedule_ir.Step, buf: torch.Tensor, cfg: CommConfig,
     if isinstance(step, schedule_ir.C2CCpy):
         if pod is None:
             return buf
-        raise _not_ported("the C2C copy ring", "all-gather / hier_border_rs")
+        buf = primitives.apply_inject(buf, "c2c")
+        if not step.gather:
+            raise _not_ported("the raw-shard C2C copy ring (AllGatherH)",
+                              "ZeRO-1 / FSDP")
+        # border-communicator leg 2: gather the owned, fully reduced shards
+        # (already codec-rounded, so the wire cast is lossless here)
+        out = _wire_cast(buf, ctx.codec, lambda b: primitives.hom_all_gather(b, pod))
+        if ctx.pod_pad:
+            out = out[:-ctx.pod_pad]
+            ctx.pod_pad = 0
+        return out
     if isinstance(step, schedule_ir.ChunkLoop):
-        raise _not_ported("the chunk pipeline", "hier_pipelined")
+        w, ctx.weight = ctx.weight, None
+        return pipelined.execute_chunk_loop(step, buf, cfg, weight=w)
     if isinstance(step, schedule_ir.Flat):
         raise ValueError("Flat steps are handled by the entry points")
     if isinstance(step, (schedule_ir.IntraAll2All, schedule_ir.BorderExchange)):

@@ -8,9 +8,11 @@ and the int8 block codec all divide it).  Dtypes are named as the JAX
 package names them (``"bfloat16"``, ``"float32"``), so the two layouts
 compare equal.
 
-``pack`` writes each gradient leaf into a zero-initialised segment with
-``copy_`` into its slot's view (no concatenate); ``unpack`` returns
-views of the synced segments, shaped as the leaves.  A leaf is a tensor,
+``pack`` writes every gradient leaf of a segment, and zeros around them,
+into a new segment buffer with one ``kernels.quant.pack_slots_call``
+(one CUDA launch per segment on the card; on the CPU its plain version,
+``copy_`` into slot views of a zeroed buffer); ``unpack`` returns views
+of the synced segments, shaped as the leaves.  A leaf is a tensor,
 or a list of equal tensors that stands for their stack (the per-layer
 parameters of a model whose reference stacks a leading (L, ...) axis):
 its slot holds layer after layer, as the reference's stacked leaf does.
@@ -24,6 +26,8 @@ import dataclasses
 from typing import Callable, Sequence
 
 import torch
+
+from repro_torch.kernels import quant as _qk
 
 # Block granularity of the int8 wire codec (== kernels.quant.BLOCK;
 # duplicated as a plain int so the layout math stays importable without
@@ -246,21 +250,27 @@ def tree_metas(leaves) -> list[tuple[str, tuple, int]]:
     return metas
 
 
-def pack(layout: PackedLayout, leaves) -> dict[str, torch.Tensor]:
-    """Write ``leaves`` (in layout slot order) into one zero-initialised
-    buffer per segment, each leaf by ``copy_`` into its slot's view; the
-    zero tail pad sums away harmlessly downstream."""
-    device = leaf_parts(leaves[0])[0].device
-    out = {seg.dtype: torch.zeros((seg.padded,), dtype=_DTYPES[seg.dtype],
-                                  device=device)
-           for seg in layout.segments}
+def segment_pieces(layout: PackedLayout, leaves) -> dict[str, list]:
+    """(offset, tensor) of every leaf part, by segment: a list leaf's
+    layers follow each other in its slot."""
+    pieces: dict[str, list] = {seg.dtype: [] for seg in layout.segments}
     for sl, leaf in zip(layout.slots, leaves):
         off = sl.offset
         for part in leaf_parts(leaf):
-            n = part.numel()
-            out[sl.segment][off:off + n].view(part.shape).copy_(part)
-            off += n
-    return out
+            pieces[sl.segment].append((off, part))
+            off += part.numel()
+    return pieces
+
+
+def pack(layout: PackedLayout, leaves) -> dict[str, torch.Tensor]:
+    """Write ``leaves`` (in layout slot order) into one new buffer per
+    segment, each leaf part at its slot offset and zeros elsewhere (the
+    zero tail pad sums away harmlessly downstream).  The parts must be
+    contiguous on the card (``pack_slots_call`` refuses strided ones)."""
+    pieces = segment_pieces(layout, leaves)
+    return {seg.dtype: _qk.pack_slots_call(pieces[seg.dtype], seg.padded,
+                                           _DTYPES[seg.dtype])
+            for seg in layout.segments}
 
 
 def unpack(layout: PackedLayout, buffers: dict[str, torch.Tensor]) -> list:

@@ -40,39 +40,11 @@
 // f32 is exact, so the results are bit-equal to it).  Element indices are
 // 64-bit: the segment holds more than 2^31 values.
 
-#include "common.cuh"
+#include "codec.cuh"
 
 namespace {
 
-constexpr int kBlock = 1024;          // codec block (quant.py BLOCK)
-constexpr int kThreads = 256;
-constexpr int kPerThread = kBlock / kThreads;
-
-// |v| as the bits of a non-negative float: unsigned order is float order
-// there, and a NaN lies above inf, so an integer max keeps a NaN as jnp.max
-// does (fmaxf would drop it) at one instruction per element.
-__device__ __forceinline__ unsigned abs_bits(float v) {
-  return __float_as_uint(v) & 0x7fffffffu;
-}
-
-// Max of every thread's abs_bits over the block, as a float, in every thread.
-__device__ __forceinline__ float block_abs_max(unsigned m) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
-  __shared__ unsigned warp_max[kThreads / 32];
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
-  __syncthreads();
-  m = warp_max[0];
-#pragma unroll
-  for (int w = 1; w < kThreads / 32; ++w) m = max(m, warp_max[w]);
-  return __uint_as_float(m);
-}
-
-// clamp(rint(v / s), -127, 127), NaN -> 0
-__device__ __forceinline__ int8_t quantize(float v, float scale) {
-  const float r = rintf(__fdiv_rn(v, scale));
-  return r != r ? int8_t{0} : static_cast<int8_t>(fminf(fmaxf(r, -127.f), 127.f));
-}
+using namespace codec;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -89,7 +61,7 @@ quant_int8_kernel(const T* __restrict__ x, long long size,
   }
   const float amax = block_abs_max(bits);
 
-  const float scale = amax > 0.f ? __fmul_rn(amax, 1.0f / 127.0f) : 1.f;
+  const float scale = local_scale(amax);
 #pragma unroll
   for (int j = 0; j < kPerThread; ++j)
     q[base + j * kThreads + threadIdx.x] = quantize(v[j], scale);

@@ -21,10 +21,14 @@
 // caller adds y_off without a transpose) and states (b, nc, h, p, n) f32,
 // both contiguous.  s must be a multiple of q: the caller pads.
 //
-// Bound on this card: bytes.  At the mamba2-2.7b prefill (b 4, s 1024,
-// h 80, p 64, g 1, n 128, q 128, bf16) one call moves 213 MB (x, dt, B, C
-// read once, y_diag and states written once in f32): 0.064 ms at
-// 3.35 TB/s, against 21.5 GFLOP, 0.022 ms at the bf16 tensor-core peak.
+// Bound on this card.  At the mamba2-2.7b prefill (b 4, s 1024, h 80,
+// p 64, g 1, n 128, q 128) one call moves 213 MB (x, dt, B, C read once,
+// y_diag and states written once in f32): 0.0636 ms at 3.35 TB/s.  It
+// needs 8.14 GFLOP: C B^T once per (b, chunk, group) and the scores times
+// x once per head, each over the causal half (j <= i), and x^T (B w) once
+// per head.  So with bf16 inputs it is bound by bytes (8.2 us of work at
+// the 989 TFLOP/s tensor-core peak), and with f32 inputs by operations,
+// 0.1215 ms at 67 TFLOP/s (chip_smoke.ssd_bound_ms counts both).
 // This first version computes in f32 on the CUDA cores (67 TFLOP/s peak;
 // about 7.4 G FMA with the causal skip), so it is bound by its own
 // arithmetic and shared-memory traffic; wgmma and TMA are later work.

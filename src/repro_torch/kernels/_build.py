@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
-Every ``csrc/*.cu`` source goes through ONE ``nvcc`` call into a shared
-library with a plain C interface (no PyTorch headers, so the build takes
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library
+with a plain C interface (no PyTorch headers, so the build takes
 seconds, not minutes).  The library lands in ``build/kernels/`` at the
 root of the checkout, named by a hash of the sources and flags, so a
 changed source is rebuilt and an unchanged one is loaded as it is.
@@ -28,7 +29,7 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
 
 # dtype codes shared with csrc/common.cuh
 F32, BF16, INT8, INT32 = 0, 1, 2, 3
@@ -48,6 +49,10 @@ _SIGNATURES = {
     # q_offset, valid_kv, stream
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I]
     + [_LL] * 12 + [_F, _I, _I, _I, _I, _P],
+    # spans, n_spans, n_tiles, buf, buf_dtype, stream
+    "pack_slots_launch": [_P, _I, _LL, _P, _I, _P],
+    # spans, n_spans, n_blocks, q, s, stream
+    "fused_pack_quant_launch": [_P, _I, _LL, _P, _P, _P],
     # x, dt, A, B, C, dtype, y, states, batch, S, H, G, P, N, Q,
     # 12 strides (b, s, h|g for x, dt, B, C), stream
     "ssd_chunk_launch": [_P, _P, _P, _P, _P, _I, _P, _P] + [_I] * 7
@@ -95,27 +100,38 @@ class KernelLibrary:
         return getattr(self.lib, name)
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the output of each that
+    failed, once every one has ended."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> tuple[pathlib.Path, float]:
-    """Compile every source in one nvcc call unless the hashed library
-    exists.  Returns (library path, seconds spent building)."""
-    srcs = sources()
+    """Compile every source (one nvcc process each, in parallel) and link
+    them, unless the hashed library exists.  Returns (library path,
+    seconds spent building)."""
     out = BUILD_DIR / f"librepro_torch_kernels_{_digest()}.so"
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-        os.replace(tmp, out)   # atomic: a concurrent loader never sees half a file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(pathlib.Path(tmp) / f"{src.stem}.o") for src in sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                  for obj, src in zip(objs, sources())])
+        lib = str(pathlib.Path(tmp) / "lib.so")
+        _run_all([[nvcc, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)   # atomic: a concurrent loader never sees half a file
     return out, time.perf_counter() - t0
 
 

@@ -20,7 +20,9 @@ KERNELS = {"flash_attention_bhsd": _fa.flash_attention_bhsd,
            "dequant_int8": _q.dequant_int8_call,
            "amax_block": _q.amax_block_call,
            "quant_scaled": _q.quant_scaled_call,
-           "ssd_chunk": _ssd.ssd_chunk_call}
+           "ssd_chunk": _ssd.ssd_chunk_call,
+           "pack_slots": _q.pack_slots_call,
+           "fused_pack_quant": _q.fused_pack_quant_call}
 
 
 def launch_counts() -> dict[str, int]:

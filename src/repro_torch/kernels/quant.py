@@ -3,14 +3,17 @@ disaggregated KV-cache transfer and the shared-scale codec of the
 gradient sync.
 
 Symmetric int8 per 1024-element block with an f32 scale, as in the JAX
-package's ``kernels/quant.py``.  Each ``*_call`` launches its CUDA kernel
-of ``csrc/quant.cu`` for a tensor on the card and uses its plain version
-(``*_plain``) for a tensor on the CPU; each counts its kernel launches in
+package's ``kernels/quant.py``, and the packing of the gradient sync's
+comm buffer.  Each ``*_call`` launches its CUDA kernel (``csrc/quant.cu``,
+``csrc/pack.cu``) for tensors on the card and uses its plain version
+(``*_plain``) for tensors on the CPU; each counts its kernel launches in
 ``.launches``.  The shared-scale codec is two kernels: ``amax_block_call``
 (per-block max |x|, agreed across the pod group by the caller) and
 ``quant_scaled_call`` (quantize with that scale).  Every input is read
-as it is, bf16 or f32, with the ragged tail counted as zeros.  The
-packing kernels are not ported yet.
+as it is, bf16 or f32, with the ragged tail counted as zeros.
+``pack_slots_call`` writes leaves at their slot offsets into one padded
+buffer, zeros elsewhere; ``fused_pack_quant_call`` is that packing into
+f32 followed by ``quant_int8_call``, in one pass.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 from . import _build, ref
 
 BLOCK = 1024
+PACK_TILE = 8192      # elements one pack_slots block copies (csrc/pack.cu kTile)
 _CODES = {torch.float32: _build.F32, torch.bfloat16: _build.BF16,
           torch.int8: _build.INT8, torch.int32: _build.INT32}
 
@@ -166,3 +170,113 @@ def dequant_int8_call(q: torch.Tensor, s: torch.Tensor, size: int,
 
 
 dequant_int8_call.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Slot packing
+# ---------------------------------------------------------------------------
+
+def pack_slots_plain(pieces, padded: int, dtype=torch.float32) -> torch.Tensor:
+    """``pieces = [(offset, tensor), ...]`` -> one (padded,) buffer of
+    ``dtype`` holding each tensor, flattened, at its offset and zeros
+    elsewhere (``copy_`` into a zeroed buffer, casting as it copies)."""
+    buf = torch.zeros((padded,), dtype=dtype, device=pieces[0][1].device)
+    for off, t in pieces:
+        buf[off:off + t.numel()].view(t.shape).copy_(t)
+    return buf
+
+
+def fused_pack_quant_plain(pieces, padded: int):
+    """Pack into f32, then the local-scale codec: -> (q (padded/BLOCK,
+    BLOCK) int8, s (nb,) f32)."""
+    return quant_int8_plain(pack_slots_plain(pieces, padded, torch.float32))
+
+
+def _span_table(pieces, padded: int, what: str) -> tuple[torch.Tensor, int]:
+    """The kernels' table of spans covering [0, padded) once, in order:
+    (source address or 0, offset, length, first tile, source dtype code)
+    per row, int64, on the card; and the number of tiles.  The gaps and
+    the tail become null spans, written as zeros.  Copied through pinned
+    memory on the current stream, so the host does not wait."""
+    device = pieces[0][1].device
+    rows, pos, tiles = [], 0, 0
+
+    def span(src, off, n, code):
+        nonlocal tiles
+        rows.append((src, off, n, tiles, code))
+        tiles += -(-n // PACK_TILE)
+
+    for off, t in sorted(pieces, key=lambda p: p[0]):
+        if t.device != device:
+            raise ValueError(f"{what}: pieces on {device} and {t.device}")
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{what}: bf16 or f32 pieces, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: pieces must be contiguous (a strided "
+                             "piece is refused, not copied)")
+        if off < pos:
+            raise ValueError(f"{what}: the piece at {off} overlaps the one before")
+        if off > pos:
+            span(0, pos, off - pos, _CODES[torch.float32])
+        if t.numel():
+            span(t.data_ptr(), off, t.numel(), _CODES[t.dtype])
+        pos = off + t.numel()
+    if pos > padded:
+        raise ValueError(f"{what}: pieces end at {pos}, past the buffer's {padded}")
+    if pos < padded:
+        span(0, pos, padded - pos, _CODES[torch.float32])
+    table = torch.tensor(rows, dtype=torch.int64).pin_memory()
+    return table.to(device, non_blocking=True), tiles
+
+
+def pack_slots_call(pieces, padded: int, dtype=torch.float32) -> torch.Tensor:
+    """Write ``pieces = [(offset, tensor), ...]`` (bf16 or f32, each
+    contiguous, any shape) into one new (padded,) buffer of ``dtype``
+    (bf16 or f32) at their offsets, and zeros everywhere else, the tail
+    pad included: one launch for the whole buffer."""
+    if not pieces:
+        raise ValueError("pack_slots: no pieces")
+    device = pieces[0][1].device
+    if device.type == "cpu":
+        return pack_slots_plain(pieces, padded, dtype)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"pack_slots: bf16 or f32 buffer, got {dtype}")
+    table, tiles = _span_table(pieces, padded, "pack_slots")
+    buf = torch.empty((padded,), dtype=dtype, device=device)
+    err = _build.library().pack_slots_launch(
+        table.data_ptr(), table.shape[0], tiles, buf.data_ptr(), _CODES[dtype],
+        _build.stream_handle(device))
+    _build.check(err, "pack_slots")
+    pack_slots_call.launches += 1
+    return buf
+
+
+pack_slots_call.launches = 0
+
+
+def fused_pack_quant_call(pieces, padded: int):
+    """Pack ``pieces`` (as ``pack_slots_call``) into f32 and quantize with
+    the local scale in one pass: -> (q (padded/BLOCK, BLOCK) int8, s (nb,)
+    f32), bit-equal to ``quant_int8_call(pack_slots_call(pieces, padded))``.
+    ``padded`` must be a multiple of BLOCK."""
+    if not pieces:
+        raise ValueError("fused_pack_quant: no pieces")
+    if padded <= 0 or padded % BLOCK:
+        raise ValueError(f"fused_pack_quant: padded {padded} is not a positive "
+                         f"multiple of {BLOCK}")
+    device = pieces[0][1].device
+    if device.type == "cpu":
+        return fused_pack_quant_plain(pieces, padded)
+    table, _ = _span_table(pieces, padded, "fused_pack_quant")
+    nb = padded // BLOCK
+    q = torch.empty((nb, BLOCK), dtype=torch.int8, device=device)
+    s = torch.empty((nb,), dtype=torch.float32, device=device)
+    err = _build.library().fused_pack_quant_launch(
+        table.data_ptr(), table.shape[0], nb, q.data_ptr(), s.data_ptr(),
+        _build.stream_handle(device))
+    _build.check(err, "fused_pack_quant")
+    fused_pack_quant_call.launches += 1
+    return q, s
+
+
+fused_pack_quant_call.launches = 0

@@ -1,11 +1,15 @@
 """Data-parallel training with the HetCCL gradient sync.
 
     python -m repro_torch.launch.train --arch qwen2.5-3b --mode hier --compression int8
+    python -m repro_torch.launch.train --mode hier_pipelined --compression int8
+    python -m repro_torch.launch.train --mode hier_border_rs --compression bf16
     python -m repro_torch.launch.train --smoke --device cpu --steps 2
 
 Each process trains one replica on its slice of the global batch; the
-gradients meet through ``flat`` or ``hier`` (optionally bf16 or int8 on
-the pod hop).  The world and this process's rank come from the usual
+gradients meet through ``flat``, ``hier``, ``hier_pipelined`` (the pod
+hop in 4 chunks, as ``TrainConfig.n_chunks`` sets) or ``hier_border_rs``
+(optionally bf16, or int8 except with ``hier_border_rs``, on the pod
+hop).  The world and this process's rank come from the usual
 ``torch.distributed`` environment (``RANK``, ``WORLD_SIZE``,
 ``MASTER_ADDR``, ``MASTER_PORT``); a lone process makes its own world
 of one over an in-process store, whose pod and data groups are real
@@ -36,7 +40,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch.mesh import runtime_for_groups
 from repro_torch.models.model import Model, resolve_device
 from repro_torch.train.optimizer import OptConfig
-from repro_torch.train.train_step import TrainConfig, make_train_step
+from repro_torch.train.train_step import PORTED_MODES, TrainConfig, make_train_step
 
 
 def init_world(device: torch.device) -> bool:
@@ -124,7 +128,7 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", default="qwen2.5-3b")
     ap.add_argument("--smoke", action="store_true", help="the arch's small config")
     ap.add_argument("--steps", type=int, default=4)
-    ap.add_argument("--mode", default="hier", choices=["flat", "hier"])
+    ap.add_argument("--mode", default="hier", choices=list(PORTED_MODES))
     ap.add_argument("--compression", default=None, choices=["bf16", "int8"])
     ap.add_argument("--global-batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=1024)

@@ -12,7 +12,9 @@ served transfer.  For each variant it reports:
   prefill's own token is left out: every variant shares it).
 
 It prints one JSON line per variant, then a summary line with the raw
-first-step logits' RMS and median top-1/top-2 margin.
+first-step logits' RMS and median top-1/top-2 margin.  Every token
+choice and every logit statistic reads the real vocabulary only: the
+padded columns of the LM head are masked, as the served path masks them.
 
     python -m repro_torch.serve.int8_sensitivity --arch mamba2-2.7b   # on the GPU
     python -m repro_torch.serve.int8_sensitivity --smoke --device cpu
@@ -29,13 +31,16 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import quant
 from repro_torch.models.model import Model, resolve_device
 from repro_torch.serve.serve_step import make_kv_transfer, make_serve_steps
+from repro_torch.train.loss import sharded_argmax
 
 
 def _first_step(model, decode, tok, caches, gen: int):
-    """The first decode step's logits (B, V), then the greedy tokens of
-    ``gen`` steps (B, gen); ``caches`` is consumed."""
+    """The first decode step's logits over the real vocabulary (B, V),
+    then the greedy tokens of ``gen`` steps (B, gen); ``caches`` is
+    consumed."""
     logits, caches = model.apply_decode(tok, caches)
-    toks = [logits.argmax(-1)]
+    toks = [sharded_argmax(logits, model.rt, model.cfg.vocab_size)]
+    logits = logits[..., :model.cfg.vocab_size]
     for _ in range(gen - 1):
         t, caches = decode(toks[-1], caches)
         toks.append(t)
@@ -82,7 +87,9 @@ def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, batch: int = 4,
         variants["+".join(variant)] = {
             "leaf_rel_rms_err": leaf_err,
             "first_step_logit_rel_rms_err": _rel_rms(logits, raw_logits),
-            "first_step_flips": int((logits.argmax(-1) != raw_logits.argmax(-1)).sum()),
+            "first_step_flips": int((sharded_argmax(logits, model.rt, cfg.vocab_size)
+                                     != sharded_argmax(raw_logits, model.rt,
+                                                       cfg.vocab_size)).sum()),
             "decoded_token_agreement": (toks == raw_toks).float().mean().item()}
     return {"arch": cfg.name, "device": str(device), "batch": batch,
             "prompt_len": prompt_len, "gen": gen, "variants": variants,

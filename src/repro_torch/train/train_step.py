@@ -8,9 +8,16 @@ Communication modes (``TrainConfig.comm_mode``) ported here:
   hier  the paper's AllReduceH: ReduceScatter(intra) -> c2cRed(pod,
         optionally bf16 or int8 on the wire) -> AllGather(intra), over
         the packed gradient buffer (Alg. 1, Table 7).
+  hier_pipelined
+        hier with the pod hop and its codec cut into ``n_chunks`` chunks
+        of the shard, fill and drain peeled (§4.3.2, Fig. 9).
+  hier_border_rs
+        hier whose C2C hop is the border-communicator exchange (§4.3):
+        a combining reduce-scatter over the pod group, then an
+        all-gather of the owned shards; bf16 or no codec (int8 raises).
 
-The other modes of the reference (``hier_pipelined``, ``hier_border_rs``,
-``hier_overlap``, ``hier_zero1``, ``fsdp``) raise ``NotImplementedError``.
+The other modes of the reference (``hier_overlap``, ``hier_zero1``,
+``fsdp``) raise ``NotImplementedError``.
 
 Each process holds one replica of the model (``Model`` on its device)
 and its slice of the global batch.  The step updates the parameters and
@@ -37,14 +44,14 @@ from repro_torch.parallel.sharding import Runtime, group_size
 from . import loss as loss_lib
 from . import optimizer as opt_lib
 
-PORTED_MODES = ("flat", "hier")
+PORTED_MODES = ("flat", "hier", "hier_pipelined", "hier_border_rs")
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     comm_mode: str = "hier"
     dcn_compression: str | None = None  # None|bf16|int8 (pod hop only)
-    n_chunks: int = 4                   # aligns the packed layout as the reference does
+    n_chunks: int = 4                   # hier_pipelined's chunks; aligns the packed layout
     # per-pod gradient weights (mean 1 over pods) for an uneven batch split
     cluster_weights: tuple[float, ...] | None = None
     finite_gate: bool = True

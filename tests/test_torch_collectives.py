@@ -9,12 +9,15 @@
 * The schedule IR and the packed layout are copies: the same steps and
   the same slots, offsets and padded sizes.
 * ``hier_psum`` / ``tree_hier_psum`` on 4 gloo ranks (2 pods x 2 data)
-  against JAX on 4 virtual CPU devices, mesh (pod 2, data 2).  int8 is
-  bit-equal; f32 agrees within 1e-6 relative (of the largest value);
-  bf16 within one bf16 ulp of the summands' scale per two terms that one
-  collective sums (see ``bf16_ulps``).  Every rank holds the same
-  result.  The JAX side runs this file as a script in a subprocess with
-  4 host devices.
+  against JAX on 4 virtual CPU devices, mesh (pod 2, data 2), for
+  ``flat``, ``hier``, ``hier_pipelined`` (1, 2 and 4 chunks) and
+  ``hier_border_rs``.  int8 is bit-equal; f32 agrees within 1e-6
+  relative (of the largest value); bf16 within one bf16 ulp of the
+  summands' scale per two terms that one collective sums (see
+  ``bf16_ulps``).  Every rank holds the same result, and
+  ``hier_pipelined`` runs exactly k pod reductions for k chunks.  The
+  JAX side runs this file as a script in a subprocess with 4 host
+  devices.
 """
 
 import datetime
@@ -31,14 +34,22 @@ MODES = ("flat", "hier")
 CODECS = (None, "bf16", "int8")
 WEIGHTS = (None, (0.5, 1.5))
 DTYPES = ("f32", "bf16")
-CASES = [(m, c, w, d) for m in MODES for c in CODECS for w in WEIGHTS for d in DTYPES]
-TREE_CASES = [("hier", "int8"), ("hier", None), ("flat", None), ("hier", "bf16")]
+CHUNKS = (1, 2, 4)
+# (mode, codec, cluster weights, dtype, n_chunks)
+CASES = ([(m, c, w, d, 4) for m in MODES for c in CODECS for w in WEIGHTS for d in DTYPES]
+         + [("hier_pipelined", c, w, d, k) for k in CHUNKS for c in CODECS
+            for w in WEIGHTS for d in DTYPES]
+         + [("hier_border_rs", c, w, d, 4) for c in (None, "bf16") for w in WEIGHTS
+            for d in DTYPES])
+TREE_CASES = [("hier", "int8"), ("hier", None), ("flat", None), ("hier", "bf16"),
+              ("hier_pipelined", "int8"), ("hier_border_rs", "bf16")]
 WORLD = 4
 
 
 def case_id(case) -> str:
-    m, c, w, d = case
-    return f"{m}-{c}-{'w' if w else 'even'}-{d}"
+    m, c, w, d, k = case
+    chunks = f"-k{k}" if m == "hier_pipelined" else ""
+    return f"{m}{chunks}-{c}-{'w' if w else 'even'}-{d}"
 
 
 def rank_input(rank: int) -> np.ndarray:
@@ -75,9 +86,9 @@ def _jax_main(out_dir: str) -> None:
     xs = np.stack([rank_input(r) for r in range(WORLD)])
     res = {}
     for case in CASES:
-        mode, codec, w, dt = case
+        mode, codec, w, dt, k = case
         cfg = jcoll.CommConfig(mode=mode, pod_axis="pod", intra_axis="data",
-                               compression=codec, cluster_weights=w)
+                               n_chunks=k, compression=codec, cluster_weights=w)
         jdt = jnp.float32 if dt == "f32" else jnp.bfloat16
         fn = jax.jit(shard_map(lambda x, cfg=cfg: jcoll.hier_psum(x[0], cfg)[None],
                                mesh=mesh, in_specs=spec, out_specs=spec))
@@ -110,6 +121,8 @@ def _gloo_rank(rank: int, store_path: str, out_dir: str) -> None:
     import torch.distributed as dist
 
     from repro_torch.core import collectives as tcoll
+    from repro_torch.core import compression as tcomp
+    from repro_torch.core import primitives as tprim
     from repro_torch.launch.mesh import runtime_for_groups
 
     dist.init_process_group("gloo", store=dist.FileStore(store_path, WORLD),
@@ -118,16 +131,30 @@ def _gloo_rank(rank: int, store_path: str, out_dir: str) -> None:
     try:
         rt = runtime_for_groups(pods=2, data_per_pod=2)
         res = {}
+        # count the pod reductions: the int8 reduce ring, or the native
+        # all-reduce over the pod group
+        pod_reductions = [0]
+
+        def counted(fn):
+            def wrapped(*args, **kwargs):
+                pod_reductions[0] += 1
+                return fn(*args, **kwargs)
+            return wrapped
+
+        tcomp._ring_int8_sum = counted(tcomp._ring_int8_sum)
+        tprim.c2c_red = counted(tprim.c2c_red)
         x = torch.from_numpy(rank_input(rank))
         for case in CASES:
-            mode, codec, w, dt = case
+            mode, codec, w, dt, k = case
             cfg = tcoll.CommConfig(mode=mode, pod_group=rt.pod_group,
                                    intra_group=rt.data_group, dp_group=rt.dp_group,
-                                   compression=codec, cluster_weights=w)
+                                   n_chunks=k, compression=codec, cluster_weights=w)
             xt = x.clone() if dt == "f32" else x.to(torch.bfloat16)   # consumed
+            pod_reductions[0] = 0
             out = tcoll.hier_psum(xt, cfg)
             assert out.dtype == xt.dtype and out.shape == xt.shape
             res[case_id(case)] = out.float().numpy()
+            res[f"pod-reductions-{case_id(case)}"] = np.array(pod_reductions[0])
         t = rank_tree(rank)
         for mode, codec in TREE_CASES:
             cfg = tcoll.CommConfig(mode=mode, pod_group=rt.pod_group,
@@ -311,8 +338,13 @@ def test_compressed_psum_one_rank(codec, w, dt):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("codec", CODECS)
-@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("mode", MODES + ("hier_pipelined", "hier_border_rs"))
 def test_build_schedule_is_the_reference(mode, codec):
+    if (mode, codec) == ("hier_border_rs", "int8"):
+        for sched in (jsched, tsched):
+            with pytest.raises(ValueError, match="int8"):
+                sched.build_schedule("all_reduce", mode, 4, codec)
+        return
     for wrap in (lambda s: s, "with_cluster_scale", "with_packing"):
         j = jsched.build_schedule("all_reduce", mode, 4, codec)
         t = tsched.build_schedule("all_reduce", mode, 4, codec)
@@ -335,9 +367,10 @@ def test_comm_layout_matches_reference(codec, world):
 
 
 def test_unported_modes_raise():
-    cfg = tcoll.CommConfig(mode="hier_pipelined", pod_group=object(), n_chunks=2)
-    with pytest.raises(NotImplementedError, match="hier_pipelined"):
-        tcoll.hier_psum(torch.ones(8), cfg)
+    """AllGatherH's raw-shard copy ring is not on a ported path yet."""
+    cfg = tcoll.CommConfig(mode="hier", pod_group=object())
+    with pytest.raises(NotImplementedError, match="ZeRO-1"):
+        tcoll._exec_step(tsched.C2CCpy("c2c"), torch.ones(8), cfg, tcoll._ExecCtx())
 
 
 # ---------------------------------------------------------------------------
@@ -410,14 +443,26 @@ def _assert_agree(got: np.ndarray, want: np.ndarray, codec, dt: str,
 @pytest.mark.parametrize("case", CASES, ids=case_id)
 def test_hier_psum_four_ranks_match_jax(four_ranks, case):
     jres, ranks = four_ranks
-    mode, codec, w, dt = case
+    mode, codec, w, dt, _ = case
     want = jres[case_id(case)]
     weights = w if w is not None else (1.0, 1.0)
     magnitude = sum(abs(weights[r // 2] * rank_input(r)) for r in range(WORLD))
     for r in range(WORLD):
         np.testing.assert_array_equal(ranks[r][case_id(case)], ranks[0][case_id(case)])
         _assert_agree(ranks[r][case_id(case)], want[r],
-                      codec if mode == "hier" else None, dt, magnitude, bf16_ulps(mode))
+                      None if mode == "flat" else codec, dt, magnitude, bf16_ulps(mode))
+
+
+@pytest.mark.parametrize("k", CHUNKS)
+@pytest.mark.parametrize("codec", CODECS)
+def test_pipelined_runs_k_pod_reductions(four_ranks, codec, k):
+    """The fill and the drain are peeled: k chunks make exactly k pod
+    reductions (int8 reduce rings, or all-reduces over the pod group)."""
+    _, ranks = four_ranks
+    for case in CASES:
+        if case[:2] == ("hier_pipelined", codec) and case[4] == k:
+            for r in range(WORLD):
+                assert int(ranks[r][f"pod-reductions-{case_id(case)}"]) == k
 
 
 @pytest.mark.parametrize("tcase", TREE_CASES, ids=lambda c: "-".join(map(str, c)))

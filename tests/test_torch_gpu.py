@@ -6,7 +6,8 @@ file imports no JAX, so it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 The int8 codecs (local-scale and shared-scale) are bit-equal, NaN and
-infinite blocks included (a NaN scale or amax in the same place); flash
+infinite blocks included (a NaN scale or amax in the same place); slot
+packing and fused pack+quantize are bit-equal, past 2^31 elements too; flash
 attention agrees within
 tests/test_kernels.py's tolerances (f32 2e-3, bf16 3e-2); the SSD chunk
 within 1e-4 of its plain output's largest magnitude (f32 arithmetic in
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import packing
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant as tquant
@@ -97,6 +99,84 @@ def test_quant_scaled_ties_and_clipping(cuda):
     assert q[1].abs().eq(127).all()
 
 
+def _leaves(dev, dt):
+    """A gradient tree's leaves: 16-byte-aligned and ragged sizes, a list
+    leaf (per-layer tensors standing for their stack), a scalar."""
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def r(*shape):
+        return torch.randn(shape, device=dev, generator=g).to(TDT[dt])
+
+    return [r(64, 32), [r(129) for _ in range(3)], r(5), r(2048), r(), r(37, 11)]
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_pack_vs_plain(cuda, dt):
+    """``packing.pack`` launches pack_slots once per segment on the card and
+    gives the bits of the plain pack on the CPU; the tail pad is zero."""
+    leaves = _leaves(cuda, dt)
+    layout = packing.plan_layout(packing.tree_metas(leaves), world=4, n_chunks=4,
+                                 block=1024)
+    before = tquant.pack_slots_call.launches
+    got = packing.pack(layout, leaves)
+    cpu = [[p.cpu() for p in lf] if isinstance(lf, list) else lf.cpu() for lf in leaves]
+    want = packing.pack(layout, cpu)
+    torch.cuda.synchronize()
+    assert tquant.pack_slots_call.launches == before + len(layout.segments)
+    for seg in layout.segments:
+        assert torch.equal(got[seg.dtype].cpu(), want[seg.dtype])
+        assert not got[seg.dtype][seg.used:].any()
+
+
+@pytest.mark.parametrize("src, dst", [("f32", "bf16"), ("bf16", "f32")])
+def test_pack_slots_casts_as_copy_does(cuda, src, dst):
+    pieces = [(3, torch.randn(1000, device=cuda).to(TDT[src]) * 7),
+              (2000, torch.randn(40, 50, device=cuda).to(TDT[src]))]
+    got = tquant.pack_slots_call(pieces, 8192, TDT[dst])
+    assert torch.equal(got, tquant.pack_slots_plain(pieces, 8192, TDT[dst]))
+
+
+def test_pack_slots_past_2_31(cuda):
+    """An aligned piece that ends just under 2^31, a gap, a misaligned
+    piece past 2^31 and the tail pad: the 64-bit vector and element paths."""
+    n0 = 2 ** 31 - 1000
+    big = torch.empty(n0, dtype=torch.bfloat16, device=cuda)
+    for c0 in range(0, n0, 1 << 28):
+        big[c0:c0 + (1 << 28)] = torch.randn(min(1 << 28, n0 - c0), device=cuda)
+    tail = torch.randn(4099, device=cuda).to(torch.bfloat16)
+    padded = packing.aligned_size(n0 + 3 + tail.numel(), 4096)
+    pieces = [(0, big), (n0 + 3, tail)]
+    got = tquant.pack_slots_call(pieces, padded, torch.bfloat16)
+    assert torch.equal(got[:n0], big)
+    assert not got[n0:n0 + 3].any() and not got[n0 + 3 + tail.numel():].any()
+    assert torch.equal(got[n0 + 3:n0 + 3 + tail.numel()], tail)
+
+
+def test_pack_slots_refuses_strided_and_overlapping_pieces(cuda):
+    x = torch.randn(64, 64, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        tquant.pack_slots_call([(0, x.t())], 8192)
+    with pytest.raises(ValueError, match="overlaps"):
+        tquant.pack_slots_call([(0, x), (4000, x)], 8192)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_fused_pack_quant_vs_plain_and_composition(cuda, dt):
+    """Blocks and scales bit-equal to the plain version and to pack ->
+    quant_int8 on the card, a ragged leaf and an all-zero block included."""
+    leaves = _leaves(cuda, dt)
+    leaves.append(torch.zeros(2048 + 257, dtype=TDT[dt], device=cuda))
+    layout = packing.plan_layout(packing.tree_metas(leaves), world=1, block=1024)
+    seg = layout.segments[0]
+    pieces = packing.segment_pieces(layout, leaves)[seg.dtype]
+    q, s = tquant.fused_pack_quant_call(pieces, seg.padded)
+    pq, ps = tquant.fused_pack_quant_plain(pieces, seg.padded)
+    cq, cs = tquant.quant_int8_call(tquant.pack_slots_call(pieces, seg.padded, TDT[dt]))
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+    assert torch.equal(q, cq) and torch.equal(s, cs)
+    assert (s == 1.0).any()                       # the all-zero block
+
+
 FLASH_CASES = [
     # (B, Sq, Skv, H, K, dh, causal, window, dtype, tol)
     (4, 1024, 1024, 16, 2, 128, True, None, "bf16", 3e-2),
@@ -158,6 +238,7 @@ SSD_CASES = [
     # p = 100, n = 16 (shape only) and the mamba2-2.7b prefill's shape
     (2, 256, 4, 32, 1, 64, 64, "f32"),
     (1, 128, 2, 64, 2, 32, 32, "f32"),
+    (1, 128, 8, 32, 2, 32, 32, "f32"),       # h / (H/G) differs from h % G
     (1, 256, 8, 64, 1, 128, 128, "f32"),
     (2, 128, 4, 32, 1, 64, 64, "bf16"),
     (2, 256, 4, 100, 1, 16, 128, "bf16"),

@@ -117,7 +117,52 @@ def test_cpu_tensors_take_the_plain_version():
     tquant.dequant_int8_call(q, torch.ones(2), 2048)
     qkv = torch.randn(1, 2, 130, 64)
     tfa.flash_attention_bhsd(qkv, qkv, qkv)
+    tquant.pack_slots_call([(3, x)], 4096)
+    tquant.fused_pack_quant_call([(3, x)], 4096)
     assert tops.launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# slot packing, alone and fused with the int8 codec
+# ---------------------------------------------------------------------------
+
+# leaf sizes: ragged ones, a 2048 (whole blocks), a scalar, an all-zero leaf
+PACK_SHAPES = [(300, 7), (129,), (5,), (2048,), (), (37, 11), (2048 + 257,)]
+
+
+def _pack_pieces(dt: str, padded_block: int):
+    """The same leaves as (offset, JAX array) and (offset, torch tensor)
+    pieces of one padded segment."""
+    rng = np.random.default_rng(11)
+    arrays = [rng.normal(size=shape) * 3 for shape in PACK_SHAPES]
+    arrays[-1][:] = 0.0
+    pairs = [_pair(a, dt) for a in arrays]
+    offs = np.cumsum([0] + [a.size for a in arrays])
+    padded = -(-int(offs[-1]) // padded_block) * padded_block
+    return ([(int(o), j) for o, (j, _) in zip(offs, pairs)],
+            [(int(o), t) for o, (_, t) in zip(offs, pairs)], padded)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_pack_slots_bit_equal(dt):
+    jpieces, tpieces, padded = _pack_pieces(dt, 4096)
+    want = jquant.pack_slots_call(jpieces, padded, JDT[dt], interpret=True)
+    got = tquant.pack_slots_call(tpieces, padded, TDT[dt])
+    assert got.dtype == TDT[dt] and got.shape == (padded,)
+    np.testing.assert_array_equal(_np(got), np.asarray(jnp.asarray(want, jnp.float32)))
+    assert not got[sum(t.numel() for _, t in tpieces):].any()
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_fused_pack_quant_bit_equal(dt):
+    """Blocks bit-equal; scales equal too (the Pallas kernel in interpret
+    mode computes amax * f32(1/127) as the port does, ROADMAP.md R6)."""
+    jpieces, tpieces, padded = _pack_pieces(dt, 1024)
+    jq, js = jquant.fused_pack_quant_call(jpieces, padded, interpret=True)
+    q, s = tquant.fused_pack_quant_call(tpieces, padded)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    assert (s == 1.0).any()                       # an all-zero block
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,7 @@ from repro_torch.convert import params_from_jax, to_tensor
 from repro_torch.kernels import quant as tquant
 from repro_torch.launch.mesh import runtime_for_groups
 from repro_torch.models.attention import KVCache
+from repro_torch.models.model import Model
 from repro_torch.parallel.sharding import Runtime
 from repro_torch.serve import disaggregated, int8_sensitivity
 from repro_torch.serve.serve_step import (kv_transfer_body, make_kv_transfer,
@@ -197,6 +198,31 @@ def test_int8_sensitivity_smoke_on_cpu(arch, leaves):
         assert 0 <= v["first_step_flips"] <= 2
         assert 0.0 <= v["decoded_token_agreement"] <= 1.0
     assert res["raw_logit_rms"] > 0 and res["raw_top2_margin_median"] >= 0
+
+
+def test_int8_sensitivity_reads_only_the_real_vocab(monkeypatch):
+    """mamba2-2.7b pads its vocabulary (50280 to 50304).  With a smoke
+    config whose vocabulary pads too (250 to 256), and the padded columns
+    made the largest logits, no token that the tool feeds to decode and
+    no logit statistic it reports comes from a padded column."""
+    cfg = dataclasses.replace(get_config("mamba2-2.7b", smoke=True), vocab_size=250)
+    assert cfg.padded_vocab(1) == 256
+    monkeypatch.setattr(int8_sensitivity, "get_config", lambda arch, smoke=False: cfg)
+    fed = []
+    real_decode = Model.apply_decode
+
+    def apply_decode(self, token, caches):
+        fed.append(int(token.max()))
+        logits, caches = real_decode(self, token, caches)
+        padded = torch.arange(logits.shape[-1]) >= cfg.vocab_size
+        return torch.where(padded, 1e4, logits), caches
+
+    monkeypatch.setattr(Model, "apply_decode", apply_decode)
+    res = int8_sensitivity.run("mamba2-2.7b", smoke=True, batch=2, prompt_len=130,
+                               gen=3, device="cpu")
+    assert fed and max(fed) < cfg.vocab_size
+    assert 0 < res["raw_top2_margin_median"] and res["raw_logit_rms"] < 1e3
+    assert all(v["first_step_logit_rel_rms_err"] < 0.1 for v in res["variants"].values())
 
 
 _IMPORT_CHECK = """

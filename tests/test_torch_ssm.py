@@ -48,10 +48,12 @@ DT = {"f32": (jnp.float32, torch.float32, F32_TOL),
       "bf16": (jnp.bfloat16, torch.bfloat16, BF16_TOL)}
 JDT = {jnp.float32: "f32", jnp.bfloat16: "bf16"}
 
-# tests/test_kernels.py:46-52: (b, s, h, p, g, n, chunk, dtype)
+# tests/test_kernels.py:46-52: (b, s, h, p, g, n, chunk, dtype), then
+# G = 2, H = 8: head h reads group h // (H / G), which h % G would not give
 SSD_CASES = [
     (2, 256, 4, 32, 1, 64, 64, jnp.float32),
     (1, 128, 2, 64, 2, 32, 32, jnp.float32),
+    (1, 128, 8, 32, 2, 32, 32, jnp.float32),
     (1, 256, 8, 64, 1, 128, 128, jnp.float32),
     (2, 128, 4, 32, 1, 64, 64, jnp.bfloat16),
 ]

@@ -4,10 +4,11 @@
   against the reference's ``make_train_step(mesh=None)`` from the same
   f32 parameters and batches: losses and grad norms within 1e-4
   relative, parameters within 1e-4.
-* Four gloo ranks (2 pods x 2 data), ``hier`` with int8 on the pod hop,
-  against the reference on a 4-device (pod 2, data 2) mesh: losses
-  within 1e-3 over three steps.  The JAX side runs this file as a
-  script with 4 host devices.
+* Four gloo ranks (2 pods x 2 data) against the reference on a 4-device
+  (pod 2, data 2) mesh, for ``hier`` and ``hier_pipelined`` with int8 on
+  the pod hop and ``hier_border_rs`` with bf16: losses within 1e-3 over
+  three steps.  The JAX side runs this file as a script with 4 host
+  devices.
 * Chunked training attention (forward and gradient) against the
   reference's ``chunked_attention``: within 1e-5.
 * The synthetic data is the reference's token stream, bit for bit.
@@ -28,6 +29,8 @@ import numpy as np
 
 GB, S, N_STEPS, WORLD = 4, 32, 3, 4
 LR, WARMUP = 1e-2, 1
+# (comm mode, pod-hop codec) of the four-rank runs
+FOUR_RANK_CASES = [("hier", "int8"), ("hier_pipelined", "int8"), ("hier_border_rs", "bf16")]
 
 
 def batch(step: int, vocab: int) -> dict:
@@ -70,17 +73,19 @@ def _jax_main(out_dir: str) -> None:
     mesh = jax.make_mesh((2, 2), ("pod", "data"))
     cfg = dataclasses.replace(jax_config("qwen2.5-3b", smoke=True), dtype=jax.numpy.float32)
     model = JaxModel(cfg, runtime_for_mesh(mesh))
-    tcfg = JaxTrainConfig(comm_mode="hier", dcn_compression="int8",
-                          opt=JaxOpt(lr=LR, warmup_steps=WARMUP))
-    build, init = jax_train_step(model, tcfg, mesh=mesh)
-    params, opt = init(jax.random.key(0))
-    step, _ = build(jax.tree.map(lambda p: jax.ShapeDtypeStruct(p.shape, p.dtype), params))
-    losses = []
-    for i in range(N_STEPS):
-        b = {k: jax.numpy.asarray(v) for k, v in batch(i, cfg.vocab_size).items()}
-        params, opt, m = step(params, opt, b)
-        losses.append(float(m["loss"]))
-    np.save(os.path.join(out_dir, "jax_losses.npy"), np.asarray(losses))
+    for mode, codec in FOUR_RANK_CASES:
+        tcfg = JaxTrainConfig(comm_mode=mode, dcn_compression=codec,
+                              opt=JaxOpt(lr=LR, warmup_steps=WARMUP))
+        build, init = jax_train_step(model, tcfg, mesh=mesh)
+        params, opt = init(jax.random.key(0))
+        step, _ = build(jax.tree.map(lambda p: jax.ShapeDtypeStruct(p.shape, p.dtype),
+                                     params))
+        losses = []
+        for i in range(N_STEPS):
+            b = {k: jax.numpy.asarray(v) for k, v in batch(i, cfg.vocab_size).items()}
+            params, opt, m = step(params, opt, b)
+            losses.append(float(m["loss"]))
+        np.save(os.path.join(out_dir, f"jax_losses_{mode}_{codec}.npy"), np.asarray(losses))
 
 
 def _gloo_rank(rank: int, store_path: str, out_dir: str) -> None:
@@ -100,21 +105,23 @@ def _gloo_rank(rank: int, store_path: str, out_dir: str) -> None:
     try:
         rt = runtime_for_groups(pods=2, data_per_pod=2)
         cfg = dataclasses.replace(get_config("qwen2.5-3b", smoke=True), dtype=torch.float32)
-        model = params_from_jax(_nest(np.load(os.path.join(out_dir, "params.npz"))),
-                                cfg, rt, device="cpu")
-        step_fn, _ = make_train_step(model, TrainConfig(
-            comm_mode="hier", dcn_compression="int8",
-            opt=opt_lib.OptConfig(lr=LR, warmup_steps=WARMUP)))
-        opt = opt_lib.adam_init(opt_lib.flat_params(model.train_leaves())[0])
+        params = _nest(np.load(os.path.join(out_dir, "params.npz")))
         rows = slice(rank * GB // WORLD, (rank + 1) * GB // WORLD)
-        losses = []
-        for i in range(N_STEPS):
-            b = {k: torch.from_numpy(v[rows]).long()
-                 for k, v in batch(i, cfg.vocab_size).items()}
-            m = step_fn(opt, b)
-            assert not m["gated"]
-            losses.append(m["loss"])
-        np.save(os.path.join(out_dir, f"rank{rank}_losses.npy"), np.asarray(losses))
+        for mode, codec in FOUR_RANK_CASES:
+            model = params_from_jax(params, cfg, rt, device="cpu")
+            step_fn, _ = make_train_step(model, TrainConfig(
+                comm_mode=mode, dcn_compression=codec,
+                opt=opt_lib.OptConfig(lr=LR, warmup_steps=WARMUP)))
+            opt = opt_lib.adam_init(opt_lib.flat_params(model.train_leaves())[0])
+            losses = []
+            for i in range(N_STEPS):
+                b = {k: torch.from_numpy(v[rows]).long()
+                     for k, v in batch(i, cfg.vocab_size).items()}
+                m = step_fn(opt, b)
+                assert not m["gated"]
+                losses.append(m["loss"])
+            np.save(os.path.join(out_dir, f"rank{rank}_losses_{mode}_{codec}.npy"),
+                    np.asarray(losses))
     finally:
         dist.destroy_process_group()
 
@@ -187,7 +194,11 @@ def test_train_step_one_process_matches_jax():
         np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=1e-4)
 
 
-def test_train_step_four_ranks_hier_int8_matches_jax(tmp_path):
+@pytest.fixture(scope="module")
+def four_rank_losses(tmp_path_factory):
+    """Every case of FOUR_RANK_CASES on 4 gloo ranks and in JAX on 4 host
+    devices: the directory of their losses."""
+    tmp_path = tmp_path_factory.mktemp("four_rank_training")
     _, _, params = _jax_setup()
     np.savez(tmp_path / "params.npz", **_flat_tree(jax.tree.map(np.asarray, params)))
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
@@ -213,9 +224,14 @@ def test_train_step_four_ranks_hier_int8_matches_jax(tmp_path):
             jax_proc.wait(timeout=10)
     assert jax_proc.returncode == 0, jax_out.decode()[-3000:]
     assert [p.exitcode for p in procs] == [0] * WORLD
-    want = np.load(tmp_path / "jax_losses.npy")
+    return tmp_path
+
+
+@pytest.mark.parametrize("mode, codec", FOUR_RANK_CASES)
+def test_train_step_four_ranks_hier_int8_matches_jax(four_rank_losses, mode, codec):
+    want = np.load(four_rank_losses / f"jax_losses_{mode}_{codec}.npy")
     for r in range(WORLD):
-        got = np.load(tmp_path / f"rank{r}_losses.npy")
+        got = np.load(four_rank_losses / f"rank{r}_losses_{mode}_{codec}.npy")
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
 
 
@@ -258,11 +274,12 @@ def test_unported_comm_mode_raises():
         make_train_step(tm, TrainConfig(comm_mode="hier_zero1"))
 
 
-def test_entry_point_smoke_on_cpu():
+@pytest.mark.parametrize("mode", ["hier", "hier_pipelined"])
+def test_entry_point_smoke_on_cpu(mode):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), GLOO_SOCKET_IFNAME="lo")
     res = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--smoke",
                           "--device", "cpu", "--steps", "2", "--seq", "32",
-                          "--compression", "int8"],
+                          "--mode", mode, "--compression", "int8"],
                          env=env, capture_output=True, text=True, timeout=180)
     assert res.returncode == 0, res.stdout + res.stderr
     lines = [json.loads(line) for line in res.stdout.splitlines()]
@@ -270,7 +287,19 @@ def test_entry_point_smoke_on_cpu():
     assert [s["step"] for s in steps] == [0, 1]
     assert all(np.isfinite(s["loss"]) and np.isfinite(s["gnorm"]) and not s["gated"]
                for s in steps)
-    assert summary["world"] == 1 and summary["mode"] == "hier"
+    assert summary["world"] == 1 and summary["mode"] == mode
+
+
+def test_entry_point_refuses_border_rs_with_int8():
+    """As in the reference: the int8 ring does not compose with the border
+    exchange's reduce-scatter."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), GLOO_SOCKET_IFNAME="lo")
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+                          "--device", "cpu", "--steps", "1", "--seq", "32",
+                          "--mode", "hier_border_rs", "--compression", "int8"],
+                         env=env, capture_output=True, text=True, timeout=180)
+    assert res.returncode != 0
+    assert "hier_border_rs supports only lossless/bf16 wire codecs" in res.stderr
 
 
 def test_entry_point_needs_cuda_unless_told_cpu(monkeypatch):
