@@ -29,10 +29,8 @@ import torch
 
 from repro_torch.kernels import quant as _qk
 
-# Block granularity of the int8 wire codec (== kernels.quant.BLOCK;
-# duplicated as a plain int so the layout math stays importable without
-# jax — tests assert the two constants agree).
-DEFAULT_BLOCK = 1024
+# Block granularity of the int8 wire codec.
+DEFAULT_BLOCK = _qk.BLOCK
 
 _ITEMSIZE = {
     "float32": 4, "float64": 8, "bfloat16": 2, "float16": 2,

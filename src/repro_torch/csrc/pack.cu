@@ -20,7 +20,7 @@
 // pack_slots is bound by bytes: each source read once, the buffer written
 // once.  At qwen2.5-3b one bf16 segment of 3,085,938,688 values: 6.17 GB
 // read and 6.17 GB written, 3.68 ms at 3.35 TB/s.  A block copies one tile
-// of 8192 elements of one span, so no tile straddles two spans and a block
+// of one span (the wrapper passes the tile's length with the table), so no tile straddles two spans and a block
 // finds its span with one binary search over the first-tile column.  Where
 // the tile's source and destination are both 16-byte aligned and of one
 // dtype (the common case: the port's segments share their leaves' dtype) it
@@ -56,7 +56,6 @@ struct Span {
 };
 static_assert(sizeof(Span) == 40, "a table row is five int64");
 
-constexpr long long kTile = 8192;     // elements per pack_slots block (quant.py PACK_TILE)
 constexpr int kPackThreads = 256;
 
 // Element i of a bf16 or f32 source, as f32 (bf16 widens exactly).
@@ -67,7 +66,8 @@ __device__ __forceinline__ float load_float(const void* src, long long dtype, lo
 
 template <typename OT>
 __global__ void __launch_bounds__(kPackThreads)
-pack_slots_kernel(const Span* __restrict__ spans, int n_spans, OT* __restrict__ buf) {
+pack_slots_kernel(const Span* __restrict__ spans, int n_spans, long long tile_len,
+                  OT* __restrict__ buf) {
   __shared__ int span_idx;
   const long long tile = blockIdx.x;
   if (threadIdx.x == 0) {
@@ -80,8 +80,8 @@ pack_slots_kernel(const Span* __restrict__ spans, int n_spans, OT* __restrict__ 
   }
   __syncthreads();
   const Span sp = spans[span_idx];
-  const long long start = (tile - sp.tile0) * kTile;
-  const long long count = min(kTile, sp.n - start);
+  const long long start = (tile - sp.tile0) * tile_len;
+  const long long count = min(tile_len, sp.n - start);
   OT* out = buf + sp.dst + start;
   if (sp.src == 0) {
     for (long long i = threadIdx.x; i < count; i += kPackThreads) out[i] = from_float<OT>(0.f);
@@ -144,17 +144,19 @@ fused_pack_quant_kernel(const Span* __restrict__ spans, int n_spans,
 }  // namespace
 
 extern "C" int pack_slots_launch(const void* spans, int n_spans, long long n_tiles,
-                                 void* buf, int buf_dtype, void* stream) {
-  if (n_spans <= 0 || n_tiles <= 0 || n_tiles > 0x7fffffffll) return kRefused;
+                                 long long tile_len, void* buf, int buf_dtype,
+                                 void* stream) {
+  if (n_spans <= 0 || n_tiles <= 0 || n_tiles > 0x7fffffffll || tile_len <= 0)
+    return kRefused;
   auto st = static_cast<cudaStream_t>(stream);
   const auto* table = static_cast<const Span*>(spans);
   const unsigned grid = static_cast<unsigned>(n_tiles);
   if (buf_dtype == kF32) {
     pack_slots_kernel<float><<<grid, kPackThreads, 0, st>>>(
-        table, n_spans, static_cast<float*>(buf));
+        table, n_spans, tile_len, static_cast<float*>(buf));
   } else if (buf_dtype == kBF16) {
     pack_slots_kernel<__nv_bfloat16><<<grid, kPackThreads, 0, st>>>(
-        table, n_spans, static_cast<__nv_bfloat16*>(buf));
+        table, n_spans, tile_len, static_cast<__nv_bfloat16*>(buf));
   } else {
     return kRefused;
   }

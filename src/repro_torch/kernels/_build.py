@@ -50,7 +50,7 @@ _SIGNATURES = {
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I]
     + [_LL] * 12 + [_F, _I, _I, _I, _I, _P],
     # spans, n_spans, n_tiles, buf, buf_dtype, stream
-    "pack_slots_launch": [_P, _I, _LL, _P, _I, _P],
+    "pack_slots_launch": [_P, _I, _LL, _LL, _P, _I, _P],
     # spans, n_spans, n_blocks, q, s, stream
     "fused_pack_quant_launch": [_P, _I, _LL, _P, _P, _P],
     # x, dt, A, B, C, dtype, y, states, batch, S, H, G, P, N, Q,

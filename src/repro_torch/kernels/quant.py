@@ -23,7 +23,7 @@ import torch
 from . import _build, ref
 
 BLOCK = 1024
-PACK_TILE = 8192      # elements one pack_slots block copies (csrc/pack.cu kTile)
+PACK_TILE = 8192      # elements one pack_slots block copies (passed to the kernel)
 _CODES = {torch.float32: _build.F32, torch.bfloat16: _build.BF16,
           torch.int8: _build.INT8, torch.int32: _build.INT32}
 
@@ -244,7 +244,7 @@ def pack_slots_call(pieces, padded: int, dtype=torch.float32) -> torch.Tensor:
     table, tiles = _span_table(pieces, padded, "pack_slots")
     buf = torch.empty((padded,), dtype=dtype, device=device)
     err = _build.library().pack_slots_launch(
-        table.data_ptr(), table.shape[0], tiles, buf.data_ptr(), _CODES[dtype],
+        table.data_ptr(), table.shape[0], tiles, PACK_TILE, buf.data_ptr(), _CODES[dtype],
         _build.stream_handle(device))
     _build.check(err, "pack_slots")
     pack_slots_call.launches += 1

@@ -228,7 +228,7 @@ def four_rank_losses(tmp_path_factory):
 
 
 @pytest.mark.parametrize("mode, codec", FOUR_RANK_CASES)
-def test_train_step_four_ranks_hier_int8_matches_jax(four_rank_losses, mode, codec):
+def test_train_step_four_ranks_matches_jax(four_rank_losses, mode, codec):
     want = np.load(four_rank_losses / f"jax_losses_{mode}_{codec}.npy")
     for r in range(WORLD):
         got = np.load(four_rank_losses / f"rank{r}_losses_{mode}_{codec}.npy")
