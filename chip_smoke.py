@@ -6,12 +6,14 @@
    versions, and the time the kernels took to build from csrc/.
 2. Each CUDA kernel of the serving paths against its plain PyTorch
    version on the card, at the serving shapes: the int8 codec bit-equal,
-   flash attention within 3e-2 (bf16) and 2e-3 (f32), the SSD chunk
+   flash attention within 3e-2 (bf16, on the tensor cores) and 2e-3 (f32,
+   on the CUDA cores) at every head size it takes, the SSD chunk
    within 1e-4 of its plain output's largest magnitude (at the JAX
    suite's SSD shapes, at p = 100 / n = 16, and at mamba2-2.7b's prefill
    shape in bf16 and f32).  Each kernel is timed with CUDA events beside
    its bound, its plain version and, for flash attention, one PyTorch call
-   computing the same function (timed only; the port never calls it).
+   computing the same function (timed only; the port never calls it);
+   flash attention and the SSD chunk in bf16 and f32 inputs.
 3. Smoke-size models on the card against the same models on the CPU:
    qwen2.5-3b and mamba2-2.7b prefill and decode (f32, logits within 1e-3,
    equal tokens), and 3 qwen training steps for each gradient sync of
@@ -211,6 +213,12 @@ FLASH_CASES = [
     (2, 16, 2, 128, 512, 128, True, None, 300, 420, torch.bfloat16),
     (2, 8, 2, 256, 256, 64, True, None, 0, None, torch.bfloat16),
     (1, 4, 1, 192, 192, 80, False, None, 0, None, torch.float32),
+    # bf16 on the tensor cores at the other head sizes, ragged lengths off
+    # the 64-row and 64-key tiles, a window, H/K = 8
+    (2, 8, 1, 130, 200, 16, True, None, 70, 190, torch.bfloat16),
+    (2, 8, 2, 130, 130, 64, True, 64, 0, None, torch.bfloat16),
+    (1, 4, 1, 192, 192, 80, False, None, 0, None, torch.bfloat16),
+    (2, 16, 2, 200, 200, 128, True, 100, 0, None, torch.bfloat16),
 ]
 
 
@@ -229,7 +237,8 @@ def flash_bound_ms(B, H, K, Sq, dh, q_offset, valid_kv, causal,
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def check_flash(dev, gen) -> dict:
+def check_flash(dev, gen, smi: str) -> dict:
+    main = {}
     for B, H, K, Sq, Skv, dh, causal, window, off, valid, dt in FLASH_CASES:
         q = torch.randn(B, H, Sq, dh, device=dev, generator=gen).to(dt)
         k = torch.randn(B, K, Skv, dh, device=dev, generator=gen).to(dt)
@@ -241,22 +250,29 @@ def check_flash(dev, gen) -> dict:
         check(err <= TOL[dt], f"flash {B, H, K, Sq, Skv, dh, kw, dt}: err {err}")
         print(f"[check] flash B={B} H={H} K={K} Sq={Sq} Skv={Skv} dh={dh} "
               f"{kw} {dt}: max abs err {err:.3g} (tol {TOL[dt]})")
-        if (Sq, dt) == (PROMPT, torch.bfloat16):
-            main_err, main = err, (q, k, v)
-    q, k, v = main
-    bound, by = flash_bound_ms(BATCH, 16, 2, PROMPT, 128, 0, PROMPT, True,
-                               torch.bfloat16)
+        if Sq == PROMPT:
+            main[dt] = err, (q, k, v)
+    timing = {}
+    for dt, (err, (q, k, v)) in main.items():
+        bound, by = flash_bound_ms(BATCH, 16, 2, PROMPT, 128, 0, PROMPT, True, dt)
+        timing[dt] = {
+            "max_abs_err": err,
+            "ms": time_ms(lambda: fa.flash_attention_bhsd(q, k, v, causal=True), 20),
+            "plain_ms": time_ms(lambda: fa.flash_attention_bhsd_plain(q, k, v, causal=True),
+                                5),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), 20)}
+        t = timing[dt]
+        print(f"[time] [{smi}] flash_attention_bhsd qwen2.5-3b prefill shape, {dt}: "
+              f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({by}), plain "
+              f"{t['plain_ms']:.4f} ms, F.scaled_dot_product_attention "
+              f"{t['library_ms']:.4f} ms")
     return {"flash_attention_bhsd": {
         "name": "flash_attention_bhsd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:85",
-        "max_abs_err": main_err,
-        "ms": time_ms(lambda: fa.flash_attention_bhsd(q, k, v, causal=True), 20),
-        "plain_ms": time_ms(lambda: fa.flash_attention_bhsd_plain(q, k, v, causal=True), 5),
-        "bound_ms": bound, "bound_by": by,
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 20),
-    }}
+        **timing[torch.bfloat16], "f32": timing[torch.float32]}}
 
 
 SSD_CASES = [
@@ -627,7 +643,8 @@ def check_pack(dev, gen, rt, smi: str) -> tuple[dict, dict]:
 # ---------------------------------------------------------------------------
 
 MATMUL_KEYS = ("gemm", "nvjet", "xmma", "cutlass", "cublas", "splitk")
-SERVE_GROUPS = (("flash_attention", ("flash_attention_kernel",)),
+# the f32 flash_attention_kernel and the bf16 flash_attention_mma_kernel
+SERVE_GROUPS = (("flash_attention", ("flash_attention",)),
                 ("ssd_chunk", ("ssd_chunk_kernel",)),
                 ("matmul", MATMUL_KEYS),
                 ("int8 codec", ("quant_int8_kernel",)))
@@ -888,7 +905,7 @@ def main() -> int:
 
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = check_codec(dev, gen)
-    rows.update(check_flash(dev, gen))
+    rows.update(check_flash(dev, gen, smi))
     rows.update(check_ssd(dev, gen, smi))
     free_memory()
     check_small_model(dev, ARCH)

@@ -5,6 +5,9 @@ Layout as in the JAX package's ``kernels/flash_attention.py``: q
 (B, H, Sq, dh), k/v (B, K, Skv, dh), query head h reads kv head
 h // (H // K).  The kernel takes strided views (the last axis
 contiguous), masks ragged lengths itself and needs no padding of dh.
+bf16 runs on the tensor cores and copies 16 bytes at a time, so a bf16
+tensor's base and strides must be 16-byte aligned; f32 runs on the CUDA
+cores and takes any strides.
 """
 
 from __future__ import annotations
@@ -50,6 +53,11 @@ def _check(q, k, v, out, valid_kv):
             raise ValueError(f"flash_attention: {name} on {t.device}")
         if t.stride(3) != 1:
             raise ValueError(f"flash_attention: {name} head axis not contiguous")
+        # an axis of extent 1 is never stepped, so its stride is free
+        if t.dtype == torch.bfloat16 and (t.data_ptr() % 16 or any(
+                st % 8 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)):
+            raise ValueError(f"flash_attention: bf16 {name} not 16-byte aligned "
+                             f"(base or strides {t.stride()})")
     if not 0 <= valid_kv <= Skv:
         raise ValueError(f"flash_attention: valid_kv {valid_kv} outside 0..{Skv}")
 

@@ -9,7 +9,8 @@ The int8 codecs (local-scale and shared-scale) are bit-equal, NaN and
 infinite blocks included (a NaN scale or amax in the same place); slot
 packing and fused pack+quantize are bit-equal, past 2^31 elements too; flash
 attention agrees within
-tests/test_kernels.py's tolerances (f32 2e-3, bf16 3e-2); the SSD chunk
+tests/test_kernels.py's tolerances (f32 2e-3 on the CUDA cores, bf16 3e-2
+on the tensor cores, whose P is rounded to bf16); the SSD chunk
 within 1e-4 of its plain output's largest magnitude (f32 arithmetic in
 both, summed in another order).
 """
@@ -185,6 +186,15 @@ FLASH_CASES = [
     (2, 130, 130, 2, 2, 64, True, 64, "f32", 2e-3),
     (2, 130, 130, 4, 2, 16, True, None, "f32", 2e-3),
     (1, 128, 256, 4, 2, 32, True, 100, "bf16", 3e-2),
+    # bf16 runs on the tensor cores: every head size, ragged Sq and Skv
+    # off the 64-row and 64-key tiles, windows, non-causal, H/K = 8
+    (2, 130, 200, 8, 1, 16, True, None, "bf16", 3e-2),
+    (2, 200, 130, 4, 2, 32, False, None, "bf16", 3e-2),
+    (2, 130, 130, 8, 1, 64, True, 64, "bf16", 3e-2),
+    (1, 192, 192, 2, 1, 80, False, None, "bf16", 3e-2),
+    (2, 130, 200, 4, 2, 80, True, 50, "bf16", 3e-2),
+    (2, 200, 200, 16, 2, 128, True, 100, "bf16", 3e-2),
+    (1, 130, 200, 16, 2, 128, False, 70, "bf16", 3e-2),
 ]
 
 
@@ -217,6 +227,45 @@ def test_flash_attention_refuses_head_size(cuda):
     q = torch.randn(1, 2, 8, 48, device=cuda)
     with pytest.raises(ValueError):
         tfa.flash_attention_bhsd(q, q, q)
+
+
+def test_flash_attention_bf16_strided_views(cuda):
+    """bf16 (B, S, H, dh) tensors through ops' head-major views, on the
+    tensor cores."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn(2, 200, 16, 128, device=cuda, generator=g).bfloat16()
+    k = torch.randn(2, 200, 2, 128, device=cuda, generator=g).bfloat16()
+    v = torch.randn(2, 200, 2, 128, device=cuda, generator=g).bfloat16()
+    got = ops.flash_attention(q, k, v, causal=True, window=120, q_offset=0)
+    want = tfa.flash_attention_bhsd_plain(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        window=120).transpose(1, 2)
+    assert got.dtype == torch.bfloat16
+    assert (got.float() - want.float()).abs().max().item() < 3e-2
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("dh", [16, 80, 128])
+def test_flash_attention_no_valid_key_is_zero(cuda, dh, dt):
+    q = torch.randn(2, 4, 130, dh, device=cuda).to(TDT[dt])
+    k = torch.randn(2, 2, 70, dh, device=cuda).to(TDT[dt])
+    out = tfa.flash_attention_bhsd(q, k, k, causal=True, valid_kv=0)
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.parametrize("what", ["base", "row stride"])
+def test_flash_attention_refuses_misaligned_bf16(cuda, what):
+    """The tensor-core kernel copies 16 bytes at a time: a bf16 view whose
+    base or row stride is not 16-byte aligned is refused, never rerouted."""
+    if what == "base":
+        flat = torch.randn(2 * 64 * 64 + 1, device=cuda).bfloat16()
+        q = flat[1:].view(1, 2, 64, 64)
+    else:
+        q = torch.randn(1, 2, 64, 68, device=cuda).bfloat16()[..., :64]
+    before = ops.launch_counts()["flash_attention_bhsd"]
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_attention_bhsd(q, q, q)
+    assert ops.launch_counts()["flash_attention_bhsd"] == before
 
 
 def test_smoke_model_on_card_matches_cpu(cuda):

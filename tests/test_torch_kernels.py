@@ -175,6 +175,11 @@ FLASH_CASES = [
     (1, 192, 192, 2, 1, 80, False, None, "f32", 2e-3),
     (1, 256, 256, 4, 1, 128, True, None, "bf16", 3e-2),
     (2, 130, 130, 2, 2, 64, True, 64, "f32", 2e-3),
+    # bf16 at the shapes the card checks its tensor-core kernel at:
+    # windows, ragged lengths, H/K = 8
+    (2, 130, 130, 8, 1, 64, True, 64, "bf16", 3e-2),
+    (1, 130, 130, 16, 2, 128, True, None, "bf16", 3e-2),
+    (1, 130, 130, 8, 1, 80, False, 50, "bf16", 3e-2),
 ]
 
 
