@@ -8,9 +8,11 @@
    version on the card, at the serving shapes: the int8 codec bit-equal,
    flash attention within 3e-2 (bf16, on the tensor cores) and 2e-3 (f32,
    on the CUDA cores) at every head size it takes, the SSD chunk
-   within 1e-4 of its plain output's largest magnitude (at the JAX
-   suite's SSD shapes, at p = 100 / n = 16, and at mamba2-2.7b's prefill
-   shape in bf16 and f32).  Each kernel is timed with CUDA events beside
+   within 1e-4 of its plain output's largest magnitude (bf16 on the
+   tensor cores, f32 on the CUDA cores; at the JAX suite's SSD shapes, at
+   p = 100 / n = 16, also as column slices of one conv output, at the
+   shapes that test the bf16 kernel's runs of heads, and at mamba2-2.7b's
+   prefill shape in bf16 and f32).  Each kernel is timed with CUDA events beside
    its bound, its plain version and, for flash attention, one PyTorch call
    computing the same function (timed only; the port never calls it);
    flash attention and the SSD chunk in bf16 and f32 inputs.
@@ -276,27 +278,44 @@ def check_flash(dev, gen, smi: str) -> dict:
 
 
 SSD_CASES = [
-    # (b, s, h, p, g, n, chunk, dtype): tests/test_kernels.py:46-52, G = 2
-    # with H = 8 (h // (H / G) is not h % G), p = 100 and n = 16 (a shape
-    # check), then the mamba2-2.7b prefill
-    (2, 256, 4, 32, 1, 64, 64, torch.float32),
-    (1, 128, 2, 64, 2, 32, 32, torch.float32),
-    (1, 128, 8, 32, 2, 32, 32, torch.float32),
-    (1, 256, 8, 64, 1, 128, 128, torch.float32),
-    (2, 128, 4, 32, 1, 64, 64, torch.bfloat16),
-    (2, 256, 4, 100, 1, 16, 128, torch.bfloat16),
-    (BATCH, PROMPT, 80, 64, 1, 128, 128, torch.bfloat16),
-    (BATCH, PROMPT, 80, 64, 1, 128, 128, torch.float32),
+    # (b, s, h, p, g, n, chunk, dtype, view): tests/test_kernels.py:46-52,
+    # G = 2 with H = 8 (h // (H / G) is not h % G), p = 100 and n = 16 (a
+    # shape check), the bf16 cases the tensor-core kernel's grid has to get
+    # right (6 heads over 2 groups: runs of heads that do not divide the
+    # group; G = 2, H = 8; q = 96; p = 100 and n = 16 as column slices of one
+    # conv output, rows 8-byte aligned only), then the mamba2-2.7b prefill
+    (2, 256, 4, 32, 1, 64, 64, torch.float32, False),
+    (1, 128, 2, 64, 2, 32, 32, torch.float32, False),
+    (1, 128, 8, 32, 2, 32, 32, torch.float32, False),
+    (1, 256, 8, 64, 1, 128, 128, torch.float32, False),
+    (2, 128, 4, 32, 1, 64, 64, torch.bfloat16, False),
+    (2, 256, 4, 100, 1, 16, 128, torch.bfloat16, False),
+    (1, 256, 6, 64, 2, 64, 64, torch.bfloat16, False),
+    (1, 128, 8, 32, 2, 32, 32, torch.bfloat16, False),
+    (1, 192, 4, 64, 1, 64, 96, torch.bfloat16, False),
+    (2, 256, 4, 100, 1, 16, 128, torch.bfloat16, True),
+    (BATCH, PROMPT, 80, 64, 1, 128, 128, torch.bfloat16, False),
+    (BATCH, PROMPT, 80, 64, 1, 128, 128, torch.float32, False),
 ]
 SSD_TOL = 1e-4      # of the plain output's largest magnitude
 
 
-def ssd_inputs(dev, gen, b, s, h, p, g, n, dt):
-    x = torch.randn(b, s, h, p, device=dev, generator=gen).to(dt)
+def ssd_inputs(dev, gen, b, s, h, p, g, n, dt, view=False):
+    """x, dt, A, B, C; with ``view``, x, B and C are column slices of one
+    (b, s, h p + 2 g n) tensor, as the model hands over its conv output."""
+    if view:
+        conv = torch.randn(b, s, h * p + 2 * g * n, device=dev, generator=gen).to(dt)
+        x = conv[..., :h * p].unflatten(-1, (h, p))
+        Bm = conv[..., h * p:h * p + g * n].unflatten(-1, (g, n))
+        Cm = conv[..., h * p + g * n:].unflatten(-1, (g, n))
+    else:
+        x = torch.randn(b, s, h, p, device=dev, generator=gen).to(dt)
+        Bm = Cm = None
     dtv = torch.rand(b, s, h, device=dev, generator=gen) * 0.19 + 0.01
     A = -(torch.rand(h, device=dev, generator=gen) * 3.5 + 0.5)
-    Bm = torch.randn(b, s, g, n, device=dev, generator=gen).to(dt)
-    Cm = torch.randn(b, s, g, n, device=dev, generator=gen).to(dt)
+    if not view:
+        Bm = torch.randn(b, s, g, n, device=dev, generator=gen).to(dt)
+        Cm = torch.randn(b, s, g, n, device=dev, generator=gen).to(dt)
     return x, dtv, A, Bm, Cm
 
 
@@ -317,8 +336,8 @@ def ssd_bound_ms(b, s, h, p, g, n, q, dt) -> tuple[float, str]:
 
 def check_ssd(dev, gen, smi: str) -> dict:
     row = {}
-    for b, s, h, p, g, n, q, dt in SSD_CASES:
-        args = ssd_inputs(dev, gen, b, s, h, p, g, n, dt)
+    for b, s, h, p, g, n, q, dt, view in SSD_CASES:
+        args = ssd_inputs(dev, gen, b, s, h, p, g, n, dt, view)
         got = ssd.ssd_chunk_call(*args, q)
         want = ssd.ssd_chunk_plain(*args, q)
         errs = [(a - w).abs().max().item() for a, w in zip(got, want)]
@@ -326,7 +345,8 @@ def check_ssd(dev, gen, smi: str) -> dict:
         for what, err, mag in zip(("y_diag", "states"), errs, mags):
             check(err <= SSD_TOL * mag, f"ssd_chunk {b, s, h, p, g, n, q, dt} {what}: "
                                         f"err {err} against |max| {mag}")
-        print(f"[check] ssd_chunk (b, s, h, p, g, n) = {(b, s, h, p, g, n)}, q {q}, {dt}: "
+        print(f"[check] ssd_chunk (b, s, h, p, g, n) = {(b, s, h, p, g, n)}, q {q}, {dt}"
+              f"{', conv slices' if view else ''}: "
               f"max abs err y_diag {errs[0]:.3g} (|y| <= {mags[0]:.3g}), states "
               f"{errs[1]:.3g} (<= {mags[1]:.3g}); tol {SSD_TOL} of the largest")
         if s != PROMPT:
@@ -643,9 +663,10 @@ def check_pack(dev, gen, rt, smi: str) -> tuple[dict, dict]:
 # ---------------------------------------------------------------------------
 
 MATMUL_KEYS = ("gemm", "nvjet", "xmma", "cutlass", "cublas", "splitk")
-# the f32 flash_attention_kernel and the bf16 flash_attention_mma_kernel
+# the f32 flash_attention_kernel and the bf16 flash_attention_mma_kernel;
+# the f32 ssd_chunk_kernel and the bf16 ssd_chunk_mma_kernel
 SERVE_GROUPS = (("flash_attention", ("flash_attention",)),
-                ("ssd_chunk", ("ssd_chunk_kernel",)),
+                ("ssd_chunk", ("ssd_chunk_kernel", "ssd_chunk_mma_kernel")),
                 ("matmul", MATMUL_KEYS),
                 ("int8 codec", ("quant_int8_kernel",)))
 SERVE_RANGES = ("ssd_inter_chunk", "causal_conv1d")

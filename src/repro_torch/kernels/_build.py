@@ -54,9 +54,9 @@ _SIGNATURES = {
     # spans, n_spans, n_blocks, q, s, stream
     "fused_pack_quant_launch": [_P, _I, _LL, _P, _P, _P],
     # x, dt, A, B, C, dtype, y, states, batch, S, H, G, P, N, Q,
-    # 12 strides (b, s, h|g for x, dt, B, C), stream
+    # 12 strides (b, s, h|g for x, dt, B, C), heads_per_block, stream
     "ssd_chunk_launch": [_P, _P, _P, _P, _P, _I, _P, _P] + [_I] * 7
-    + [_LL] * 12 + [_P],
+    + [_LL] * 12 + [_I, _P],
 }
 
 

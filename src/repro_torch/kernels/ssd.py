@@ -78,10 +78,15 @@ def _check(x, dt, A, B, C, chunk):
             raise ValueError(f"ssd_chunk: {name} is not 4-element aligned")
 
 
-def ssd_chunk_call(x, dt, A, B, C, chunk: int):
+def ssd_chunk_call(x, dt, A, B, C, chunk: int, *, heads_per_block: int = 0):
     """x: (b, s, h, p) bf16/f32; dt: (b, s, h) f32; A: (h,) f32; B/C:
     (b, s, g, n) in x's dtype, s a multiple of ``chunk`` -> (y_diag
-    (b, nc, q, h, p) f32, states (b, nc, h, p, n) f32)."""
+    (b, nc, q, h, p) f32, states (b, nc, h, p, n) f32).
+
+    bf16 runs on the tensor cores, one block per (batch, chunk) and run
+    of at most ``heads_per_block`` heads of one group (0: the kernel picks
+    the runs by wave count; at most 32, and as many as a block's shared
+    memory holds); f32 runs one block per head and takes only 0."""
     if x.device.type == "cpu":
         return ssd_chunk_plain(x, dt, A, B, C, chunk)
     _check(x, dt, A, B, C, chunk)
@@ -99,7 +104,7 @@ def ssd_chunk_call(x, dt, A, B, C, chunk: int):
         dt.stride(0), dt.stride(1), dt.stride(2),
         B.stride(0), B.stride(1), B.stride(2),
         C.stride(0), C.stride(1), C.stride(2),
-        _build.stream_handle(x.device))
+        heads_per_block, _build.stream_handle(x.device))
     # the launcher refuses a chunk, head dim or state its block cannot hold
     _build.check(err, f"ssd_chunk (chunk {chunk}, head dim {p}, state {n})")
     ssd_chunk_call.launches += 1

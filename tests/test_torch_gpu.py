@@ -11,8 +11,9 @@ packing and fused pack+quantize are bit-equal, past 2^31 elements too; flash
 attention agrees within
 tests/test_kernels.py's tolerances (f32 2e-3 on the CUDA cores, bf16 3e-2
 on the tensor cores, whose P is rounded to bf16); the SSD chunk
-within 1e-4 of its plain output's largest magnitude (f32 arithmetic in
-both, summed in another order).
+within 1e-4 of its plain output's largest magnitude (f32 inputs: f32
+arithmetic in both, summed in another order; bf16 inputs: the tensor
+cores, with the f32 operands split into bf16 hi + lo).
 """
 
 import copy
@@ -292,6 +293,11 @@ SSD_CASES = [
     (2, 128, 4, 32, 1, 64, 64, "bf16"),
     (2, 256, 4, 100, 1, 16, 128, "bf16"),
     (4, 1024, 80, 64, 1, 128, 128, "bf16"),
+    # the bf16 tensor-core kernel's grid: 6 heads over 2 groups (runs of
+    # heads that do not divide a group), G = 2 with H = 8, q = 96
+    (1, 256, 6, 64, 2, 64, 64, "bf16"),
+    (1, 128, 8, 32, 2, 32, 32, "bf16"),
+    (1, 192, 4, 64, 1, 64, 96, "bf16"),
 ]
 
 
@@ -317,6 +323,47 @@ def test_ssd_chunk_vs_plain(cuda, case):
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == torch.float32
         assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+@pytest.mark.parametrize("heads_per_block", [1, 2, 3, 5, 32])
+def test_ssd_chunk_bf16_heads_per_block(cuda, heads_per_block):
+    """Every split of a group's heads over blocks gives the same function:
+    runs of 1 to all 8 heads, uneven ones (3 -> 2 + 3 + 3, 5 -> 4 + 4)."""
+    args = _ssd_inputs((2, 256, 8, 64, 1, 128, 128, "bf16"), cuda)
+    got = tssd.ssd_chunk_call(*args, heads_per_block=heads_per_block)
+    want = tssd.ssd_chunk_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 4, 100, 1, 16, 128), (2, 256, 8, 64, 1, 128, 128),
+                                   (1, 128, 8, 32, 2, 32, 64)])
+def test_ssd_chunk_bf16_conv_slices(cuda, shape):
+    """x, B and C as column slices of one bf16 conv output, as the model
+    hands them over; at p = 100 the rows are only 8 bytes aligned."""
+    b, s, h, p, g, n, chunk = shape
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    conv = torch.randn(b, s, h * p + 2 * g * n, device=cuda, generator=gen).to(torch.bfloat16)
+    x = conv[..., :h * p].unflatten(-1, (h, p))
+    Bm = conv[..., h * p:h * p + g * n].unflatten(-1, (g, n))
+    Cm = conv[..., h * p + g * n:].unflatten(-1, (g, n))
+    dt = torch.rand(b, s, h, device=cuda, generator=gen) * 0.19 + 0.01
+    A = -(torch.rand(h, device=cuda, generator=gen) * 3.5 + 0.5)
+    got = tssd.ssd_chunk_call(x, dt, A, Bm, Cm, chunk)
+    want = tssd.ssd_chunk_plain(x, dt, A, Bm, Cm, chunk)
+    torch.cuda.synchronize()
+    for g_, w in zip(got, want):
+        assert (g_ - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+def test_ssd_chunk_refuses_heads_per_block(cuda):
+    args = _ssd_inputs((1, 128, 4, 32, 1, 32, 64, "bf16"), cuda)
+    with pytest.raises(ValueError):
+        tssd.ssd_chunk_call(*args, heads_per_block=33)      # more than 32
+    args = _ssd_inputs((1, 128, 4, 32, 1, 32, 64, "f32"), cuda)
+    with pytest.raises(ValueError):
+        tssd.ssd_chunk_call(*args, heads_per_block=2)       # f32: one block per head
 
 
 def test_ssd_chunked_strided_views(cuda):

@@ -196,6 +196,59 @@ def test_ops_ssd_chunked_vs_jax_ops(case):
     _close(h, jh, tol)
 
 
+def _bf16_parts(v: torch.Tensor, split: bool) -> list[torch.Tensor]:
+    """v as the bf16 operands the kernel feeds the tensor cores: hi =
+    bf16(v), and with ``split`` also lo = bf16(v - hi)."""
+    hi = v.bfloat16().float()
+    return [hi, (v - hi).bfloat16().float()] if split else [hi]
+
+
+def _ssd_chunk_tensor_core_emulation(x, dt, A, B, C, chunk: int, split: bool):
+    """The roundings of csrc/ssd.cu's bf16 kernel in plain PyTorch: C B^T
+    from the exact bf16 operands with f32 sums; S = C B^T exp(seg) dt_j and
+    x w in f32, each fed as bf16 parts and multiplied with the exact bf16 x
+    or B, the products summed in f32."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    q, nc, rep = chunk, s // chunk, h // g
+    xf = x.float().reshape(b, nc, q, h, p)
+    dtf = dt.reshape(b, nc, q, h)
+    Bf = B.float().reshape(b, nc, q, g, n)
+    Cf = C.float().reshape(b, nc, q, g, n)
+    cs = torch.cumsum(dtf * A, dim=2)
+    seg = cs[:, :, :, None, :] - cs[:, :, None, :, :]             # (b, nc, i, j, h)
+    causal = torch.tril(torch.ones((q, q), dtype=torch.bool))
+    seg = torch.where(causal[None, None, :, :, None], seg, ref.NEG_INF)
+    cb = torch.einsum("bcign,bcjgn->bcijg", Cf, Bf).repeat_interleave(rep, dim=4)
+    S = cb * torch.exp(seg) * dtf[:, :, None, :, :]
+    y = sum(torch.einsum("bcijh,bcjhp->bcihp", part, xf) for part in _bf16_parts(S, split))
+    xw = xf * (dtf * torch.exp(cs[:, :, -1:] - cs))[..., None]
+    Bh = Bf.repeat_interleave(rep, dim=3)
+    st = sum(torch.einsum("bcqhp,bcqhn->bchpn", part, Bh) for part in _bf16_parts(xw, split))
+    return y, st
+
+
+@pytest.mark.parametrize("split", [True, False])
+def test_ssd_chunk_bf16_split_emulation_within_tolerance(split):
+    """Why the bf16 kernel splits its f32 operands: at the mamba2-2.7b
+    chunk shape (q 128, p 64, n 128; 8 heads, batch 2) with chip_smoke's
+    input distributions, the hi + lo split keeps both outputs within the
+    1e-4 of the plain output's largest magnitude that the kernel is held
+    to on the card; one rounding to bf16 does not."""
+    b, s, h, p, g, n, chunk = 2, 1024, 8, 64, 1, 128, 128
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.normal(size=(b, s, h, p)).astype(np.float32)).bfloat16()
+    dt = torch.from_numpy(rng.uniform(0.01, 0.2, size=(b, s, h)).astype(np.float32))
+    A = torch.from_numpy(-rng.uniform(0.5, 4.0, size=(h,)).astype(np.float32))
+    Bm = torch.from_numpy(rng.normal(size=(b, s, g, n)).astype(np.float32)).bfloat16()
+    Cm = torch.from_numpy(rng.normal(size=(b, s, g, n)).astype(np.float32)).bfloat16()
+    got = _ssd_chunk_tensor_core_emulation(x, dt, A, Bm, Cm, chunk, split)
+    want = ssd.ssd_chunk_plain(x, dt, A, Bm, Cm, chunk)
+    for what, a, w in zip(("y_diag", "states"), got, want):
+        rel = ((a - w).abs().max() / w.abs().max()).item()
+        assert (rel <= 1e-4) == split, f"{what}: max error {rel:.3g} of the largest magnitude"
+
+
 def test_ssd_chunk_strided_views_match_contiguous():
     """The model hands the kernel views of its conv output (x, B and C
     are column slices of one tensor); the wrapper reads them as they are."""
