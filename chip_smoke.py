@@ -5,7 +5,9 @@
 1. Environment: the card's name and power limit, torch and CUDA
    versions, and the time the kernels took to build from csrc/.
 2. Each CUDA kernel of the serving paths against its plain PyTorch
-   version on the card, at the serving shapes: the int8 codec bit-equal,
+   version on the card, at the serving shapes: the int8 codec bit-equal
+   (quant_scaled and dequant_int8 also at ragged sizes and on views at
+   every element offset 0-7, which take their scalar variant),
    flash attention within 3e-2 (bf16, on the tensor cores) and 2e-3 (f32,
    on the CUDA cores) at every head size it takes, the SSD chunk
    within 1e-4 of its plain output's largest magnitude (bf16 on the
@@ -13,9 +15,13 @@
    p = 100 / n = 16, also as column slices of one conv output, at the
    shapes that test the bf16 kernel's runs of heads, and at mamba2-2.7b's
    prefill shape in bf16 and f32).  Each kernel is timed with CUDA events beside
-   its bound, its plain version and, for flash attention, one PyTorch call
-   computing the same function (timed only; the port never calls it);
-   flash attention and the SSD chunk in bf16 and f32 inputs.
+   its bound, its plain version and, for flash attention and dequant_int8,
+   one PyTorch call computing the same function (timed only; the port
+   never calls it; a codec's yardstick counts only if it is bit-equal to
+   the kernel, NaN in the same places); flash attention and the SSD chunk
+   in bf16 and f32 inputs; quant_int8 and dequant_int8 at the KV leaf
+   also by their device time from torch.profiler, and dequant_int8 from
+   int8 to f32 at mamba2-2.7b's SSM state.
 3. Smoke-size models on the card against the same models on the CPU:
    qwen2.5-3b and mamba2-2.7b prefill and decode (f32, logits within 1e-3,
    equal tokens), and 3 qwen training steps for each gradient sync of
@@ -28,21 +34,25 @@
    the wire, and decode 16 tokens greedily from each.  The launch counters,
    per phase, must show every kernel on each path: flash attention or
    ssd_chunk once per layer per prefill, quant/dequant twice per int8
-   transfer, nothing per decode step.  Then, per model, a profile of one
-   prefill and four decode steps.
+   transfer, nothing per decode step, and every dequant_int8 launch in its
+   vector variant.  Then, per model, a profile of one prefill and four
+   decode steps.
 5. The training paths at full width: ``repro_torch.launch.train.run``
    trains qwen2.5-3b on 4 x 1024 tokens for 4 steps in a world of one,
    through real pod and data groups of one member, once per gradient sync
    of TRAIN_RUNS.  Every step must launch pack_slots once for its one bf16
    gradient segment, amax_block, quant_scaled and dequant_int8 once per
    pod-hop chunk with int8 (hier: 1, hier_pipelined: 4) and not with bf16,
-   and no flash attention, with finite loss and grad norm and the finite
-   gate open.
+   and no flash attention, every quant_scaled and dequant_int8 launch in
+   its vector variant, with finite loss and grad norm and the finite gate
+   open.
 6. The shared-scale codec at the gradient segment's size (more than 2^31
    elements): bit-equal to the plain versions chunk by chunk, edge cases
    (ragged, all-zero block, scale <= 0, .5 ties, +-127 s, NaN and +-inf
    blocks and scales, for both int8 codecs) bit-equal, and
-   amax / quant_scaled / the int32 -> bf16 decode timed beside their bounds.
+   amax / quant_scaled / the int32 -> bf16 decode timed beside their bounds
+   and, for amax and the decode, one PyTorch call (vector_norm(ord=inf),
+   torch.mul into a bf16 out), if bit-equal.
 7. Slot packing on the qwen2.5-3b gradient layout (one bf16 segment of
    more than 2^31 values) and at small sizes (f32 and bf16 leaves, list
    leaves, ragged leaves, an all-zero block): pack_slots bit-equal to its
@@ -146,21 +156,98 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device time per call of ``fn`` from torch.profiler: the time its
+    kernels ran, without the host's pace.  The mean is taken over the
+    kernels the profiler recorded (it may drop one now and then), times
+    the kernels per call."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0
+           and not ev.is_user_annotation]
+    count = sum(ev.count for ev in evs)
+    check(count > 0, "the profiler recorded no kernel")
+    per_call = max(1, round(count / iters))
+    return sum(ev.self_device_time_total for ev in evs) / count * per_call / 1e3
+
+
+def rate_tbs(row: dict) -> float:
+    """The bytes of a bytes-bound row's bound moved in its measured time, TB/s."""
+    return PEAK_BYTES_PER_S * row["bound_ms"] / row["ms"] / 1e12
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
 
 
-def same(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """Equal, with NaN in the same places."""
-    return a.shape == b.shape and bool(((a == b) | (a.isnan() & b.isnan())).all())
+_INT_VIEW = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit, NaN (of any payload) in the same places."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    nan = a.isnan()
+    return bool(torch.equal(nan, b.isnan())
+                and torch.equal(a.view(_INT_VIEW[a.dtype])[~nan],
+                                b.view(_INT_VIEW[b.dtype])[~nan]))
+
+
+def mul_decode(q: torch.Tensor, s: torch.Tensor, dtype) -> tuple:
+    """dequant_int8's one-call library version for a whole-block payload:
+    torch.mul(q, s) rounded into a ``dtype`` out; returns (out, the call)."""
+    nb = q.shape[0]
+    out = torch.empty(q.shape, dtype=dtype, device=q.device)
+
+    def call():
+        torch.mul(q, s.view(nb, 1), out=out)
+    call()
+    return out.view(-1), call
+
+
+def yardstick(fn, bit_equal: bool, what: str, iters: int) -> float | None:
+    """``fn``'s time if it is bit-equal to the kernel (else None, said)."""
+    if not bit_equal:
+        print(f"[time] {what}: not bit-equal to the kernel, so no yardstick")
+        return None
+    return time_ms(fn, iters)
+
+
+def check_library_nan(dev) -> dict[str, bool]:
+    """Whether the one-call library versions of amax_block and dequant_int8
+    agree with the kernels bit for bit on blocks holding NaN, +-inf and
+    +-0 (values, and scales for the decode)."""
+    nan, inf = float("nan"), float("inf")
+    x = torch.randn(4 * 1024, device=dev)
+    x[5], x[1024 + 7], x[2048 + 9], x[3072 + 1], x[3072 + 2] = nan, inf, -inf, nan, -0.0
+    agree = {}
+    xb = x.to(torch.bfloat16)
+    lib = torch.linalg.vector_norm(xb.view(4, 1024), ord=inf, dim=1, dtype=torch.float32)
+    agree["amax_block"] = bits_equal(lib, quant.amax_block_call(xb))
+    s = torch.tensor([0.5, nan, inf, -0.25], device=dev)
+    ok = True
+    for qdt in (torch.int8, torch.int32):
+        q = torch.randint(-127, 128, (4, 1024), device=dev).to(qdt)
+        q[:, :3] = 0
+        for dt in (torch.bfloat16, torch.float32):
+            ok &= bits_equal(mul_decode(q, s, dt)[0], quant.dequant_int8_call(q, s, 4096, dt))
+    agree["dequant_int8"] = ok
+    print(f"[check] one-call library versions bit-equal to the kernels with NaN, +-inf, "
+          f"+-0: {agree}")
+    return agree
 
 
 # ---------------------------------------------------------------------------
 # 2. kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_codec(dev, gen) -> dict:
+def check_codec(dev, gen, agree: dict[str, bool]) -> dict:
     cfg = get_config(ARCH)
     leaf = (cfg.n_layers, BATCH, PROMPT, cfg.n_kv_heads, cfg.head_dim)
     x = torch.randn(leaf, device=dev, generator=gen).to(torch.bfloat16)
@@ -183,12 +270,17 @@ def check_codec(dev, gen) -> dict:
     n = x.numel()
     q, s = quant.quant_int8_call(x)
     nb = q.shape[0]
+    check(n == nb * 1024, f"the KV leaf {n} is not whole blocks")
+    lib_out, lib_call = mul_decode(q, s, torch.bfloat16)
+    lib_equal = agree["dequant_int8"] and torch.equal(
+        lib_out, quant.dequant_int8_call(q, s, n, torch.bfloat16))
     iters = 50
     quant_row = {
         "name": "quant_int8", "route": "cuda", "source": "src/repro_torch/csrc/quant.cu",
         "replaces": "src/repro/kernels/quant.py:72",
         "max_abs_err": 0.0,
         "ms": time_ms(lambda: quant.quant_int8_call(x), iters),
+        "device_ms": device_ms(lambda: quant.quant_int8_call(x)),
         "plain_ms": time_ms(lambda: quant.quant_int8_plain(x), iters // 5),
         # read the bf16 leaf once, write q and s once
         "bound_ms": (2 * n + nb * 1024 + 4 * nb) / PEAK_BYTES_PER_S * 1e3,
@@ -199,12 +291,95 @@ def check_codec(dev, gen) -> dict:
         "replaces": "src/repro/kernels/quant.py:172",
         "max_abs_err": 0.0,
         "ms": time_ms(lambda: quant.dequant_int8_call(q, s, n, torch.bfloat16), iters),
+        "device_ms": device_ms(lambda: quant.dequant_int8_call(q, s, n, torch.bfloat16)),
         "plain_ms": time_ms(lambda: quant.dequant_int8_plain(q, s, n, torch.bfloat16),
                             iters // 5),
         "bound_ms": (nb * 1024 + 4 * nb + 2 * n) / PEAK_BYTES_PER_S * 1e3,
-        "bound_by": "bytes", "library_ms": None,
+        "bound_by": "bytes",
+        "library_ms": yardstick(lib_call, lib_equal, "torch.mul int8 -> bf16", iters),
+        "library_device_ms": device_ms(lib_call) if lib_equal else None,
     }
+    del lib_out, lib_call
+    # the decode of mamba2-2.7b's f32 SSM state, int8 -> f32
+    scfg = get_config(SSM_ARCH)
+    ssm = torch.randn(scfg.n_layers, BATCH, scfg.d_inner // scfg.ssm_head_dim,
+                      scfg.ssm_head_dim, scfg.ssm_state, device=dev, generator=gen)
+    q, s = quant.quant_int8_call(ssm)
+    n, nb = ssm.numel(), q.shape[0]
+    check(n == nb * 1024, f"the SSM state {n} is not whole blocks")
+    out = quant.dequant_int8_call(q, s, n, torch.float32)
+    check(torch.equal(out, quant.dequant_int8_plain(q, s, n, torch.float32)),
+          "dequant_int8 int8 -> f32 at the SSM state")
+    lib_out, lib_call = mul_decode(q, s, torch.float32)
+    lib_equal = agree["dequant_int8"] and torch.equal(lib_out, out)
+    dequant_row["ssm_state_f32"] = {
+        "ms": time_ms(lambda: quant.dequant_int8_call(q, s, n, torch.float32), iters // 5),
+        "device_ms": device_ms(lambda: quant.dequant_int8_call(q, s, n, torch.float32)),
+        "plain_ms": time_ms(lambda: quant.dequant_int8_plain(q, s, n, torch.float32), 5),
+        # read the int8 blocks and the scales, write the f32 values
+        "bound_ms": (nb * 1024 + 4 * nb + 4 * n) / PEAK_BYTES_PER_S * 1e3,
+        "library_ms": yardstick(lib_call, lib_equal, "torch.mul int8 -> f32", iters // 5)}
     return {"quant_int8": quant_row, "dequant_int8": dequant_row}
+
+
+# ragged sizes around the 1024-value block and the 8192-value tile, and one
+# of more tiles than the vector kernels' grid has CTAs (the grid stride)
+VIEW_SIZES = [1, 7, 1023, 1024, 1025, 8191, 3 * 1024 + 13, 12 * 2 ** 20 + 333]
+
+
+def _at_offset(t: torch.Tensor, off: int) -> torch.Tensor:
+    """``t``'s values as a view ``off`` elements into a new buffer."""
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    check(buf.data_ptr() % quant.VECTOR_ALIGN == 0, "buffer alignment")
+    view = buf[off:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def check_codec_views(dev, gen) -> None:
+    """quant_scaled and dequant_int8 at ragged sizes and on views at every
+    element offset 0-7, bit-equal to their plain versions, with NaN and
+    +-inf values and 0, NaN, inf and negative scales; each launch takes the
+    variant its base's alignment calls for."""
+    nan, inf = float("nan"), float("inf")
+    n_vector = n_scalar = 0
+    for n in VIEW_SIZES:
+        nb = -(-n // 1024)
+        scale = torch.rand(nb, device=dev, generator=gen) * 0.05 + 1e-3
+        scale[::5], scale[1::7], scale[2::11], scale[3::13] = 0.0, nan, inf, -1.0
+        xs = torch.randn(n, device=dev, generator=gen) * 3
+        xs[::997], xs[1::1499], xs[2::1789] = nan, inf, -inf
+        qs = {torch.int8: torch.randint(-127, 128, (nb, 1024), device=dev, generator=gen),
+              torch.int32: torch.randint(-1016, 1017, (nb, 1024), device=dev, generator=gen)}
+        for off in range(8):
+            for dt in (torch.float32, torch.bfloat16):
+                xv = _at_offset(xs.to(dt), off)
+                vector = off * xv.element_size() % 16 == 0
+                fn = quant.quant_scaled_call
+                before = fn.launches, fn.vector_launches
+                check(torch.equal(fn(xv, scale), quant.quant_scaled_plain(xv, scale)),
+                      f"quant_scaled n={n} offset {off} {dt}")
+                check((fn.launches, fn.vector_launches) == (before[0] + 1, before[1] + vector),
+                      f"quant_scaled n={n} offset {off} {dt}: variant")
+                n_vector, n_scalar = n_vector + vector, n_scalar + (not vector)
+            for qdt, q in qs.items():
+                qv = _at_offset(q.to(qdt), off)
+                vector = off * qv.element_size() % 16 == 0
+                for dt in (torch.float32, torch.bfloat16):
+                    for gain in (None, 0.37):
+                        fn = quant.dequant_int8_call
+                        before = fn.launches, fn.vector_launches
+                        check(bits_equal(fn(qv, scale, n, dt, gain),
+                                         quant.dequant_int8_plain(qv, scale, n, dt, gain)),
+                              f"dequant_int8 n={n} offset {off} {qdt} -> {dt} gain {gain}")
+                        check((fn.launches, fn.vector_launches)
+                              == (before[0] + 1, before[1] + vector),
+                              f"dequant_int8 n={n} offset {off} {qdt}: variant")
+                        n_vector, n_scalar = n_vector + vector, n_scalar + (not vector)
+    print(f"[check] quant_scaled and dequant_int8 at sizes {VIEW_SIZES} on views at offsets "
+          f"0-7 (f32/bf16 in; int8/int32 -> f32/bf16 out, gain or none; NaN, +-inf values, "
+          f"0/NaN/inf/negative scales): bit-equal; {n_vector} launches took the vector "
+          f"variant and {n_scalar} the scalar one, as the bases' alignment calls for")
 
 
 FLASH_CASES = [
@@ -448,7 +623,7 @@ def _chunks(n: int, step: int = 1 << 28):
         yield c0, min(n, c0 + step)
 
 
-def check_shared_codec(dev, gen, n: int) -> dict:
+def check_shared_codec(dev, gen, n: int, agree: dict[str, bool]) -> tuple[dict, dict]:
     """Edge cases at small sizes, then one buffer of ``n`` > 2^31 bf16
     values (the gradient segment) compared chunk by chunk with the plain
     versions, and timed.  Returns the rows of rows 4-5 and the int32
@@ -476,7 +651,7 @@ def check_shared_codec(dev, gen, n: int) -> dict:
     for dt in (torch.float32, torch.bfloat16):
         xt = x.to(dt)
         a = quant.amax_block_call(xt)
-        check(same(a, quant.amax_block_plain(xt)), f"amax_block NaN/inf {dt}")
+        check(bits_equal(a, quant.amax_block_plain(xt)), f"amax_block NaN/inf {dt}")
         check(bool(a[[0, 3]].isnan().all() and a[[1, 2]].isinf().all()),
               f"amax_block propagates NaN {dt}")
         for scale in (a / 127, torch.tensor([1.0, inf, 0.5, nan, 2.0], device=dev)):
@@ -485,7 +660,7 @@ def check_shared_codec(dev, gen, n: int) -> dict:
                   f"quant_scaled NaN/inf {dt}")
         q, s = quant.quant_int8_call(xt)
         pq, ps = quant.quant_int8_plain(xt)
-        check(torch.equal(q, pq) and same(s, ps), f"quant_int8 NaN/inf {dt}")
+        check(torch.equal(q, pq) and bits_equal(s, ps), f"quant_int8 NaN/inf {dt}")
     print("[check] amax_block / quant_scaled, f32 and bf16, ragged with an all-zero "
           "block, scales <= 0, .5 ties, +-127 s, NaN and +-inf blocks and scales "
           "(quant_int8 too): bit-equal, NaN in the same places")
@@ -496,15 +671,23 @@ def check_shared_codec(dev, gen, n: int) -> dict:
         x[c0:c1] = torch.randn(c1 - c0, device=dev, generator=gen) * 1e-3
     x[B:2 * B] = 0
     nb = n // B
+    check(n == nb * B, f"the gradient segment {n} is not whole blocks")
+    before = quant.quant_scaled_call.vector_launches
     a = quant.amax_block_call(x)
     scale = compression._shared_scale(a.clone(), None)
     q = quant.quant_scaled_call(x, scale)
+    check(quant.quant_scaled_call.vector_launches == before + 1, "quant_scaled: vector variant")
     for c0, c1 in _chunks(n):
         b0, b1 = c0 // B, -(-c1 // B)
         check(torch.equal(a[b0:b1], quant.amax_block_plain(x[c0:c1])),
               f"amax_block at [{c0}, {c1})")
         check(torch.equal(q[b0:b1], quant.quant_scaled_plain(x[c0:c1], scale[b0:b1])),
               f"quant_scaled at [{c0}, {c1})")
+
+    def norm():
+        return torch.linalg.vector_norm(x.view(nb, B), ord=float("inf"), dim=1,
+                                        dtype=torch.float32)
+    amax_equal = agree["amax_block"] and torch.equal(norm(), a)
     rows = {
         "amax_block": {
             "name": "amax_block", "route": "cuda", "source": "src/repro_torch/csrc/quant.cu",
@@ -513,7 +696,8 @@ def check_shared_codec(dev, gen, n: int) -> dict:
             "plain_ms": time_ms(lambda: quant.amax_block_plain(x), 1, warmup=1),
             # read the bf16 segment once, write nb floats
             "bound_ms": (2 * n + 4 * nb) / PEAK_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "library_ms": None},
+            "bound_by": "bytes",
+            "library_ms": yardstick(norm, amax_equal, "vector_norm(ord=inf)", 10)},
         "quant_scaled": {
             "name": "quant_scaled", "route": "cuda", "source": "src/repro_torch/csrc/quant.cu",
             "replaces": "src/repro/kernels/quant.py:107", "max_abs_err": 0.0,
@@ -528,20 +712,28 @@ def check_shared_codec(dev, gen, n: int) -> dict:
     q32 = q.to(torch.int32)                    # the int32 ring sum of a pod of one
     del q
     free_memory()
+    before = quant.dequant_int8_call.vector_launches
     out = quant.dequant_int8_call(q32, scale, n, torch.bfloat16)
+    check(quant.dequant_int8_call.vector_launches == before + 1, "dequant_int8: vector variant")
     for c0, c1 in _chunks(n):
         b0, b1 = c0 // B, -(-c1 // B)
         want = quant.dequant_int8_plain(q32[b0:b1], scale[b0:b1], c1 - c0, torch.bfloat16)
         check(torch.equal(out[c0:c1], want), f"dequant int32 -> bf16 at [{c0}, {c1})")
-    del out
+    lib_out, lib_call = mul_decode(q32, scale, torch.bfloat16)
+    lib_equal = agree["dequant_int8"] and torch.equal(lib_out, out)
+    del out, lib_out
     free_memory()
     deq = {"ms": time_ms(lambda: quant.dequant_int8_call(q32, scale, n, torch.bfloat16), 10),
            "plain_ms": time_ms(lambda: quant.dequant_int8_plain(q32, scale, n, torch.bfloat16),
                                1, warmup=1),
            # read the int32 blocks and the scales, write the bf16 values
-           "bound_ms": (4 * nb * B + 4 * nb + 2 * n) / PEAK_BYTES_PER_S * 1e3}
+           "bound_ms": (4 * nb * B + 4 * nb + 2 * n) / PEAK_BYTES_PER_S * 1e3,
+           "library_ms": yardstick(lib_call, lib_equal, "torch.mul int32 -> bf16", 10)}
+    del lib_call
     print(f"[check] gradient segment of {n} bf16 values (> 2^31), in chunks of 2^28: "
-          f"amax_block, quant_scaled and the int32 -> bf16 decode bit-equal")
+          f"amax_block, quant_scaled and the int32 -> bf16 decode bit-equal, both "
+          f"redesigned kernels in their vector variant; library versions bit-equal: "
+          f"vector_norm {amax_equal}, torch.mul {lib_equal}")
     return rows, deq
 
 
@@ -668,10 +860,9 @@ MATMUL_KEYS = ("gemm", "nvjet", "xmma", "cutlass", "cublas", "splitk")
 SERVE_GROUPS = (("flash_attention", ("flash_attention",)),
                 ("ssd_chunk", ("ssd_chunk_kernel", "ssd_chunk_mma_kernel")),
                 ("matmul", MATMUL_KEYS),
-                ("int8 codec", ("quant_int8_kernel",)))
+                ("int8 codec", ("quant_int8_kernel", "dequant_int8")))
 SERVE_RANGES = ("ssd_inter_chunk", "causal_conv1d")
-TRAIN_GROUPS = (("codec", ("amax_block_kernel", "quant_scaled_kernel",
-                           "dequant_int8_kernel")),
+TRAIN_GROUPS = (("codec", ("amax_block_kernel", "quant_scaled", "dequant_int8")),
                 ("pack", ("pack_slots_kernel",)),
                 ("matmul", MATMUL_KEYS))
 TRAIN_RANGES = ("grad_sync", "optimizer")
@@ -742,6 +933,14 @@ def _report(prof, wall_ms: float, label: str, smi: str, name_groups, ranges) -> 
             "groups_ms": groups, "kernels": n_kernels, "host_ms": host}
 
 
+def check_vector_launches(counts: dict[str, int], path: str) -> None:
+    """Every launch on a main path of a kernel that has a vector variant
+    (quant_scaled, dequant_int8) took it."""
+    vector = ops.vector_launch_counts()
+    check(all(vector[k] == counts[k] for k in vector),
+          f"{path}: vector launches {vector} of {counts}")
+
+
 def serve_full_width(dev, smi: str, arch: str) -> tuple[dict, dict]:
     """A serving main path; the launch counts are set to 0 just before it
     and read just after, and each phase's launches are checked."""
@@ -762,6 +961,7 @@ def serve_full_width(dev, smi: str, arch: str) -> tuple[dict, dict]:
         check(got == want, f"{arch} {phase} launches {got}, expected {want}")
     check(counts == {k: sum(p[k] for p in phases.values()) for k in counts},
           f"{arch} launches {counts} against the phases {phases}")
+    check_vector_launches(counts, arch)
     shapes = res["cache_shapes"]
     if cfg.family == "ssm":
         ch = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
@@ -888,6 +1088,7 @@ def train_full_width(dev, smi: str, mode: str, codec: str | None) -> dict:
     want = train_kernels(mode, codec)
     check(counts == {k: n * TRAIN_STEPS for k, n in want.items()},
           f"{mode} launches {counts} over {TRAIN_STEPS} steps")
+    check_vector_launches(counts, mode)
     for rec in res["records"]:
         launched = {k: rec["launches"][k] for k in want}
         check(launched == want, f"{mode} step {rec['step']} launches {launched}")
@@ -925,7 +1126,9 @@ def main() -> int:
           f"{lib.build_seconds:.1f} s (one nvcc per source, in parallel, sm_90a)")
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    rows = check_codec(dev, gen)
+    agree = check_library_nan(dev)
+    rows = check_codec(dev, gen, agree)
+    check_codec_views(dev, gen)
     rows.update(check_flash(dev, gen, smi))
     rows.update(check_ssd(dev, gen, smi))
     free_memory()
@@ -950,7 +1153,7 @@ def main() -> int:
         print(f"[train] [{smi}] peak memory by gradient sync: {peaks}")
         n_segment = packing.aligned_size(train["hier"]["params"],
                                          packing.comm_alignment(1, 4, 1024))
-        codec_rows, deq = check_shared_codec(dev, gen, n_segment)
+        codec_rows, deq = check_shared_codec(dev, gen, n_segment, agree)
         rows.update(codec_rows)
         free_memory()
         pack_rows, conformance_counts = check_pack(dev, gen, rt, smi)
@@ -971,12 +1174,23 @@ def main() -> int:
         row["launches"] = sum(row["paths"].values())
         check(row["launches"] > 0, f"{name} launched on no path")
         lib_ms = "-" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
-        print(f"[time] [{smi}] {name}: {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, library {lib_ms} ms, "
-              f"launches {row['paths']}")
+        rate = (f" = {rate_tbs(row):.3f} TB/s against {PEAK_BYTES_PER_S / 1e12} TB/s"
+                if row["bound_by"] == "bytes" else "")
+        dev_ms = f", device time {row['device_ms']:.4f} ms" if "device_ms" in row else ""
+        print(f"[time] [{smi}] {name}: {row['ms']:.4f} ms{dev_ms}, bound {row['bound_ms']:.4f} "
+              f"ms ({row['bound_by']}){rate}, plain {row['plain_ms']:.4f} ms, library "
+              f"{lib_ms} ms, launches {row['paths']}")
+    ssm = rows["dequant_int8"]["ssm_state_f32"]
+    lib_ms = "-" if ssm["library_ms"] is None else f"{ssm['library_ms']:.4f}"
+    print(f"[time] [{smi}] dequant_int8 int8 -> f32, mamba2-2.7b SSM state: {ssm['ms']:.4f} ms, "
+          f"device time {ssm['device_ms']:.4f} ms, bound {ssm['bound_ms']:.4f} ms (bytes) = "
+          f"{rate_tbs(ssm):.3f} TB/s against {PEAK_BYTES_PER_S / 1e12} TB/s, plain "
+          f"{ssm['plain_ms']:.4f} ms, library (torch.mul) {lib_ms} ms")
+    lib_ms = "-" if deq["library_ms"] is None else f"{deq['library_ms']:.4f}"
     print(f"[time] [{smi}] dequant_int8 int32 -> bf16, {n_segment} values: "
-          f"{deq['ms']:.4f} ms, bound {deq['bound_ms']:.4f} ms (bytes), "
-          f"plain {deq['plain_ms']:.4f} ms")
+          f"{deq['ms']:.4f} ms, bound {deq['bound_ms']:.4f} ms (bytes) = "
+          f"{rate_tbs(deq):.3f} TB/s against {PEAK_BYTES_PER_S / 1e12} TB/s, "
+          f"plain {deq['plain_ms']:.4f} ms, library (torch.mul) {lib_ms} ms")
     print(json.dumps({"serve": {arch: {k: res[k] for k in (
         "ttft_ms", "decode_ms_per_step", "int8_transfer_ms", "peak_mem_gb",
         "int8_token_agreement", "cache_bytes", "params")} for arch, res in serve.items()},

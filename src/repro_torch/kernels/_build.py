@@ -38,12 +38,12 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 _SIGNATURES = {
     # x, x_dtype, size, q, s, n_blocks, stream
     "quant_int8_launch": [_P, _I, _LL, _P, _P, _LL, _P],
-    # q, q_dtype, s, size, out, out_dtype, stream
-    "dequant_int8_launch": [_P, _I, _P, _LL, _P, _I, _P],
+    # q, q_dtype, s, size, out, out_dtype, vector, stream
+    "dequant_int8_launch": [_P, _I, _P, _LL, _P, _I, _I, _P],
     # x, x_dtype, size, amax, n_blocks, stream
     "amax_block_launch": [_P, _I, _LL, _P, _LL, _P],
-    # x, x_dtype, size, s, q, n_blocks, stream
-    "quant_scaled_launch": [_P, _I, _LL, _P, _P, _LL, _P],
+    # x, x_dtype, size, s, q, n_blocks, vector, stream
+    "quant_scaled_launch": [_P, _I, _LL, _P, _P, _LL, _I, _P],
     # q, k, v, o, dtype, B, H, K, Sq, Skv, dh,
     # 12 strides (b, h, s for q, k, v, o), scale, causal, window,
     # q_offset, valid_kv, stream

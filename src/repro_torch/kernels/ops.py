@@ -29,9 +29,17 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def vector_launch_counts() -> dict[str, int]:
+    """Launches of the vector variant, for the kernels that have one."""
+    return {name: fn.vector_launches for name, fn in KERNELS.items()
+            if hasattr(fn, "vector_launches")}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "vector_launches"):
+            fn.vector_launches = 0
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,

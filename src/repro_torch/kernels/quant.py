@@ -11,6 +11,10 @@ comm buffer.  Each ``*_call`` launches its CUDA kernel (``csrc/quant.cu``,
 (per-block max |x|, agreed across the pod group by the caller) and
 ``quant_scaled_call`` (quantize with that scale).  Every input is read
 as it is, bf16 or f32, with the ragged tail counted as zeros.
+``quant_scaled_call`` and ``dequant_int8_call`` launch a vector kernel
+(up to 16 bytes per lane and access) when the payload's base is 16-byte
+aligned and a scalar one otherwise; each counts its vector launches in
+``.vector_launches`` beside ``.launches``.
 ``pack_slots_call`` writes leaves at their slot offsets into one padded
 buffer, zeros elsewhere; ``fused_pack_quant_call`` is that packing into
 f32 followed by ``quant_int8_call``, in one pass.
@@ -26,6 +30,7 @@ BLOCK = 1024
 PACK_TILE = 8192      # elements one pack_slots block copies (passed to the kernel)
 _CODES = {torch.float32: _build.F32, torch.bfloat16: _build.BF16,
           torch.int8: _build.INT8, torch.int32: _build.INT32}
+VECTOR_ALIGN = 16     # bytes; the vector kernels' payload base (csrc/quant.cu)
 
 
 def _padded_f32(x: torch.Tensor) -> torch.Tensor:
@@ -127,15 +132,18 @@ def quant_scaled_call(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
         raise ValueError("quant_scaled: x and scale on different devices")
     scale = scale.contiguous()
     q = torch.empty((nb, BLOCK), dtype=torch.int8, device=x.device)
+    vector = x.data_ptr() % VECTOR_ALIGN == 0
     err = _build.library().quant_scaled_launch(
         x.data_ptr(), _CODES[x.dtype], x.numel(), scale.data_ptr(), q.data_ptr(),
-        nb, _build.stream_handle(x.device))
+        nb, vector, _build.stream_handle(x.device))
     _build.check(err, "quant_scaled")
     quant_scaled_call.launches += 1
+    quant_scaled_call.vector_launches += vector
     return q
 
 
 quant_scaled_call.launches = 0
+quant_scaled_call.vector_launches = 0
 
 
 def dequant_int8_call(q: torch.Tensor, s: torch.Tensor, size: int,
@@ -160,16 +168,19 @@ def dequant_int8_call(q: torch.Tensor, s: torch.Tensor, size: int,
     q = q.contiguous()
     s = (s * gain if gain is not None else s).contiguous()
     out = torch.empty((size,), dtype=dtype, device=q.device)
+    vector = q.data_ptr() % VECTOR_ALIGN == 0
     lib = _build.library()
     err = lib.dequant_int8_launch(q.data_ptr(), _CODES[q.dtype], s.data_ptr(),
-                                  size, out.data_ptr(), _CODES[dtype],
+                                  size, out.data_ptr(), _CODES[dtype], vector,
                                   _build.stream_handle(q.device))
     _build.check(err, "dequant_int8")
     dequant_int8_call.launches += 1
+    dequant_int8_call.vector_launches += vector
     return out
 
 
 dequant_int8_call.launches = 0
+dequant_int8_call.vector_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,10 @@ file imports no JAX, so it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 The int8 codecs (local-scale and shared-scale) are bit-equal, NaN and
-infinite blocks included (a NaN scale or amax in the same place); slot
+infinite blocks included (a NaN scale or amax in the same place), and
+``quant_scaled``/``dequant_int8`` are so at ragged sizes and on views at
+every element offset, whose base alignment picks the vector or the
+scalar kernel; slot
 packing and fused pack+quantize are bit-equal, past 2^31 elements too; flash
 attention agrees within
 tests/test_kernels.py's tolerances (f32 2e-3 on the CUDA cores, bf16 3e-2
@@ -99,6 +102,94 @@ def test_quant_scaled_ties_and_clipping(cuda):
     q = tquant.quant_scaled_call(x, scale)
     assert torch.equal(q, tquant.quant_scaled_plain(x, scale))
     assert q[1].abs().eq(127).all()
+
+
+# ragged sizes around the 1024-value block and the 8192-value tile, and one
+# of more tiles than the vector kernels' grid has CTAs (the grid stride)
+VIEW_SIZES = [1, 7, 1023, 1024, 1025, 8191, 3 * 1024 + 13, 12 * 2 ** 20 + 333]
+_INT_VIEW = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
+def _at_offset(t: torch.Tensor, off: int) -> torch.Tensor:
+    """``t``'s values as a view ``off`` elements into a new buffer."""
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    assert buf.data_ptr() % tquant.VECTOR_ALIGN == 0
+    view = buf[off:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit, NaN (of any payload) in the same places."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    nan = a.isnan()
+    return bool(torch.equal(nan, b.isnan())
+                and torch.equal(a.view(_INT_VIEW[a.dtype])[~nan],
+                                b.view(_INT_VIEW[b.dtype])[~nan]))
+
+
+def _shared_scales(nb: int, g) -> torch.Tensor:
+    """Per-block scales with 0, NaN, +inf and negative entries."""
+    s = torch.rand(nb, device=g.device, generator=g) * 0.05 + 1e-3
+    s[::5], s[1::7], s[2::11], s[3::13] = 0.0, float("nan"), float("inf"), -1.0
+    return s
+
+
+def _launched(fn, vector: bool, before: tuple[int, int]) -> bool:
+    return (fn.launches, fn.vector_launches) == (before[0] + 1, before[1] + vector)
+
+
+@pytest.mark.parametrize("off", range(8))
+@pytest.mark.parametrize("n", VIEW_SIZES)
+def test_quant_scaled_views_bit_equal(cuda, n, off):
+    g = torch.Generator(device=cuda).manual_seed(n + off)
+    scale = _shared_scales(-(-n // 1024), g)
+    fn = tquant.quant_scaled_call
+    for dt in ("f32", "bf16"):
+        x = (torch.randn(n, device=cuda, generator=g) * 3).to(TDT[dt])
+        x[::997], x[1::1499], x[2::1789] = float("nan"), float("inf"), -float("inf")
+        xv = _at_offset(x, off)
+        before = fn.launches, fn.vector_launches
+        q = fn(xv, scale)
+        assert torch.equal(q, tquant.quant_scaled_plain(xv, scale)), dt
+        assert _launched(fn, off * x.element_size() % 16 == 0, before), dt
+
+
+@pytest.mark.parametrize("off", range(8))
+@pytest.mark.parametrize("n", VIEW_SIZES)
+def test_dequant_int8_views_bit_equal(cuda, n, off):
+    g = torch.Generator(device=cuda).manual_seed(n + off)
+    nb = -(-n // 1024)
+    s = _shared_scales(nb, g)
+    fn = tquant.dequant_int8_call
+    for qdt, lim in ((torch.int8, 127), (torch.int32, 127 * 8)):
+        q = torch.randint(-lim, lim + 1, (nb, 1024), device=cuda, generator=g).to(qdt)
+        qv = _at_offset(q, off)
+        for dt in ("f32", "bf16"):
+            for gain in (None, 0.37):
+                before = fn.launches, fn.vector_launches
+                got = fn(qv, s, n, TDT[dt], gain)
+                want = tquant.dequant_int8_plain(qv, s, n, TDT[dt], gain)
+                assert _bits_equal(got, want), (qdt, dt, gain)
+                assert _launched(fn, off * q.element_size() % 16 == 0, before), (qdt, dt)
+
+
+def test_vector_launch_refuses_a_misaligned_base(cuda):
+    """The C entries refuse a vector launch on a base that is not 16-byte
+    aligned (the wrappers never ask for one)."""
+    from repro_torch.kernels import _build
+
+    lib, stream = _build.library(), _build.stream_handle(cuda)
+    x = torch.zeros(2048 + 1, dtype=torch.bfloat16, device=cuda)[1:]
+    s = torch.ones(2, device=cuda)
+    q = torch.empty((2, 1024), dtype=torch.int8, device=cuda)
+    assert lib.quant_scaled_launch(x.data_ptr(), _build.BF16, x.numel(), s.data_ptr(),
+                                   q.data_ptr(), 2, 1, stream) == -1
+    qi = torch.zeros(2048 + 1, dtype=torch.int8, device=cuda)[1:]
+    out = torch.empty(2048, dtype=torch.bfloat16, device=cuda)
+    assert lib.dequant_int8_launch(qi.data_ptr(), _build.INT8, s.data_ptr(), 2048,
+                                   out.data_ptr(), _build.BF16, 1, stream) == -1
 
 
 def _leaves(dev, dt):

@@ -94,6 +94,57 @@ def test_dequant_int8_bit_equal(qdt, gain, dt):
     np.testing.assert_array_equal(_np(got), np.asarray(want.astype(jnp.float32)))
 
 
+CODEC_VIEW_SIZES = [1, 7, 1023, 1024, 1025, 8191, 3 * 1024 + 13]
+
+
+def _at_offset(t: torch.Tensor, off: int) -> torch.Tensor:
+    """``t``'s values as a view ``off`` elements into a larger buffer."""
+    buf = torch.zeros(t.numel() + off, dtype=t.dtype)
+    buf[off:] = t.reshape(-1)
+    return buf[off:].view(t.shape)
+
+
+def _same_bits(got: np.ndarray, want: np.ndarray) -> None:
+    """f32 arrays equal bit for bit, NaN (of any payload) in the same places."""
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got[~nan].view(np.uint32), want[~nan].view(np.uint32))
+
+
+@pytest.mark.parametrize("off", [0, 3])
+@pytest.mark.parametrize("n", CODEC_VIEW_SIZES)
+@pytest.mark.parametrize("kernel", ["quant_scaled", "dequant_int8"])
+def test_shared_codec_plain_on_views_bit_equal(kernel, n, off):
+    """The plain versions the CUDA kernels are held to, on ragged sizes and
+    on views at an odd element offset (the scalar kernels' inputs), against
+    the JAX package's kernels in interpret mode, with NaN and +-inf."""
+    rng = np.random.default_rng(100 * n + off)
+    nb = -(-n // 1024)
+    scale = rng.uniform(1e-3, 0.05, size=(nb,)).astype(np.float32)
+    scale[::5], scale[1::7], scale[2::11], scale[3::13] = 0.0, np.nan, np.inf, -1.0
+    if kernel == "quant_scaled":
+        x = rng.normal(size=(n,)) * 3
+        x[::997], x[1::1499], x[2::1789] = np.nan, np.inf, -np.inf
+        for dt in ("f32", "bf16"):
+            jx, tx = _pair(x, dt)
+            got = tquant.quant_scaled_plain(_at_offset(tx, off), torch.from_numpy(scale))
+            jx = jnp.concatenate([jx, jnp.zeros((nb * 1024 - n,), jx.dtype)])
+            want = jquant.quant_scaled_call(jx, jnp.asarray(scale), interpret=True)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        return
+    for qdt, lim in ((np.int8, 127), (np.int32, 127 * 8)):
+        q = rng.integers(-lim, lim + 1, size=(nb, 1024)).astype(qdt)
+        tq = _at_offset(torch.from_numpy(q), off)
+        for dt in ("f32", "bf16"):
+            for gain in (None, 0.37):
+                got = tquant.dequant_int8_plain(tq, torch.from_numpy(scale), n, TDT[dt], gain)
+                want = jquant.dequant_int8_call(jnp.asarray(q), jnp.asarray(scale),
+                                                dtype=JDT[dt], gain=gain,
+                                                interpret=True)[:n]
+                assert got.dtype == TDT[dt] and got.shape == (n,)
+                _same_bits(_np(got), np.asarray(want.astype(jnp.float32)))
+
+
 @hypothesis.given(n=st.integers(1, 9000), scale=st.floats(1e-3, 1e3))
 @hypothesis.settings(max_examples=25, deadline=None)
 def test_quant_roundtrip_matches_reference(n, scale):

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Resources, tensor-core instructions and time of the port's tensor-core
-kernels: flash attention (the default) or the Mamba2 SSD chunk.
+"""Resources, instructions and time of the port's hand-written kernels:
+flash attention (the default), the Mamba2 SSD chunk, or the int8 codec.
 
     python3 tools/flash_report.py                     # csrc/flash_attention.cu
     python3 tools/flash_report.py --source ssd.cu     # csrc/ssd.cu
+    python3 tools/flash_report.py --source quant.cu   # csrc/quant.cu
 
 1. Compiles the source (under src/repro_torch/csrc/) with the port's nvcc
    flags (sm_90a) plus ``-Xptxas -v`` and prints, per kernel
@@ -11,8 +12,9 @@ kernels: flash attention (the default) or the Mamba2 SSD chunk.
    loads.  The kernels' shared memory is dynamic; its bytes per block
    are printed beside them (for the SSD chunk at the mamba2-2.7b prefill
    shape).
-2. Counts the HMMA (tensor-core) instructions in each kernel's SASS
-   (``cuobjdump -sass`` of the same object).
+2. Counts, in each kernel's SASS (``cuobjdump -sass`` of the same
+   object), the HMMA (tensor-core) instructions of flash and SSD, or the
+   codec's global loads and stores by width (128, 64 bits or narrower).
 3. On a card, prints the card's name and power limit and times with CUDA
    events:
    - flash attention at the qwen2.5-3b prefill shape (B=4, H=16, K=2,
@@ -21,7 +23,18 @@ kernels: flash attention (the default) or the Mamba2 SSD chunk.
    - the SSD chunk at the mamba2-2.7b prefill shape (b=4, s=1024, h=80,
      p=64, g=1, n=128, q=128) in f32 and in bf16 at the heads per block
      the kernel picks and at 4, 8 and 16, each beside its bound and with
-     the rate its f32 outputs are stored at.
+     the rate its f32 outputs are stored at;
+   - the shared-scale codec's redesigned streaming kernels at their main
+     path shapes: quant_scaled on qwen2.5-3b's bf16 gradient segment
+     (3,085,938,688 values), dequant_int8 from int32 to bf16 on it, from
+     int8 to bf16 on the KV leaf (36, 4, 1024, 2, 128) and from int8 to
+     f32 on mamba2-2.7b's SSM state (64, 4, 80, 64, 128), each in its
+     vector and its scalar variant (the kernel before the redesign) beside
+     its bound, its rate and one PyTorch call computing the same function
+     (torch.mul into a bf16 out); then the same vector kernels built from
+     edited copies of csrc/ (CODEC_ABLATIONS: no stores, loads only, a
+     multiply for the division, streaming cache hints, 1-4 CTAs per SM),
+     one nvcc each, all started together.
 
 Steps 1-2 need the CUDA toolkit, step 3 a card.
 """
@@ -30,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import ctypes
 import pathlib
 import re
 import shutil
@@ -53,6 +67,60 @@ from repro_torch.kernels import ssd  # noqa: E402
 MMA_SMEM = {dh: (64 + 4 * 64) * (dh + 8) * 2 for dh in fa.HEAD_DIMS}
 SSD_SHAPE = (4, 1024, 80, 64, 1, 128, 128)     # b, s, h, p, g, n, q
 SSD_HEADS_PER_BLOCK = (0, 4, 8, 16)             # 0: the kernel's pick
+SEGMENT = 3_085_938_688                         # qwen2.5-3b's bf16 gradient segment
+KV_LEAF = (36, 4, 1024, 2, 128)                 # one qwen2.5-3b cache leaf
+SSM_LEAF = (64, 4, 80, 64, 128)                 # mamba2-2.7b's f32 SSM state
+PEAK_BYTES_PER_S = 3.35e12                      # H100 SXM data sheet
+
+_NEVER = "0x80808080u"      # no q byte is -128, so no unit's bits are this
+_STORES = {
+    "uint4": "__device__ __forceinline__ void store16(void* p, uint4 v) { ",
+    "uint2": "__device__ __forceinline__ void store8(void* p, uint2 v) { ",
+    "unsigned": "__device__ __forceinline__ void store4(void* p, unsigned v) { ",
+}
+_NO_STORES = [("codec.cuh", head + f"*static_cast<{t}*>(p) = v; }}",
+               head + f"if ({'v' if t == 'unsigned' else 'v.x'} == {_NEVER}) "
+               f"*static_cast<{t}*>(p) = v; }}") for t, head in _STORES.items()]
+# name: (the kernels it is timed on, [(file under csrc/, text, replacement)]);
+# each text must occur in the copy
+QS, DQ = ("quant_scaled",), ("dequant_int8",)
+CODEC_ABLATIONS = {
+    "no stores": (QS + DQ, _NO_STORES),
+    "loads only (no stores, no arithmetic)": (QS + DQ, _NO_STORES + [
+        ("quant.cu", "  const unsigned w[4] = {in.x, in.y, in.z, in.w};",
+         f"  if ((in.x ^ in.y ^ in.z ^ in.w) != {_NEVER}) return;\n"
+         "  const unsigned w[4] = {in.x, in.y, in.z, in.w};"),
+        ("quant.cu", "    unsigned o[4] = {};",
+         "    unsigned h = 0;\n    for (int k = 0; k < kInWords; ++k) h ^= w[k];\n"
+         f"    if (h != {_NEVER}) return;\n    unsigned o[4] = {{}};")]),
+    "multiply for the division": (QS, [
+        ("codec.cuh", "rintf(__fdiv_rn(v, scale))", "rintf(__fmul_rn(v, scale))")]),
+    # the same bits as rintf and the float -> int8 conversion (both on the
+    # quarter-rate conversion pipe), from two adds on the 1.5 * 2^23 grid
+    "rint and int8 conversion by adding 1.5 * 2^23": (QS, [
+        ("codec.cuh", "  const float r = rintf(__fdiv_rn(v, scale));\n"
+         "  return r != r ? int8_t{0} : static_cast<int8_t>(fminf(fmaxf(r, -127.f), 127.f));",
+         "  const float y = __fdiv_rn(v, scale);\n"
+         "  const float t = fminf(fmaxf(__fadd_rn(y, 12582912.f), 12582785.f), 12583039.f);\n"
+         "  return y != y ? int8_t{0} : static_cast<int8_t>(__float_as_uint(t) & 0xffu);")]),
+    "cache hints (__ldcs, __stcs)": (QS + DQ, [
+        ("codec.cuh", f"return *static_cast<const {t}*>(p);",
+         f"return __ldcs(static_cast<const {t}*>(p));") for t in ("uint4", "uint2", "unsigned")] + [
+        ("codec.cuh", head + f"*static_cast<{t}*>(p) = v; }}",
+         head + f"__stcs(static_cast<{t}*>(p), v); }}") for t, head in _STORES.items()]),
+    **{f"{k} CTA{'s' * (k > 1)} per SM": (QS, [
+        ("quant.cu", "constexpr int kQuantScaledCtasPerSm = 8;",
+         f"constexpr int kQuantScaledCtasPerSm = {k};")]) for k in (1, 2, 4)},
+    "8 CTAs per SM forced (__launch_bounds__(256, 8))": (QS, [
+        ("quant.cu", "__launch_bounds__(kThreads)\nquant_scaled_vec_kernel",
+         "__launch_bounds__(kThreads, 8)\nquant_scaled_vec_kernel")]),
+    **{f"{kb} KB of loads in flight per SM": (DQ, [
+        ("quant.cu", "constexpr int kDequantLoadBytesPerSm = 64 * 1024;",
+         f"constexpr int kDequantLoadBytesPerSm = {kb} * 1024;")]) for kb in (16, 32, 128)},
+    **{f"{v} values per lane": (QS + DQ, [
+        ("codec.cuh", "constexpr int kTile = 8192;", f"constexpr int kTile = {v * 256};")])
+       for v in (16, 64)},
+}
 
 
 def round16(v: int) -> int:
@@ -94,7 +162,8 @@ def demangle(names: list[str]) -> dict[str, str]:
 
 def short(name: str) -> str:
     """flash_attention_mma_kernel<128> out of the demangled signature."""
-    m = re.search(r"((?:flash_attention|ssd_chunk)\w*)(?:<([^>]*)>)?", name)
+    m = re.search(r"((?:flash_attention|ssd_chunk|dequant_int8|quant_int8|quant_scaled|"
+                  r"amax_block)\w*)(?:<([^>]*)>)?", name)
     if m is None:
         return name
     return f"{m.group(1)}<{m.group(2).replace('(int)', '')}>" if m.group(2) else m.group(1)
@@ -120,19 +189,28 @@ def compile_and_inspect(source: pathlib.Path) -> None:
         cuobjdump = pathlib.Path(_build.nvcc_path()).parent / "cuobjdump"
         sass = subprocess.run([str(cuobjdump), "-sass", str(obj)], capture_output=True,
                               text=True, check=True).stdout
-    hmma = collections.Counter()
+    counts = collections.defaultdict(collections.Counter)
     fn = None
     for line in sass.splitlines():
         m = re.search(r"Function : (\w+)", line)
         if m:
             fn = m.group(1)
-        elif fn is not None and "HMMA" in line:
-            hmma[fn] += 1
-    names = demangle(sorted(set(ptxas) | set(hmma)))
+            continue
+        op = re.search(r"\b(HMMA|LDG|STG)(\.\S*)?", line)
+        if fn is not None and op is not None:
+            width = next((w for w in ("128", "64") if f".{w}" in (op.group(2) or "")), "narrower")
+            counts[fn][op.group(1) if op.group(1) == "HMMA" else f"{op.group(1)}.{width}"] += 1
+    names = demangle(sorted(set(ptxas) | set(counts)))
     for mangled in sorted(names, key=lambda n: short(names[n])):
         label = short(names[mangled])
         print(f"[ptxas] {label}: {'; '.join(ptxas.get(mangled, []))}{smem_note(label)}")
-        print(f"[sass] {label}: {hmma[mangled]} HMMA instructions")
+        if source.stem == "quant":
+            c = counts[mangled]
+            print(f"[sass] {label}: global loads by width " + ", ".join(
+                f"{w} {c[f'LDG.{w}']}" for w in ("128", "64", "narrower")) + "; stores " + ", ".join(
+                f"{w} {c[f'STG.{w}']}" for w in ("128", "64", "narrower")))
+        else:
+            print(f"[sass] {label}: {counts[mangled]['HMMA']} HMMA instructions")
 
 
 def time_ms(fn, iters: int = 50) -> float:
@@ -194,10 +272,128 @@ def time_ssd_prefill_shape(smi: str) -> None:
                   f"largest magnitude")
 
 
+def build_variants() -> dict[str, ctypes.CDLL]:
+    """csrc/quant.cu built from an edited copy of csrc/ per entry of
+    CODEC_ABLATIONS (under build/report/codec/), one nvcc each, all
+    started together; each library bound for its two streaming kernels."""
+    root = _build.BUILD_DIR.parent / "report" / "codec"
+    shutil.rmtree(root, ignore_errors=True)
+    cmds, paths = [], {}
+    for i, (name, (_, edits)) in enumerate(CODEC_ABLATIONS.items()):
+        copy = root / f"variant{i}"
+        shutil.copytree(_build.CSRC, copy)
+        for fname, old, new in edits:
+            text = (copy / fname).read_text()
+            if old not in text:
+                raise RuntimeError(f"ablation {name!r}: {old!r} is not in {fname}")
+            (copy / fname).write_text(text.replace(old, new))
+        paths[name] = copy / "libquant.so"
+        cmds.append([_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-o",
+                     str(paths[name]), str(copy / "quant.cu")])
+    _build._run_all(cmds)
+    libs = {}
+    for name, path in paths.items():
+        lib = ctypes.CDLL(str(path))
+        for fn in ("quant_scaled_launch", "dequant_int8_launch"):
+            getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def as_bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bits as integers, so equal means bit for bit (these inputs
+    hold no NaN)."""
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def time_codec_shapes(smi: str) -> None:
+    from chip_smoke import device_ms, mul_decode
+    from repro_torch.core import compression
+    from repro_torch.kernels import quant
+
+    variants = build_variants()
+    shipped = _build.library()
+    stream = _build.stream_handle(torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    B, n = quant.BLOCK, SEGMENT
+    nb = n // B
+    x = torch.empty(n, dtype=torch.bfloat16, device="cuda")
+    for c0 in range(0, n, 1 << 28):
+        c1 = min(n, c0 + (1 << 28))
+        x[c0:c1] = torch.randn(c1 - c0, device="cuda", generator=gen) * 1e-3
+    scale = compression._shared_scale(quant.amax_block_call(x), None)
+    q = quant.quant_scaled_call(x, scale)
+    q32 = q.to(torch.int32)
+    kv = torch.randn(KV_LEAF, device="cuda", generator=gen).to(torch.bfloat16)
+    qk, sk = quant.quant_int8_call(kv)
+    nk = kv.numel()
+    ssm = torch.randn(SSM_LEAF, device="cuda", generator=gen)
+    qm, sm = quant.quant_int8_call(ssm)
+    nm = ssm.numel()
+    q_out = torch.empty_like(q)
+    seg_out = torch.empty(n, dtype=torch.bfloat16, device="cuda")
+    kv_out = torch.empty(nk, dtype=torch.bfloat16, device="cuda")
+    ssm_out = torch.empty(nm, dtype=torch.float32, device="cuda")
+
+    def quant_scaled(lib, vector):
+        return lambda: lib.quant_scaled_launch(x.data_ptr(), _build.BF16, n, scale.data_ptr(),
+                                               q_out.data_ptr(), nb, vector, stream)
+
+    def decode(qq, ss, out):
+        return lambda lib, vector: lambda: lib.dequant_int8_launch(
+            qq.data_ptr(), quant._CODES[qq.dtype], ss.data_ptr(), out.numel(), out.data_ptr(),
+            quant._CODES[out.dtype], vector, stream)
+
+    # (what, bytes read and written once, launch(lib, vector), output, the
+    # wrapper's output, the one-call library version or None, iterations)
+    cases = [
+        ("quant_scaled bf16 -> int8, gradient segment", 2 * n + 4 * nb + n, quant_scaled,
+         q_out, q, None, 10),
+        ("dequant_int8 int32 -> bf16, gradient segment", 4 * n + 4 * nb + 2 * n,
+         decode(q32, scale, seg_out), seg_out, quant.dequant_int8_call(q32, scale, n, torch.bfloat16),
+         mul_decode(q32, scale, torch.bfloat16), 10),
+        ("dequant_int8 int8 -> bf16, KV leaf", nk + 4 * (nk // B) + 2 * nk,
+         decode(qk, sk, kv_out), kv_out, quant.dequant_int8_call(qk, sk, nk, torch.bfloat16),
+         mul_decode(qk, sk, torch.bfloat16), 100),
+        ("dequant_int8 int8 -> f32, mamba2-2.7b SSM state", nm + 4 * (nm // B) + 4 * nm,
+         decode(qm, sm, ssm_out), ssm_out, quant.dequant_int8_call(qm, sm, nm, torch.float32),
+         mul_decode(qm, sm, torch.float32), 20),
+    ]
+
+    def rate(nbytes, ms):
+        return f"{ms:.4f} ms ({nbytes / ms / 1e9:.3f} TB/s, {nbytes / PEAK_BYTES_PER_S * 1e3 / ms:.1%} of the bound)"
+
+    for what, nbytes, launch, out, want, library, iters in cases:
+        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        line = [f"[time] [{smi}] {what}: bound {bound:.4f} ms (bytes)"]
+        for label, vector in (("vector", 1), ("scalar (before the redesign)", 0), ("vector", 1)):
+            fn = launch(shipped, vector)
+            _build.check(fn(), what)
+            torch.cuda.synchronize()
+            if not torch.equal(as_bits(out), as_bits(want)):
+                raise AssertionError(f"{what}, {label}: not bit-equal to the wrapper's output")
+            line.append(f"{label} {rate(nbytes, time_ms(fn, iters))}")
+        if iters > 10:
+            line.append(f"device time vector {device_ms(launch(shipped, 1)):.4f} ms, scalar "
+                        f"{device_ms(launch(shipped, 0)):.4f} ms")
+        if library is not None:
+            lib_out, call = library
+            equal = torch.equal(as_bits(lib_out), as_bits(want))
+            line.append(f"torch.mul {time_ms(call, iters):.4f} ms (bit-equal: {equal})")
+        print("; ".join(line))
+        for name, lib in variants.items():
+            if not what.startswith(CODEC_ABLATIONS[name][0]):
+                continue
+            fn = launch(lib, 1)
+            _build.check(fn(), f"{what}, {name}")
+            print(f"[ablation] [{smi}] {what}, {name}: {rate(nbytes, time_ms(fn, iters))}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--source", default="flash_attention.cu",
-                    choices=("flash_attention.cu", "ssd.cu"),
+                    choices=("flash_attention.cu", "ssd.cu", "quant.cu"),
                     help="the source under src/repro_torch/csrc/ to inspect and time")
     source = _build.CSRC / ap.parse_args().source
     compile_and_inspect(source)
@@ -205,6 +401,8 @@ def main() -> int:
         smi = card()
         if source.stem == "ssd":
             time_ssd_prefill_shape(smi)
+        elif source.stem == "quant":
+            time_codec_shapes(smi)
         else:
             time_serving_shape(smi)
     return 0
