@@ -6,8 +6,8 @@
    versions, and the time the kernels took to build from csrc/.
 2. Each CUDA kernel of the serving paths against its plain PyTorch
    version on the card, at the serving shapes: the int8 codec bit-equal
-   (quant_scaled and dequant_int8 also at ragged sizes and on views at
-   every element offset 0-7, which take their scalar variant),
+   (amax_block, quant_scaled and dequant_int8 also at ragged sizes and on
+   views at every element offset 0-7, which take their scalar variant),
    flash attention within 3e-2 (bf16, on the tensor cores) and 2e-3 (f32,
    on the CUDA cores) at every head size it takes, the SSD chunk
    within 1e-4 of its plain output's largest magnitude (bf16 on the
@@ -43,9 +43,9 @@
    of TRAIN_RUNS.  Every step must launch pack_slots once for its one bf16
    gradient segment, amax_block, quant_scaled and dequant_int8 once per
    pod-hop chunk with int8 (hier: 1, hier_pipelined: 4) and not with bf16,
-   and no flash attention, every quant_scaled and dequant_int8 launch in
-   its vector variant, with finite loss and grad norm and the finite gate
-   open.
+   and no flash attention, every amax_block, quant_scaled and dequant_int8
+   launch in its vector variant, with finite loss and grad norm and the
+   finite gate open.
 6. The shared-scale codec at the gradient segment's size (more than 2^31
    elements): bit-equal to the plain versions chunk by chunk, edge cases
    (ragged, all-zero block, scale <= 0, .5 ties, +-127 s, NaN and +-inf
@@ -55,9 +55,12 @@
    torch.mul into a bf16 out), if bit-equal.
 7. Slot packing on the qwen2.5-3b gradient layout (one bf16 segment of
    more than 2^31 values) and at small sizes (f32 and bf16 leaves, list
-   leaves, ragged leaves, an all-zero block): pack_slots bit-equal to its
-   plain version, fused_pack_quant bit-equal to its plain version and to
-   pack -> quant_int8; then the conformance check of the reference
+   leaves, ragged leaves, an all-zero block; for fused_pack_quant also
+   trees with more than 32 spans in a block, null spans in mid-block,
+   unaligned sources and a table of more than 1024 rows): pack_slots
+   bit-equal to its plain version, fused_pack_quant bit-equal to its plain
+   version and to pack -> quant_int8; then the conformance check of the
+   reference
    (OK-F: fused pack+quantize equals the composition) as a path of its
    own at the full layout; each timed beside its bound.
 8. Where the time goes: one training step per gradient sync under
@@ -337,10 +340,10 @@ def _at_offset(t: torch.Tensor, off: int) -> torch.Tensor:
 
 
 def check_codec_views(dev, gen) -> None:
-    """quant_scaled and dequant_int8 at ragged sizes and on views at every
-    element offset 0-7, bit-equal to their plain versions, with NaN and
-    +-inf values and 0, NaN, inf and negative scales; each launch takes the
-    variant its base's alignment calls for."""
+    """amax_block, quant_scaled and dequant_int8 at ragged sizes and on
+    views at every element offset 0-7, bit-equal to their plain versions,
+    with NaN and +-inf values and 0, NaN, inf and negative scales; each
+    launch takes the variant its base's alignment calls for."""
     nan, inf = float("nan"), float("inf")
     n_vector = n_scalar = 0
     for n in VIEW_SIZES:
@@ -349,6 +352,10 @@ def check_codec_views(dev, gen) -> None:
         scale[::5], scale[1::7], scale[2::11], scale[3::13] = 0.0, nan, inf, -1.0
         xs = torch.randn(n, device=dev, generator=gen) * 3
         xs[::997], xs[1::1499], xs[2::1789] = nan, inf, -inf
+        # NaN and +-inf in a few blocks only, so most block maxima stay finite
+        xa = torch.randn(n, device=dev, generator=gen) * 3
+        i = torch.arange(n, device=dev)
+        xa[i % 5003 == 17], xa[i % 7919 == 100], xa[i % 6007 == 2000] = nan, inf, -inf
         qs = {torch.int8: torch.randint(-127, 128, (nb, 1024), device=dev, generator=gen),
               torch.int32: torch.randint(-1016, 1017, (nb, 1024), device=dev, generator=gen)}
         for off in range(8):
@@ -361,6 +368,14 @@ def check_codec_views(dev, gen) -> None:
                       f"quant_scaled n={n} offset {off} {dt}")
                 check((fn.launches, fn.vector_launches) == (before[0] + 1, before[1] + vector),
                       f"quant_scaled n={n} offset {off} {dt}: variant")
+                n_vector, n_scalar = n_vector + vector, n_scalar + (not vector)
+                xv = _at_offset(xa.to(dt), off)
+                fn = quant.amax_block_call
+                before = fn.launches, fn.vector_launches
+                check(bits_equal(fn(xv), quant.amax_block_plain(xv)),
+                      f"amax_block n={n} offset {off} {dt}")
+                check((fn.launches, fn.vector_launches) == (before[0] + 1, before[1] + vector),
+                      f"amax_block n={n} offset {off} {dt}: variant")
                 n_vector, n_scalar = n_vector + vector, n_scalar + (not vector)
             for qdt, q in qs.items():
                 qv = _at_offset(q.to(qdt), off)
@@ -376,8 +391,9 @@ def check_codec_views(dev, gen) -> None:
                               == (before[0] + 1, before[1] + vector),
                               f"dequant_int8 n={n} offset {off} {qdt}: variant")
                         n_vector, n_scalar = n_vector + vector, n_scalar + (not vector)
-    print(f"[check] quant_scaled and dequant_int8 at sizes {VIEW_SIZES} on views at offsets "
-          f"0-7 (f32/bf16 in; int8/int32 -> f32/bf16 out, gain or none; NaN, +-inf values, "
+    print(f"[check] amax_block, quant_scaled and dequant_int8 at sizes {VIEW_SIZES} on views "
+          f"at offsets 0-7 (f32/bf16 in; int8/int32 -> f32/bf16 out, gain or none; NaN, +-inf "
+          f"values, "
           f"0/NaN/inf/negative scales): bit-equal; {n_vector} launches took the vector "
           f"variant and {n_scalar} the scalar one, as the bases' alignment calls for")
 
@@ -672,11 +688,12 @@ def check_shared_codec(dev, gen, n: int, agree: dict[str, bool]) -> tuple[dict, 
     x[B:2 * B] = 0
     nb = n // B
     check(n == nb * B, f"the gradient segment {n} is not whole blocks")
-    before = quant.quant_scaled_call.vector_launches
+    before = quant.amax_block_call.vector_launches, quant.quant_scaled_call.vector_launches
     a = quant.amax_block_call(x)
     scale = compression._shared_scale(a.clone(), None)
     q = quant.quant_scaled_call(x, scale)
-    check(quant.quant_scaled_call.vector_launches == before + 1, "quant_scaled: vector variant")
+    check((quant.amax_block_call.vector_launches, quant.quant_scaled_call.vector_launches)
+          == (before[0] + 1, before[1] + 1), "amax_block, quant_scaled: vector variant")
     for c0, c1 in _chunks(n):
         b0, b1 = c0 // B, -(-c1 // B)
         check(torch.equal(a[b0:b1], quant.amax_block_plain(x[c0:c1])),
@@ -731,8 +748,8 @@ def check_shared_codec(dev, gen, n: int, agree: dict[str, bool]) -> tuple[dict, 
            "library_ms": yardstick(lib_call, lib_equal, "torch.mul int32 -> bf16", 10)}
     del lib_call
     print(f"[check] gradient segment of {n} bf16 values (> 2^31), in chunks of 2^28: "
-          f"amax_block, quant_scaled and the int32 -> bf16 decode bit-equal, both "
-          f"redesigned kernels in their vector variant; library versions bit-equal: "
+          f"amax_block, quant_scaled and the int32 -> bf16 decode bit-equal, all three "
+          f"in their vector variant; library versions bit-equal: "
           f"vector_norm {amax_equal}, torch.mul {lib_equal}")
     return rows, deq
 
@@ -751,6 +768,45 @@ def _small_tree(dev, gen, dtypes) -> list:
             torch.zeros(2048 + 257, device=dev)]
     return [[p.to(dtypes[i % len(dtypes)]) for p in x] if isinstance(x, list)
             else x.to(dtypes[i % len(dtypes)]) for i, x in enumerate(made)]
+
+
+def _stress_trees(dev, gen) -> dict:
+    """Piece lists that drive every branch of fused_pack_quant's table walk:
+    name -> (pieces, padded)."""
+    def leaf(n, dt):
+        return (torch.randn(n, device=dev, generator=gen) * 3).to(dt)
+
+    def sizes(lo, hi, k):
+        return torch.randint(lo, hi, (k,), device=dev, generator=gen).tolist()
+
+    def back_to_back(lengths, dtypes, gaps=None):
+        pieces, pos = [], 0
+        for i, n in enumerate(lengths):
+            pos += gaps[i] if gaps else 0
+            pieces.append((pos, leaf(n, dtypes[i % len(dtypes)])))
+            pos += n
+        return pieces, -(-(pos + 1) // quant.BLOCK) * quant.BLOCK
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    odd = leaf(3 + 4096, bf16)[3:]                # a source 6 bytes off 16
+    return {
+        # more than 32 spans in block 0, offsets not multiples of 8, words
+        # straddling two spans, bf16 and f32 in turns
+        "40 small leaves, bf16/f32": back_to_back(sizes(1, 26, 40), (bf16, f32)),
+        # null spans in mid-block (300-517, 717-2100) and whole null blocks
+        "gaps": ([(0, leaf(300, bf16)), (517, leaf(200, f32)), (2100, leaf(5000, bf16))],
+                 10240),
+        # blocks inside one span: 16-byte words where the source allows
+        # them (offsets 0, 4096, 12296, 16396), values where it does not
+        # (the unaligned source at 8192, the bf16 leaf at 20501)
+        "aligned and unaligned words": ([(0, leaf(4096, bf16)), (4096, leaf(4096, f32)),
+                                         (8192, odd), (12296, leaf(4096, bf16)),
+                                         (16396, leaf(4096, f32)), (20501, leaf(3000, bf16))],
+                                        24576),
+        # a table of more than 1024 rows: three search rounds
+        "1100 leaves with gaps": back_to_back(sizes(1, 3000, 1100), (bf16, f32, f32),
+                                              sizes(0, 4, 1100)),
+    }
 
 
 def check_pack_small(dev, gen) -> None:
@@ -779,6 +835,18 @@ def check_pack_small(dev, gen) -> None:
     print("[check] pack_slots and fused_pack_quant, f32, bf16 and mixed trees (list "
           "leaves, ragged leaves, a scalar, an all-zero leaf, casts both ways): "
           "bit-equal to the plain versions and to pack -> quant_int8")
+    rows = {}
+    for name, (pieces, padded) in _stress_trees(dev, gen).items():
+        fq, fs = quant.fused_pack_quant_call(pieces, padded)
+        pq, ps = quant.fused_pack_quant_plain(pieces, padded)
+        cq, cs = quant.quant_int8_call(quant.pack_slots_call(pieces, padded))
+        check(torch.equal(fq, pq) and torch.equal(fs, ps), f"fused_pack_quant {name} against plain")
+        check(torch.equal(fq, cq) and torch.equal(fs, cs),
+              f"fused_pack_quant {name} against pack -> quant_int8")
+        rows[name] = quant._span_table(pieces, padded, "fused_pack_quant")[0].shape[0]
+    check(max(rows.values()) > 1024, f"table rows {rows}")
+    print(f"[check] fused_pack_quant on stress trees (table rows {rows}): bit-equal to the "
+          f"plain version and to pack -> quant_int8")
 
 
 def check_pack(dev, gen, rt, smi: str) -> tuple[dict, dict]:
@@ -862,7 +930,7 @@ SERVE_GROUPS = (("flash_attention", ("flash_attention",)),
                 ("matmul", MATMUL_KEYS),
                 ("int8 codec", ("quant_int8_kernel", "dequant_int8")))
 SERVE_RANGES = ("ssd_inter_chunk", "causal_conv1d")
-TRAIN_GROUPS = (("codec", ("amax_block_kernel", "quant_scaled", "dequant_int8")),
+TRAIN_GROUPS = (("codec", ("amax_block", "quant_scaled", "dequant_int8")),
                 ("pack", ("pack_slots_kernel",)),
                 ("matmul", MATMUL_KEYS))
 TRAIN_RANGES = ("grad_sync", "optimizer")
@@ -935,7 +1003,7 @@ def _report(prof, wall_ms: float, label: str, smi: str, name_groups, ranges) -> 
 
 def check_vector_launches(counts: dict[str, int], path: str) -> None:
     """Every launch on a main path of a kernel that has a vector variant
-    (quant_scaled, dequant_int8) took it."""
+    (amax_block, quant_scaled, dequant_int8) took it."""
     vector = ops.vector_launch_counts()
     check(all(vector[k] == counts[k] for k in vector),
           f"{path}: vector launches {vector} of {counts}")

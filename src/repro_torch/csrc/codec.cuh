@@ -1,6 +1,7 @@
 // The block codec's pieces, shared by csrc/quant.cu and csrc/pack.cu: the
-// block and thread counts, the NaN-keeping block max, the local scale rule
-// and the quantizer (csrc/quant.cu's header says why each is as it is);
+// block and thread counts, the NaN-keeping block and warp max, the local
+// scale rule and the quantizer (csrc/quant.cu's header says why each is as
+// it is);
 // and what quant.cu's streaming kernels share: the tile, the wide
 // accesses, values taken out of and put into 32-bit words, and the grid.
 #pragma once
@@ -35,6 +36,20 @@ __device__ __forceinline__ float block_abs_max(unsigned m) {
   return __uint_as_float(m);
 }
 
+// The warp-owned blocks of amax_block's vector kernel and fused_pack_quant:
+// a warp's 32 lanes hold one block between them and agree on its max by
+// shuffles alone (no shared memory, no barrier).
+constexpr int kWarpSize = 32;
+constexpr int kWarps = kThreads / kWarpSize;
+constexpr int kLaneValues = kBlock / kWarpSize;   // values of a block per lane
+
+// Max of every lane's abs_bits over the warp, as a float, in every lane.
+__device__ __forceinline__ float warp_abs_max(unsigned m) {
+#pragma unroll
+  for (int o = kWarpSize / 2; o > 0; o >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
+  return __uint_as_float(m);
+}
+
 // clamp(rint(v / s), -127, 127), NaN -> 0
 __device__ __forceinline__ int8_t quantize(float v, float scale) {
   const float r = rintf(__fdiv_rn(v, scale));
@@ -52,9 +67,9 @@ __device__ __forceinline__ float local_scale(float amax) {
 __device__ __forceinline__ float shared_divisor(float raw) { return raw > 0.f ? raw : 1.f; }
 
 // ---------------------------------------------------------------------------
-// Streaming kernels (quant_scaled, dequant_int8): each CTA walks tiles of
-// kTile values, each lane moving kTile / kThreads of them in words of 4 to
-// 16 bytes.
+// Streaming kernels (quant_scaled, dequant_int8, amax_block, and
+// fused_pack_quant's grid): each CTA walks tiles of kTile values, each lane
+// moving kTile / kThreads of them in words of 4 to 16 bytes.
 // ---------------------------------------------------------------------------
 
 constexpr int kTile = 8192;                   // a multiple of kBlock

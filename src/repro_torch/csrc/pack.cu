@@ -30,15 +30,25 @@
 // holds more than 2^31 values.
 //
 // fused_pack_quant is bound by bytes too: each source read once, the int8
-// blocks and their scales written once.  One block per 1024 buffer values:
-// thread 0 finds the span of the block's first value by binary search, each
-// thread walks forward from there over the few spans the block touches (the
-// current span held in registers, so a value costs one load of its source)
-// and widens its 4 values to f32, and the block takes the amax,
-// the local scale and the quantized values as quant_int8 does (codec.cuh).
-// The f32 buffer never exists, and the blocks and scales are bit-equal to
-// pack -> quant_int8: a bf16 value widens exactly, so packing bf16 or f32
-// first gives the quantizer the same f32 values.
+// blocks and their scales written once (2.77 ms at 3.35 TB/s for the
+// segment above), with quant_scaled's division, rint and conversion per
+// value besides.  It is a streaming pass over warp-owned codec blocks.  Each
+// CTA takes a contiguous run of blocks (the grid is what can be resident,
+// capped per SM); each warp searches the table once, for its first block,
+// 32 rows per round by ballot, then walks it forward as it takes every 8th
+// block of the run, the current span in registers.  A block inside one
+// source span whose first element is 16-byte aligned, which is every block
+// inside a leaf at qwen2.5-3b (leaf sizes are multiples of 256, packed back
+// to back), is loaded as 16-byte words, neighbouring lanes on neighbouring
+// words, all before any is used; any other block (a span edge in it, a null
+// span, an unaligned source) one value at a time, each lane walking the
+// spans its values lie in.  Then the warp takes the amax by shuffles alone,
+// the local scale and the quantized values as quant_int8 does (codec.cuh),
+// and stores each unit's q packed (8 or 4 int8 in one store, neighbouring
+// lanes on neighbouring words).  The f32 buffer never exists, and the blocks
+// and scales are bit-equal to pack -> quant_int8: a bf16 value widens
+// exactly, so packing bf16 or f32 first gives the quantizer the same f32
+// values.
 
 #include "codec.cuh"
 
@@ -57,6 +67,10 @@ struct Span {
 static_assert(sizeof(Span) == 40, "a table row is five int64");
 
 constexpr int kPackThreads = 256;
+// Cap on fused_pack_quant's resident CTAs per SM.  Its 64 registers let 4
+// fit; on an H100, forcing 8 (32 registers) ran 41% slower, 2 ran 13%
+// slower.
+constexpr int kFusedCtasPerSm = 8;
 
 // Element i of a bf16 or f32 source, as f32 (bf16 widens exactly).
 __device__ __forceinline__ float load_float(const void* src, long long dtype, long long i) {
@@ -107,38 +121,139 @@ pack_slots_kernel(const Span* __restrict__ spans, int n_spans, long long tile_le
   for (long long i = done + threadIdx.x; i < count; i += kPackThreads) out[i] = s[i];
 }
 
-__global__ void __launch_bounds__(kThreads)
-fused_pack_quant_kernel(const Span* __restrict__ spans, int n_spans,
-                        int8_t* __restrict__ q, float* __restrict__ s) {
-  __shared__ int first;
-  const long long base = static_cast<long long>(blockIdx.x) * kBlock;
-  if (threadIdx.x == 0) {
-    int lo = 0, hi = n_spans - 1;               // the last span with dst <= base
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) >> 1;
-      if (spans[mid].dst <= base) lo = mid; else hi = mid - 1;
-    }
-    first = lo;
+// The last span whose first element is <= i (spans[0].dst is 0), found by
+// one warp: each round its lanes probe 32 evenly spaced rows of the range
+// still open and keep, by ballot, the stretch after the last row at or
+// before i; two rounds cover 1024 rows.
+__device__ __forceinline__ int warp_find_span(const Span* spans, int n_spans, long long i,
+                                              int lane) {
+  int lo = 0, n = n_spans;                      // the answer lies in [lo, lo + n)
+  while (n > 1) {
+    const int step = (n + kWarpSize - 1) / kWarpSize;
+    const int row = lo + lane * step;
+    const unsigned le = __ballot_sync(0xffffffffu, row < lo + n && spans[row].dst <= i);
+    const int k = kWarpSize - 1 - __clz(le);    // lane 0's row is lo: le is never 0
+    lo += k * step;
+    n = min(step, n - k * step);
   }
-  __syncthreads();
-  int k = first;
-  Span sp = spans[k];                           // kept in registers while it lasts
-  float v[kPerThread];
+  return lo;
+}
+
+// A lane's share of a block is kLaneValues / kVec units of kVec values
+// (kVec 4 or 8): value j of unit u is element (u * 32 + lane) * kVec + j of
+// the block, so neighbouring lanes hold, and store the q of, neighbouring
+// units.  store_unit puts the q of one unit's values (value(j), j < kVec)
+// into one 4- or 8-byte store at dst.
+template <int kVec, typename Value>
+__device__ __forceinline__ void store_unit(Value value, float scale, int8_t* dst) {
+  unsigned out[kVec / 4] = {};
+#pragma unroll
+  for (int j = 0; j < kVec; ++j)
+    out[j >> 2] |= static_cast<unsigned>(static_cast<uint8_t>(quantize(value(j), scale)))
+                   << (8 * (j & 3));
+  if constexpr (kVec == 8) {
+    store8(dst, make_uint2(out[0], out[1]));
+  } else {
+    store4(dst, out[0]);
+  }
+}
+
+// A block inside one source span whose first element is 16-byte aligned:
+// one 16-byte word of src per unit (8 bf16 or 4 f32 values), every load
+// issued before any value is used; then the warp's max, the local scale
+// and the q from registers.  The source address comes from the table, so
+// __ldg says it is global memory (a plain load would be generic).
+template <typename T>
+__device__ __forceinline__ void block_from_words(const T* src, int lane,
+                                                 int8_t* __restrict__ qb, float* __restrict__ sb) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kUnits = kLaneValues / kVec;
+  unsigned w[kUnits * 4];
+#pragma unroll
+  for (int u = 0; u < kUnits; ++u) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(src + (u * kWarpSize + lane) * kVec));
+    w[4 * u] = v.x; w[4 * u + 1] = v.y; w[4 * u + 2] = v.z; w[4 * u + 3] = v.w;
+  }
   unsigned bits = 0;
 #pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const long long i = base + j * kThreads + threadIdx.x;
-    while (sp.dst + sp.n <= i && k < n_spans - 1) sp = spans[++k];
-    v[j] = sp.src != 0 ? load_float(reinterpret_cast<const void*>(sp.src), sp.dtype,
-                                    i - sp.dst)
-                       : 0.f;
-    bits = max(bits, abs_bits(v[j]));
-  }
-  const float scale = local_scale(block_abs_max(bits));
+  for (int j = 0; j < kLaneValues; ++j) bits = max(bits, abs_bits(word_value<T>(w, j)));
+  const float scale = local_scale(warp_abs_max(bits));
 #pragma unroll
-  for (int j = 0; j < kPerThread; ++j)
-    q[base + j * kThreads + threadIdx.x] = quantize(v[j], scale);
-  if (threadIdx.x == 0) s[blockIdx.x] = scale;
+  for (int u = 0; u < kUnits; ++u)
+    store_unit<kVec>([&](int j) { return word_value<T>(w, u * kVec + j); }, scale,
+                     qb + (u * kWarpSize + lane) * kVec);
+  if (lane == 0) *sb = scale;
+}
+
+// The buffer's values at increasing i, one at a time: the table walked
+// forward from span k (held in sp) over the spans they lie in.
+struct SpanWalk {
+  const Span* spans;
+  int n_spans;
+  int k;
+  Span sp;
+
+  __device__ __forceinline__ float operator()(long long i) {
+    while (sp.dst + sp.n <= i && k + 1 < n_spans) sp = spans[++k];
+    return sp.src != 0 ? load_float(reinterpret_cast<const void*>(sp.src), sp.dtype, i - sp.dst)
+                       : 0.f;
+  }
+};
+
+// Any other block (spans that start or end in it, a null span, a source
+// not 16-byte aligned there), in units of 8 values taken one at a time,
+// each lane walking the table from the warp's span over the spans its
+// values lie in: once for the max, once more (from L1 or L2) for the q, so
+// nothing of the block is held in registers.
+__device__ __forceinline__ void block_from_values(const SpanWalk& from, long long base, int lane,
+                                                  int8_t* __restrict__ qb,
+                                                  float* __restrict__ sb) {
+  constexpr int kVec = 8;
+  SpanWalk walk = from;
+  unsigned bits = 0;
+  for (int u = 0; u < kLaneValues / kVec; ++u) {
+#pragma unroll
+    for (int j = 0; j < kVec; ++j)
+      bits = max(bits, abs_bits(walk(base + (u * kWarpSize + lane) * kVec + j)));
+  }
+  const float scale = local_scale(warp_abs_max(bits));
+  walk = from;
+  for (int u = 0; u < kLaneValues / kVec; ++u) {
+    const long long first = base + (u * kWarpSize + lane) * kVec;
+    store_unit<kVec>([&](int j) { return walk(first + j); }, scale,
+                     qb + (u * kWarpSize + lane) * kVec);
+  }
+  if (lane == 0) *sb = scale;
+}
+
+// Each CTA takes a contiguous run of per_cta blocks; warp w of it takes
+// blocks w, w + 8, ... of the run, one at a time.  A warp searches the
+// table once, for its first block, then walks it forward.
+__global__ void __launch_bounds__(kThreads)
+fused_pack_quant_kernel(const Span* __restrict__ spans, int n_spans, long long n_blocks,
+                        long long per_cta, int8_t* __restrict__ q, float* __restrict__ s) {
+  const int lane = threadIdx.x % kWarpSize;
+  const long long end = min(n_blocks, (blockIdx.x + 1ll) * per_cta);
+  long long b = blockIdx.x * per_cta + threadIdx.x / kWarpSize;
+  if (b >= end) return;
+  int k = warp_find_span(spans, n_spans, b * kBlock, lane);
+  Span sp = spans[k];                           // the warp's span, in registers
+  for (; b < end; b += kWarps) {
+    const long long base = b * kBlock;
+    while (sp.dst + sp.n <= base && k + 1 < n_spans) sp = spans[++k];
+    const long long off = base - sp.dst;        // of the block in the span
+    const long long src_bytes = sp.dtype == kBF16 ? 2 : 4;
+    const long long addr = sp.src + off * src_bytes;
+    if (sp.src != 0 && off + kBlock <= sp.n && (addr & 15) == 0) {
+      if (sp.dtype == kBF16) {
+        block_from_words(reinterpret_cast<const __nv_bfloat16*>(addr), lane, q + base, s + b);
+      } else {
+        block_from_words(reinterpret_cast<const float*>(addr), lane, q + base, s + b);
+      }
+    } else {
+      block_from_values(SpanWalk{spans, n_spans, k, sp}, base, lane, q + base, s + b);
+    }
+  }
 }
 
 }  // namespace
@@ -165,10 +280,12 @@ extern "C" int pack_slots_launch(const void* spans, int n_spans, long long n_til
 
 extern "C" int fused_pack_quant_launch(const void* spans, int n_spans, long long n_blocks,
                                        void* q, void* s, void* stream) {
-  if (n_spans <= 0 || n_blocks <= 0 || n_blocks > 0x7fffffffll) return kRefused;
-  fused_pack_quant_kernel<<<static_cast<unsigned>(n_blocks), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const Span*>(spans), n_spans, static_cast<int8_t*>(q),
+  if (n_spans <= 0 || n_blocks <= 0) return kRefused;
+  const unsigned grid = streaming_grid<fused_pack_quant_kernel, kFusedCtasPerSm>(
+      (n_blocks + kWarps - 1) / kWarps);
+  const long long per_cta = (n_blocks + grid - 1) / grid;
+  fused_pack_quant_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const Span*>(spans), n_spans, n_blocks, per_cta, static_cast<int8_t*>(q),
       static_cast<float*>(s));
   return launch_status();
 }

@@ -27,10 +27,10 @@
 // payload-sized copies; bf16 -> f32 is exact, so the bits are the same).
 // Element indices are 64-bit: the gradient segment holds more than 2^31.
 //
-// quant_int8 and amax_block run one 256-thread CTA per 1024-value block,
-// one element per thread and load, neighbouring threads on neighbouring
-// addresses; quant_int8 keeps the block in registers between its amax
-// reduction and its quantize, so the payload is read once.  The
+// quant_int8 runs one 256-thread CTA per 1024-value block, one element per
+// thread and load, neighbouring threads on neighbouring addresses, and
+// keeps the block in registers between its amax reduction and its
+// quantize, so the payload is read once.  The
 // shared-scale codec splits the quantizer in two so the per-block amax can
 // be agreed across the pod group (an all-reduce MAX of nb floats) before
 // the quantize: amax_block reads the payload once and writes nb floats;
@@ -66,7 +66,18 @@
 // last block (the tail as 0), dequant_int8 exactly `size` values.  The
 // arithmetic per value is the scalar kernel's, so the bits are too.
 //
-// Each of the two has a second, scalar variant: the vector kernel needs a
+// amax_block is a pure read (nb floats out), so its vector variant is the
+// same streaming pass with the block max done by warps: a warp owns whole
+// blocks, its lanes load 16-byte words of each (4 a lane for bf16, 8 for
+// f32; neighbouring lanes on neighbouring words), issue every load of the
+// tile before they take any max, and reduce abs_bits by shuffles only: no
+// shared memory, no barrier (the scalar kernel's block max passes through
+// shared memory behind a __syncthreads, one 2-4 KB block per CTA).  The
+// CTAs per SM are capped by the bytes of loads in flight, as the decode's
+// are.  The blocks past the last whole tile go one per warp, whole words
+// then single values, the tail as zeros.
+//
+// Each of the three has a second, scalar variant: the vector kernel needs a
 // 16-byte-aligned payload base, and a view at another offset occurs (the
 // pipelined sync's chunks of a shard are not cut at BLOCK; any contiguous
 // (nb, 1024) view may be decoded).  The wrapper picks by the base's
@@ -80,10 +91,15 @@ namespace {
 using namespace codec;
 
 // Caps on the vector kernels' resident CTAs per SM (at 256 threads, 8 fill
-// an SM; the header says why): quant_scaled's, and the decode's as the
-// bytes of loads in flight per SM over a CTA's loads per tile.
+// an SM; the header says why): quant_scaled's, and the decode's and
+// amax_block's as the bytes of loads in flight per SM over a CTA's loads
+// per tile.
 constexpr int kQuantScaledCtasPerSm = 8;
 constexpr int kDequantLoadBytesPerSm = 64 * 1024;
+// amax_block on an H100: 32 to 128 KB and 1 or 2 blocks per warp ran
+// within 0.3% of each other, 16 KB 13% slower.
+constexpr int kAmaxLoadBytesPerSm = 64 * 1024;
+constexpr int kAmaxBlocksPerWarp = 1;   // blocks a warp loads per tile
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -108,6 +124,7 @@ quant_int8_kernel(const T* __restrict__ x, long long size,
 }
 
 // Per 1024-element block: a[b] = max |x| over the block (tail as zeros).
+// Scalar variant: one CTA per block, one element per thread and load.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 amax_block_kernel(const T* __restrict__ x, long long size,
@@ -121,6 +138,63 @@ amax_block_kernel(const T* __restrict__ x, long long size,
   }
   const float amax = block_abs_max(bits);
   if (threadIdx.x == 0) a[blockIdx.x] = amax;
+}
+
+// The largest abs_bits of the values in one 16-byte word of x.
+template <typename T>
+__device__ __forceinline__ unsigned word_abs_bits(uint4 in) {
+  const unsigned w[4] = {in.x, in.y, in.z, in.w};
+  unsigned m = 0;
+#pragma unroll
+  for (int j = 0; j < 16 / static_cast<int>(sizeof(T)); ++j)
+    m = max(m, abs_bits(word_value<T>(w, j)));
+  return m;
+}
+
+// Vector variant of amax_block_kernel; x 16-byte aligned.  A tile is
+// kAmaxBlocksPerWarp blocks per warp; lane l loads words l, l + 32, ... of
+// each of its warp's blocks, all of them before it takes any max.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+amax_block_vec_kernel(const T* __restrict__ x, long long size,
+                      float* __restrict__ a, long long n_blocks) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kWords = kLaneValues / kVec;            // per lane and block: 4 bf16, 8 f32
+  constexpr int kTileBlocks = kWarps * kAmaxBlocksPerWarp;
+  const int lane = threadIdx.x % kWarpSize, warp = threadIdx.x / kWarpSize;
+  const long long tiles = size / (static_cast<long long>(kTileBlocks) * kBlock);
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    uint4 in[kAmaxBlocksPerWarp][kWords];
+#pragma unroll
+    for (int r = 0; r < kAmaxBlocksPerWarp; ++r) {
+      const T* xb = x + (t * kTileBlocks + r * kWarps + warp) * kBlock;
+#pragma unroll
+      for (int u = 0; u < kWords; ++u) in[r][u] = load16(xb + (u * kWarpSize + lane) * kVec);
+    }
+#pragma unroll
+    for (int r = 0; r < kAmaxBlocksPerWarp; ++r) {
+      unsigned bits = 0;
+#pragma unroll
+      for (int u = 0; u < kWords; ++u) bits = max(bits, word_abs_bits<T>(in[r][u]));
+      const float amax = warp_abs_max(bits);
+      if (lane == 0) a[t * kTileBlocks + r * kWarps + warp] = amax;
+    }
+  }
+  // The blocks past the last whole tile, the ragged last one included, one
+  // per warp: its whole words, then its last values one at a time.
+  const long long warps = static_cast<long long>(gridDim.x) * kWarps;
+  for (long long b = tiles * kTileBlocks + blockIdx.x * kWarps + warp; b < n_blocks;
+       b += warps) {
+    const T* xb = x + b * kBlock;
+    const int n = static_cast<int>(min(static_cast<long long>(kBlock), size - b * kBlock));
+    unsigned bits = 0;
+    for (int w = lane; w < n / kVec; w += kWarpSize)
+      bits = max(bits, word_abs_bits<T>(load16(xb + w * kVec)));
+    for (int i = n / kVec * kVec + lane; i < n; i += kWarpSize)
+      bits = max(bits, abs_bits(to_float(xb[i])));
+    const float amax = warp_abs_max(bits);
+    if (lane == 0) a[b] = amax;
+  }
 }
 
 // q = clamp(rint(x / s'), -127, 127) with s' = s[block] if > 0 else 1;
@@ -293,6 +367,23 @@ void launch_dequant(const void* q, const void* s, long long size, void* out,
 }
 
 template <typename T>
+void launch_amax_block(const void* x, long long size, void* a, long long n_blocks,
+                       bool vector, cudaStream_t stream) {
+  auto xp = static_cast<const T*>(x);
+  auto ap = static_cast<float*>(a);
+  if (vector) {
+    constexpr int kTileBlocks = kWarps * kAmaxBlocksPerWarp;
+    constexpr int kCtasPerSm =
+        std::max<int>(1, kAmaxLoadBytesPerSm / (kTileBlocks * kBlock * sizeof(T)));
+    const unsigned grid = streaming_grid<amax_block_vec_kernel<T>, kCtasPerSm>(
+        (n_blocks + kTileBlocks - 1) / kTileBlocks);
+    amax_block_vec_kernel<T><<<grid, kThreads, 0, stream>>>(xp, size, ap, n_blocks);
+    return;
+  }
+  amax_block_kernel<T><<<static_cast<unsigned>(n_blocks), kThreads, 0, stream>>>(xp, size, ap);
+}
+
+template <typename T>
 void launch_quant_scaled(const void* x, long long size, const void* s, void* q,
                          long long n_blocks, bool vector, cudaStream_t stream) {
   auto xp = static_cast<const T*>(x);
@@ -354,18 +445,18 @@ extern "C" int dequant_int8_launch(const void* q, int q_dtype, const void* s,
   return launch_status();
 }
 
+// vector: 1 for the vector variant (x 16-byte aligned), 0 for the scalar one.
 extern "C" int amax_block_launch(const void* x, int x_dtype, long long size,
-                                 void* a, long long n_blocks, void* stream) {
+                                 void* a, long long n_blocks, int vector,
+                                 void* stream) {
   if (size <= 0 || n_blocks != (size + kBlock - 1) / kBlock) return kRefused;
   if (n_blocks > 0x7fffffffll) return kRefused;
+  if (vector && !aligned16(x)) return kRefused;
   auto st = static_cast<cudaStream_t>(stream);
-  const unsigned grid = static_cast<unsigned>(n_blocks);
   if (x_dtype == kF32) {
-    amax_block_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(x), size, static_cast<float*>(a));
+    launch_amax_block<float>(x, size, a, n_blocks, vector, st);
   } else if (x_dtype == kBF16) {
-    amax_block_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), size, static_cast<float*>(a));
+    launch_amax_block<__nv_bfloat16>(x, size, a, n_blocks, vector, st);
   } else {
     return kRefused;
   }

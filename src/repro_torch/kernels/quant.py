@@ -11,10 +11,10 @@ comm buffer.  Each ``*_call`` launches its CUDA kernel (``csrc/quant.cu``,
 (per-block max |x|, agreed across the pod group by the caller) and
 ``quant_scaled_call`` (quantize with that scale).  Every input is read
 as it is, bf16 or f32, with the ragged tail counted as zeros.
-``quant_scaled_call`` and ``dequant_int8_call`` launch a vector kernel
-(up to 16 bytes per lane and access) when the payload's base is 16-byte
-aligned and a scalar one otherwise; each counts its vector launches in
-``.vector_launches`` beside ``.launches``.
+``amax_block_call``, ``quant_scaled_call`` and ``dequant_int8_call``
+launch a vector kernel (up to 16 bytes per lane and access) when the
+payload's base is 16-byte aligned and a scalar one otherwise; each counts
+its vector launches in ``.vector_launches`` beside ``.launches``.
 ``pack_slots_call`` writes leaves at their slot offsets into one padded
 buffer, zeros elsewhere; ``fused_pack_quant_call`` is that packing into
 f32 followed by ``quant_int8_call``, in one pass.
@@ -107,15 +107,18 @@ def amax_block_call(x: torch.Tensor) -> torch.Tensor:
         return amax_block_plain(x)
     nb = _codec_input(x, "amax_block")
     a = torch.empty((nb,), dtype=torch.float32, device=x.device)
+    vector = x.data_ptr() % VECTOR_ALIGN == 0
     err = _build.library().amax_block_launch(
-        x.data_ptr(), _CODES[x.dtype], x.numel(), a.data_ptr(), nb,
+        x.data_ptr(), _CODES[x.dtype], x.numel(), a.data_ptr(), nb, vector,
         _build.stream_handle(x.device))
     _build.check(err, "amax_block")
     amax_block_call.launches += 1
+    amax_block_call.vector_launches += vector
     return a
 
 
 amax_block_call.launches = 0
+amax_block_call.vector_launches = 0
 
 
 def quant_scaled_call(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -281,6 +281,20 @@ def test_codec_nan_and_inf_blocks_match_pallas(dt):
     np.testing.assert_array_equal(s.numpy(), np.asarray(js))
 
 
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 7, 1023, 1025, 8191, 3 * 1024 + 13])
+def test_amax_block_ragged_bit_equal_to_pallas(n, dt):
+    """The plain version the CUDA kernels are held to, at the ragged sizes
+    that end in the vector kernel's epilogue, against the Pallas kernel on
+    the zero-padded payload."""
+    x = np.random.default_rng(n).normal(size=n).astype(np.float32) * 3
+    jx, tx = _pair(x, dt)
+    padded = jnp.concatenate([jnp.asarray(jx, jnp.float32),
+                              jnp.zeros(((-n) % 1024,), jnp.float32)])
+    want = jquant.amax_block_call(padded, interpret=True)
+    np.testing.assert_array_equal(tquant.amax_block_call(tx).numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("n", [1000, 3 * 1024 + 17])
 def test_codec_ragged_tail_counts_as_zeros(n):
     x = np.random.default_rng(n).normal(size=n).astype(np.float32)

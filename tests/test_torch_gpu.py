@@ -7,10 +7,11 @@ file imports no JAX, so it runs on a machine that has only PyTorch:
 
 The int8 codecs (local-scale and shared-scale) are bit-equal, NaN and
 infinite blocks included (a NaN scale or amax in the same place), and
-``quant_scaled``/``dequant_int8`` are so at ragged sizes and on views at
-every element offset, whose base alignment picks the vector or the
-scalar kernel; slot
-packing and fused pack+quantize are bit-equal, past 2^31 elements too; flash
+``amax_block``/``quant_scaled``/``dequant_int8`` are so at ragged sizes
+and on views at every element offset, whose base alignment picks the
+vector or the scalar kernel; slot packing and fused pack+quantize are
+bit-equal, past 2^31 elements too, and the fused kernel on trees that take
+every branch of its span walk; flash
 attention agrees within
 tests/test_kernels.py's tolerances (f32 2e-3 on the CUDA cores, bf16 3e-2
 on the tensor cores, whose P is rounded to bf16); the SSD chunk
@@ -175,6 +176,30 @@ def test_dequant_int8_views_bit_equal(cuda, n, off):
                 assert _launched(fn, off * q.element_size() % 16 == 0, before), (qdt, dt)
 
 
+def _sparse_nan_inf(x: torch.Tensor) -> torch.Tensor:
+    """NaN, +inf and -inf in a few blocks only, so most block maxima stay
+    finite."""
+    i = torch.arange(x.numel(), device=x.device)
+    x[i % 5003 == 17] = float("nan")
+    x[i % 7919 == 100] = float("inf")
+    x[i % 6007 == 2000] = -float("inf")
+    return x
+
+
+@pytest.mark.parametrize("off", range(8))
+@pytest.mark.parametrize("n", VIEW_SIZES)
+def test_amax_block_views_bit_equal(cuda, n, off):
+    g = torch.Generator(device=cuda).manual_seed(n + off)
+    fn = tquant.amax_block_call
+    for dt in ("f32", "bf16"):
+        x = _sparse_nan_inf((torch.randn(n, device=cuda, generator=g) * 3).to(TDT[dt]))
+        xv = _at_offset(x, off)
+        before = fn.launches, fn.vector_launches
+        a = fn(xv)
+        assert _bits_equal(a, tquant.amax_block_plain(xv)), dt
+        assert _launched(fn, off * x.element_size() % 16 == 0, before), dt
+
+
 def test_vector_launch_refuses_a_misaligned_base(cuda):
     """The C entries refuse a vector launch on a base that is not 16-byte
     aligned (the wrappers never ask for one)."""
@@ -190,6 +215,8 @@ def test_vector_launch_refuses_a_misaligned_base(cuda):
     out = torch.empty(2048, dtype=torch.bfloat16, device=cuda)
     assert lib.dequant_int8_launch(qi.data_ptr(), _build.INT8, s.data_ptr(), 2048,
                                    out.data_ptr(), _build.BF16, 1, stream) == -1
+    assert lib.amax_block_launch(x.data_ptr(), _build.BF16, x.numel(), s.data_ptr(), 2, 1,
+                                 stream) == -1
 
 
 def _leaves(dev, dt):
@@ -268,6 +295,61 @@ def test_fused_pack_quant_vs_plain_and_composition(cuda, dt):
     assert torch.equal(q, pq) and torch.equal(s, ps)
     assert torch.equal(q, cq) and torch.equal(s, cs)
     assert (s == 1.0).any()                       # the all-zero block
+
+
+def _stress_trees(dev) -> dict:
+    """Piece lists that drive every branch of fused_pack_quant's table walk:
+    name -> (pieces, padded)."""
+    g = torch.Generator().manual_seed(21)
+
+    def leaf(n, dt):
+        return (torch.randn(n, generator=g) * 3).to(dt).to(dev)
+
+    def back_to_back(sizes, dtypes, gaps=None):
+        pieces, pos = [], 0
+        for i, n in enumerate(sizes):
+            pos += gaps[i] if gaps else 0
+            pieces.append((pos, leaf(n, dtypes[i % len(dtypes)])))
+            pos += n
+        return pieces, -(-(pos + 1) // 1024) * 1024
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    odd = leaf(3 + 4096, bf16)[3:]                # a source 6 bytes off 16
+    return {
+        # more than 32 spans in block 0, offsets not multiples of 8, words
+        # straddling two spans, bf16 and f32 in turns
+        "40 small leaves, bf16/f32": back_to_back(
+            torch.randint(1, 26, (40,), generator=g).tolist(), (bf16, f32)),
+        # null spans in mid-block (300-517, 717-2100) and whole null blocks
+        "gaps": ([(0, leaf(300, bf16)), (517, leaf(200, f32)), (2100, leaf(5000, bf16))],
+                 10240),
+        # blocks inside one span: 16-byte words where the source allows
+        # them (offsets 0, 4096, 12296, 16396), values where it does not
+        # (the unaligned source at 8192, the bf16 leaf at 20501)
+        "aligned and unaligned words": ([(0, leaf(4096, bf16)), (4096, leaf(4096, f32)),
+                                         (8192, odd), (12296, leaf(4096, bf16)),
+                                         (16396, leaf(4096, f32)), (20501, leaf(3000, bf16))],
+                                        24576),
+        # a table of more than 1024 rows: three search rounds
+        "1100 leaves with gaps": back_to_back(
+            torch.randint(1, 3000, (1100,), generator=g).tolist(), (bf16, f32, f32),
+            torch.randint(0, 4, (1100,), generator=g).tolist()),
+    }
+
+
+def test_fused_pack_quant_stress_trees(cuda):
+    """Bit-equal to the plain version and to pack -> quant_int8 on trees
+    that take every branch of the kernel's walk, one launch each."""
+    for name, (pieces, padded) in _stress_trees(cuda).items():
+        before = tquant.fused_pack_quant_call.launches
+        q, s = tquant.fused_pack_quant_call(pieces, padded)
+        assert tquant.fused_pack_quant_call.launches == before + 1
+        pq, ps = tquant.fused_pack_quant_plain(pieces, padded)
+        cq, cs = tquant.quant_int8_call(tquant.pack_slots_call(pieces, padded))
+        assert torch.equal(q, pq) and torch.equal(s, ps), name
+        assert torch.equal(q, cq) and torch.equal(s, cs), name
+    pieces, padded = _stress_trees(cuda)["1100 leaves with gaps"]
+    assert tquant._span_table(pieces, padded, "test")[0].shape[0] > 1024
 
 
 FLASH_CASES = [

@@ -7,6 +7,9 @@ tolerances (f32 2e-3, bf16 3e-2).  The CUDA kernels themselves are
 held against their plain versions on the card by tests/test_torch_gpu.py.
 """
 
+import ctypes
+import re
+
 from _hypothesis_compat import hypothesis, st
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +21,7 @@ from repro.kernels import ops as jops
 from repro.kernels import quant as jquant
 from repro.kernels import ref as jref
 from repro_torch.convert import to_tensor
+from repro_torch.kernels import _build as tbuild
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import quant as tquant
@@ -214,6 +218,68 @@ def test_fused_pack_quant_bit_equal(dt):
     np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
     np.testing.assert_array_equal(s.numpy(), np.asarray(js))
     assert (s == 1.0).any()                       # an all-zero block
+
+
+def _many_leaves(dt: str):
+    """40 small leaves (1-25 values) at offsets that are not multiples of
+    8, with gaps, so one 1024-block holds more than 32 spans, words that
+    straddle two spans and null spans in mid-block; bf16 and f32 in turns
+    where ``dt`` is "mixed"."""
+    rng = np.random.default_rng(21)
+    sizes = rng.integers(1, 26, size=40)
+    gaps = rng.integers(0, 3, size=40)
+    jpieces, tpieces, pos = [], [], 3
+    for i, (n, gap) in enumerate(zip(sizes, gaps)):
+        pos += int(gap)
+        j, t = _pair(rng.normal(size=int(n)) * 3,
+                     ("bf16", "f32")[i % 2] if dt == "mixed" else dt)
+        jpieces.append((pos, j))
+        tpieces.append((pos, t))
+        pos += int(n)
+    return jpieces, tpieces, -(-pos // 1024) * 1024
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16", "mixed"])
+def test_fused_pack_quant_many_leaves_bit_equal(dt):
+    jpieces, tpieces, padded = _many_leaves(dt)
+    assert sum(off % 8 != 0 for off, _ in tpieces) > 32
+    jq, js = jquant.fused_pack_quant_call(jpieces, padded, interpret=True)
+    q, s = tquant.fused_pack_quant_call(tpieces, padded)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+
+
+# ---------------------------------------------------------------------------
+# the C entry points' ctypes signatures
+# ---------------------------------------------------------------------------
+
+_C_TYPES = {"ptr": ctypes.c_void_p, "int": ctypes.c_int, "long long": ctypes.c_longlong,
+            "float": ctypes.c_float}
+
+
+def _c_entries() -> dict[str, list]:
+    """Each ``extern "C"`` entry of csrc/*.cu -> the ctypes of its
+    parameters, in order."""
+    entries = {}
+    for src in tbuild.sources():
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            types = []
+            for param in params.split(","):
+                decl = " ".join(param.split()[:-1]).replace("const ", "")
+                types.append(_C_TYPES["ptr" if "*" in decl or "*" in param else decl])
+            entries[name] = types
+    return entries
+
+
+def test_ctypes_signatures_match_the_c_entries():
+    """kernels/_build.py binds every entry point with the parameters its
+    source declares (amax_block_launch's vector flag included): ctypes
+    would pass a missing or mistyped argument as it stands."""
+    entries = _c_entries()
+    assert entries.keys() == tbuild._SIGNATURES.keys()
+    for name, types in entries.items():
+        assert types == tbuild._SIGNATURES[name], name
+    assert entries["amax_block_launch"][5] is ctypes.c_int
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Resources, instructions and time of the port's hand-written kernels:
-flash attention (the default), the Mamba2 SSD chunk, or the int8 codec.
+flash attention (the default), the Mamba2 SSD chunk, the int8 codec, or
+the fused pack+quantize.
 
     python3 tools/flash_report.py                     # csrc/flash_attention.cu
     python3 tools/flash_report.py --source ssd.cu     # csrc/ssd.cu
     python3 tools/flash_report.py --source quant.cu   # csrc/quant.cu
+    python3 tools/flash_report.py --source pack.cu [--baseline DIR]
 
 1. Compiles the source (under src/repro_torch/csrc/) with the port's nvcc
    flags (sm_90a) plus ``-Xptxas -v`` and prints, per kernel
@@ -14,7 +16,8 @@ flash attention (the default), the Mamba2 SSD chunk, or the int8 codec.
    shape).
 2. Counts, in each kernel's SASS (``cuobjdump -sass`` of the same
    object), the HMMA (tensor-core) instructions of flash and SSD, or the
-   codec's global loads and stores by width (128, 64 bits or narrower).
+   codec's and the packing's global loads and stores by width (128, 64
+   bits or narrower).
 3. On a card, prints the card's name and power limit and times with CUDA
    events:
    - flash attention at the qwen2.5-3b prefill shape (B=4, H=16, K=2,
@@ -24,17 +27,25 @@ flash attention (the default), the Mamba2 SSD chunk, or the int8 codec.
      p=64, g=1, n=128, q=128) in f32 and in bf16 at the heads per block
      the kernel picks and at 4, 8 and 16, each beside its bound and with
      the rate its f32 outputs are stored at;
-   - the shared-scale codec's redesigned streaming kernels at their main
-     path shapes: quant_scaled on qwen2.5-3b's bf16 gradient segment
-     (3,085,938,688 values), dequant_int8 from int32 to bf16 on it, from
-     int8 to bf16 on the KV leaf (36, 4, 1024, 2, 128) and from int8 to
-     f32 on mamba2-2.7b's SSM state (64, 4, 80, 64, 128), each in its
-     vector and its scalar variant (the kernel before the redesign) beside
-     its bound, its rate and one PyTorch call computing the same function
-     (torch.mul into a bf16 out); then the same vector kernels built from
-     edited copies of csrc/ (CODEC_ABLATIONS: no stores, loads only, a
-     multiply for the division, streaming cache hints, 1-4 CTAs per SM),
-     one nvcc each, all started together.
+   - the shared-scale codec's streaming kernels at their main path
+     shapes: amax_block and quant_scaled on qwen2.5-3b's bf16 gradient
+     segment (3,085,938,688 values), dequant_int8 from int32 to bf16 on
+     it, from int8 to bf16 on the KV leaf (36, 4, 1024, 2, 128) and from
+     int8 to f32 on mamba2-2.7b's SSM state (64, 4, 80, 64, 128), each in
+     its vector and its scalar variant (the kernel before its redesign)
+     beside its bound, its rate and one PyTorch call computing the same
+     function (vector_norm(ord=inf) for amax_block, torch.mul into a bf16
+     out for the decode); then the same vector kernels built from edited
+     copies of csrc/ (CODEC_ABLATIONS: no stores, loads only, a multiply
+     for the division, streaming cache hints, CTAs per SM, amax_block's
+     blocks per warp), one nvcc each, all started together;
+   - fused_pack_quant at qwen2.5-3b's gradient layout (the 434 parameter
+     tensors of a full-width model with random weights standing for the
+     gradients), beside its bound, the kernel of another checkout of the
+     repository built from its csrc/pack.cu (``--baseline DIR``, e.g. the
+     parent commit unpacked by ``git archive``; the same C entry) and the
+     ablations of CODEC_ABLATIONS on pack.cu (a search once per block,
+     2 or 8 CTAs per SM, values only).
 
 Steps 1-2 need the CUDA toolkit, step 3 a card.
 """
@@ -83,7 +94,10 @@ _NO_STORES = [("codec.cuh", head + f"*static_cast<{t}*>(p) = v; }}",
                f"*static_cast<{t}*>(p) = v; }}") for t, head in _STORES.items()]
 # name: (the kernels it is timed on, [(file under csrc/, text, replacement)]);
 # each text must occur in the copy
-QS, DQ = ("quant_scaled",), ("dequant_int8",)
+QS, DQ, AM, FP = ("quant_scaled",), ("dequant_int8",), ("amax_block",), ("fused_pack_quant",)
+KERNEL_SOURCE = {"quant_scaled": "quant.cu", "dequant_int8": "quant.cu",
+                 "amax_block": "quant.cu", "fused_pack_quant": "pack.cu"}
+_FUSED_WALK = "    while (sp.dst + sp.n <= base && k + 1 < n_spans) sp = spans[++k];"
 CODEC_ABLATIONS = {
     "no stores": (QS + DQ, _NO_STORES),
     "loads only (no stores, no arithmetic)": (QS + DQ, _NO_STORES + [
@@ -120,6 +134,25 @@ CODEC_ABLATIONS = {
     **{f"{v} values per lane": (QS + DQ, [
         ("codec.cuh", "constexpr int kTile = 8192;", f"constexpr int kTile = {v * 256};")])
        for v in (16, 64)},
+    **{f"amax_block: {kb} KB of loads in flight per SM, {k} block{'s' * (k > 1)} per warp": (AM, [
+        ("quant.cu", "constexpr int kAmaxLoadBytesPerSm = 64 * 1024;",
+         f"constexpr int kAmaxLoadBytesPerSm = {kb} * 1024;"),
+        ("quant.cu", "constexpr int kAmaxBlocksPerWarp = 1;",
+         f"constexpr int kAmaxBlocksPerWarp = {k};")]) for kb, k in ((16, 1), (32, 1), (128, 1),
+                                                                     (64, 2))},
+    # the suspect of the first design: a table search for every block
+    "fused_pack_quant: a search once per block": (FP, [
+        ("pack.cu", _FUSED_WALK,
+         "    k = warp_find_span(spans, n_spans, base, lane);\n    sp = spans[k];")]),
+    "fused_pack_quant: 2 CTAs per SM": (FP, [
+        ("pack.cu", "constexpr int kFusedCtasPerSm = 8;", "constexpr int kFusedCtasPerSm = 2;")]),
+    # at its 64 registers 4 CTAs fit an SM; 32 registers let 8 fit
+    "fused_pack_quant: 8 CTAs per SM forced (__launch_bounds__(256, 8))": (FP, [
+        ("pack.cu", "__launch_bounds__(kThreads)\nfused_pack_quant_kernel",
+         "__launch_bounds__(kThreads, 8)\nfused_pack_quant_kernel")]),
+    "fused_pack_quant: values only (no 16-byte words)": (FP, [
+        ("pack.cu", "    if (sp.src != 0 && off + kBlock <= sp.n && (addr & 15) == 0) {",
+         "    if (false) {")]),
 }
 
 
@@ -163,7 +196,7 @@ def demangle(names: list[str]) -> dict[str, str]:
 def short(name: str) -> str:
     """flash_attention_mma_kernel<128> out of the demangled signature."""
     m = re.search(r"((?:flash_attention|ssd_chunk|dequant_int8|quant_int8|quant_scaled|"
-                  r"amax_block)\w*)(?:<([^>]*)>)?", name)
+                  r"amax_block|pack_slots|fused_pack_quant)\w*)(?:<([^>]*)>)?", name)
     if m is None:
         return name
     return f"{m.group(1)}<{m.group(2).replace('(int)', '')}>" if m.group(2) else m.group(1)
@@ -204,7 +237,7 @@ def compile_and_inspect(source: pathlib.Path) -> None:
     for mangled in sorted(names, key=lambda n: short(names[n])):
         label = short(names[mangled])
         print(f"[ptxas] {label}: {'; '.join(ptxas.get(mangled, []))}{smem_note(label)}")
-        if source.stem == "quant":
+        if source.stem in ("quant", "pack"):
             c = counts[mangled]
             print(f"[sass] {label}: global loads by width " + ", ".join(
                 f"{w} {c[f'LDG.{w}']}" for w in ("128", "64", "narrower")) + "; stores " + ", ".join(
@@ -272,14 +305,27 @@ def time_ssd_prefill_shape(smi: str) -> None:
                   f"largest magnitude")
 
 
-def build_variants() -> dict[str, ctypes.CDLL]:
-    """csrc/quant.cu built from an edited copy of csrc/ per entry of
-    CODEC_ABLATIONS (under build/report/codec/), one nvcc each, all
-    started together; each library bound for its two streaming kernels."""
+def bind(path: pathlib.Path) -> ctypes.CDLL:
+    """A library built from one source, its entry points bound as
+    kernels/_build.py binds them."""
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in _build._SIGNATURES.items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def build_variants(source: str) -> dict[str, ctypes.CDLL]:
+    """``source`` (quant.cu or pack.cu) built from an edited copy of csrc/
+    per entry of CODEC_ABLATIONS on its kernels (under
+    build/report/codec/), one nvcc each, all started together."""
     root = _build.BUILD_DIR.parent / "report" / "codec"
     shutil.rmtree(root, ignore_errors=True)
     cmds, paths = [], {}
-    for i, (name, (_, edits)) in enumerate(CODEC_ABLATIONS.items()):
+    for i, (name, (kernels, edits)) in enumerate(CODEC_ABLATIONS.items()):
+        if KERNEL_SOURCE[kernels[0]] != source:
+            continue
         copy = root / f"variant{i}"
         shutil.copytree(_build.CSRC, copy)
         for fname, old, new in edits:
@@ -287,18 +333,11 @@ def build_variants() -> dict[str, ctypes.CDLL]:
             if old not in text:
                 raise RuntimeError(f"ablation {name!r}: {old!r} is not in {fname}")
             (copy / fname).write_text(text.replace(old, new))
-        paths[name] = copy / "libquant.so"
+        paths[name] = copy / f"lib{pathlib.Path(source).stem}.so"
         cmds.append([_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-o",
-                     str(paths[name]), str(copy / "quant.cu")])
+                     str(paths[name]), str(copy / source)])
     _build._run_all(cmds)
-    libs = {}
-    for name, path in paths.items():
-        lib = ctypes.CDLL(str(path))
-        for fn in ("quant_scaled_launch", "dequant_int8_launch"):
-            getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
-            getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
-    return libs
+    return {name: bind(path) for name, path in paths.items()}
 
 
 def as_bits(t: torch.Tensor) -> torch.Tensor:
@@ -312,7 +351,7 @@ def time_codec_shapes(smi: str) -> None:
     from repro_torch.core import compression
     from repro_torch.kernels import quant
 
-    variants = build_variants()
+    variants = build_variants("quant.cu")
     shipped = _build.library()
     stream = _build.stream_handle(torch.device("cuda"))
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -332,9 +371,18 @@ def time_codec_shapes(smi: str) -> None:
     qm, sm = quant.quant_int8_call(ssm)
     nm = ssm.numel()
     q_out = torch.empty_like(q)
+    a_out = torch.empty(nb, dtype=torch.float32, device="cuda")
     seg_out = torch.empty(n, dtype=torch.bfloat16, device="cuda")
     kv_out = torch.empty(nk, dtype=torch.bfloat16, device="cuda")
     ssm_out = torch.empty(nm, dtype=torch.float32, device="cuda")
+
+    def amax_block(lib, vector):
+        return lambda: lib.amax_block_launch(x.data_ptr(), _build.BF16, n, a_out.data_ptr(), nb,
+                                             vector, stream)
+
+    def norm():
+        return torch.linalg.vector_norm(x.view(nb, B), ord=float("inf"), dim=1,
+                                        dtype=torch.float32)
 
     def quant_scaled(lib, vector):
         return lambda: lib.quant_scaled_launch(x.data_ptr(), _build.BF16, n, scale.data_ptr(),
@@ -348,6 +396,8 @@ def time_codec_shapes(smi: str) -> None:
     # (what, bytes read and written once, launch(lib, vector), output, the
     # wrapper's output, the one-call library version or None, iterations)
     cases = [
+        ("amax_block bf16, gradient segment", 2 * n + 4 * nb, amax_block, a_out,
+         quant.amax_block_call(x), (norm(), norm), 10),
         ("quant_scaled bf16 -> int8, gradient segment", 2 * n + 4 * nb + n, quant_scaled,
          q_out, q, None, 10),
         ("dequant_int8 int32 -> bf16, gradient segment", 4 * n + 4 * nb + 2 * n,
@@ -380,7 +430,8 @@ def time_codec_shapes(smi: str) -> None:
         if library is not None:
             lib_out, call = library
             equal = torch.equal(as_bits(lib_out), as_bits(want))
-            line.append(f"torch.mul {time_ms(call, iters):.4f} ms (bit-equal: {equal})")
+            line.append(f"{'vector_norm' if what.startswith('amax') else 'torch.mul'} "
+                        f"{time_ms(call, iters):.4f} ms (bit-equal: {equal})")
         print("; ".join(line))
         for name, lib in variants.items():
             if not what.startswith(CODEC_ABLATIONS[name][0]):
@@ -390,12 +441,69 @@ def time_codec_shapes(smi: str) -> None:
             print(f"[ablation] [{smi}] {what}, {name}: {rate(nbytes, time_ms(fn, iters))}")
 
 
+def build_baseline(checkout: pathlib.Path) -> ctypes.CDLL:
+    """csrc/pack.cu of another checkout of the repository, built with this
+    tree's flags into build/report/baseline/."""
+    src = checkout / "src" / "repro_torch" / "csrc" / "pack.cu"
+    out = _build.BUILD_DIR.parent / "report" / "baseline" / "libpack.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    _build._run_all([[_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-o", str(out),
+                      str(src)]])
+    return bind(out)
+
+
+def time_pack_layout(smi: str, baseline: pathlib.Path | None) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.core import collectives, packing
+    from repro_torch.kernels import quant
+    from repro_torch.models import Model
+
+    variants = build_variants("pack.cu")
+    libs = {"shipped": _build.library()}
+    if baseline is not None:
+        libs[f"baseline {baseline}"] = build_baseline(baseline)
+    libs.update(variants)
+    model = Model(get_config("qwen2.5-3b"), device="cuda").init(0)
+    leaves = model.train_leaves()
+    layout = collectives.comm_layout(leaves, collectives.CommConfig(compression="int8"),
+                                     world=1)
+    seg = layout.segments[0]
+    pieces = packing.segment_pieces(layout, leaves)[seg.dtype]
+    n, padded, nb = seg.used, seg.padded, seg.padded // quant.BLOCK
+    table, _ = quant._span_table(pieces, padded, "fused_pack_quant")
+    want_q, want_s = quant.fused_pack_quant_call(pieces, padded)
+    q = torch.empty_like(want_q)
+    s = torch.empty_like(want_s)
+    stream = _build.stream_handle(torch.device("cuda"))
+    nbytes = 2 * n + padded + 4 * nb             # read the leaves, write q and s
+    bound = nbytes / PEAK_BYTES_PER_S * 1e3
+    print(f"[time] [{smi}] fused_pack_quant, qwen2.5-3b gradient layout ({len(pieces)} "
+          f"tensors, {table.shape[0]} table rows, {n} bf16 values in {nb} blocks): bound "
+          f"{bound:.4f} ms (bytes)")
+    for name, lib in [*libs.items(), ("shipped", libs["shipped"])]:
+        def fn():
+            return lib.fused_pack_quant_launch(table.data_ptr(), table.shape[0], nb,
+                                               q.data_ptr(), s.data_ptr(), stream)
+        _build.check(fn(), name)
+        torch.cuda.synchronize()
+        if not (torch.equal(q, want_q) and torch.equal(s, want_s)):
+            raise AssertionError(f"fused_pack_quant, {name}: not bit-equal to the wrapper's")
+        ms = time_ms(fn, 10)
+        print(f"[{'time' if name == 'shipped' or name.startswith('baseline') else 'ablation'}] "
+              f"[{smi}] fused_pack_quant, {name}: {ms:.4f} ms ({nbytes / ms / 1e9:.3f} TB/s, "
+              f"{bound / ms:.1%} of the bound)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--source", default="flash_attention.cu",
-                    choices=("flash_attention.cu", "ssd.cu", "quant.cu"),
+                    choices=("flash_attention.cu", "ssd.cu", "quant.cu", "pack.cu"),
                     help="the source under src/repro_torch/csrc/ to inspect and time")
-    source = _build.CSRC / ap.parse_args().source
+    ap.add_argument("--baseline", type=pathlib.Path, default=None,
+                    help="with --source pack.cu: another checkout of the repository whose "
+                         "fused_pack_quant is timed beside this tree's")
+    args = ap.parse_args()
+    source = _build.CSRC / args.source
     compile_and_inspect(source)
     if torch.cuda.is_available():
         smi = card()
@@ -403,6 +511,8 @@ def main() -> int:
             time_ssd_prefill_shape(smi)
         elif source.stem == "quant":
             time_codec_shapes(smi)
+        elif source.stem == "pack":
+            time_pack_layout(smi, args.baseline)
         else:
             time_serving_shape(smi)
     return 0
