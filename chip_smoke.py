@@ -25,9 +25,11 @@
 3. Smoke-size models on the card against the same models on the CPU:
    qwen2.5-3b and mamba2-2.7b prefill and decode (f32, logits within 1e-3,
    equal tokens), and 3 qwen training steps for each gradient sync of
-   TRAIN_RUNS (hier and hier_pipelined with int8 on the pod hop,
-   hier_border_rs with bf16) through the same process groups (gloo for the
-   CPU, NCCL for the card), losses and parameters within 1e-4.
+   TRAIN_RUNS (hier, hier_pipelined and hier_zero1 with int8 on the pod
+   hop, hier_border_rs with bf16) through the same process groups (gloo
+   for the CPU, NCCL for the card), losses and parameters within 1e-4;
+   hier_zero1's f32 master and moments are bootstrapped from the same
+   parameters on each side.
 4. The serving paths at full width, random weights from a seed: qwen2.5-3b
    (36 layers) and mamba2-2.7b (64 layers) each prefill 4 requests of
    1024 tokens, move the cache (KV, or conv + SSM state) raw and int8 on
@@ -42,17 +44,22 @@
    through real pod and data groups of one member, once per gradient sync
    of TRAIN_RUNS.  Every step must launch pack_slots once for its one bf16
    gradient segment, amax_block, quant_scaled and dequant_int8 once per
-   pod-hop chunk with int8 (hier: 1, hier_pipelined: 4) and not with bf16,
-   and no flash attention, every amax_block, quant_scaled and dequant_int8
-   launch in its vector variant, with finite loss and grad norm and the
-   finite gate open.
+   pod-hop chunk with int8 (hier, hier_zero1: 1, hier_pipelined: 4) and not
+   with bf16, and no flash attention, every amax_block, quant_scaled and
+   dequant_int8 launch in its vector variant, with finite loss and grad
+   norm and the finite gate open.  hier_zero1 quantizes the gradient
+   segment cast to f32 and decodes it into f32 (the f32 master's shard);
+   its bootstrap packs the parameters once, before the steps.  Each run's
+   peak memory is printed beside the card's.
 6. The shared-scale codec at the gradient segment's size (more than 2^31
    elements): bit-equal to the plain versions chunk by chunk, edge cases
    (ragged, all-zero block, scale <= 0, .5 ties, +-127 s, NaN and +-inf
    blocks and scales, for both int8 codecs) bit-equal, and
    amax / quant_scaled / the int32 -> bf16 decode timed beside their bounds
    and, for amax and the decode, one PyTorch call (vector_norm(ord=inf),
-   torch.mul into a bf16 out), if bit-equal.
+   torch.mul into a bf16 out), if bit-equal; then the same on hier_zero1's
+   f32 segment: amax / quant_scaled on f32 input and the int32 -> f32
+   decode, in their vector variant.
 7. Slot packing on the qwen2.5-3b gradient layout (one bf16 segment of
    more than 2^31 values) and at small sizes (f32 and bf16 leaves, list
    leaves, ragged leaves, an all-zero block; for fused_pack_quant also
@@ -62,10 +69,15 @@
    version and to pack -> quant_int8; then the conformance check of the
    reference
    (OK-F: fused pack+quantize equals the composition) as a path of its
-   own at the full layout; each timed beside its bound.
+   own at the full layout; each timed beside its bound, and pack_slots
+   against torch.cat in PACK_ROUNDS interleaved rounds, each sample
+   printed, the medians compared.
 8. Where the time goes: one training step per gradient sync under
    torch.profiler, device time by kernel group and the device's idle
-   share of the wall time (the serving profiles are part of phase 4).
+   share of the wall time (the serving profiles are part of phase 4);
+   hier_zero1's bootstrap runs before the profiled window.  Then one
+   optimizer update per sync timed apart, free of the profiler's
+   attribution of kernels to ranges.
 
 Any failed check raises, and the script exits non-zero without printing
 its result line.  The last line is the result:
@@ -80,6 +92,7 @@ import gc
 import json
 import math
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -105,7 +118,8 @@ from repro_torch.models import attention  # noqa: E402
 from repro_torch.serve import disaggregated  # noqa: E402
 from repro_torch.serve.serve_step import make_serve_steps  # noqa: E402
 from repro_torch.train import optimizer as opt_lib  # noqa: E402
-from repro_torch.train.train_step import TrainConfig, make_train_step  # noqa: E402
+from repro_torch.train.train_step import (  # noqa: E402
+    TrainConfig, make_train_step, zero_bootstrap)
 
 # NVIDIA H100 SXM data sheet, dense rates without sparsity
 PEAK_BYTES_PER_S = 3.35e12
@@ -119,7 +133,9 @@ PATH_KERNEL = {ARCH: "flash_attention_bhsd", SSM_ARCH: "ssd_chunk"}
 BATCH, PROMPT, GEN = 4, 1024, 16
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 4
 # (gradient sync, pod-hop codec) of the training paths
-TRAIN_RUNS = [("hier", "int8"), ("hier_pipelined", "int8"), ("hier_border_rs", "bf16")]
+TRAIN_RUNS = [("hier", "int8"), ("hier_pipelined", "int8"), ("hier_border_rs", "bf16"),
+              ("hier_zero1", "int8")]
+PACK_ROUNDS = 6       # interleaved rounds of pack_slots against torch.cat
 
 
 def train_kernels(mode: str, codec: str | None) -> dict[str, int]:
@@ -130,6 +146,12 @@ def train_kernels(mode: str, codec: str | None) -> dict[str, int]:
     return {"pack_slots": 1, "amax_block": n, "quant_scaled": n, "dequant_int8": n,
             "quant_int8": 0, "fused_pack_quant": 0, "flash_attention_bhsd": 0,
             "ssd_chunk": 0}
+
+
+def bootstrap_kernels(mode: str) -> dict[str, int]:
+    """Launches before the steps: hier_zero1 packs the parameters once for
+    its f32 master."""
+    return {"pack_slots": 1} if mode == "hier_zero1" else {}
 
 
 def card() -> str:
@@ -604,7 +626,10 @@ def check_small_training(dev, rt, mode: str, codec: str | None) -> None:
     runs = []
     for model in (cpu, gpu):
         step_fn, _ = make_train_step(model, tcfg)
-        opt = opt_lib.adam_init(opt_lib.flat_params(model.train_leaves())[0])
+        if mode == "hier_zero1":
+            opt = zero_bootstrap(model, tcfg)
+        else:
+            opt = opt_lib.adam_init(opt_lib.flat_params(model.train_leaves())[0])
         dcfg = DataConfig(vocab_size=cfg.vocab_size, global_batch=2, seq_len=64)
         losses = []
         for i in range(3):
@@ -752,6 +777,78 @@ def check_shared_codec(dev, gen, n: int, agree: dict[str, bool]) -> tuple[dict, 
           f"in their vector variant; library versions bit-equal: "
           f"vector_norm {amax_equal}, torch.mul {lib_equal}")
     return rows, deq
+
+
+def check_shared_codec_f32(dev, gen, n: int, agree: dict[str, bool]) -> dict:
+    """hier_zero1's codec input: one f32 buffer of ``n`` > 2^31 values (the
+    gradient segment cast to f32), through amax_block and quant_scaled and
+    the int32 -> f32 decode, each in its vector variant, compared chunk by
+    chunk with the plain versions and timed beside its bound (amax_block
+    and the decode also beside one PyTorch call, if bit-equal)."""
+    B = quant.BLOCK
+    nb = n // B
+    check(n == nb * B, f"the gradient segment {n} is not whole blocks")
+    x = torch.empty(n, dtype=torch.float32, device=dev)
+    for c0, c1 in _chunks(n):
+        x[c0:c1] = torch.randn(c1 - c0, device=dev, generator=gen) * 1e-3
+    x[B:2 * B] = 0
+    before = ops.vector_launch_counts()
+    a = quant.amax_block_call(x)
+    scale = compression._shared_scale(a.clone(), None)
+    q = quant.quant_scaled_call(x, scale)
+    after = ops.vector_launch_counts()
+    check(all(after[k] == before[k] + 1 for k in ("amax_block", "quant_scaled")),
+          "amax_block, quant_scaled on f32: vector variant")
+    for c0, c1 in _chunks(n):
+        b0, b1 = c0 // B, -(-c1 // B)
+        check(torch.equal(a[b0:b1], quant.amax_block_plain(x[c0:c1])),
+              f"amax_block f32 at [{c0}, {c1})")
+        check(torch.equal(q[b0:b1], quant.quant_scaled_plain(x[c0:c1], scale[b0:b1])),
+              f"quant_scaled f32 at [{c0}, {c1})")
+
+    def norm():
+        return torch.linalg.vector_norm(x.view(nb, B), ord=float("inf"), dim=1)
+    amax_equal = agree["amax_block"] and torch.equal(norm(), a)
+    out = {
+        # read the f32 segment once, write nb floats
+        "amax_block": {"ms": time_ms(lambda: quant.amax_block_call(x), 10),
+                       "bound_ms": (4 * n + 4 * nb) / PEAK_BYTES_PER_S * 1e3,
+                       "library_ms": yardstick(norm, amax_equal,
+                                               "vector_norm(ord=inf), f32", 10)},
+        # read the segment and the scales once, write the int8 blocks
+        "quant_scaled": {"ms": time_ms(lambda: quant.quant_scaled_call(x, scale), 10),
+                         "bound_ms": (4 * n + 4 * nb + nb * B) / PEAK_BYTES_PER_S * 1e3,
+                         "library_ms": None},
+    }
+    del x
+    free_memory()
+    q32 = q.to(torch.int32)
+    del q
+    free_memory()
+    before = quant.dequant_int8_call.vector_launches
+    dec = quant.dequant_int8_call(q32, scale, n, torch.float32)
+    check(quant.dequant_int8_call.vector_launches == before + 1,
+          "dequant_int8 int32 -> f32: vector variant")
+    for c0, c1 in _chunks(n):
+        b0, b1 = c0 // B, -(-c1 // B)
+        want = quant.dequant_int8_plain(q32[b0:b1], scale[b0:b1], c1 - c0, torch.float32)
+        check(torch.equal(dec[c0:c1], want), f"dequant int32 -> f32 at [{c0}, {c1})")
+    lib_out, lib_call = mul_decode(q32, scale, torch.float32)
+    lib_equal = agree["dequant_int8"] and torch.equal(lib_out, dec)
+    del dec, lib_out
+    free_memory()
+    # read the int32 blocks and the scales, write the f32 values
+    out["dequant_int8"] = {
+        "ms": time_ms(lambda: quant.dequant_int8_call(q32, scale, n, torch.float32), 10),
+        "bound_ms": (4 * nb * B + 4 * nb + 4 * n) / PEAK_BYTES_PER_S * 1e3,
+        "library_ms": yardstick(lib_call, lib_equal, "torch.mul int32 -> f32", 10)}
+    del lib_call, q32
+    free_memory()
+    print(f"[check] hier_zero1's f32 gradient segment of {n} values (> 2^31), in chunks "
+          f"of 2^28: amax_block and quant_scaled on f32 and the int32 -> f32 decode "
+          f"bit-equal, all three in their vector variant; library versions bit-equal: "
+          f"vector_norm {amax_equal}, torch.mul {lib_equal}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -913,9 +1010,29 @@ def check_pack(dev, gen, rt, smi: str) -> tuple[dict, dict]:
             "bound_ms": (2 * n + padded + 4 * nb) / PEAK_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "library_ms": None},
     }
+    rows["pack_slots"]["interleaved"] = pack_against_cat(pieces, parts, padded, smi)
     del model, leaves, pieces, parts
     free_memory()
     return rows, counts
+
+
+def pack_against_cat(pieces, parts, padded: int, smi: str) -> dict:
+    """pack_slots and torch.cat on the same gradient layout in PACK_ROUNDS
+    rounds, taking turns at going first, each sample timed as the row's
+    ``ms`` is; every sample printed."""
+    calls = {"pack_slots": lambda: quant.pack_slots_call(pieces, padded, torch.bfloat16),
+             "torch.cat": lambda: torch.cat(parts)}
+    samples = {name: [] for name in calls}
+    for i in range(PACK_ROUNDS):
+        for name in (list(calls) if i % 2 == 0 else list(calls)[::-1]):
+            samples[name].append(time_ms(calls[name], 10))
+            print(f"[time] [{smi}] pack_slots vs torch.cat, round {i}: {name} "
+                  f"{samples[name][-1]:.4f} ms")
+    med = {name: statistics.median(ms) for name, ms in samples.items()}
+    print(f"[time] [{smi}] pack_slots vs torch.cat over {PACK_ROUNDS} interleaved rounds: "
+          f"medians pack_slots {med['pack_slots']:.4f} ms, torch.cat "
+          f"{med['torch.cat']:.4f} ms ({med['pack_slots'] / med['torch.cat'] - 1:+.1%})")
+    return {"samples_ms": samples, "median_ms": med}
 
 
 # ---------------------------------------------------------------------------
@@ -933,7 +1050,7 @@ SERVE_RANGES = ("ssd_inter_chunk", "causal_conv1d")
 TRAIN_GROUPS = (("codec", ("amax_block", "quant_scaled", "dequant_int8")),
                 ("pack", ("pack_slots_kernel",)),
                 ("matmul", MATMUL_KEYS))
-TRAIN_RANGES = ("grad_sync", "optimizer")
+TRAIN_RANGES = ("grad_sync", "grad_norm", "optimizer")
 
 
 def _name_group(name: str, name_groups) -> str | None:
@@ -1115,8 +1232,9 @@ def profile_training(dev, rt, smi: str, mode: str, codec: str | None,
                      with_attention: bool) -> dict:
     """One full-width training step under torch.profiler, after one
     warm-up step: device time by kernel group (the codec kernels, the
-    pack, matmul, the rest of the gradient sync, the optimizer,
-    everything else) and the device's idle share."""
+    pack, matmul, the rest of the gradient sync, the gradient norm, the
+    optimizer, everything else) and the device's idle share; then one
+    optimizer update timed apart (``optimizer_ms``)."""
     cfg = get_config(ARCH)
     model = Model(cfg, rt, dev)
     step_fn, init_fn = make_train_step(model, TrainConfig(
@@ -1135,6 +1253,10 @@ def profile_training(dev, rt, smi: str, mode: str, codec: str | None,
         wall = (time.perf_counter() - t0) * 1e3
     out = _report(prof, wall, f"training step {TRAIN_BATCH}x{TRAIN_SEQ}, {mode} + {codec}",
                   smi, TRAIN_GROUPS, TRAIN_RANGES)
+    out["optimizer_timed_apart"] = optimizer_ms(model, opt, opt_lib.OptConfig())
+    print(f"[profile] [{smi}] {mode}'s optimizer update, timed apart: device time "
+          f"{out['optimizer_timed_apart']['device_ms']:.3f} ms, event-timed "
+          f"{out['optimizer_timed_apart']['ms']:.3f} ms")
     del model, opt, step_fn, init_fn
     free_memory()
     if not with_attention:
@@ -1143,6 +1265,24 @@ def profile_training(dev, rt, smi: str, mode: str, codec: str | None,
     print(f"[profile] [{smi}] training attention, timed apart ({cfg.n_layers} layers x "
           f"(forward + forward/backward)): {attn:.3f} ms, inside matmul and other")
     return out
+
+
+def optimizer_ms(model, opt, ocfg) -> dict[str, float]:
+    """One update of the live optimizer state outside the step: the
+    profile's ``optimizer`` range without the profiler's attribution of
+    kernels to ranges.  ``device_ms`` sums its kernels' device time;
+    ``ms`` spans it with CUDA events, so it also holds the gaps a slower
+    host leaves.  The moments (ZeRO-1) or the parameters stand in for the
+    gradients."""
+    if isinstance(opt, opt_lib.ZeroState):
+        def update():
+            opt_lib.zero_update(opt.mu, opt, ocfg, 0.5)
+    else:
+        params, decay = opt_lib.flat_params(model.train_leaves())
+
+        def update():
+            opt_lib.adam_update(params, opt, params, decay, ocfg, 0.5)
+    return {"device_ms": device_ms(update, iters=3), "ms": time_ms(update, 3, warmup=1)}
 
 
 def train_full_width(dev, smi: str, mode: str, codec: str | None) -> dict:
@@ -1154,8 +1294,9 @@ def train_full_width(dev, smi: str, mode: str, codec: str | None) -> dict:
                            log=lambda line: print(f"[train] {line}"))
     counts = ops.launch_counts()
     want = train_kernels(mode, codec)
-    check(counts == {k: n * TRAIN_STEPS for k, n in want.items()},
-          f"{mode} launches {counts} over {TRAIN_STEPS} steps")
+    boot = bootstrap_kernels(mode)
+    check(counts == {k: n * TRAIN_STEPS + boot.get(k, 0) for k, n in want.items()},
+          f"{mode} launches {counts} over {TRAIN_STEPS} steps and the bootstrap {boot}")
     check_vector_launches(counts, mode)
     for rec in res["records"]:
         launched = {k: rec["launches"][k] for k in want}
@@ -1164,12 +1305,15 @@ def train_full_width(dev, smi: str, mode: str, codec: str | None) -> dict:
               f"step {rec['step']}: loss {rec['loss']}, grad norm {rec['gnorm']}")
         check(not rec["gated"], f"step {rec['step']}: the finite gate tripped")
     check(res["params"] == 3_085_938_688, f"params {res['params']}")
+    total_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    check(res["peak_mem_gb"] < total_gb, f"peak {res['peak_mem_gb']} GB of {total_gb} GB")
     losses = [r["loss"] for r in res["records"]]
     print(f"[train] [{smi}] {res['arch']} ({res['params']} params, bf16, 36 layers), {mode} + "
           f"{codec} over a pod and a data group of one, {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
           f"step {res['step_ms']:.3f} ms (median of steps 1-{TRAIN_STEPS - 1}), "
-          f"{res['tokens_per_s']:.1f} tokens/s, peak memory {res['peak_mem_gb']:.3f} GB, "
-          f"losses {losses}; launches per step {want}")
+          f"{res['tokens_per_s']:.1f} tokens/s, peak memory {res['peak_mem_gb']:.3f} GB of "
+          f"the card's {total_gb:.3f} GB, losses {losses}; launches per step {want}, "
+          f"before the steps {boot}")
     res["counts"] = counts
     return res
 
@@ -1224,6 +1368,8 @@ def main() -> int:
         codec_rows, deq = check_shared_codec(dev, gen, n_segment, agree)
         rows.update(codec_rows)
         free_memory()
+        f32 = check_shared_codec_f32(dev, gen, n_segment, agree)
+        free_memory()
         pack_rows, conformance_counts = check_pack(dev, gen, rt, smi)
         rows.update(pack_rows)
         free_memory()
@@ -1234,6 +1380,9 @@ def main() -> int:
         dist.destroy_process_group()
 
     rows["dequant_int8"]["int32_grad_segment"] = deq
+    rows["amax_block"]["f32_grad_segment"] = f32["amax_block"]
+    rows["quant_scaled"]["f32_grad_segment"] = f32["quant_scaled"]
+    rows["dequant_int8"]["int32_f32_grad_segment"] = f32["dequant_int8"]
     paths = {"serve": serve_counts[ARCH], "serve_mamba2": serve_counts[SSM_ARCH],
              **{f"train_{mode}": res["counts"] for mode, res in train.items()},
              "conformance": conformance_counts}
@@ -1259,6 +1408,14 @@ def main() -> int:
           f"{deq['ms']:.4f} ms, bound {deq['bound_ms']:.4f} ms (bytes) = "
           f"{rate_tbs(deq):.3f} TB/s against {PEAK_BYTES_PER_S / 1e12} TB/s, "
           f"plain {deq['plain_ms']:.4f} ms, library (torch.mul) {lib_ms} ms")
+    for name, what in (("amax_block", "f32 input"), ("quant_scaled", "f32 input"),
+                       ("dequant_int8", "int32 -> f32")):
+        row = f32[name]
+        lib_ms = "-" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+        print(f"[time] [{smi}] {name} {what}, hier_zero1's {n_segment}-value segment: "
+              f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms (bytes) = "
+              f"{rate_tbs(row):.3f} TB/s against {PEAK_BYTES_PER_S / 1e12} TB/s, "
+              f"library {lib_ms} ms")
     print(json.dumps({"serve": {arch: {k: res[k] for k in (
         "ttft_ms", "decode_ms_per_step", "int8_transfer_ms", "peak_mem_gb",
         "int8_token_agreement", "cache_bytes", "params")} for arch, res in serve.items()},

@@ -20,10 +20,15 @@ Ported: the ``flat``, ``hier``, ``hier_pipelined`` (the chunk loop of
 legs: a combining reduce-scatter, then an all-gather, over the pod
 group) schedules of the all-reduce, with the bf16 and int8 codecs (int8
 not with ``hier_border_rs``, as in the reference) and cluster weights,
-and the packed pytree entry point.  Every entry point consumes its
-input: buffers are reduced in place where the collective allows it.
-The raw-shard copy ring of the all-gather and the All2All steps raise
-``NotImplementedError`` naming the slice that brings them.
+and the packed pytree entry point; ReduceScatterH
+(``hier_psum_scatter``) and AllGatherH (``hier_all_gather``, the
+raw-shard copy ring then the intra broadcast); and the ZeRO-1 flat-shard
+layer (``zero1_local_shard``, ``tree_hier_psum_scatter``,
+``tree_hier_unscatter``).  Every entry point consumes its input:
+buffers are reduced in place where the collective allows it, and the
+interpreter holds the payload in a list of one that the int8 codec
+empties, so the payload is freed once it is quantized.  The All2All
+steps raise ``NotImplementedError`` naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -44,7 +49,8 @@ class CommConfig:
     ``CommConfig``).
 
     mode — a registered schedule mode; ``flat``, ``hier``,
-      ``hier_pipelined`` and ``hier_border_rs`` run here.
+      ``hier_pipelined`` and ``hier_border_rs`` run here (``hier_zero1``
+      runs ``hier``'s reduce-scatter and all-gather schedules).
     pod_group — the cluster group the C2C hop runs over (``None``: one
       cluster, no C2C hop).
     intra_group — the intra-cluster group of the start and end homColl
@@ -89,12 +95,12 @@ def _apply_cluster_weight(x: torch.Tensor, cfg: CommConfig) -> torch.Tensor:
     return x * _cluster_weight_scalar(cfg).to(device=x.device, dtype=x.dtype)
 
 
-def _pad_to(x: torch.Tensor, multiple: int) -> tuple[torch.Tensor, int]:
+def _pad_to(x: torch.Tensor, multiple: int) -> torch.Tensor:
     flat = x.reshape(-1)
     pad = (-flat.numel()) % multiple
     if pad:
         flat = torch.cat([flat, flat.new_zeros(pad)])
-    return flat, pad
+    return flat
 
 
 def _flat_psum(x: torch.Tensor, cfg: CommConfig) -> torch.Tensor:
@@ -137,9 +143,20 @@ def _not_ported(what: str, slice_: str):
     return NotImplementedError(f"{what} is not ported yet (the {slice_} slice)")
 
 
-def _exec_step(step: schedule_ir.Step, buf: torch.Tensor, cfg: CommConfig,
+def _exec_step(step: schedule_ir.Step, payload: list, cfg: CommConfig,
                ctx: _ExecCtx) -> torch.Tensor:
+    """Run one step on ``payload[0]``, taking it out of the list, and return
+    the result."""
     intra, pod = cfg.intra_group, cfg.pod_group
+    if (isinstance(step, schedule_ir.C2CRed) and pod is not None and not step.scatter
+            and ctx.codec is not None):
+        # handed to the codec straight from the list, so that no frame here
+        # holds the payload: the int8 codec frees it once quantized.  The
+        # weight folds into the codec's nb-sized scale vector.
+        w, ctx.weight = ctx.weight, None
+        return compression.compressed_psum(
+            primitives.apply_inject(payload.pop(), "c2c"), pod, ctx.codec, weight=w)
+    buf = payload.pop()
     if isinstance(step, schedule_ir.Scale):
         if cfg.cluster_weights is None:
             return buf
@@ -184,9 +201,6 @@ def _exec_step(step: schedule_ir.Step, buf: torch.Tensor, cfg: CommConfig,
                 buf = buf * w.to(device=buf.device, dtype=buf.dtype)
             return _wire_cast(buf, ctx.codec,
                               lambda b: primitives.hom_reduce_scatter(b, pod))
-        if ctx.codec is not None:
-            # the weight folds into the codec's nb-sized scale vector
-            return compression.compressed_psum(buf, pod, ctx.codec, weight=w)
         if w is not None:
             buf = buf * w.to(device=buf.device, dtype=buf.dtype)
         return primitives.c2c_red(buf, pod)
@@ -195,8 +209,8 @@ def _exec_step(step: schedule_ir.Step, buf: torch.Tensor, cfg: CommConfig,
             return buf
         buf = primitives.apply_inject(buf, "c2c")
         if not step.gather:
-            raise _not_ported("the raw-shard C2C copy ring (AllGatherH)",
-                              "ZeRO-1 / FSDP")
+            # AllGatherH's raw-shard pod ring: stacks pods on a leading dim
+            return primitives.c2c_cpy(buf, pod)
         # border-communicator leg 2: gather the owned, fully reduced shards
         # (already codec-rounded, so the wire cast is lossless here)
         out = _wire_cast(buf, ctx.codec, lambda b: primitives.hom_all_gather(b, pod))
@@ -214,11 +228,14 @@ def _exec_step(step: schedule_ir.Step, buf: torch.Tensor, cfg: CommConfig,
     raise NotImplementedError(f"no executor for step {step!r}")
 
 
-def _exec_steps(steps, buf: torch.Tensor, cfg: CommConfig) -> torch.Tensor:
+def _exec_steps(steps, payload: list, cfg: CommConfig) -> torch.Tensor:
+    """Run ``steps`` on the payload in ``payload``, a list of one tensor
+    that the walk empties: only the list holds the payload between steps,
+    so a step that consumes it can free it."""
     ctx = _ExecCtx()
     for step in steps:
-        buf = _exec_step(step, buf, cfg, ctx)
-    return buf
+        payload.append(_exec_step(step, payload, cfg, ctx))
+    return payload.pop()
 
 
 # ---------------------------------------------------------------------------
@@ -235,13 +252,74 @@ def hier_psum(x: torch.Tensor, cfg: CommConfig) -> torch.Tensor:
         sched = schedule_ir.with_cluster_scale(sched)
     if any(isinstance(s, schedule_ir.Flat) for s in sched.steps):
         return _flat_psum(x, cfg)
-    shape = x.shape
-    flat, pad = _pad_to(x, primitives.axis_size(cfg.intra_group))
+    shape, n = x.shape, x.numel()
+    payload = [_pad_to(x, primitives.axis_size(cfg.intra_group))]
     del x
-    out = _exec_steps(sched.steps, flat, cfg)
-    if pad:
-        out = out[:-pad]
-    return out.reshape(shape)
+    return _exec_steps(sched.steps, payload, cfg)[:n].reshape(shape)
+
+
+def hier_psum_scatter(x: torch.Tensor, cfg: CommConfig) -> torch.Tensor:
+    """ReduceScatterH: ReduceScatter over the intra group, then c2cRed over
+    the pods.  Returns this rank's 1/intra_size flat shard (``x`` padded to
+    a multiple of the intra group's size), globally summed.  This is the
+    ZeRO-1 entry: the end AllGather is deferred to the parameter
+    reconstruction.  ``x`` is consumed."""
+    intra = cfg.intra_group
+    isize = primitives.axis_size(intra)
+    sched = schedule_ir.build_schedule("reduce_scatter", cfg.mode, cfg.n_chunks,
+                                       cfg.compression)
+    if cfg.cluster_weights is not None:
+        sched = schedule_ir.with_cluster_scale(sched)
+    payload = [_pad_to(x, isize)]
+    del x
+    if any(isinstance(s, schedule_ir.Flat) for s in sched.steps):
+        shard = primitives.hom_reduce_scatter(_apply_cluster_weight(payload.pop(), cfg),
+                                              intra)
+        if cfg.pod_group is not None:
+            shard = primitives.hom_psum(shard, cfg.pod_group)
+        return shard
+    # the scattered sync is not chunk-pipelined (there is no end phase to
+    # overlap): interpret a ChunkLoop body sequentially
+    steps, _ = sched.unrolled()
+    return _exec_steps(steps, payload, cfg)
+
+
+def hier_all_gather_flat(shard: torch.Tensor, cfg: CommConfig,
+                         orig_size: int) -> torch.Tensor:
+    """Inverse of ``hier_psum_scatter``: AllGather the flat shard over the
+    intra group and trim the padding (the deferred end homColl)."""
+    return primitives.hom_all_gather(shard, cfg.intra_group)[:orig_size]
+
+
+# ---------------------------------------------------------------------------
+# AllGatherH (Table 7 row 2): c2cCpy of raw shards, then intra Bcast
+# ---------------------------------------------------------------------------
+
+def hier_all_gather(x: torch.Tensor, cfg: CommConfig, gather_dim: int = 0) -> torch.Tensor:
+    """Gather every data-parallel rank's ``x`` along ``gather_dim``, in rank
+    order (pod-major), through the mode's schedule.  For the hier family
+    the raw shard crosses the pods first (C2CCpy: one copy crosses
+    between clusters, Table-7 optimal), then the intra AllGather doubles
+    as the end Bcast (IntraBcast)."""
+    sched = schedule_ir.build_schedule("all_gather", cfg.mode, cfg.n_chunks,
+                                       cfg.compression)
+    if cfg.pod_group is None:
+        return primitives.hom_all_gather(x, cfg.intra_group, gather_dim)
+    if any(isinstance(s, schedule_ir.Flat) for s in sched.steps):
+        return primitives.hom_all_gather(x, cfg.dp_group, gather_dim)
+    g = gather_dim
+    steps, _ = sched.unrolled()          # the gather path is not chunk-pipelined
+    pods = x[None]
+    for step in steps:
+        if isinstance(step, schedule_ir.C2CCpy):
+            pods = primitives.c2c_cpy(x, cfg.pod_group)                # (P, *x)
+        elif isinstance(step, schedule_ir.IntraBcast):
+            n_pods = pods.shape[0]
+            pods = primitives.hom_all_gather(pods, cfg.intra_group)   # (D*P, *x)
+            pods = pods.reshape((-1, n_pods) + tuple(x.shape)).transpose(0, 1)
+    alld = torch.movedim(pods, (0, 1), (g, g + 1))                     # x[:g], P, D, x[g:]
+    new_shape = x.shape[:g] + (pods.shape[0] * pods.shape[1] * x.shape[g],) + x.shape[g + 1:]
+    return alld.reshape(new_shape)
 
 
 # ---------------------------------------------------------------------------
@@ -284,3 +362,92 @@ def tree_hier_psum(leaves: list, cfg: CommConfig) -> list[torch.Tensor]:
     leaves.clear()
     out = {dt: hier_psum(bufs.pop(dt), cfg) for dt in list(bufs)}
     return packing.unpack(layout, out)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 flat-shard view
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class FlatShardMeta:
+    """Static metadata of the packed flat f32 master of a list of leaves
+    (ZeRO-1).  The master is the concatenation of per-wire-dtype segments
+    (the ``core/packing.py`` layout, each segment aligned to
+    ``intra_size * BLOCK``), sharded per segment over the intra group, so
+    that the parameter reconstruction's AllGather runs in each segment's
+    own wire dtype.  The leaves are a list, so there is no treedef."""
+    layout: packing.PackedLayout
+    total: int           # unpadded total elements across segments
+    padded: int          # master length (sum of padded segments)
+
+
+def _zero1_layout(leaves, intra_size: int) -> packing.PackedLayout:
+    """The persistent master layout shared by the bootstrap, the scattered
+    gradient sync and the parameter reconstruction: one segment per wire
+    dtype, aligned so that every segment's intra shard is whole and the
+    int8 codec never re-pads."""
+    return packing.plan_layout(packing.tree_metas(leaves),
+                               world=max(1, int(intra_size)),
+                               block=packing.DEFAULT_BLOCK)
+
+
+def _meta(layout: packing.PackedLayout) -> FlatShardMeta:
+    return FlatShardMeta(layout, layout.used_total, layout.padded_total)
+
+
+def _cat(parts: list[torch.Tensor]) -> torch.Tensor:
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def zero1_local_shard(leaves, cfg: CommConfig) -> tuple[torch.Tensor, FlatShardMeta]:
+    """Bootstrap the ZeRO-1 f32 master shard from this rank's parameters:
+    pack per segment, take this rank's slice of each segment by its rank
+    in the intra group, cast to f32 (a new buffer), concatenate once."""
+    intra = cfg.intra_group
+    isize = primitives.axis_size(intra)
+    rank = 0 if intra is None else dist.get_rank(intra)
+    layout = _zero1_layout(leaves, isize)
+    bufs = packing.pack(layout, leaves)
+    parts = []
+    for seg in layout.segments:
+        ssz = seg.padded // isize
+        parts.append(bufs.pop(seg.dtype)[rank * ssz:(rank + 1) * ssz]
+                     .to(torch.float32, copy=True))
+    return _cat(parts), _meta(layout)
+
+
+def tree_hier_psum_scatter(leaves: list, cfg: CommConfig
+                           ) -> tuple[torch.Tensor, FlatShardMeta]:
+    """Gradient sync of ZeRO-1: the summed flat f32 master shard (length
+    padded / intra_size) and the metadata to rebuild the parameters.
+
+    Segments are laid out per wire dtype, but the gradient reduction runs
+    in f32 for every segment, as in the reference; the 2-byte wire of a
+    bf16 segment lands on the reconstruction's AllGather.  ``leaves`` is
+    emptied once packed, and each packed segment is released once cast
+    to f32."""
+    isize = primitives.axis_size(cfg.intra_group)
+    layout = _zero1_layout(leaves, isize)
+    bufs = packing.pack(layout, leaves)
+    leaves.clear()
+    shards = [hier_psum_scatter(bufs.pop(seg.dtype).float(), cfg)
+              for seg in layout.segments]
+    return _cat(shards), _meta(layout)
+
+
+def tree_hier_unscatter(shard: torch.Tensor, fmeta: FlatShardMeta,
+                        cfg: CommConfig) -> list[torch.Tensor]:
+    """Inverse of ``tree_hier_psum_scatter``: gather each segment's slice
+    of the shard over the intra group in the segment's wire dtype, and
+    return one view per leaf (a list leaf as its (L, ...) stack).  An f32
+    segment's views may share the shard's memory."""
+    intra = cfg.intra_group
+    isize = primitives.axis_size(intra)
+    gathered: dict[str, torch.Tensor] = {}
+    off = 0
+    for seg in fmeta.layout.segments:
+        ssz = seg.padded // isize
+        piece = shard[off:off + ssz].to(packing.torch_dtype(seg.dtype))
+        off += ssz
+        gathered[seg.dtype] = primitives.hom_all_gather(piece, intra)
+    return packing.unpack(fmeta.layout, gathered)

@@ -98,16 +98,20 @@ def compressed_psum(x: torch.Tensor, group, codec: str,
                     weight: torch.Tensor | None = None) -> torch.Tensor:
     """All-reduce ``x`` over ``group`` with wire compression.  ``weight``
     is this rank's cluster gradient weight (the deferred ``Scale`` step),
-    folded into the codec."""
+    folded into the codec.  ``x`` is consumed."""
     if codec == "bf16":
         if weight is not None:
             x = x * weight.to(device=x.device, dtype=x.dtype)
         return primitives.c2c_red(x.to(torch.bfloat16), group).to(x.dtype)
     if codec == "int8":
-        # int8_transfer inlined, so that q is freed once the ring has
-        # summed it (on the card: 3.09 GB of a 12.34 GB int32 peak)
+        # int8_transfer inlined, so that x is freed once quantized and q once
+        # the ring has summed it (on the card, ZeRO-1's f32 gradient segment
+        # is 12.34 GB and q 3.09 GB, beside a 12.34 GB int32 sum); x goes
+        # only if the caller handed it over, holding no reference of its own
+        size, dtype, shape = x.numel(), x.dtype, x.shape
         q, scale = int8_encode(x, group, weight=weight)
+        del x
         acc = _ring_int8_sum(q, group)
         del q
-        return _qk.dequant_int8_call(acc, scale, x.numel(), x.dtype).reshape(x.shape)
+        return _qk.dequant_int8_call(acc, scale, size, dtype).reshape(shape)
     raise ValueError(f"unknown codec {codec!r}")

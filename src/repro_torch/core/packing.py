@@ -227,6 +227,12 @@ def dtype_name(dtype: torch.dtype) -> str:
     return _DTYPE_NAMES[dtype]
 
 
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a JAX package's dtype name (``"bfloat16"`` ->
+    ``torch.bfloat16``)."""
+    return _DTYPES[name]
+
+
 def leaf_parts(leaf) -> list[torch.Tensor]:
     """The tensors of a leaf: itself, or the layers of a list leaf."""
     return list(leaf) if isinstance(leaf, (list, tuple)) else [leaf]
@@ -267,7 +273,7 @@ def pack(layout: PackedLayout, leaves) -> dict[str, torch.Tensor]:
     contiguous on the card (``pack_slots_call`` refuses strided ones)."""
     pieces = segment_pieces(layout, leaves)
     return {seg.dtype: _qk.pack_slots_call(pieces[seg.dtype], seg.padded,
-                                           _DTYPES[seg.dtype])
+                                           torch_dtype(seg.dtype))
             for seg in layout.segments}
 
 

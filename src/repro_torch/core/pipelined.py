@@ -20,13 +20,18 @@ Every call is issued on the current stream in host order, on every rank
 alike (``int8_encode`` holds a collective, the MAX of the block scales
 over the pod group), so the result is that of the sequential order.
 Nothing here overlaps compress(i) with transfer(i-1) on the card yet.
-The mechanism-faithful ring variant (``use_ring``) and the chunked
-AllGatherH (``pipelined_all_gather``) are not ported.
+
+The mechanism-faithful ring variant (``use_ring=True``) replaces the
+pod group's all-reduce with the explicit reduce ring of
+``primitives.c2c_red_ring`` (the codec is not applied, as in the
+reference).  ``pipelined_all_gather`` is AllGatherH with the pod ring
+cut per pod shard (Fig. 9's AllGather).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from . import compression, primitives
 from . import schedule as schedule_ir
@@ -50,7 +55,7 @@ def execute_chunk_loop(step: schedule_ir.ChunkLoop, flat: torch.Tensor, cfg,
     return pipelined_hier_psum(flat, cfg, weight=weight)
 
 
-def _codec_stages(cfg, dtype: torch.dtype, chunk_n: int,
+def _codec_stages(cfg, dtype: torch.dtype, chunk_n: int, use_ring: bool,
                   weight: torch.Tensor | None):
     """(encode, transfer) with transfer(encode(chunk)) the pod reduction of
     ``chunk``: encode is the local compress stage (with the shared-scale
@@ -63,6 +68,10 @@ def _codec_stages(cfg, dtype: torch.dtype, chunk_n: int,
             return shard
         return shard * weight.to(device=shard.device, dtype=shard.dtype)
 
+    if use_ring:
+        def transfer(enc):
+            return primitives.c2c_red_ring(enc, pod)
+        return weighted, transfer
     if cfg.compression == "int8":
         def encode(shard):
             return compression.int8_encode(shard, pod, weight=weight)
@@ -92,7 +101,7 @@ def _write(dst: torch.Tensor, value: torch.Tensor) -> None:
         dst.copy_(value)
 
 
-def pipelined_hier_psum(flat: torch.Tensor, cfg,
+def pipelined_hier_psum(flat: torch.Tensor, cfg, use_ring: bool = False,
                         weight: torch.Tensor | None = None) -> torch.Tensor:
     """AllReduceH on a 1-D tensor, the pod hop chunked and pipelined.
     ``flat`` is consumed and its length is a multiple of the intra group's
@@ -114,7 +123,7 @@ def pipelined_hier_psum(flat: torch.Tensor, cfg,
     rs = primitives.hom_reduce_scatter(flat, intra)
     del flat
     chunk = rs.numel() // k
-    encode, raw_transfer = _codec_stages(cfg, rs.dtype, chunk, weight)
+    encode, raw_transfer = _codec_stages(cfg, rs.dtype, chunk, use_ring, weight)
 
     def transfer(enc):
         return raw_transfer(primitives.apply_inject(enc, "chunk_c2c"))
@@ -128,3 +137,24 @@ def pipelined_hier_psum(flat: torch.Tensor, cfg,
     _write(chunks[k - 1], transfer(enc))           # drain: C2C of chunk k-1
     del enc
     return primitives.hom_all_gather(rs, intra)[:n]
+
+
+def pipelined_all_gather(x: torch.Tensor, cfg) -> torch.Tensor:
+    """AllGatherH with the pod ring cut per pod shard, so that the intra
+    Bcast of pod shard j can overlap the hop of pod shard j+1 (Fig. 9's
+    AllGather).  Returns every rank's ``x`` concatenated along dim 0 in
+    rank order (pod-major)."""
+    if x.dim() < 1:
+        raise ValueError("pipelined_all_gather: x needs a leading dim")
+    pod, intra = cfg.pod_group, cfg.intra_group
+    if pod is None:
+        return primitives.hom_all_gather(x, intra)
+    n = primitives.axis_size(pod)
+    my = dist.get_rank(pod)
+    gathered, cur = [], x
+    for j in range(n):
+        nxt = primitives.shift([cur], pod)[0] if j < n - 1 else None   # hop (shard j+1)
+        gathered.append(primitives.hom_all_gather(cur, intra))          # Bcast (shard j)
+        cur = nxt
+    # slot j holds pod (my - j) % n: realign to absolute order
+    return torch.cat([gathered[(my - i) % n] for i in range(n)])

@@ -6,8 +6,11 @@ reference names a mesh axis inside ``shard_map``, these take a
 
   * ``homColl`` -> native collectives over the intra-cluster ("data")
                    group: NVLink through NCCL on the card, gloo on the CPU.
-  * ``c2cRed``  -> the combining step over the pod group (the native
-                   all-reduce).
+  * ``c2cCpy``  -> the ring gather over the pod group (``c2c_cpy``): each
+                   rank forwards one shard-sized message per hop.
+  * ``c2cRed``  -> the combining step over the pod group: the native
+                   all-reduce (``c2c_red``), or the mechanism-faithful
+                   reduce ring (``c2c_red_ring``).
 
 A collective over a group of one is the identity and issues no call, as
 a reduction over an axis of size one is in the reference.  The
@@ -58,19 +61,52 @@ def hom_reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-def hom_all_gather(x: torch.Tensor, group) -> torch.Tensor:
-    """Flat shard -> the concatenation of every rank's shard, in rank order."""
+def hom_all_gather(x: torch.Tensor, group, gather_dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``gather_dim``, in rank order
+    (the reference's tiled ``all_gather``)."""
     n = group_size(group)
     if n == 1:
         return x
-    out = torch.empty((n * x.numel(),), dtype=x.dtype, device=x.device)
+    out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
     dist.all_gather_into_tensor(out, x.contiguous(), group=group)
-    return out
+    if gather_dim == 0:
+        return out
+    return torch.cat(out.view((n,) + tuple(x.shape)).unbind(0), dim=gather_dim)
 
 
 def c2c_red(x: torch.Tensor, group) -> torch.Tensor:
     """Combining C2C step: the native all-reduce over the pod group."""
     return _all_reduce(x, group)
+
+
+def c2c_cpy(x: torch.Tensor, group) -> torch.Tensor:
+    """Cluster-to-cluster copy: ring-gather every pod's ``x`` over the pod
+    group.  Returns ``(n_pods, *x.shape)`` stacked in pod order.  Each
+    rank forwards one ``x``-sized message per hop, so (n_pods - 1) *
+    x.nbytes crosses between clusters per rank, the Table-7 AllGather
+    volume."""
+    n = group_size(group)
+    if n == 1:
+        return x[None]
+    my = dist.get_rank(group)
+    slots, cur = [x], x
+    for _ in range(n - 1):
+        (cur,) = shift([cur], group)
+        slots.append(cur)                   # slot j: pod (my - j) % n
+    return torch.stack([slots[(my - i) % n] for i in range(n)])
+
+
+def c2c_red_ring(x: torch.Tensor, group) -> torch.Tensor:
+    """Mechanism-faithful c2cRed: a reduce ring over the pod group.  Each
+    hop passes the shard it last received on to the next cluster, which
+    accumulates it (paper Fig. 8).  Sums ``x`` in place."""
+    n = group_size(group)
+    cur = x
+    for _ in range(n - 1):
+        (cur,) = shift([cur], group)
+        x += cur
+    return x
 
 
 def shift(tensors: list[torch.Tensor], group, by: int = 1) -> list[torch.Tensor]:

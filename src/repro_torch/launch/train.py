@@ -3,13 +3,16 @@
     python -m repro_torch.launch.train --arch qwen2.5-3b --mode hier --compression int8
     python -m repro_torch.launch.train --mode hier_pipelined --compression int8
     python -m repro_torch.launch.train --mode hier_border_rs --compression bf16
+    python -m repro_torch.launch.train --mode hier_zero1 --compression int8
     python -m repro_torch.launch.train --smoke --device cpu --steps 2
 
 Each process trains one replica on its slice of the global batch; the
 gradients meet through ``flat``, ``hier``, ``hier_pipelined`` (the pod
-hop in 4 chunks, as ``TrainConfig.n_chunks`` sets) or ``hier_border_rs``
-(optionally bf16, or int8 except with ``hier_border_rs``, on the pod
-hop).  The world and this process's rank come from the usual
+hop in 4 chunks, as ``TrainConfig.n_chunks`` sets), ``hier_border_rs``
+or ``hier_zero1`` (ReduceScatterH into the ZeRO-1 flat-shard AdamW, whose
+f32 master and moments are bootstrapped from the drawn parameters;
+the reconstruction is the deferred AllGather), optionally bf16, or int8
+except with ``hier_border_rs``, on the pod hop.  The world and this process's rank come from the usual
 ``torch.distributed`` environment (``RANK``, ``WORLD_SIZE``,
 ``MASTER_ADDR``, ``MASTER_PORT``); a lone process makes its own world
 of one over an in-process store, whose pod and data groups are real

@@ -15,13 +15,19 @@ Communication modes (``TrainConfig.comm_mode``) ported here:
         hier whose C2C hop is the border-communicator exchange (§4.3):
         a combining reduce-scatter over the pod group, then an
         all-gather of the owned shards; bf16 or no codec (int8 raises).
+  hier_zero1
+        hier's breakdown fused with ZeRO-1: ReduceScatterH leaves each
+        rank the f32 shard of the summed gradients, which feeds the
+        flat-shard AdamW directly; the deferred end AllGather doubles as
+        the parameter reconstruction.  The master and the moments live
+        on the 1/intra_size shard (``zero_bootstrap`` builds them).
 
-The other modes of the reference (``hier_overlap``, ``hier_zero1``,
-``fsdp``) raise ``NotImplementedError``.
+The other modes of the reference (``hier_overlap``, ``fsdp``) raise
+``NotImplementedError``.
 
 Each process holds one replica of the model (``Model`` on its device)
 and its slice of the global batch.  The step updates the parameters and
-the Adam state in place.  With ``finite_gate`` a step whose synced loss
+the Adam (or ZeRO) state in place.  With ``finite_gate`` a step whose synced loss
 or grad norm is not finite leaves both untouched (the reference selects
 the old values inside its compiled step; here the host reads the two
 synced scalars first).
@@ -44,7 +50,7 @@ from repro_torch.parallel.sharding import Runtime, group_size
 from . import loss as loss_lib
 from . import optimizer as opt_lib
 
-PORTED_MODES = ("flat", "hier", "hier_pipelined", "hier_border_rs")
+PORTED_MODES = ("flat", "hier", "hier_pipelined", "hier_border_rs", "hier_zero1")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,11 +107,27 @@ def _expand(synced: list[torch.Tensor], leaves) -> list[torch.Tensor]:
     return out
 
 
+def zero_bootstrap(model: Model, tcfg: TrainConfig) -> opt_lib.ZeroState:
+    """The ZeRO-1 state of ``hier_zero1`` from the model's current
+    parameters: this rank's slice of the packed f32 master (the layout the
+    scattered gradient sync and the reconstruction use), zero moments."""
+    shard, _ = coll.zero1_local_shard(model.train_leaves(), tcfg.comm_config(model.rt))
+    return opt_lib.zero_init_from_flatparam(shard)
+
+
+def _sq_norm(shard: torch.Tensor) -> torch.Tensor:
+    """sum(shard^2) in f32, ``ZERO_CHUNK`` values at a time (no
+    shard-sized temporary)."""
+    return sum(c.float().square().sum() for c in shard.split(opt_lib.ZERO_CHUNK))
+
+
 def make_train_step(model: Model, tcfg: TrainConfig):
     """Returns (step_fn, init_fn).
 
     ``init_fn(seed)`` draws the model's parameters from ``seed`` and
-    returns a fresh ``AdamState``.  ``step_fn(opt_state, batch)`` takes
+    returns a fresh ``AdamState``, or for ``hier_zero1`` with a
+    data-parallel group the ``ZeroState`` of ``zero_bootstrap``.
+    ``step_fn(opt_state, batch)`` takes
     this rank's ``{"tokens", "labels"}`` (B, S) tensors on the model's
     device, runs forward, backward, gradient sync and the update in
     place, and returns the metrics synced over the data-parallel group
@@ -115,13 +137,18 @@ def make_train_step(model: Model, tcfg: TrainConfig):
     rt = model.rt
     ccfg = tcfg.comm_config(rt)
     n_dp = group_size(rt.dp_group)
+    # without a data-parallel group hier_zero1 is the plain step, as in the
+    # reference
+    zero1 = tcfg.comm_mode == "hier_zero1" and rt.dp_group is not None
 
-    def init_fn(seed: int = 0) -> opt_lib.AdamState:
+    def init_fn(seed: int = 0):
         model.init(seed)
+        if zero1:
+            return zero_bootstrap(model, tcfg)
         params, _ = opt_lib.flat_params(model.train_leaves())
         return opt_lib.adam_init(params)
 
-    def step_fn(opt_state: opt_lib.AdamState, batch: dict) -> dict[str, Any]:
+    def step_fn(opt_state: opt_lib.AdamState | opt_lib.ZeroState, batch: dict) -> dict[str, Any]:
         leaves = model.train_leaves()
         params, decay = opt_lib.flat_params(leaves)
         for p in params:
@@ -135,13 +162,29 @@ def make_train_step(model: Model, tcfg: TrainConfig):
 
         # ---- gradient synchronization: the paper's technique -------------
         # (the record_function ranges name the phases in a profile)
-        with torch.profiler.record_function("grad_sync"):
-            if rt.dp_group is not None:
-                synced = coll.tree_hier_psum(grads, ccfg)
-            else:
-                synced = [torch.stack(g) if isinstance(g, list) else g for g in grads]
-            del grads
-        gnorm = _global_grad_norm(synced) / n_dp
+        if zero1:
+            # AllReduceH with the end AllGather fused into the parameter
+            # reconstruction: RS(intra) -> c2cRed(pod) gives the synced f32
+            # shard that feeds AdamW directly
+            with torch.profiler.record_function("grad_sync"):
+                shard, fmeta = coll.tree_hier_psum_scatter(grads, ccfg)
+                del grads
+            # the norm of the pod-summed shard: sum over the intra group only
+            with torch.profiler.record_function("grad_norm"):
+                sq = _sq_norm(shard)
+                if group_size(ccfg.intra_group) > 1:
+                    dist.all_reduce(sq, group=ccfg.intra_group)
+                gnorm = torch.sqrt(sq) / n_dp
+        else:
+            with torch.profiler.record_function("grad_sync"):
+                if rt.dp_group is not None:
+                    synced = coll.tree_hier_psum(grads, ccfg)
+                else:
+                    synced = [torch.stack(g) if isinstance(g, list) else g
+                              for g in grads]
+                del grads
+            with torch.profiler.record_function("grad_norm"):
+                gnorm = _global_grad_norm(synced) / n_dp
         clip = torch.clamp(tcfg.opt.grad_clip / (gnorm + 1e-9), max=1.0)
 
         m = torch.stack([lval.detach().float(), gnorm / n_dp,
@@ -152,7 +195,17 @@ def make_train_step(model: Model, tcfg: TrainConfig):
         out = dict(zip(("loss", "grad_norm", "mean_logp"), m))
         ok = math.isfinite(out["loss"]) and math.isfinite(out["grad_norm"])
         out["gated"] = tcfg.finite_gate and not ok
-        if not out["gated"]:
+        if out["gated"]:
+            return out
+        if zero1:
+            with torch.profiler.record_function("optimizer"):
+                opt_lib.zero_update(shard, opt_state, tcfg.opt, clip / n_dp)
+            del shard
+            with torch.profiler.record_function("grad_sync"), torch.no_grad():
+                new = coll.tree_hier_unscatter(opt_state.flat_param, fmeta, ccfg)
+                for p, v in zip(params, _expand(new, leaves)):
+                    p.copy_(v)
+        else:
             with torch.profiler.record_function("optimizer"):
                 opt_lib.adam_update(_expand(synced, leaves), opt_state, params,
                                     decay, tcfg.opt, clip / n_dp)

@@ -18,6 +18,15 @@
   ``hier_pipelined`` runs exactly k pod reductions for k chunks.  The
   JAX side runs this file as a script in a subprocess with 4 host
   devices.
+* ReduceScatterH and AllGatherH on the same 4 ranks:
+  ``hier_psum_scatter`` (no codec, bf16, int8; int8 bit-equal) and its
+  round trip through ``hier_all_gather_flat``, ``hier_all_gather``
+  (``flat``, ``hier``; along dims 0 and 1), ``pipelined_all_gather`` and
+  ``c2c_cpy`` (all three exact), ``pipelined_hier_psum(use_ring=True)``
+  against the reference's and against ``use_ring=False``, and the ZeRO-1
+  layer: ``zero1_local_shard``, then ``tree_hier_psum_scatter`` ->
+  ``tree_hier_unscatter`` on a tree of f32, bf16 and list leaves, its
+  ``_zero1_layout`` the reference's.
 """
 
 import datetime
@@ -44,6 +53,11 @@ CASES = ([(m, c, w, d, 4) for m in MODES for c in CODECS for w in WEIGHTS for d 
 TREE_CASES = [("hier", "int8"), ("hier", None), ("flat", None), ("hier", "bf16"),
               ("hier_pipelined", "int8"), ("hier_border_rs", "bf16")]
 WORLD = 4
+# (codec, dtype) of the ReduceScatterH cases
+SCATTER_CASES = [(c, d) for c in CODECS for d in DTYPES]
+GATHER_CASES = [("flat", 0), ("hier", 0), ("hier", 1)]
+RING_CHUNKS = (1, 4)
+ZERO_CODECS = (None, "int8")
 
 
 def case_id(case) -> str:
@@ -56,6 +70,11 @@ def rank_input(rank: int) -> np.ndarray:
     x = np.random.default_rng(1000 + rank).normal(size=CASE_SIZE).astype(np.float32) * 3
     x[1024:2048] = 0.0                      # an all-zero block
     return x
+
+
+def rank_matrix(rank: int) -> np.ndarray:
+    """A (2, 37) shard for the all-gathers."""
+    return rank_input(rank)[:74].reshape(2, 37)
 
 
 def rank_tree(rank: int) -> dict:
@@ -84,6 +103,7 @@ def _jax_main(out_dir: str) -> None:
     mesh = jax.make_mesh((2, 2), ("pod", "data"))
     spec = P(("pod", "data"))
     xs = np.stack([rank_input(r) for r in range(WORLD)])
+    trees = [rank_tree(r) for r in range(WORLD)]
     res = {}
     for case in CASES:
         mode, codec, w, dt, k = case
@@ -93,7 +113,6 @@ def _jax_main(out_dir: str) -> None:
         fn = jax.jit(shard_map(lambda x, cfg=cfg: jcoll.hier_psum(x[0], cfg)[None],
                                mesh=mesh, in_specs=spec, out_specs=spec))
         res[case_id(case)] = np.asarray(fn(jnp.asarray(xs, jdt)).astype(jnp.float32))
-    trees = [rank_tree(r) for r in range(WORLD)]
     for mode, codec in TREE_CASES:
         cfg = jcoll.CommConfig(mode=mode, pod_axis="pod", intra_axis="data",
                                compression=codec)
@@ -108,7 +127,70 @@ def _jax_main(out_dir: str) -> None:
         out = jax.jit(shard_map(body, mesh=mesh, in_specs=spec, out_specs=spec))(tree)
         for k, v in out.items():
             res[f"tree-{mode}-{codec}-{k}"] = np.asarray(v.astype(jnp.float32))
+    _jax_gather_cases(mesh, spec, xs, trees, res)
     np.savez(os.path.join(out_dir, "jax.npz"), **res)
+
+
+def _jax_gather_cases(mesh, spec, xs, trees, res) -> None:
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core import collectives as jcoll
+    from repro.core import pipelined as jpipe
+    from repro.core import primitives as jprim
+    from repro.parallel.sharding import shard_map
+
+    def run(fn, x, out_specs=spec):
+        return jax.jit(shard_map(fn, mesh=mesh, in_specs=spec, out_specs=out_specs,
+                                 check_vma=False))(x)
+
+    for codec, dt in SCATTER_CASES:
+        cfg = jcoll.CommConfig(mode="hier", pod_axis="pod", intra_axis="data",
+                               compression=codec)
+        x = jnp.asarray(xs, jnp.float32 if dt == "f32" else jnp.bfloat16)
+        res[f"scatter-{codec}-{dt}"] = np.asarray(run(
+            lambda v, cfg=cfg: jcoll.hier_psum_scatter(v[0], cfg)[None], x)
+            .astype(jnp.float32))
+        res[f"roundtrip-{codec}-{dt}"] = np.asarray(run(
+            lambda v, cfg=cfg: jcoll.hier_all_gather_flat(
+                jcoll.hier_psum_scatter(v[0], cfg), cfg, CASE_SIZE)[None], x)
+            .astype(jnp.float32))
+    ms = jnp.asarray(np.stack([rank_matrix(r) for r in range(WORLD)]))
+    for mode, dim in GATHER_CASES:
+        cfg = jcoll.CommConfig(mode=mode, pod_axis="pod", intra_axis="data")
+        res[f"gather-{mode}-{dim}"] = np.asarray(run(
+            lambda v, cfg=cfg, dim=dim: jcoll.hier_all_gather(v[0], cfg, gather_dim=dim)[None],
+            ms))
+    cfg = jcoll.CommConfig(mode="hier", pod_axis="pod", intra_axis="data")
+    res["pipelined-gather"] = np.asarray(run(
+        lambda v: jpipe.pipelined_all_gather(v[0], cfg)[None], ms))
+    res["c2c-cpy"] = np.asarray(run(lambda v: jprim.c2c_cpy(v[0], "pod")[None],
+                                    jnp.asarray(xs[:, :37])))
+    for k in RING_CHUNKS:
+        cfg = jcoll.CommConfig(mode="hier_pipelined", pod_axis="pod", intra_axis="data",
+                               n_chunks=k)
+        res[f"ring-{k}"] = np.asarray(run(
+            lambda v, cfg=cfg: jpipe.pipelined_hier_psum(v[0], cfg, use_ring=True)[None],
+            jnp.asarray(xs)))
+    tree = {"a": jnp.asarray(np.stack([t["a"] for t in trees])),
+            "b": jnp.asarray(np.stack([t["b"] for t in trees]), jnp.bfloat16),
+            "layers": jnp.asarray(np.stack([t["layers"] for t in trees]))}
+    for codec in ZERO_CODECS:
+        cfg = jcoll.CommConfig(mode="hier", pod_axis="pod", intra_axis="data",
+                               compression=codec)
+
+        def body(t, cfg=cfg):
+            local = jax.tree.map(lambda a: a[0], t)
+            boot, _ = jcoll.zero1_local_shard(local, cfg)
+            shard, meta = jcoll.tree_hier_psum_scatter(local, cfg)
+            out = jcoll.tree_hier_unscatter(shard, meta, cfg)
+            return boot[None], shard[None], jax.tree.map(lambda a: a[None], out)
+
+        boot, shard, out = run(body, tree, out_specs=(spec, spec, spec))
+        res[f"zero-{codec}-boot"] = np.asarray(boot)
+        res[f"zero-{codec}-shard"] = np.asarray(shard)
+        for k, v in out.items():
+            res[f"zero-{codec}-{k}"] = np.asarray(v.astype(jnp.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -166,9 +248,60 @@ def _gloo_rank(rank: int, store_path: str, out_dir: str) -> None:
             out = tcoll.tree_hier_psum(leaves, cfg)
             for k, v in zip(("a", "b", "layers"), out):
                 res[f"tree-{mode}-{codec}-{k}"] = v.float().numpy()
+        _gloo_gather_cases(rank, rt, res)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
     finally:
         dist.destroy_process_group()
+
+
+def _gloo_gather_cases(rank: int, rt, res: dict) -> None:
+    import torch
+
+    from repro_torch.core import collectives as tcoll
+    from repro_torch.core import pipelined as tpipe
+    from repro_torch.core import primitives as tprim
+
+    def config(**kw):
+        return tcoll.CommConfig(pod_group=rt.pod_group, intra_group=rt.data_group,
+                                dp_group=rt.dp_group, **kw)
+
+    x = torch.from_numpy(rank_input(rank))
+    for codec, dt in SCATTER_CASES:
+        cfg = config(mode="hier", compression=codec)
+        tdt = torch.float32 if dt == "f32" else torch.bfloat16
+        shard = tcoll.hier_psum_scatter(x.to(tdt, copy=True), cfg)
+        assert shard.dtype == tdt
+        res[f"scatter-{codec}-{dt}"] = shard.float().numpy()
+        out = tcoll.hier_all_gather_flat(tcoll.hier_psum_scatter(x.to(tdt, copy=True), cfg),
+                                         cfg, CASE_SIZE)
+        res[f"roundtrip-{codec}-{dt}"] = out.float().numpy()
+    m = torch.from_numpy(rank_matrix(rank))
+    for mode, dim in GATHER_CASES:
+        res[f"gather-{mode}-{dim}"] = tcoll.hier_all_gather(m, config(mode=mode),
+                                                            gather_dim=dim).numpy()
+    res["pipelined-gather"] = tpipe.pipelined_all_gather(m, config(mode="hier")).numpy()
+    res["c2c-cpy"] = tprim.c2c_cpy(x[:37].clone(), rt.pod_group).numpy()
+    for k in RING_CHUNKS:
+        cfg = config(mode="hier_pipelined", n_chunks=k)
+        res[f"ring-{k}"] = tpipe.pipelined_hier_psum(x.clone(), cfg, use_ring=True).numpy()
+        res[f"no-ring-{k}"] = tpipe.pipelined_hier_psum(x.clone(), cfg).numpy()
+    t = rank_tree(rank)
+    for codec in ZERO_CODECS:
+        cfg = config(mode="hier", compression=codec)
+
+        def leaves():
+            return [torch.from_numpy(t["a"]).clone(),
+                    torch.from_numpy(t["b"]).to(torch.bfloat16),
+                    [torch.from_numpy(row).clone() for row in t["layers"]]]
+
+        boot, bmeta = tcoll.zero1_local_shard(leaves(), cfg)
+        shard, meta = tcoll.tree_hier_psum_scatter(leaves(), cfg)
+        assert bmeta == meta and shard.dtype == boot.dtype == torch.float32
+        assert shard.numel() == meta.padded // 2
+        res[f"zero-{codec}-boot"] = boot.numpy()
+        res[f"zero-{codec}-shard"] = shard.numpy()
+        for k, v in zip(("a", "b", "layers"), tcoll.tree_hier_unscatter(shard, meta, cfg)):
+            res[f"zero-{codec}-{k}"] = v.float().numpy()
 
 
 if __name__ == "__main__":
@@ -381,10 +514,62 @@ def test_comm_layout_matches_reference(codec, world):
 
 
 def test_unported_modes_raise():
-    """AllGatherH's raw-shard copy ring is not on a ported path yet."""
+    """The All2All steps wait for the MoE slice."""
     cfg = tcoll.CommConfig(mode="hier", pod_group=object())
-    with pytest.raises(NotImplementedError, match="ZeRO-1"):
-        tcoll._exec_step(tsched.C2CCpy("c2c"), torch.ones(8), cfg, tcoll._ExecCtx())
+    for step in (tsched.IntraAll2All("start"), tsched.BorderExchange("c2c")):
+        with pytest.raises(NotImplementedError, match="MoE"):
+            tcoll._exec_step(step, [torch.ones(8)], cfg, tcoll._ExecCtx())
+
+
+def _jax_tree(tree: dict) -> dict:
+    return {"a": jnp.asarray(tree["a"]), "b": jnp.asarray(tree["b"], jnp.bfloat16),
+            "layers": jnp.asarray(tree["layers"])}
+
+
+def _port_leaves(tree: dict) -> list:
+    return [torch.from_numpy(tree["a"]), torch.from_numpy(tree["b"]).to(torch.bfloat16),
+            [torch.from_numpy(row) for row in tree["layers"]]]
+
+
+@pytest.mark.parametrize("isize", [1, 2, 4])
+def test_zero1_layout_matches_reference(isize):
+    """The ZeRO-1 master layout (slots, segments, padded sizes) of a tree of
+    f32, bf16 and list leaves, and of the smoke qwen2.5-3b model."""
+    got = tcoll._zero1_layout(_port_leaves(rank_tree(0)), isize)
+    want = jcoll._zero1_layout(jax.tree.leaves(_jax_tree(rank_tree(0))), isize)
+    assert repr(got) == repr(want)
+    assert [s.dtype for s in got.segments] == ["float32", "bfloat16"]
+    jm = JaxModel(jax_config("qwen2.5-3b", smoke=True), JaxRuntime())
+    shapes = jax.eval_shape(jm.init, jax.random.key(0))
+    tm = Model(get_config("qwen2.5-3b", smoke=True), device="cpu").init(0)
+    got = tcoll._zero1_layout(tm.train_leaves(), isize)
+    assert repr(got) == repr(jcoll._zero1_layout(jax.tree.leaves(shapes), isize))
+
+
+def test_zero1_without_groups_matches_jax():
+    """With no groups (one rank, one cluster) the bootstrap, the scattered
+    sync and the reconstruction against the reference on a one-device
+    ("data",) mesh with no pod axis: bit-equal."""
+    tree = rank_tree(1)
+    mesh = jax.make_mesh((1,), ("data",))
+    jcfg = jcoll.CommConfig(mode="hier", pod_axis=None, compression="int8")
+
+    def body(t):
+        boot, _ = jcoll.zero1_local_shard(t, jcfg)
+        shard, meta = jcoll.tree_hier_psum_scatter(t, jcfg)
+        return boot, shard, jcoll.tree_hier_unscatter(shard, meta, jcfg)
+
+    jboot, jshard, jout = jax.jit(shard_map(body, mesh=mesh, in_specs=P(), out_specs=P(),
+                                            check_vma=False))(_jax_tree(tree))
+    cfg = tcoll.CommConfig(mode="hier", compression="int8")
+    boot, _ = tcoll.zero1_local_shard(_port_leaves(tree), cfg)
+    shard, meta = tcoll.tree_hier_psum_scatter(_port_leaves(tree), cfg)
+    np.testing.assert_array_equal(boot.numpy(), np.asarray(jboot))
+    np.testing.assert_array_equal(shard.numpy(), np.asarray(jshard))
+    out = tcoll.tree_hier_unscatter(shard, meta, cfg)
+    for got, (k, want) in zip(out, sorted(jout.items())):
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(_np(got), _np(want))
 
 
 # ---------------------------------------------------------------------------
@@ -491,3 +676,90 @@ def test_tree_hier_psum_four_ranks_match_jax(four_ranks, tcase):
             assert ranks[r][key].shape == jres[key][r].shape
             _assert_agree(ranks[r][key], jres[key][r], codec, dt, magnitude,
                           bf16_ulps(mode))
+
+
+def _shard_of(full: np.ndarray, rank: int) -> np.ndarray:
+    """The intra shard of a padded flat vector that ``rank`` holds."""
+    padded = np.concatenate([full, np.zeros((-full.size) % 2, full.dtype)])
+    n = padded.size // 2
+    return padded[(rank % 2) * n:(rank % 2 + 1) * n]
+
+
+def _sum_magnitude() -> np.ndarray:
+    return sum(abs(rank_input(r)) for r in range(WORLD))
+
+
+@pytest.mark.parametrize("codec, dt", SCATTER_CASES)
+def test_hier_psum_scatter_four_ranks_match_jax(four_ranks, codec, dt):
+    """Each rank holds its data index's shard of the global sum; the round
+    trip through hier_all_gather_flat gives the whole sum on every rank."""
+    jres, ranks = four_ranks
+    key = f"scatter-{codec}-{dt}"
+    for r in range(WORLD):
+        got = ranks[r][key]
+        assert got.shape == (-(-CASE_SIZE // 2),)
+        np.testing.assert_array_equal(got, ranks[(r + 2) % WORLD][key])
+        _assert_agree(got, jres[key][r], codec, dt, _shard_of(_sum_magnitude(), r),
+                      bf16_ulps("hier"))
+        if codec is None and dt == "f32":
+            np.testing.assert_allclose(got, _shard_of(sum(rank_input(q) for q in range(WORLD)),
+                                                      r), rtol=0, atol=1e-5)
+    key = f"roundtrip-{codec}-{dt}"
+    for r in range(WORLD):
+        np.testing.assert_array_equal(ranks[r][key], ranks[0][key])
+        _assert_agree(ranks[r][key], jres[key][r], codec, dt, _sum_magnitude(),
+                      bf16_ulps("hier"))
+
+
+@pytest.mark.parametrize("mode, dim", GATHER_CASES)
+def test_hier_all_gather_four_ranks_match_jax(four_ranks, mode, dim):
+    jres, ranks = four_ranks
+    want = np.concatenate([rank_matrix(r) for r in range(WORLD)], axis=dim)
+    for r in range(WORLD):
+        np.testing.assert_array_equal(ranks[r][f"gather-{mode}-{dim}"], want)
+        np.testing.assert_array_equal(jres[f"gather-{mode}-{dim}"][r], want)
+
+
+def test_pipelined_all_gather_four_ranks_match_jax(four_ranks):
+    jres, ranks = four_ranks
+    want = np.concatenate([rank_matrix(r) for r in range(WORLD)])
+    for r in range(WORLD):
+        np.testing.assert_array_equal(ranks[r]["pipelined-gather"], want)
+        np.testing.assert_array_equal(jres["pipelined-gather"][r], want)
+
+
+def test_c2c_cpy_four_ranks_match_jax(four_ranks):
+    """Each rank stacks its pod peers' shards (same data index) in pod order."""
+    jres, ranks = four_ranks
+    for r in range(WORLD):
+        want = np.stack([rank_input(p * 2 + r % 2)[:37] for p in range(2)])
+        np.testing.assert_array_equal(ranks[r]["c2c-cpy"], want)
+        np.testing.assert_array_equal(jres["c2c-cpy"][r], want)
+
+
+@pytest.mark.parametrize("k", RING_CHUNKS)
+def test_pipelined_reduce_ring_four_ranks_match_jax(four_ranks, k):
+    """The mechanism-faithful pod ring sums as the native all-reduce does."""
+    jres, ranks = four_ranks
+    for r in range(WORLD):
+        np.testing.assert_array_equal(ranks[r][f"ring-{k}"], ranks[0][f"ring-{k}"])
+        _assert_agree(ranks[r][f"ring-{k}"], ranks[r][f"no-ring-{k}"], None, "f32")
+        _assert_agree(ranks[r][f"ring-{k}"], jres[f"ring-{k}"][r], None, "f32")
+
+
+@pytest.mark.parametrize("codec", ZERO_CODECS)
+def test_zero1_scatter_and_unscatter_four_ranks_match_jax(four_ranks, codec):
+    """The bootstrap's master shard is exact; the f32 gradient shard (int8
+    bit-equal) and the reconstructed leaves agree with the reference's."""
+    jres, ranks = four_ranks
+    for r in range(WORLD):
+        np.testing.assert_array_equal(ranks[r][f"zero-{codec}-boot"],
+                                      jres[f"zero-{codec}-boot"][r])
+        _assert_agree(ranks[r][f"zero-{codec}-shard"], jres[f"zero-{codec}-shard"][r],
+                      codec, "f32")
+        for leaf, dt in (("a", "f32"), ("b", "bf16"), ("layers", "f32")):
+            key = f"zero-{codec}-{leaf}"
+            np.testing.assert_array_equal(ranks[r][key], ranks[0][key])
+            assert ranks[r][key].shape == rank_tree(0)[leaf].shape
+            magnitude = sum(abs(rank_tree(q)[leaf]) for q in range(WORLD))
+            _assert_agree(ranks[r][key], jres[key][r], codec, dt, magnitude)

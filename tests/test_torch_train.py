@@ -5,10 +5,16 @@
   f32 parameters and batches: losses and grad norms within 1e-4
   relative, parameters within 1e-4.
 * Four gloo ranks (2 pods x 2 data) against the reference on a 4-device
-  (pod 2, data 2) mesh, for ``hier`` and ``hier_pipelined`` with int8 on
-  the pod hop and ``hier_border_rs`` with bf16: losses within 1e-3 over
-  three steps.  The JAX side runs this file as a script with 4 host
-  devices.
+  (pod 2, data 2) mesh, for ``hier``, ``hier_pipelined`` and
+  ``hier_zero1`` with int8 on the pod hop and ``hier_border_rs`` with
+  bf16: losses within 1e-3 over three steps.  The JAX side runs this file
+  as a script with 4 host devices.
+* A one-rank gloo world (pod and data groups of one member, in a spawned
+  process) against the reference on a (1, 1) ("pod", "data") mesh, three
+  ``hier_zero1`` steps with no codec: losses and grad norms within 1e-4
+  relative, parameters and the f32 master within 1e-4.
+* ``zero_update`` against the reference's on a flat master, whole and in
+  chunks: within 1e-6, the 1-D leaf's part decayed too (ROADMAP R9).
 * Chunked training attention (forward and gradient) against the
   reference's ``chunked_attention``: within 1e-5.
 * The synthetic data is the reference's token stream, bit for bit.
@@ -30,7 +36,8 @@ import numpy as np
 GB, S, N_STEPS, WORLD = 4, 32, 3, 4
 LR, WARMUP = 1e-2, 1
 # (comm mode, pod-hop codec) of the four-rank runs
-FOUR_RANK_CASES = [("hier", "int8"), ("hier_pipelined", "int8"), ("hier_border_rs", "bf16")]
+FOUR_RANK_CASES = [("hier", "int8"), ("hier_pipelined", "int8"), ("hier_border_rs", "bf16"),
+                   ("hier_zero1", "int8")]
 
 
 def batch(step: int, vocab: int) -> dict:
@@ -78,8 +85,10 @@ def _jax_main(out_dir: str) -> None:
                               opt=JaxOpt(lr=LR, warmup_steps=WARMUP))
         build, init = jax_train_step(model, tcfg, mesh=mesh)
         params, opt = init(jax.random.key(0))
-        step, _ = build(jax.tree.map(lambda p: jax.ShapeDtypeStruct(p.shape, p.dtype),
-                                     params))
+        step, boot = build(jax.tree.map(lambda p: jax.ShapeDtypeStruct(p.shape, p.dtype),
+                                        params))
+        if boot is not None:
+            opt = boot(params)
         losses = []
         for i in range(N_STEPS):
             b = {k: jax.numpy.asarray(v) for k, v in batch(i, cfg.vocab_size).items()}
@@ -97,7 +106,7 @@ def _gloo_rank(rank: int, store_path: str, out_dir: str) -> None:
     from repro_torch.convert import params_from_jax
     from repro_torch.launch.mesh import runtime_for_groups
     from repro_torch.train import optimizer as opt_lib
-    from repro_torch.train.train_step import TrainConfig, make_train_step
+    from repro_torch.train.train_step import TrainConfig, make_train_step, zero_bootstrap
 
     dist.init_process_group("gloo", store=dist.FileStore(store_path, WORLD),
                             rank=rank, world_size=WORLD,
@@ -109,10 +118,13 @@ def _gloo_rank(rank: int, store_path: str, out_dir: str) -> None:
         rows = slice(rank * GB // WORLD, (rank + 1) * GB // WORLD)
         for mode, codec in FOUR_RANK_CASES:
             model = params_from_jax(params, cfg, rt, device="cpu")
-            step_fn, _ = make_train_step(model, TrainConfig(
-                comm_mode=mode, dcn_compression=codec,
-                opt=opt_lib.OptConfig(lr=LR, warmup_steps=WARMUP)))
-            opt = opt_lib.adam_init(opt_lib.flat_params(model.train_leaves())[0])
+            tcfg = TrainConfig(comm_mode=mode, dcn_compression=codec,
+                               opt=opt_lib.OptConfig(lr=LR, warmup_steps=WARMUP))
+            step_fn, _ = make_train_step(model, tcfg)
+            if mode == "hier_zero1":
+                opt = zero_bootstrap(model, tcfg)
+            else:
+                opt = opt_lib.adam_init(opt_lib.flat_params(model.train_leaves())[0])
             losses = []
             for i in range(N_STEPS):
                 b = {k: torch.from_numpy(v[rows]).long()
@@ -122,6 +134,43 @@ def _gloo_rank(rank: int, store_path: str, out_dir: str) -> None:
                 losses.append(m["loss"])
             np.save(os.path.join(out_dir, f"rank{rank}_losses_{mode}_{codec}.npy"),
                     np.asarray(losses))
+    finally:
+        dist.destroy_process_group()
+
+
+def _one_rank_zero1(out_dir: str, lr: float) -> None:
+    """hier_zero1 in a world of one, through pod and data groups of one
+    member: the losses, grad norms, parameters and master of 3 steps."""
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_jax
+    from repro_torch.launch.mesh import runtime_for_groups
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import TrainConfig, make_train_step, zero_bootstrap
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        rt = runtime_for_groups(pods=1, data_per_pod=1)
+        cfg = dataclasses.replace(get_config("qwen2.5-3b", smoke=True), dtype=torch.float32)
+        model = params_from_jax(_nest(np.load(os.path.join(out_dir, "params.npz"))), cfg,
+                                rt, device="cpu")
+        tcfg = TrainConfig(comm_mode="hier_zero1",
+                           opt=opt_lib.OptConfig(lr=lr, warmup_steps=WARMUP))
+        step_fn, _ = make_train_step(model, tcfg)
+        opt = zero_bootstrap(model, tcfg)
+        metrics = []
+        for i in range(N_STEPS):
+            m = step_fn(opt, {k: torch.from_numpy(v).long()
+                              for k, v in batch(i, cfg.vocab_size).items()})
+            assert not m["gated"]
+            metrics.append((m["loss"], m["grad_norm"]))
+        leaves = [torch.stack(p) if isinstance(p, list) else p for p in model.train_leaves()]
+        np.savez(os.path.join(out_dir, "port.npz"), metrics=np.asarray(metrics),
+                 master=opt.flat_param.numpy(),
+                 **{f"leaf{i}": p.detach().numpy() for i, p in enumerate(leaves)})
     finally:
         dist.destroy_process_group()
 
@@ -268,13 +317,89 @@ def test_synth_batch_is_the_reference(step):
         np.testing.assert_array_equal(got[k], want[k])
 
 
-def test_unported_comm_mode_raises():
+@pytest.mark.parametrize("mode", ["hier_overlap", "fsdp"])
+def test_unported_comm_mode_raises(mode):
     tm = _port_model(_jax_setup()[2])
-    with pytest.raises(NotImplementedError, match="hier_zero1"):
-        make_train_step(tm, TrainConfig(comm_mode="hier_zero1"))
+    with pytest.raises(NotImplementedError, match=mode):
+        make_train_step(tm, TrainConfig(comm_mode=mode))
 
 
-@pytest.mark.parametrize("mode", ["hier", "hier_pipelined"])
+def test_zero1_one_rank_matches_jax(tmp_path):
+    """hier_zero1 with no codec in a gloo world of one (spawned) against the
+    reference on a (1, 1) ("pod", "data") mesh, from the same f32
+    parameters and batches."""
+    from repro.launch.mesh import runtime_for_mesh
+
+    cfg, _, params = _jax_setup()
+    np.savez(tmp_path / "params.npz", **_flat_tree(jax.tree.map(np.asarray, params)))
+    proc = multiprocessing.get_context("spawn").Process(
+        target=_one_rank_zero1, args=(str(tmp_path), PARITY_LR))
+    proc.start()
+    mesh = jax.make_mesh((1, 1), ("pod", "data"))
+    jm = JaxModel(cfg, runtime_for_mesh(mesh))
+    build, _ = jax_train_step(jm, JaxTrainConfig(
+        comm_mode="hier_zero1", opt=JaxOpt(lr=PARITY_LR, warmup_steps=WARMUP)), mesh=mesh)
+    step, boot = build(jax.tree.map(lambda p: jax.ShapeDtypeStruct(p.shape, p.dtype), params))
+    opt = boot(params)
+    want = []
+    for i in range(N_STEPS):
+        params, opt, m = step(params, opt, {k: jnp.asarray(v)
+                                            for k, v in batch(i, cfg.vocab_size).items()})
+        want.append((float(m["loss"]), float(m["grad_norm"])))
+    proc.join(timeout=240)
+    if proc.is_alive():
+        proc.kill()
+        proc.join(timeout=10)
+    assert proc.exitcode == 0
+    got = np.load(tmp_path / "port.npz")
+    np.testing.assert_allclose(got["metrics"], np.asarray(want), rtol=1e-4)
+    np.testing.assert_allclose(got["master"], np.asarray(opt.flat_param), atol=1e-4)
+    leaves = jax.tree.leaves(params)
+    for i, want_leaf in enumerate(leaves):
+        np.testing.assert_allclose(got[f"leaf{i}"], np.asarray(want_leaf), atol=1e-4)
+    assert f"leaf{len(leaves)}" not in got
+
+
+@pytest.mark.parametrize("chunk", [None, 1000])
+def test_zero_update_matches_jax(monkeypatch, chunk):
+    """Three updates of a flat master built from a (40, 50) weight and a
+    (50,) bias; the bias's gradient is zero in the first step, so there
+    the step moves it by its decay alone: the reference decays every
+    element of the master, 1-D leaves too (R9)."""
+    from repro.train import optimizer as jopt
+    from repro_torch.core import collectives as tcoll
+
+    if chunk is not None:
+        monkeypatch.setattr(opt_lib, "ZERO_CHUNK", chunk)
+    rng = np.random.default_rng(11)
+    w, b = rng.normal(size=(40, 50)).astype(np.float32), rng.normal(size=50).astype(np.float32)
+    master, meta = tcoll.zero1_local_shard([torch.from_numpy(w), torch.from_numpy(b)],
+                                           tcoll.CommConfig())
+    bias = slice(meta.layout.slots[1].offset, meta.layout.slots[1].offset + 50)
+    ocfg = opt_lib.OptConfig(lr=1e-2, warmup_steps=2)
+    st = opt_lib.zero_init_from_flatparam(master.clone())
+    jst = jopt.zero_init_from_flatparam(jnp.asarray(master.numpy()))
+    jcfg = JaxOpt(lr=1e-2, warmup_steps=2)
+    for i in range(3):
+        g = rng.normal(size=master.numel()).astype(np.float32)
+        if i == 0:
+            g[bias] = 0
+        before = st.flat_param.clone()
+        opt_lib.zero_update(torch.from_numpy(g), st, ocfg, torch.tensor(0.7))
+        jst = jopt.zero_update(jnp.asarray(g), jst, jcfg, jnp.float32(0.7))
+        np.testing.assert_allclose(st.flat_param.numpy(), np.asarray(jst.flat_param),
+                                   rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(st.mu.numpy(), np.asarray(jst.mu), rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(st.nu.numpy(), np.asarray(jst.nu), rtol=1e-6, atol=1e-6)
+        if i == 0:
+            decayed = before[bias] * (1 - opt_lib.lr_at(ocfg, 0) * ocfg.weight_decay)
+            np.testing.assert_allclose(st.flat_param[bias].numpy(), decayed.numpy(),
+                                       rtol=1e-6)
+            assert not torch.equal(st.flat_param[bias], before[bias])
+    assert st.step == int(jst.step) == 3
+
+
+@pytest.mark.parametrize("mode", ["hier", "hier_pipelined", "hier_zero1"])
 def test_entry_point_smoke_on_cpu(mode):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), GLOO_SOCKET_IFNAME="lo")
     res = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--smoke",
