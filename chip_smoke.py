@@ -25,11 +25,15 @@
 3. Smoke-size models on the card against the same models on the CPU:
    qwen2.5-3b and mamba2-2.7b prefill and decode (f32, logits within 1e-3,
    equal tokens), and 3 qwen training steps for each gradient sync of
-   TRAIN_RUNS (hier, hier_pipelined and hier_zero1 with int8 on the pod
-   hop, hier_border_rs with bf16) through the same process groups (gloo
-   for the CPU, NCCL for the card), losses and parameters within 1e-4;
-   hier_zero1's f32 master and moments are bootstrapped from the same
-   parameters on each side.
+   TRAIN_RUNS (hier, hier_pipelined, hier_zero1, hier_overlap and fsdp
+   with int8 on the pod hop, hier_border_rs with bf16) through the same
+   process groups (gloo for the CPU, NCCL for the card), losses within
+   1e-4, and parameters within 1e-4 for the syncs before hier_overlap;
+   hier_overlap and fsdp are held instead to the CPU's sync on the card's
+   own gradients, bit-equal, and hier_overlap's hook executor to its sync
+   after the backward, bit-equal (int8 AdamW parameters are reported:
+   one rounding apart moves a value by up to lr); hier_zero1's f32 master
+   and moments are bootstrapped from the same parameters on each side.
 4. The serving paths at full width, random weights from a seed: qwen2.5-3b
    (36 layers) and mamba2-2.7b (64 layers) each prefill 4 requests of
    1024 tokens, move the cache (KV, or conv + SSM state) raw and int8 on
@@ -45,7 +49,11 @@
    of TRAIN_RUNS.  Every step must launch pack_slots once for its one bf16
    gradient segment, amax_block, quant_scaled and dequant_int8 once per
    pod-hop chunk with int8 (hier, hier_zero1: 1, hier_pipelined: 4) and not
-   with bf16, and no flash attention, every amax_block, quant_scaled and
+   with bf16; hier_overlap all four once per bucket of its partition_tree
+   (38 for qwen2.5-3b under the 64 MiB cap), synced inside the backward;
+   fsdp (nothing sharded over a data group of one) the codec once per
+   leaf (14) and pack_slots once per per-layer leaf (12), which it syncs
+   as its (L, ...) stack; and no flash attention, every amax_block, quant_scaled and
    dequant_int8 launch in its vector variant, with finite loss and grad
    norm and the finite gate open.  hier_zero1 quantizes the gradient
    segment cast to f32 and decodes it into f32 (the f32 master's shard);
@@ -75,7 +83,10 @@
 8. Where the time goes: one training step per gradient sync under
    torch.profiler, device time by kernel group and the device's idle
    share of the wall time (the serving profiles are part of phase 4);
-   hier_zero1's bootstrap runs before the profiled window.  Then one
+   hier_zero1's bootstrap runs before the profiled window.  For
+   hier_overlap, how many bucket syncs (device-side grad_sync spans)
+   began before the backward's last kernel, and the device time from the
+   first bucket's codec kernel to that kernel's end.  Then one
    optimizer update per sync timed apart, free of the profiler's
    attribution of kernels to ranges.
 
@@ -99,13 +110,14 @@ import time
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
 import torch.distributed as dist  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import collectives, compression, packing  # noqa: E402
+from repro_torch.core import collectives, compression, overlap, packing  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, synth_batch  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -117,7 +129,9 @@ from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.serve import disaggregated  # noqa: E402
 from repro_torch.serve.serve_step import make_serve_steps  # noqa: E402
+from repro_torch.train import loss as loss_lib  # noqa: E402
 from repro_torch.train import optimizer as opt_lib  # noqa: E402
+from repro_torch.train import train_step  # noqa: E402
 from repro_torch.train.train_step import (  # noqa: E402
     TrainConfig, make_train_step, zero_bootstrap)
 
@@ -134,16 +148,41 @@ BATCH, PROMPT, GEN = 4, 1024, 16
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 4
 # (gradient sync, pod-hop codec) of the training paths
 TRAIN_RUNS = [("hier", "int8"), ("hier_pipelined", "int8"), ("hier_border_rs", "bf16"),
-              ("hier_zero1", "int8")]
+              ("hier_zero1", "int8"), ("hier_overlap", "int8"), ("fsdp", "int8")]
 PACK_ROUNDS = 6       # interleaved rounds of pack_slots against torch.cat
+# the syncs whose small-model check holds the sync itself bit-equal to the
+# CPU's on the same gradients (check_sync_parity) in place of parameters
+SYNC_PARITY_MODES = ("hier_overlap", "fsdp")
 
 
-def train_kernels(mode: str, codec: str | None) -> dict[str, int]:
-    """Launches per training step of a model with one gradient segment:
-    one pack, and the shared-scale codec once per pod-hop chunk."""
+def grad_layout(cfg) -> dict[str, int]:
+    """The gradient layout of ``cfg``'s parameters, from their shapes alone
+    (drawn under FakeTensorMode, nothing allocated): hier_overlap's buckets
+    under the default cap, the leaves, and the list leaves (per-layer
+    parameters, each one stacked (L, ...) leaf)."""
+    with FakeTensorMode():
+        model = Model(cfg, device="cpu").init(0)
+        leaves = model.train_leaves()
+        buckets = overlap.partition_tree(model.param_tree(), TrainConfig().bucket_cap_mb << 20)
+    return {"buckets": len(buckets), "leaves": len(leaves),
+            "list_leaves": sum(isinstance(leaf, list) for leaf in leaves)}
+
+
+def train_kernels(mode: str, codec: str | None, cfg) -> dict[str, int]:
+    """Launches per training step of ``cfg``'s model in a world of one.
+    The packed syncs pack one gradient segment and run the shared-scale
+    codec once per pod-hop chunk; hier_overlap packs and codes each
+    bucket; fsdp (nothing sharded in a world of one) syncs leaf by leaf,
+    packing each list leaf into its stack."""
+    layout = grad_layout(cfg)
     chunks = TrainConfig().n_chunks if mode == "hier_pipelined" else 1
-    n = chunks if codec == "int8" else 0
-    return {"pack_slots": 1, "amax_block": n, "quant_scaled": n, "dequant_int8": n,
+    packs, syncs = 1, chunks
+    if mode == "hier_overlap":
+        packs = syncs = layout["buckets"]
+    elif mode == "fsdp":
+        packs, syncs = layout["list_leaves"], layout["leaves"]
+    n = syncs if codec == "int8" else 0
+    return {"pack_slots": packs, "amax_block": n, "quant_scaled": n, "dequant_int8": n,
             "quant_int8": 0, "fused_pack_quant": 0, "flash_attention_bhsd": 0,
             "ssd_chunk": 0}
 
@@ -622,7 +661,7 @@ def check_small_training(dev, rt, mode: str, codec: str | None) -> None:
     gpu = copy.deepcopy(cpu, {id(rt): rt}).to(dev)
     tcfg = TrainConfig(comm_mode=mode, dcn_compression=codec,
                        opt=opt_lib.OptConfig(lr=1e-3, warmup_steps=1))
-    want = train_kernels(mode, codec)
+    want = train_kernels(mode, codec, cfg)
     runs = []
     for model in (cpu, gpu):
         step_fn, _ = make_train_step(model, tcfg)
@@ -649,10 +688,74 @@ def check_small_training(dev, rt, mode: str, codec: str | None) -> None:
     perr = max((torch.stack(g) if isinstance(g, list) else g).cpu().sub(
         torch.stack(c) if isinstance(c, list) else c).abs().max().item()
         for g, c in zip(gpu.train_leaves(), cpu.train_leaves()))
-    check(perr < 1e-4, f"small training params differ by {perr}")
+    if mode in SYNC_PARITY_MODES:
+        held = check_sync_parity(gpu, rt, mode, codec)
+        params = f"max param diff {perr:.3g} (reported; {held})"
+    else:
+        check(perr < 1e-4, f"small training params differ by {perr}")
+        params = f"max param diff {perr:.3g} (tol 1e-4)"
     print(f"[check] {cfg.name} f32 training, {mode} + {codec}, 3 steps on the card vs "
           f"the CPU: losses {[f'{l:.6f}' for l in runs[1]]}, max relative loss diff "
-          f"{err:.3g}, max param diff {perr:.3g} (tol 1e-4), launches per step {want}")
+          f"{err:.3g} (tol 1e-4), {params}, launches per step {want}")
+
+
+def check_sync_parity(gpu, rt, mode: str, codec: str | None) -> str:
+    """A new gradient sync on the card against the same sync on the CPU,
+    on the same gradients: one batch's raw gradients of the card model,
+    synced on the card and, copied, on the CPU, bit-equal.  For
+    hier_overlap also the hook executor inside the card's backward
+    against the sync after it, bit-equal.  (Parameters after three int8
+    AdamW steps are reported, not held: Adam turns one int8 rounding that
+    the card's and the CPU's gradients take apart into a step of up to
+    lr on that value.)"""
+    cfg = gpu.cfg
+    ccfg = TrainConfig(comm_mode=mode, dcn_compression=codec).comm_config(rt)
+    leaves = gpu.train_leaves()
+    params, _ = opt_lib.flat_params(leaves)
+    b = {k: torch.from_numpy(v).long().to(gpu.device) for k, v in synth_batch(
+        DataConfig(vocab_size=cfg.vocab_size, global_batch=2, seq_len=64), 7).items()}
+
+    def backward():
+        with torch.enable_grad():
+            lval, _ = loss_lib.sharded_xent(gpu.apply_train(b["tokens"]), b["labels"], rt,
+                                            cfg.vocab_size)
+            return torch.autograd.grad(lval, params)
+
+    for p in params:
+        p.requires_grad_(True)
+    raw = backward()
+    card, host = [g.clone() for g in raw], [g.cpu() for g in raw]
+    if mode == "hier_overlap":
+        tree = gpu.param_tree()
+        for grads in (card, host):
+            by_id = dict(zip(map(id, params), grads))
+            overlap.tree_hier_psum_overlap(_map_tree(tree, lambda t: by_id[id(t)]), ccfg)
+        sync = overlap.BucketSync(tree, ccfg)
+        with sync.attached():
+            inside = backward()
+        check(all(bits_equal(a, c) for a, c in zip(inside, card)),
+              "hier_overlap: the hook executor differs from the sync after the backward")
+        synced = (card, host)
+    else:
+        synced = []
+        for grads in (card, host):
+            it = iter(grads)
+            synced.append([train_step.fsdp_sync([next(it) for _ in leaf]
+                                                if isinstance(leaf, list) else next(it),
+                                                False, ccfg, rt) for leaf in leaves])
+    check(all(bits_equal(a.cpu(), c) for a, c in zip(*synced)),
+          f"{mode}: the card's sync differs from the CPU's on the same gradients")
+    return ("sync bit-equal to the CPU's on the card's gradients"
+            + (", hook executor bit-equal to the sync after the backward"
+               if mode == "hier_overlap" else ""))
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, list):
+        return [_map_tree(t, fn) for t in tree]
+    return {k: _map_tree(v, fn) for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -1253,6 +1356,12 @@ def profile_training(dev, rt, smi: str, mode: str, codec: str | None,
         wall = (time.perf_counter() - t0) * 1e3
     out = _report(prof, wall, f"training step {TRAIN_BATCH}x{TRAIN_SEQ}, {mode} + {codec}",
                   smi, TRAIN_GROUPS, TRAIN_RANGES)
+    if mode == "hier_overlap":
+        out["overlap"] = ov = overlap_timeline(prof)
+        print(f"[time] [{smi}] hier_overlap's profiled step: {ov['syncs_begun_before']} of "
+              f"{ov['syncs']} bucket syncs began before the backward's last kernel "
+              f"({ov['last_backward_kernel']}); device time from the first bucket's codec "
+              f"kernel to that kernel's end {ov['overlap_ms']:.3f} ms")
     out["optimizer_timed_apart"] = optimizer_ms(model, opt, opt_lib.OptConfig())
     print(f"[profile] [{smi}] {mode}'s optimizer update, timed apart: device time "
           f"{out['optimizer_timed_apart']['device_ms']:.3f} ms, event-timed "
@@ -1265,6 +1374,31 @@ def profile_training(dev, rt, smi: str, mode: str, codec: str | None,
     print(f"[profile] [{smi}] training attention, timed apart ({cfg.n_layers} layers x "
           f"(forward + forward/backward)): {attn:.3f} ms, inside matmul and other")
     return out
+
+
+def overlap_timeline(prof) -> dict:
+    """hier_overlap on the device timeline of one profiled step (one
+    stream): each bucket's sync is a device-side ``grad_sync`` span; the
+    backward's last kernel is the last kernel outside every such span
+    that ran before the ``grad_norm`` range.  How many syncs began before
+    it, and the device time from the first codec kernel (bucket 0's
+    amax_block) to its end."""
+    evs = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in evs
+                   if ev.is_user_annotation and ev.name == "grad_sync")
+    norm = [ev.time_range.start for ev in evs if ev.is_user_annotation and ev.name == "grad_norm"]
+    check(bool(spans) and bool(norm), "no device-side grad_sync or grad_norm span in the profile")
+    kernels = sorted((ev for ev in evs if not ev.is_user_annotation
+                      and ev.time_range.start < min(norm)), key=lambda ev: ev.time_range.start)
+    compute = [ev for ev in kernels
+               if not any(s <= ev.time_range.start <= e for s, e in spans)]
+    codec = [ev for ev in kernels if "amax_block" in ev.name]
+    check(bool(compute) and bool(codec), "no backward or codec kernel before grad_norm")
+    last, first = compute[-1], codec[0]
+    return {"syncs": len(spans),
+            "syncs_begun_before": sum(s < last.time_range.start for s, _ in spans),
+            "last_backward_kernel": last.name[:60],
+            "overlap_ms": (last.time_range.end - first.time_range.start) / 1e3}
 
 
 def optimizer_ms(model, opt, ocfg) -> dict[str, float]:
@@ -1293,7 +1427,7 @@ def train_full_width(dev, smi: str, mode: str, codec: str | None) -> dict:
                            global_batch=TRAIN_BATCH, seq=TRAIN_SEQ, device=dev,
                            log=lambda line: print(f"[train] {line}"))
     counts = ops.launch_counts()
-    want = train_kernels(mode, codec)
+    want = train_kernels(mode, codec, get_config(ARCH))
     boot = bootstrap_kernels(mode)
     check(counts == {k: n * TRAIN_STEPS + boot.get(k, 0) for k, n in want.items()},
           f"{mode} launches {counts} over {TRAIN_STEPS} steps and the bootstrap {boot}")
@@ -1349,8 +1483,10 @@ def main() -> int:
     train_launch.init_world(dev)        # a world of one: gloo for CPU, NCCL for CUDA
     try:
         rt = runtime_for_groups(pods=1, data_per_pod=1)
+        # fsdp's runtime: the data group of one is also the FSDP group
+        rt_fsdp = runtime_for_groups(pods=1, data_per_pod=1, fsdp=True)
         for mode, codec in TRAIN_RUNS:
-            check_small_training(dev, rt, mode, codec)
+            check_small_training(dev, rt_fsdp if mode == "fsdp" else rt, mode, codec)
         serve, serve_counts, serve_profile = {}, {}, {}
         for arch in (ARCH, SSM_ARCH):
             serve[arch], serve_counts[arch] = serve_full_width(dev, smi, arch)
@@ -1373,8 +1509,8 @@ def main() -> int:
         pack_rows, conformance_counts = check_pack(dev, gen, rt, smi)
         rows.update(pack_rows)
         free_memory()
-        train_profile = {mode: profile_training(dev, rt, smi, mode, codec,
-                                                with_attention=mode == "hier")
+        train_profile = {mode: profile_training(dev, rt_fsdp if mode == "fsdp" else rt, smi,
+                                                mode, codec, with_attention=mode == "hier")
                          for mode, codec in TRAIN_RUNS}
     finally:
         dist.destroy_process_group()

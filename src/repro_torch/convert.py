@@ -3,7 +3,9 @@
 ``params_from_jax`` takes the JAX param pytree as numpy arrays (for
 example ``jax.tree.map(np.asarray, params)``), with the layer leaves
 stacked on a leading (L, ...) axis, and returns a ``Model`` holding the
-same values: bf16 arrays are reinterpreted bit for bit.
+same values: bf16 arrays are reinterpreted bit for bit.  With ``fsdp``
+> 1 the model shards its layer parameters over ``rt.fsdp_group`` and
+this rank keeps its slice of each global array (``Model.set_params``).
 """
 
 from __future__ import annotations
@@ -30,8 +32,8 @@ def _map(tree, fn):
 
 
 def params_from_jax(np_tree: dict, cfg: ModelConfig, rt: Runtime | None = None,
-                    device="cuda") -> Model:
-    model = Model(cfg, rt, device)
+                    device="cuda", fsdp: int = 1) -> Model:
+    model = Model(cfg, rt, device).with_fsdp(fsdp)
     dev = model.init_device
     params = {k: _map(v, lambda a: to_tensor(a, dev))
               for k, v in np_tree.items() if k != "layers"}

@@ -20,7 +20,8 @@ Ported: the ``flat``, ``hier``, ``hier_pipelined`` (the chunk loop of
 legs: a combining reduce-scatter, then an all-gather, over the pod
 group) schedules of the all-reduce, with the bf16 and int8 codecs (int8
 not with ``hier_border_rs``, as in the reference) and cluster weights,
-and the packed pytree entry point; ReduceScatterH
+and the packed pytree entry point (``resolve_config`` takes a
+per-bucket plan as the reference does); ReduceScatterH
 (``hier_psum_scatter``) and AllGatherH (``hier_all_gather``, the
 raw-shard copy ring then the intra broadcast); and the ZeRO-1 flat-shard
 layer (``zero1_local_shard``, ``tree_hier_psum_scatter``,
@@ -69,6 +70,17 @@ class CommConfig:
     n_chunks: int = 4                   # pod-hop chunks of hier_pipelined
     compression: str | None = None
     cluster_weights: tuple[float, ...] | None = None
+
+
+def resolve_config(cfg, nbytes: int) -> CommConfig:
+    """Per-bucket planner support: every collective entry point accepts
+    either a plain ``CommConfig`` (one schedule for everything) or any
+    object with a ``config_for(nbytes) -> CommConfig`` method — in
+    practice a ``planner.CommPlan`` — which picks the schedule by the
+    bucket's local payload size.  Duck-typed so core.collectives never
+    imports core.planner (which imports this module)."""
+    fn = getattr(cfg, "config_for", None)
+    return cfg if fn is None else fn(int(nbytes))
 
 
 def _cluster_weight_scalar(cfg: CommConfig) -> torch.Tensor:

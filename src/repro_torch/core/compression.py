@@ -13,8 +13,9 @@ tensor on the card (``amax_block``, ``quant_scaled``, ``dequant_int8``)
 and their plain versions for one on the CPU.  The kernels read the bf16
 or f32 payload as it is, with the ragged tail as zeros, where the
 reference upcasts to f32 and pads; the results are the same bits.  A
-``group`` of ``None`` is a group of one.  The error-feedback codec
-(``psum_ef``) waits for the ``fsdp`` mode.
+``group`` of ``None`` is a group of one.  ``psum_ef`` is the
+error-feedback form of either codec: the quantization residual of one
+step is added to the next step's payload.
 """
 
 from __future__ import annotations
@@ -115,3 +116,34 @@ def compressed_psum(x: torch.Tensor, group, codec: str,
         del q
         return _qk.dequant_int8_call(acc, scale, size, dtype).reshape(shape)
     raise ValueError(f"unknown codec {codec!r}")
+
+
+def psum_ef(x: torch.Tensor, residual: torch.Tensor, group,
+            codec: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """Error-feedback compressed all-reduce over ``group``: the wire
+    carries the compressed payload, and the local quantization error is
+    returned as the next step's residual.
+
+        corrected = x + residual
+        wire      = psum(encode(corrected))          # compressed payload
+        residual' = corrected - decode(encode(corrected))
+    """
+    corrected = x + residual
+    if codec == "bf16":
+        enc = corrected.to(torch.bfloat16)
+        summed = primitives.c2c_red(enc.clone(), group).to(x.dtype)
+        return summed, corrected - enc.to(corrected.dtype)
+    if codec == "int8":
+        size = corrected.numel()
+        flat = corrected.reshape(-1).contiguous()
+        scale = _shared_scale(_qk.amax_block_call(flat), group)
+        q = _qk.quant_scaled_call(flat, scale)
+        # corrected - q * scale rounded once: the reference's compiled
+        # subtract-of-product is one fused multiply-add (the f64 product is
+        # exact, and so is the difference for a residual of this size)
+        local_dec = (q.double() * scale.double()[:, None]).view(-1)[:size]
+        new_res = (flat.double() - local_dec).float()
+        summed = _qk.dequant_int8_call(_ring_int8_sum(q, group), scale, size, torch.float32)
+        return (summed.reshape(x.shape).to(x.dtype),
+                new_res.reshape(x.shape).to(residual.dtype))
+    raise ValueError(codec)

@@ -16,8 +16,10 @@ of the synced segments, shaped as the leaves.  A leaf is a tensor,
 or a list of equal tensors that stands for their stack (the per-layer
 parameters of a model whose reference stacks a leading (L, ...) axis):
 its slot holds layer after layer, as the reference's stacked leaf does.
-The overlap scheduler's bucket layout and the elastic shard remap are
-not ported yet.
+``plan_bucket_layout`` is the overlap scheduler's layout (every bucket
+cast to f32 and aligned on its own), and ``pack_bucketed`` writes one
+bucket of it into a buffer of its own, so that each bucket is freed once
+synced.  The elastic shard remap is not ported yet.
 """
 
 from __future__ import annotations
@@ -210,6 +212,41 @@ def _gcd_all(xs: Sequence[int]) -> int:
     return max(1, g)
 
 
+def plan_bucket_layout(bucket_metas: Sequence[Sequence[tuple[str, tuple, int]]],
+                       *, align: int | Sequence[int]) -> PackedLayout:
+    """Layout for the overlap scheduler: every bucket's pieces are cast
+    to f32 and laid out contiguously, each bucket padded to ``align``
+    (one int, or one per bucket — buckets may run different schedules,
+    e.g. different chunk counts per the planner) so its slice of the
+    one buffer is directly collective-ready (``bucket_bounds``).  Slot
+    order is bucket-major (readiness order)."""
+    aligns = ([int(align)] * len(bucket_metas)
+              if isinstance(align, int) else [int(a) for a in align])
+    if len(aligns) != len(bucket_metas):
+        raise ValueError("need one alignment per bucket")
+    slots: list[LeafSlot] = []
+    bounds: list[tuple[int, int]] = []
+    off = 0
+    idx = 0
+    for bi, metas in enumerate(bucket_metas):
+        start = off
+        for dt, shape, size in metas:
+            slots.append(LeafSlot(idx, "float32", off, int(size),
+                                  tuple(shape), dt, bucket=bi))
+            off += int(size)
+            idx += 1
+        off = start + aligned_size(off - start, aligns[bi])
+        bounds.append((start, off))
+    layout = PackedLayout(tuple(slots),
+                          (Segment("float32", off, off),),
+                          _gcd_all([max(1, a) for a in aligns]),
+                          bucket_bounds=tuple(bounds))
+    # bucket padding lives between slots, so used == padded per segment
+    # but every bucket boundary is align-multiple by construction
+    layout.validate()
+    return layout
+
+
 # ---------------------------------------------------------------------------
 # torch executors
 # ---------------------------------------------------------------------------
@@ -282,3 +319,22 @@ def unpack(layout: PackedLayout, buffers: dict[str, torch.Tensor]) -> list:
     list leaf comes back as its (L, ...) stack)."""
     return [buffers[sl.segment][sl.offset:sl.offset + sl.size].view(sl.shape)
             for sl in layout.slots]
+
+
+def pack_bucketed(layout: PackedLayout, pieces, bucket: int) -> torch.Tensor:
+    """One bucket of ``plan_bucket_layout``'s buffer: the bucket's
+    ``pieces`` (in its slot order; each a tensor, or a list of tensors
+    that follow each other in the slot) cast to f32 at their slot offsets,
+    rebased to the bucket's start, with zeros in the gaps and the tail
+    pad: the reference's ``buf[start:end]``, in one ``pack_slots`` launch."""
+    start, end = layout.bucket_bounds[bucket]
+    slots = [sl for sl in layout.slots if sl.bucket == bucket]
+    if len(slots) != len(pieces):
+        raise ValueError(f"bucket {bucket}: {len(pieces)} pieces for {len(slots)} slots")
+    parts = []
+    for sl, piece in zip(slots, pieces):
+        off = sl.offset - start
+        for part in leaf_parts(piece):
+            parts.append((off, part))
+            off += part.numel()
+    return _qk.pack_slots_call(parts, end - start, torch.float32)

@@ -16,7 +16,7 @@ from repro_torch.parallel.sharding import Runtime
 
 
 def runtime_for_groups(*, pod_group=None, tp_group=None, pods: int | None = None,
-                       data_per_pod: int | None = None) -> Runtime:
+                       data_per_pod: int | None = None, fsdp: bool = False) -> Runtime:
     """The Runtime for one process.
 
     With ``pods`` and ``data_per_pod`` (model = 1) the current world of
@@ -25,7 +25,9 @@ def runtime_for_groups(*, pod_group=None, tp_group=None, pods: int | None = None
     data index r % data_per_pod.  Every rank builds every group (each
     ``new_group`` is collective), and keeps its own pod group (the ranks
     of its data index across pods) and data group (the ranks of its
-    pod); the data-parallel group is the whole world.  Groups of one
+    pod); the data-parallel group is the whole world.  With ``fsdp``
+    the data group is also the FSDP group, as ``runtime_for_mesh(fsdp=True)``
+    makes the data axis the FSDP axis.  Groups of one
     member are real groups, so a world of one still runs the pod hop and
     its codec.  Otherwise the Runtime holds the given groups as they are
     (``None`` is a group of one, no collective) and no data-parallel
@@ -49,4 +51,4 @@ def runtime_for_groups(*, pod_group=None, tp_group=None, pods: int | None = None
         if rank % data_per_pod == d:
             mine_pod = g
     return Runtime(tp_group=tp_group, pod_group=mine_pod, data_group=mine_data,
-                   dp_group=dist.group.WORLD)
+                   dp_group=dist.group.WORLD, fsdp_group=mine_data if fsdp else None)

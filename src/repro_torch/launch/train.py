@@ -4,15 +4,20 @@
     python -m repro_torch.launch.train --mode hier_pipelined --compression int8
     python -m repro_torch.launch.train --mode hier_border_rs --compression bf16
     python -m repro_torch.launch.train --mode hier_zero1 --compression int8
+    python -m repro_torch.launch.train --mode hier_overlap --compression int8
+    python -m repro_torch.launch.train --mode fsdp --compression int8
     python -m repro_torch.launch.train --smoke --device cpu --steps 2
 
 Each process trains one replica on its slice of the global batch; the
 gradients meet through ``flat``, ``hier``, ``hier_pipelined`` (the pod
-hop in 4 chunks, as ``TrainConfig.n_chunks`` sets), ``hier_border_rs``
-or ``hier_zero1`` (ReduceScatterH into the ZeRO-1 flat-shard AdamW, whose
-f32 master and moments are bootstrapped from the drawn parameters;
-the reconstruction is the deferred AllGather), optionally bf16, or int8
-except with ``hier_border_rs``, on the pod hop.  The world and this process's rank come from the usual
+hop in 4 chunks, as ``TrainConfig.n_chunks`` sets), ``hier_border_rs``,
+``hier_overlap`` (one AllReduceH per readiness-ordered gradient bucket of
+at most 64 MiB of f32, each fired inside the backward), ``hier_zero1``
+(ReduceScatterH into the ZeRO-1 flat-shard AdamW, whose f32 master and
+moments are bootstrapped from the drawn parameters; the reconstruction
+is the deferred AllGather) or ``fsdp`` (the layer parameters sharded
+over the data group, gathered per layer; the pod hop per leaf),
+optionally bf16, or int8 except with ``hier_border_rs``, on the pod hop.  The world and this process's rank come from the usual
 ``torch.distributed`` environment (``RANK``, ``WORLD_SIZE``,
 ``MASTER_ADDR``, ``MASTER_PORT``); a lone process makes its own world
 of one over an in-process store, whose pod and data groups are real
@@ -42,8 +47,12 @@ from repro_torch.data.pipeline import DataConfig, batches
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import runtime_for_groups
 from repro_torch.models.model import Model, resolve_device
+from repro_torch.parallel.sharding import group_size
 from repro_torch.train.optimizer import OptConfig
-from repro_torch.train.train_step import PORTED_MODES, TrainConfig, make_train_step
+from repro_torch.train.train_step import TrainConfig, make_train_step
+
+MODES = ("flat", "hier", "hier_pipelined", "hier_border_rs", "hier_overlap",
+         "hier_zero1", "fsdp")
 
 
 def init_world(device: torch.device) -> bool:
@@ -82,11 +91,13 @@ def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, steps: int = 4,
     world, rank = dist.get_world_size(), dist.get_rank()
     if world % pods or global_batch % world:
         raise ValueError(f"world {world}, pods {pods}, global batch {global_batch}")
-    rt = runtime_for_groups(pods=pods, data_per_pod=world // pods)
+    rt = runtime_for_groups(pods=pods, data_per_pod=world // pods, fsdp=mode == "fsdp")
     cfg = get_config(arch, smoke=smoke)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     model = Model(cfg, rt, device)
+    if mode == "fsdp":
+        model.with_fsdp(group_size(rt.data_group))
     tcfg = TrainConfig(comm_mode=mode, dcn_compression=compression,
                        opt=OptConfig(lr=lr, warmup_steps=20))
     step_fn, init_fn = make_train_step(model, tcfg)
@@ -131,7 +142,7 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", default="qwen2.5-3b")
     ap.add_argument("--smoke", action="store_true", help="the arch's small config")
     ap.add_argument("--steps", type=int, default=4)
-    ap.add_argument("--mode", default="hier", choices=list(PORTED_MODES))
+    ap.add_argument("--mode", default="hier", choices=list(MODES))
     ap.add_argument("--compression", default=None, choices=["bf16", "int8"])
     ap.add_argument("--global-batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=1024)

@@ -11,7 +11,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.parallel.sharding import Runtime
+from repro_torch.parallel.sharding import Runtime, fsdp_gather
 from . import attention, layers, ssm
 
 PORTED_FAMILIES = ("dense", "ssm")
@@ -49,12 +49,22 @@ def apply_layer(p, x: torch.Tensor, cfg: ModelConfig, rt: Runtime, *,
     return x + layers.apply_mlp(p["mlp"], h, rt)
 
 
-def decoder_stack(stack, x: torch.Tensor, cfg: ModelConfig, rt: Runtime, *,
-                  causal: bool = True) -> torch.Tensor:
+def _gathered_layer(lp, fsdp_dims, x: torch.Tensor, *, cfg: ModelConfig, rt: Runtime,
+                    causal: bool) -> torch.Tensor:
+    if fsdp_dims is not None:
+        lp = fsdp_gather(lp, fsdp_dims, rt.fsdp_group)
+    return apply_layer(lp, x, cfg, rt, causal=causal)
+
+
+def decoder_stack(stack, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
+                  fsdp_dims=None, *, causal: bool = True) -> torch.Tensor:
     """The layers in order, each checkpointed (its activations are
     recomputed in the backward pass), as the reference checkpoints its
-    scan body."""
+    scan body.  With ``fsdp_dims`` each layer first gathers its FSDP
+    shards over ``rt.fsdp_group``, inside the checkpoint, so the gather
+    runs again in the recompute and its reduce-scatter in the backward."""
     for lp in stack:
-        fn = functools.partial(apply_layer, lp, cfg=cfg, rt=rt, causal=causal)
+        fn = functools.partial(_gathered_layer, lp, fsdp_dims, cfg=cfg, rt=rt,
+                               causal=causal)
         x = checkpoint(fn, x, use_reentrant=False)
     return x

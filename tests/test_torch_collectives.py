@@ -29,6 +29,7 @@
   ``_zero1_layout`` the reference's.
 """
 
+import dataclasses
 import datetime
 import multiprocessing
 import os
@@ -58,6 +59,12 @@ SCATTER_CASES = [(c, d) for c in CODECS for d in DTYPES]
 GATHER_CASES = [("flat", 0), ("hier", 0), ("hier", 1)]
 RING_CHUNKS = (1, 4)
 ZERO_CODECS = (None, "int8")
+OVERLAP_CODECS = CODECS
+OVERLAP_CAP = 1500                   # bytes: 6 buckets of the overlap tree
+OVERLAP_LEAVES = (("embed", "bf16"), ("final_norm/scale", "f32"), ("head", "bf16"),
+                  ("layers/a", "f32"), ("layers/b", "f32"))
+GATHER_DIMS = (0, 1)
+EF_CODECS = ("bf16", "int8")
 
 
 def case_id(case) -> str:
@@ -75,6 +82,29 @@ def rank_input(rank: int) -> np.ndarray:
 def rank_matrix(rank: int) -> np.ndarray:
     """A (2, 37) shard for the all-gathers."""
     return rank_input(rank)[:74].reshape(2, 37)
+
+
+def _on_bf16_grid(a: np.ndarray) -> np.ndarray:
+    return (a.view(np.uint32) & 0xFFFF0000).view(np.float32)
+
+
+def rank_overlap_tree(rank: int) -> dict:
+    """A param-shaped gradient tree: two head keys (an f32 norm, a bf16
+    leaf), a stacked 3-layer subtree of f32 leaves and a bf16 tail key.
+    At OVERLAP_CAP its buckets are: final_norm, head, one per layer (in
+    reverse), embed."""
+    rng = np.random.default_rng(3000 + rank)
+    return {"embed": _on_bf16_grid(rng.normal(size=(37, 11)).astype(np.float32)),
+            "final_norm": {"scale": rng.normal(size=300).astype(np.float32)},
+            "head": _on_bf16_grid(rng.normal(size=(50, 7)).astype(np.float32)),
+            "layers": {"a": rng.normal(size=(3, 129)).astype(np.float32),
+                       "b": rng.normal(size=(3, 20, 7)).astype(np.float32)}}
+
+
+def gather_cotangent(rank: int, dim: int) -> np.ndarray:
+    """The cotangent of a (2, 37) shard gathered over 2 data ranks."""
+    shape = (4, 37) if dim == 0 else (2, 74)
+    return np.random.default_rng(4000 + 10 * rank + dim).normal(size=shape).astype(np.float32)
 
 
 def rank_tree(rank: int) -> dict:
@@ -128,7 +158,67 @@ def _jax_main(out_dir: str) -> None:
         for k, v in out.items():
             res[f"tree-{mode}-{codec}-{k}"] = np.asarray(v.astype(jnp.float32))
     _jax_gather_cases(mesh, spec, xs, trees, res)
+    _jax_overlap_cases(mesh, spec, res)
     np.savez(os.path.join(out_dir, "jax.npz"), **res)
+
+
+def _jax_overlap_cases(mesh, spec, res) -> None:
+    """tree_hier_psum_overlap, fsdp_gather (forward and gradient) and
+    psum_ef (two steps, the residual carried) on the (pod 2, data 2) mesh."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core import collectives as jcoll
+    from repro.core import compression as jcomp
+    from repro.core import overlap as joverlap
+    from repro.parallel.sharding import fsdp_gather as jgather
+    from repro.parallel.sharding import shard_map
+
+    def run(fn, *args, n_out=1):
+        out_specs = spec if n_out == 1 else (spec,) * n_out
+        return jax.jit(shard_map(fn, mesh=mesh, in_specs=(spec,) * len(args),
+                                 out_specs=out_specs, check_vma=False))(*args)
+
+    trees = [rank_overlap_tree(r) for r in range(WORLD)]
+    stacked = jax.tree.map(lambda *a: np.stack(a), *trees)
+    tree = jax.tree.map(jnp.asarray, stacked)
+    tree["embed"] = tree["embed"].astype(jnp.bfloat16)
+    tree["head"] = tree["head"].astype(jnp.bfloat16)
+    for codec in OVERLAP_CODECS:
+        cfg = jcoll.CommConfig(mode="hier", pod_axis="pod", intra_axis="data",
+                               compression=codec)
+
+        def body(t, cfg=cfg):
+            out = joverlap.tree_hier_psum_overlap(jax.tree.map(lambda a: a[0], t), cfg,
+                                                  cap_bytes=OVERLAP_CAP)
+            return jax.tree.map(lambda a: a[None], out)
+
+        out = run(body, tree)
+        for name, _ in OVERLAP_LEAVES:
+            leaf = out
+            for k in name.split("/"):
+                leaf = leaf[k]
+            res[f"overlap-{codec}-{name}"] = np.asarray(leaf.astype(jnp.float32))
+    ms = jnp.asarray(np.stack([rank_matrix(r) for r in range(WORLD)]))
+    for dim in GATHER_DIMS:
+        cts = jnp.asarray(np.stack([gather_cotangent(r, dim) for r in range(WORLD)]))
+
+        def gather_vjp(x, c, dim=dim):
+            y, vjp = jax.vjp(lambda p: jgather({"w": p}, {"w": dim}, "data")["w"], x[0])
+            return y[None], vjp(c[0])[0][None]
+
+        y, g = run(gather_vjp, ms, cts, n_out=2)
+        res[f"fsdp-gather-{dim}"], res[f"fsdp-grad-{dim}"] = np.asarray(y), np.asarray(g)
+    x1 = jnp.asarray(np.stack([rank_input(r) for r in range(WORLD)]))
+    x2 = jnp.asarray(np.stack([rank_input(r + WORLD) * 0.3 for r in range(WORLD)]))
+    for codec in EF_CODECS:
+        def ef(a, b, codec=codec):
+            s1, r1 = jcomp.psum_ef(a[0], jnp.zeros_like(a[0]), "pod", codec)
+            s2, r2 = jcomp.psum_ef(b[0], r1, "pod", codec)
+            return s1[None], r1[None], s2[None], r2[None]
+
+        for name, v in zip(("s1", "r1", "s2", "r2"), run(ef, x1, x2, n_out=4)):
+            res[f"ef-{codec}-{name}"] = np.asarray(v)
 
 
 def _jax_gather_cases(mesh, spec, xs, trees, res) -> None:
@@ -249,6 +339,7 @@ def _gloo_rank(rank: int, store_path: str, out_dir: str) -> None:
             for k, v in zip(("a", "b", "layers"), out):
                 res[f"tree-{mode}-{codec}-{k}"] = v.float().numpy()
         _gloo_gather_cases(rank, rt, res)
+        _gloo_overlap_cases(rank, rt, res)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
     finally:
         dist.destroy_process_group()
@@ -304,6 +395,50 @@ def _gloo_gather_cases(rank: int, rt, res: dict) -> None:
             res[f"zero-{codec}-{k}"] = v.float().numpy()
 
 
+def _gloo_overlap_cases(rank: int, rt, res: dict) -> None:
+    import torch
+
+    from repro_torch.core import collectives as tcoll
+    from repro_torch.core import compression as tcomp
+    from repro_torch.core import overlap as toverlap
+    from repro_torch.parallel.sharding import fsdp_gather
+
+    def config(**kw):
+        return tcoll.CommConfig(pod_group=rt.pod_group, intra_group=rt.data_group,
+                                dp_group=rt.dp_group, **kw)
+
+    t = rank_overlap_tree(rank)
+    for codec in OVERLAP_CODECS:
+        tree = {"embed": torch.from_numpy(t["embed"]).to(torch.bfloat16),
+                "final_norm": {"scale": torch.from_numpy(t["final_norm"]["scale"]).clone()},
+                "head": torch.from_numpy(t["head"]).to(torch.bfloat16),
+                "layers": [{k: torch.from_numpy(v[i]).clone() for k, v in t["layers"].items()}
+                           for i in range(3)]}
+        out = toverlap.tree_hier_psum_overlap(tree, config(mode="hier", compression=codec),
+                                              cap_bytes=OVERLAP_CAP)
+        assert out is tree and out["embed"].dtype == torch.bfloat16
+        flat = {"embed": out["embed"], "final_norm/scale": out["final_norm"]["scale"],
+                "head": out["head"],
+                "layers/a": torch.stack([lp["a"] for lp in out["layers"]]),
+                "layers/b": torch.stack([lp["b"] for lp in out["layers"]])}
+        for name, v in flat.items():
+            res[f"overlap-{codec}-{name}"] = v.float().numpy()
+    for dim in GATHER_DIMS:
+        x = torch.from_numpy(rank_matrix(rank)).requires_grad_(True)
+        y = fsdp_gather({"w": x}, {"w": dim}, rt.data_group)["w"]
+        y.backward(torch.from_numpy(gather_cotangent(rank, dim)))
+        res[f"fsdp-gather-{dim}"] = y.detach().numpy()
+        res[f"fsdp-grad-{dim}"] = x.grad.numpy()
+    x1 = torch.from_numpy(rank_input(rank))
+    x2 = torch.from_numpy(rank_input(rank + WORLD) * 0.3)
+    for codec in EF_CODECS:
+        s1, r1 = tcomp.psum_ef(x1, torch.zeros_like(x1), rt.pod_group, codec)
+        s2, r2 = tcomp.psum_ef(x2, r1, rt.pod_group, codec)
+        for name, v in zip(("s1", "r1", "s2", "r2"), (s1, r1, s2, r2)):
+            assert v.dtype == torch.float32 and v.shape == x1.shape
+            res[f"ef-{codec}-{name}"] = v.numpy()
+
+
 if __name__ == "__main__":
     _jax_main(sys.argv[1])
     sys.exit(0)
@@ -321,19 +456,27 @@ from jax.sharding import PartitionSpec as P  # noqa: E402
 
 from repro.core import collectives as jcoll  # noqa: E402
 from repro.core import compression as jcomp  # noqa: E402
+from repro.core import overlap as joverlap  # noqa: E402
+from repro.core import packing as jpack  # noqa: E402
 from repro.core import schedule as jsched  # noqa: E402
 from repro.kernels import quant as jquant  # noqa: E402
 from repro.models import Model as JaxModel  # noqa: E402
 from repro.configs import get_config as jax_config  # noqa: E402
 from repro.parallel.sharding import Runtime as JaxRuntime  # noqa: E402
+from repro.parallel import sharding as jshard  # noqa: E402
 from repro.parallel.sharding import shard_map  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import to_tensor  # noqa: E402
 from repro_torch.core import collectives as tcoll  # noqa: E402
 from repro_torch.core import compression as tcomp  # noqa: E402
+from repro_torch.core import overlap as toverlap  # noqa: E402
+from repro_torch.core import packing as tpack  # noqa: E402
 from repro_torch.core import schedule as tsched  # noqa: E402
 from repro_torch.kernels import quant as tquant  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.models.model import param_specs  # noqa: E402
+from repro_torch.parallel import sharding as tshard  # noqa: E402
+from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
@@ -763,3 +906,154 @@ def test_zero1_scatter_and_unscatter_four_ranks_match_jax(four_ranks, codec):
             assert ranks[r][key].shape == rank_tree(0)[leaf].shape
             magnitude = sum(abs(rank_tree(q)[leaf]) for q in range(WORLD))
             _assert_agree(ranks[r][key], jres[key][r], codec, dt, magnitude)
+
+
+# ---------------------------------------------------------------------------
+# hier_overlap's bucket layout and fsdp's sharding rules (one process)
+# ---------------------------------------------------------------------------
+
+def _qwen_trees(smoke: bool, d_ff: int | None = None):
+    """The reference's qwen2.5-3b param shapes (ShapeDtypeStructs) and the
+    port's param tree, drawn on the CPU when smoke and under
+    FakeTensorMode (shapes only, nothing allocated) at full width."""
+    jcfg, tcfg = jax_config("qwen2.5-3b", smoke=smoke), get_config("qwen2.5-3b", smoke=smoke)
+    if d_ff is not None:
+        jcfg, tcfg = (dataclasses.replace(c, d_ff=d_ff) for c in (jcfg, tcfg))
+    shapes = jax.eval_shape(JaxModel(jcfg, JaxRuntime()).init, jax.random.key(0))
+    if smoke:
+        return jcfg, shapes, tcfg, Model(tcfg, device="cpu").init(0).param_tree()
+    with FakeTensorMode():
+        return jcfg, shapes, tcfg, Model(tcfg, device="cpu").init(0).param_tree()
+
+
+@pytest.mark.parametrize("cap", [1 << 10, 1 << 20, toverlap.DEFAULT_CAP_BYTES])
+def test_partition_tree_smoke_is_the_reference(cap):
+    _, shapes, _, tree = _qwen_trees(smoke=True)
+    got = toverlap.partition_tree(tree, cap)
+    assert repr(got) == repr(joverlap.partition_tree(shapes, cap))
+    assert len(got) >= 3
+
+
+def test_partition_tree_full_width_is_the_reference():
+    """qwen2.5-3b under the 64 MiB cap: final_norm, the 36 layers one by
+    one (308 MB of f32 each), the tied embed last."""
+    _, shapes, _, tree = _qwen_trees(smoke=False)
+    got = toverlap.partition_tree(tree)
+    assert repr(got) == repr(joverlap.partition_tree(shapes))
+    assert len(got) == 38
+    assert got[0].entries == (("final_norm", None, None),)
+    assert [b.entries for b in got[1:37]] == [(("layers", i, i + 1),) for i in range(35, -1, -1)]
+    assert got[37].entries == (("embed", None, None),)
+
+
+@pytest.mark.parametrize("cap", [1, 1000, 1 << 20, toverlap.DEFAULT_CAP_BYTES])
+def test_bucket_sizes_for_volume_is_the_reference(cap):
+    for total in (0, 1, 7, 1000, 12_343_754_752):
+        for n_layers in (0, 1, 3, 36, 5000):
+            assert (toverlap.bucket_sizes_for_volume(total, n_layers, cap)
+                    == joverlap.bucket_sizes_for_volume(total, n_layers, cap))
+
+
+@pytest.mark.parametrize("align", [2048, (1024, 4096, 8)])
+def test_plan_bucket_layout_is_the_reference(align):
+    metas = [[("float32", (300,), 300), ("bfloat16", (50, 7), 350)],
+             [("float32", (1, 129), 129), ("float32", (1, 20, 7), 140)],
+             [("bfloat16", (37, 11), 407)]]
+    got = tpack.plan_bucket_layout(metas, align=align)
+    assert repr(got) == repr(jpack.plan_bucket_layout(metas, align=align))
+    assert len(got.bucket_bounds) == 3
+
+
+def test_fsdp_dim_is_the_reference():
+    for shape in [(36, 2048), (2, 64, 160), (36, 2048, 11008), (3, 5), (2, 300, 300),
+                  (1, 1 << 16), (7, 1 << 16)]:
+        for n in (1, 2, 4, 3):
+            for taken in ((), (0,), (0, 1)):
+                assert tshard.fsdp_dim(shape, n, taken) == jshard.fsdp_dim(shape, n, taken)
+    assert tshard.FSDP_MIN_SIZE == jshard.FSDP_MIN_SIZE
+
+
+@pytest.mark.parametrize("which", ["smoke", "smoke_d_ff_512", "full"])
+def test_fsdp_specs_are_the_reference(which):
+    """The sharded-leaf choice at fsdp 2 from the global stacked shapes:
+    nothing at the smoke widths (every leaf under FSDP_MIN_SIZE), the MLP
+    at d_ff 512, and at full width every layer leaf, norm scales too (36
+    x 2048 >= 2^16) but the k and v biases (36 x 256)."""
+    jcfg, shapes, tcfg, tree = _qwen_trees(smoke=which != "full",
+                                           d_ff=512 if which == "smoke_d_ff_512" else None)
+    jm = JaxModel(jcfg, JaxRuntime(fsdp_axis="data")).with_fsdp(2)
+    flat, _ = jax.tree_util.tree_flatten_with_path(jm.param_specs(shapes),
+                                                   is_leaf=lambda x: isinstance(x, P))
+    want = {tuple(k.key for k in path): tuple(spec) for path, spec in flat}
+    got = param_specs(tree, tcfg, 1, 2)
+    assert got == want
+    assert list(got) == sorted(got)            # train_leaves order
+    data = {path for path, spec in got.items() if "data" in spec}
+    if which == "smoke":
+        assert not data
+    elif which == "smoke_d_ff_512":
+        assert data == {("layers", "mlp", k) for k in ("w_down", "w_gate", "w_up")}
+    else:
+        assert data == {path for path in got if path[0] == "layers"} - {
+            ("layers", "attn", "bk"), ("layers", "attn", "bv")}
+        assert got[("layers", "norm_attn", "scale")] == (None, "data")
+
+
+# ---------------------------------------------------------------------------
+# hier_overlap, fsdp_gather and psum_ef on 4 gloo ranks against JAX
+# ---------------------------------------------------------------------------
+
+def _overlap_leaf(tree: dict, name: str) -> np.ndarray:
+    for k in name.split("/"):
+        tree = tree[k]
+    return tree
+
+
+@pytest.mark.parametrize("codec", OVERLAP_CODECS)
+def test_tree_hier_psum_overlap_four_ranks_match_jax(four_ranks, codec):
+    jres, ranks = four_ranks
+    shapes = jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape, jnp.float32),
+                          rank_overlap_tree(0))
+    assert len(joverlap.partition_tree(shapes, OVERLAP_CAP)) == 6
+    for name, dt in OVERLAP_LEAVES:
+        key = f"overlap-{codec}-{name}"
+        magnitude = sum(abs(_overlap_leaf(rank_overlap_tree(r), name)) for r in range(WORLD))
+        for r in range(WORLD):
+            np.testing.assert_array_equal(ranks[r][key], ranks[0][key])
+            assert ranks[r][key].shape == jres[key][r].shape
+            _assert_agree(ranks[r][key], jres[key][r], codec, dt, magnitude, bf16_ulps("hier"))
+
+
+@pytest.mark.parametrize("dim", GATHER_DIMS)
+def test_fsdp_gather_four_ranks_match_jax(four_ranks, dim):
+    """The tiled gather over the data group and, as its gradient, the
+    reduce-scatter of the cotangents: exact."""
+    jres, ranks = four_ranks
+    for r in range(WORLD):
+        pod, d = divmod(r, 2)
+        peers = [2 * pod + q for q in range(2)]
+        want = np.concatenate([rank_matrix(q) for q in peers], axis=dim)
+        ct = sum(gather_cotangent(q, dim) for q in peers)
+        want_grad = np.split(ct, 2, axis=dim)[d]
+        np.testing.assert_array_equal(ranks[r][f"fsdp-gather-{dim}"], want)
+        np.testing.assert_array_equal(jres[f"fsdp-gather-{dim}"][r], want)
+        np.testing.assert_array_equal(ranks[r][f"fsdp-grad-{dim}"], jres[f"fsdp-grad-{dim}"][r])
+        np.testing.assert_allclose(ranks[r][f"fsdp-grad-{dim}"], want_grad, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("codec", EF_CODECS)
+def test_psum_ef_four_ranks_match_jax(four_ranks, codec):
+    """Two error-feedback steps over the pod group, the residual carried:
+    int8 sums and residuals bit-equal, bf16 sums within bf16_ulps and
+    residuals exact."""
+    jres, ranks = four_ranks
+    for r in range(WORLD):
+        for name in ("s1", "r1", "s2", "r2"):
+            key = f"ef-{codec}-{name}"
+            if name[0] == "s":                # both pods hold the pod sum
+                np.testing.assert_array_equal(ranks[r][key], ranks[r ^ 2][key])
+            if codec == "int8" or name[0] == "r":
+                np.testing.assert_array_equal(ranks[r][key], jres[key][r])
+            else:
+                _assert_agree(ranks[r][key], jres[key][r], codec, "bf16",
+                              ulps=bf16_ulps("hier"))

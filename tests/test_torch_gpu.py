@@ -17,7 +17,12 @@ tests/test_kernels.py's tolerances (f32 2e-3 on the CUDA cores, bf16 3e-2
 on the tensor cores, whose P is rounded to bf16); the SSD chunk
 within 1e-4 of its plain output's largest magnitude (f32 inputs: f32
 arithmetic in both, summed in another order; bf16 inputs: the tensor
-cores, with the f32 operands split into bf16 hi + lo).
+cores, with the f32 operands split into bf16 hi + lo).  Three f32 smoke
+training steps with ``hier_overlap`` (its buckets synced inside the
+backward) and with ``fsdp``, int8 on the pod hop, in a world of one
+(NCCL for the card, gloo for the CPU): losses and parameters within 1e-4
+of the same steps on the CPU, and the codec launched once per bucket or
+per leaf.
 """
 
 import copy
@@ -440,6 +445,100 @@ def test_flash_attention_refuses_misaligned_bf16(cuda, what):
     with pytest.raises(ValueError, match="16-byte"):
         tfa.flash_attention_bhsd(q, q, q)
     assert ops.launch_counts()["flash_attention_bhsd"] == before
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, list):
+        return [_map_tree(t, fn) for t in tree]
+    return {k: _map_tree(v, fn) for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("mode", ["hier_overlap", "fsdp"])
+def test_smoke_training_on_card_matches_cpu(cuda, mode):
+    """Three steps on the card and on the CPU: losses within 1e-4, the
+    codec once per bucket or leaf.  Then the sync itself on one batch's
+    card gradients, on the card and (copied) on the CPU: bit-equal; and
+    hier_overlap's hook executor against its sync after the backward,
+    bit-equal.  (Parameters through int8 AdamW are not compared: one
+    rounding apart moves a value by up to lr.)"""
+    import torch.distributed as dist
+
+    from repro_torch.core import overlap
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.launch import train as train_launch
+    from repro_torch.launch.mesh import runtime_for_groups
+    from repro_torch.train import loss as loss_lib
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    started = train_launch.init_world(cuda)
+    try:
+        rt = runtime_for_groups(pods=1, data_per_pod=1, fsdp=mode == "fsdp")
+        cfg = get_config("qwen2.5-3b", smoke=True)
+        cfg = type(cfg)(**{**cfg.__dict__, "dtype": torch.float32})
+        cpu = Model(cfg, rt, device="cpu").init(0)
+        gpu = copy.deepcopy(cpu, {id(rt): rt}).to(cuda)
+        tcfg = TrainConfig(comm_mode=mode, dcn_compression="int8",
+                           opt=opt_lib.OptConfig(lr=1e-3, warmup_steps=1))
+        n = (len(overlap.partition_tree(cpu.param_tree())) if mode == "hier_overlap"
+             else len(cpu.train_leaves()))
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, global_batch=2, seq_len=64)
+        losses = []
+        for model in (cpu, gpu):
+            step_fn, _ = make_train_step(model, tcfg)
+            opt = opt_lib.adam_init(opt_lib.flat_params(model.train_leaves())[0])
+            run = []
+            for i in range(3):
+                b = {k: torch.from_numpy(v).long().to(model.device)
+                     for k, v in synth_batch(dcfg, i).items()}
+                before = ops.launch_counts()
+                m = step_fn(opt, b)
+                after = ops.launch_counts()
+                if model is gpu:
+                    assert all(after[k] - before[k] == n
+                               for k in ("amax_block", "quant_scaled", "dequant_int8"))
+                assert not m["gated"]
+                run.append(m["loss"])
+            losses.append(run)
+        assert max(abs(a - b) / abs(b) for a, b in zip(losses[1], losses[0])) < 1e-4
+
+        ccfg = tcfg.comm_config(rt)
+        leaves = gpu.train_leaves()
+        params, _ = opt_lib.flat_params(leaves)
+        b = {k: torch.from_numpy(v).long().to(cuda) for k, v in synth_batch(dcfg, 7).items()}
+
+        def backward():
+            with torch.enable_grad():
+                lval, _ = loss_lib.sharded_xent(gpu.apply_train(b["tokens"]), b["labels"],
+                                                rt, cfg.vocab_size)
+                return torch.autograd.grad(lval, params)
+
+        raw = backward()
+        card, host = [g.clone() for g in raw], [g.cpu() for g in raw]
+        if mode == "hier_overlap":
+            tree = gpu.param_tree()
+            for grads in (card, host):
+                by_id = dict(zip(map(id, params), grads))
+                overlap.tree_hier_psum_overlap(_map_tree(tree, lambda t: by_id[id(t)]), ccfg)
+            sync = overlap.BucketSync(tree, ccfg)
+            with sync.attached():
+                inside = backward()
+            assert all(torch.equal(a, c) for a, c in zip(inside, card))
+            synced = (card, host)
+        else:
+            synced = []
+            for grads in (card, host):
+                it = iter(grads)
+                synced.append([train_step.fsdp_sync([next(it) for _ in leaf]
+                                                    if isinstance(leaf, list) else next(it),
+                                                    False, ccfg, rt) for leaf in leaves])
+        assert all(torch.equal(a.cpu(), c) for a, c in zip(*synced))
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 def test_smoke_model_on_card_matches_cpu(cuda):

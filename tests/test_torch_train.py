@@ -5,10 +5,23 @@
   f32 parameters and batches: losses and grad norms within 1e-4
   relative, parameters within 1e-4.
 * Four gloo ranks (2 pods x 2 data) against the reference on a 4-device
-  (pod 2, data 2) mesh, for ``hier``, ``hier_pipelined`` and
-  ``hier_zero1`` with int8 on the pod hop and ``hier_border_rs`` with
-  bf16: losses within 1e-3 over three steps.  The JAX side runs this file
-  as a script with 4 host devices.
+  (pod 2, data 2) mesh, for ``hier``, ``hier_pipelined``, ``hier_overlap``
+  (a 1 MiB bucket cap on both sides: final_norm, both layers, embed),
+  ``hier_zero1`` and ``fsdp`` with int8 on the pod hop,
+  ``hier_border_rs`` with bf16, and ``fsdp`` with no codec: losses within
+  1e-3 over three steps.  The ``fsdp`` cases run the smoke model at d_ff
+  512, so that its MLP leaves reach FSDP_MIN_SIZE and are sharded over
+  the data group; each rank's shards are exactly the reference's slices
+  of the drawn parameters, and its prefill and decode (which gather the
+  shards) equal the unsharded model's bit for bit.  The JAX side runs
+  this file as a script with 4 host devices.
+* ``hier_overlap``'s hook executor in a gloo world of one, int8 on the
+  pod hop: the gradients it syncs inside the backward are bit-equal to
+  ``tree_hier_psum_overlap`` run after the backward, and its event log
+  shows bucket 0 synced before the first gradient of the last bucket
+  arrived, every bucket synced in index order.
+* An unknown comm mode fails with the schedule registry's error, as in
+  the reference.
 * A one-rank gloo world (pod and data groups of one member, in a spawned
   process) against the reference on a (1, 1) ("pod", "data") mesh, three
   ``hier_zero1`` steps with no codec: losses and grad norms within 1e-4
@@ -37,7 +50,19 @@ GB, S, N_STEPS, WORLD = 4, 32, 3, 4
 LR, WARMUP = 1e-2, 1
 # (comm mode, pod-hop codec) of the four-rank runs
 FOUR_RANK_CASES = [("hier", "int8"), ("hier_pipelined", "int8"), ("hier_border_rs", "bf16"),
-                   ("hier_zero1", "int8")]
+                   ("hier_zero1", "int8"), ("hier_overlap", "int8"), ("fsdp", "int8"),
+                   ("fsdp", None)]
+OVERLAP_CAP_MB = 1        # hier_overlap's bucket cap in the four-rank runs
+FSDP_D_FF = 512           # the fsdp runs' d_ff: w_gate/w_up/w_down reach 2 x 64 x 512 = 2^16
+
+
+def smoke_cfg(mode: str, cfg):
+    """The f32 smoke config of a four-rank run (JAX or torch)."""
+    return dataclasses.replace(cfg, d_ff=FSDP_D_FF) if mode == "fsdp" else cfg
+
+
+def train_kwargs(mode: str) -> dict:
+    return {"bucket_cap_mb": OVERLAP_CAP_MB} if mode == "hier_overlap" else {}
 
 
 def batch(step: int, vocab: int) -> dict:
@@ -77,16 +102,35 @@ def _jax_main(out_dir: str) -> None:
     from repro.train import make_train_step as jax_train_step
     from repro.train.optimizer import OptConfig as JaxOpt
 
+    from jax.sharding import NamedSharding, PartitionSpec
+
     mesh = jax.make_mesh((2, 2), ("pod", "data"))
-    cfg = dataclasses.replace(jax_config("qwen2.5-3b", smoke=True), dtype=jax.numpy.float32)
-    model = JaxModel(cfg, runtime_for_mesh(mesh))
+    base = dataclasses.replace(jax_config("qwen2.5-3b", smoke=True), dtype=jax.numpy.float32)
     for mode, codec in FOUR_RANK_CASES:
+        cfg = smoke_cfg(mode, base)
+        model = JaxModel(cfg, runtime_for_mesh(mesh, fsdp=mode == "fsdp"))
+        if mode == "fsdp":
+            model = model.with_fsdp(2)
         tcfg = JaxTrainConfig(comm_mode=mode, dcn_compression=codec,
-                              opt=JaxOpt(lr=LR, warmup_steps=WARMUP))
+                              opt=JaxOpt(lr=LR, warmup_steps=WARMUP), **train_kwargs(mode))
         build, init = jax_train_step(model, tcfg, mesh=mesh)
         params, opt = init(jax.random.key(0))
-        step, boot = build(jax.tree.map(lambda p: jax.ShapeDtypeStruct(p.shape, p.dtype),
-                                        params))
+        shapes = jax.tree.map(lambda p: jax.ShapeDtypeStruct(p.shape, p.dtype), params)
+        step, boot = build(shapes)
+        if mode == "fsdp":
+            # each device's slice of every sharded leaf, by rank (pod-major)
+            shards = {}
+            specs, _ = jax.tree_util.tree_flatten_with_path(
+                model.param_specs(shapes), is_leaf=lambda x: isinstance(x, PartitionSpec))
+            for (path, spec), leaf in zip(specs, jax.tree.leaves(params)):
+                if "data" not in tuple(spec):
+                    continue
+                arr = jax.device_put(leaf, NamedSharding(mesh, spec))
+                for sh in arr.addressable_shards:
+                    p, d = np.argwhere(mesh.devices == sh.device)[0]
+                    name = "/".join(str(k.key) for k in path)
+                    shards[f"rank{2 * p + d}/{name}"] = np.asarray(sh.data)
+            np.savez(os.path.join(out_dir, f"jax_shards_{codec}.npz"), **shards)
         if boot is not None:
             opt = boot(params)
         losses = []
@@ -113,13 +157,31 @@ def _gloo_rank(rank: int, store_path: str, out_dir: str) -> None:
                             timeout=datetime.timedelta(seconds=60))
     try:
         rt = runtime_for_groups(pods=2, data_per_pod=2)
-        cfg = dataclasses.replace(get_config("qwen2.5-3b", smoke=True), dtype=torch.float32)
-        params = _nest(np.load(os.path.join(out_dir, "params.npz")))
+        rt_fsdp = runtime_for_groups(pods=2, data_per_pod=2, fsdp=True)
+        base = dataclasses.replace(get_config("qwen2.5-3b", smoke=True), dtype=torch.float32)
         rows = slice(rank * GB // WORLD, (rank + 1) * GB // WORLD)
         for mode, codec in FOUR_RANK_CASES:
-            model = params_from_jax(params, cfg, rt, device="cpu")
+            cfg = smoke_cfg(mode, base)
+            fsdp = mode == "fsdp"
+            params = _nest(np.load(os.path.join(out_dir, f"params_{'fsdp' if fsdp else 'base'}.npz")))
+            model = params_from_jax(params, cfg, rt_fsdp if fsdp else rt, device="cpu",
+                                    fsdp=2 if fsdp else 1)
+            if fsdp:
+                shards = {f"{'/'.join(path)}": torch.stack(leaf).numpy()
+                          for path, leaf in zip(model.param_specs(), model.train_leaves())
+                          if "data" in model.param_specs()[path]}
+                # serving gathers the shards too: prefill and one decode step
+                # equal the unsharded model's bit for bit
+                whole = params_from_jax(params, cfg, rt, device="cpu")
+                toks = torch.from_numpy(batch(9, cfg.vocab_size)["tokens"][:2, :12]).long()
+                (lg, cg), (lw, cw) = (m_.apply_prefill(toks, max_len=13) for m_ in (model, whole))
+                nxt = lw.argmax(-1)
+                dg, dw = model.apply_decode(nxt, cg)[0], whole.apply_decode(nxt, cw)[0]
+                shards["serving_equal"] = np.asarray(torch.equal(lg, lw) and torch.equal(dg, dw))
+                np.savez(os.path.join(out_dir, f"rank{rank}_shards_{codec}.npz"), **shards)
             tcfg = TrainConfig(comm_mode=mode, dcn_compression=codec,
-                               opt=opt_lib.OptConfig(lr=LR, warmup_steps=WARMUP))
+                               opt=opt_lib.OptConfig(lr=LR, warmup_steps=WARMUP),
+                               **train_kwargs(mode))
             step_fn, _ = make_train_step(model, tcfg)
             if mode == "hier_zero1":
                 opt = zero_bootstrap(model, tcfg)
@@ -204,8 +266,9 @@ from repro_torch.train.train_step import TrainConfig, make_train_step  # noqa: E
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
-def _jax_setup():
-    cfg = dataclasses.replace(jax_config("qwen2.5-3b", smoke=True), dtype=jnp.float32)
+def _jax_setup(**overrides):
+    cfg = dataclasses.replace(jax_config("qwen2.5-3b", smoke=True), dtype=jnp.float32,
+                              **overrides)
     model = JaxModel(cfg, JaxRuntime())
     return cfg, model, model.init(jax.random.key(0))
 
@@ -249,7 +312,9 @@ def four_rank_losses(tmp_path_factory):
     devices: the directory of their losses."""
     tmp_path = tmp_path_factory.mktemp("four_rank_training")
     _, _, params = _jax_setup()
-    np.savez(tmp_path / "params.npz", **_flat_tree(jax.tree.map(np.asarray, params)))
+    np.savez(tmp_path / "params_base.npz", **_flat_tree(jax.tree.map(np.asarray, params)))
+    _, _, params = _jax_setup(d_ff=FSDP_D_FF)
+    np.savez(tmp_path / "params_fsdp.npz", **_flat_tree(jax.tree.map(np.asarray, params)))
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
                JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join([str(ROOT / "src")]))
     jax_proc = subprocess.Popen([sys.executable, __file__, str(tmp_path)], env=env,
@@ -282,6 +347,17 @@ def test_train_step_four_ranks_matches_jax(four_rank_losses, mode, codec):
     for r in range(WORLD):
         got = np.load(four_rank_losses / f"rank{r}_losses_{mode}_{codec}.npy")
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+    if mode == "fsdp":
+        jshards = np.load(four_rank_losses / f"jax_shards_{codec}.npz")
+        for r in range(WORLD):
+            got = np.load(four_rank_losses / f"rank{r}_shards_{codec}.npz")
+            assert bool(got["serving_equal"])
+            names = sorted(set(got.files) - {"serving_equal"})
+            assert names == sorted(k.split("/", 1)[1] for k in jshards.files
+                                   if k.startswith(f"rank{r}/"))
+            assert {"layers/mlp/w_gate", "layers/mlp/w_down"} <= set(names)
+            for name in names:
+                np.testing.assert_array_equal(got[name], jshards[f"rank{r}/{name}"])
 
 
 @pytest.mark.parametrize("window", [None, 40])
@@ -317,11 +393,92 @@ def test_synth_batch_is_the_reference(step):
         np.testing.assert_array_equal(got[k], want[k])
 
 
-@pytest.mark.parametrize("mode", ["hier_overlap", "fsdp"])
-def test_unported_comm_mode_raises(mode):
+@pytest.mark.parametrize("mode", ["hier_overlapped", "zero3"])
+def test_unknown_comm_mode_raises_the_registry_error(mode):
     tm = _port_model(_jax_setup()[2])
-    with pytest.raises(NotImplementedError, match=mode):
+    with pytest.raises(ValueError) as got:
         make_train_step(tm, TrainConfig(comm_mode=mode))
+    with pytest.raises(ValueError) as want:
+        JaxTrainConfig(comm_mode=mode).comm_config(JaxRuntime())
+    assert str(got.value) == str(want.value) and mode in str(got.value)
+
+
+def _bucket_sync_run(out_dir: str) -> None:
+    """hier_overlap's sync in a gloo world of one (int8 on the pod hop):
+    the gradients of one batch synced after the backward by
+    tree_hier_psum_overlap, then synced inside a second, identical
+    backward by BucketSync; both, and the hook executor's event log."""
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    import torch.distributed as dist
+
+    from repro_torch.core import overlap
+    from repro_torch.core.collectives import CommConfig
+    from repro_torch.launch.mesh import runtime_for_groups
+    from repro_torch.train import loss as loss_lib
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        rt = runtime_for_groups(pods=1, data_per_pod=1)
+        cfg = dataclasses.replace(get_config("qwen2.5-3b", smoke=True), dtype=torch.float32)
+        model = params_from_jax(_nest(np.load(os.path.join(out_dir, "params.npz"))), cfg, rt,
+                                device="cpu")
+        ccfg = CommConfig(mode="hier", pod_group=rt.pod_group, intra_group=rt.data_group,
+                          dp_group=rt.dp_group, compression="int8")
+        params, _ = opt_lib.flat_params(model.train_leaves())
+        for p in params:
+            p.requires_grad_(True)
+        b = {k: torch.from_numpy(v).long() for k, v in batch(0, cfg.vocab_size).items()}
+
+        def grads():
+            logits = model.apply_train(b["tokens"])
+            lval, _ = loss_lib.sharded_xent(logits, b["labels"], rt, cfg.vocab_size)
+            return torch.autograd.grad(lval, params)
+
+        after = dict(zip(map(id, params), grads()))
+        tree = model.param_tree()
+        overlap.tree_hier_psum_overlap(_map_tensors(tree, lambda t: after[id(t)]), ccfg,
+                                       cap_bytes=OVERLAP_CAP_MB << 20)
+        sync = overlap.BucketSync(tree, ccfg, OVERLAP_CAP_MB << 20)
+        with sync.attached():
+            inside = grads()
+        np.savez(os.path.join(out_dir, "bucket_sync.npz"),
+                 events=np.asarray([(e == "sync", bucket) for e, bucket in sync.events]),
+                 **{f"after{i}": after[id(p)].numpy() for i, p in enumerate(params)},
+                 **{f"inside{i}": g.numpy() for i, g in enumerate(inside)})
+    finally:
+        dist.destroy_process_group()
+
+
+def _map_tensors(tree, fn):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, list):
+        return [_map_tensors(t, fn) for t in tree]
+    return {k: _map_tensors(v, fn) for k, v in tree.items()}
+
+
+def test_bucket_sync_in_the_backward_equals_the_sync_after_it(tmp_path):
+    _, _, params = _jax_setup()
+    np.savez(tmp_path / "params.npz", **_flat_tree(jax.tree.map(np.asarray, params)))
+    proc = multiprocessing.get_context("spawn").Process(target=_bucket_sync_run,
+                                                        args=(str(tmp_path),))
+    proc.start()
+    proc.join(timeout=240)
+    if proc.is_alive():
+        proc.kill()
+        proc.join(timeout=10)
+    assert proc.exitcode == 0
+    got = np.load(tmp_path / "bucket_sync.npz")
+    n = len([k for k in got.files if k.startswith("after")])
+    assert n == 2 + 12 * 2                         # embed, final_norm, 12 leaves x 2 layers
+    for i in range(n):
+        np.testing.assert_array_equal(got[f"inside{i}"], got[f"after{i}"])
+    events = [("sync" if s else "grad", int(b)) for s, b in got["events"]]
+    syncs = [b for e, b in events if e == "sync"]
+    assert syncs == [0, 1, 2]                      # final_norm, both layers, embed
+    assert events.index(("sync", 0)) < events.index(("grad", 2))
+    assert events.index(("sync", 1)) < events.index(("grad", 2))
+    assert events[-1] == ("sync", 2)
 
 
 def test_zero1_one_rank_matches_jax(tmp_path):
@@ -399,7 +556,8 @@ def test_zero_update_matches_jax(monkeypatch, chunk):
     assert st.step == int(jst.step) == 3
 
 
-@pytest.mark.parametrize("mode", ["hier", "hier_pipelined", "hier_zero1"])
+@pytest.mark.parametrize("mode", ["hier", "hier_pipelined", "hier_zero1", "hier_overlap",
+                                  "fsdp"])
 def test_entry_point_smoke_on_cpu(mode):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), GLOO_SOCKET_IFNAME="lo")
     res = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--smoke",
