@@ -34,6 +34,9 @@
    after the backward, bit-equal (int8 AdamW parameters are reported:
    one rounding apart moves a value by up to lr); hier_zero1's f32 master
    and moments are bootstrapped from the same parameters on each side.
+   Then the planned path of phase 5 (b) on the smoke model: its plan's
+   hier_overlap on the per-leaf path, losses within 1e-4, the sync
+   bit-equal to the CPU's on the card's gradients.
 4. The serving paths at full width, random weights from a seed: qwen2.5-3b
    (36 layers) and mamba2-2.7b (64 layers) each prefill 4 requests of
    1024 tokens, move the cache (KV, or conv + SSM state) raw and int8 on
@@ -58,7 +61,16 @@
    norm and the finite gate open.  hier_zero1 quantizes the gradient
    segment cast to f32 and decodes it into f32 (the f32 master's shard);
    its bootstrap packs the parameters once, before the steps.  Each run's
-   peak memory is printed beside the card's.
+   peak memory is printed beside the card's.  Then the planned paths, 3
+   steps each: (a) ``run(plan="auto", skew="auto", plan_cache=...)`` as a
+   user runs it on one card (the plan for ``tpu_multipod(1, 1)``: one
+   bucket, no pod axis, the per-leaf path; no codec or pack launch), and a
+   second launch on the same cache file, which must hit; (b) the plan the
+   launcher makes for PLAN_WORLD (2 pods x 4 ranks), run in the world of
+   one: hier_overlap on the per-leaf path, each bucket launching the codec
+   once per chunk if it resolves to int8 (the embed bucket: 32 chunks),
+   no pack_slots.  The per-leaf path's codec launches are reported as
+   vector or scalar, not held to the vector variant.
 6. The shared-scale codec at the gradient segment's size (more than 2^31
    elements): bit-equal to the plain versions chunk by chunk, edge cases
    (ragged, all-zero block, scale <= 0, .5 ties, +-127 s, NaN and +-inf
@@ -83,7 +95,8 @@
 8. Where the time goes: one training step per gradient sync under
    torch.profiler, device time by kernel group and the device's idle
    share of the wall time (the serving profiles are part of phase 4);
-   hier_zero1's bootstrap runs before the profiled window.  For
+   hier_zero1's bootstrap runs before the profiled window; the planned
+   path (b) is profiled too, for its codec's device time.  For
    hier_overlap, how many bucket syncs (device-side grad_sync spans)
    began before the backward's last kernel, and the device time from the
    first bucket's codec kernel to that kernel's end.  Then one
@@ -106,6 +119,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -150,6 +164,10 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 4
 TRAIN_RUNS = [("hier", "int8"), ("hier_pipelined", "int8"), ("hier_border_rs", "bf16"),
               ("hier_zero1", "int8"), ("hier_overlap", "int8"), ("fsdp", "int8")]
 PACK_ROUNDS = 6       # interleaved rounds of pack_slots against torch.cat
+PLANNED_STEPS = 3
+# the cluster (pods, ranks per pod) the planned path with kernels is priced
+# for: the plan the launcher would make there, run in the world of one
+PLAN_WORLD = (2, 4)
 # the syncs whose small-model check holds the sync itself bit-equal to the
 # CPU's on the same gradients (check_sync_parity) in place of parameters
 SYNC_PARITY_MODES = ("hier_overlap", "fsdp")
@@ -191,6 +209,39 @@ def bootstrap_kernels(mode: str) -> dict[str, int]:
     """Launches before the steps: hier_zero1 packs the parameters once for
     its f32 master."""
     return {"pack_slots": 1} if mode == "hier_zero1" else {}
+
+
+def planned_kernels(planned, cfg) -> dict[str, int]:
+    """Launches per training step of a planned per-leaf sync of ``cfg``'s
+    model in a world of one (a pod group of one member where the plan has
+    a pod axis): each buffer the sync re-flattens resolves its schedule by
+    its size, as ``BoundPlan.config_for`` does, and runs the codec once
+    per pod-hop chunk if that is int8; nothing is packed.  hier_overlap
+    re-flattens each bucket of its partition_tree into f32, the others
+    each dtype's leaves in their dtype."""
+    check(not planned.packed, f"planned path packed: {planned}")
+    with FakeTensorMode():
+        model = Model(cfg, device="cpu").init(0)
+        if planned.mode == "hier_overlap":
+            tree = model.param_tree()
+            specs = overlap.partition_tree(tree, TrainConfig().bucket_cap_mb << 20)
+            metas = overlap._bucket_pieces(tree, specs)[2]
+            sizes = [4 * sum(size for _, _, size in bm) for bm in metas]
+        else:
+            by_dtype: dict = {}
+            for leaf in model.train_leaves():
+                for part in packing.leaf_parts(leaf):
+                    by_dtype[part.dtype] = (by_dtype.get(part.dtype, 0)
+                                            + part.numel() * part.element_size())
+            sizes = list(by_dtype.values())
+    n = 0
+    for nbytes in sizes:
+        c = planned.plan.bucket_for(nbytes).candidate
+        if c.compression == "int8" and planned.plan.pod_axis is not None:
+            n += c.n_chunks if c.mode == "hier_pipelined" else 1
+    return {"pack_slots": 0, "amax_block": n, "quant_scaled": n, "dequant_int8": n,
+            "quant_int8": 0, "fused_pack_quant": 0, "flash_attention_bhsd": 0,
+            "ssd_chunk": 0}
 
 
 def card() -> str:
@@ -653,15 +704,22 @@ def check_small_model(dev, arch: str) -> None:
           f"launched {cfg.n_layers} times (prefill only)")
 
 
-def check_small_training(dev, rt, mode: str, codec: str | None) -> None:
+def check_small_training(dev, rt, mode: str, codec: str | None, planned=None) -> None:
     """3 steps of a smoke f32 model on the card and on the CPU, from the
-    same parameters and batches, through the same groups."""
+    same parameters and batches, through the same groups.  With
+    ``planned`` (``launch.train.make_plan``'s result) the plan's path."""
     cfg = dataclasses.replace(get_config(ARCH, smoke=True), dtype=torch.float32)
     cpu = Model(cfg, rt, device="cpu").init(0)
     gpu = copy.deepcopy(cpu, {id(rt): rt}).to(dev)
-    tcfg = TrainConfig(comm_mode=mode, dcn_compression=codec,
-                       opt=opt_lib.OptConfig(lr=1e-3, warmup_steps=1))
-    want = train_kernels(mode, codec, cfg)
+    opt_cfg = opt_lib.OptConfig(lr=1e-3, warmup_steps=1)
+    if planned is None:
+        tcfg = TrainConfig(comm_mode=mode, dcn_compression=codec, opt=opt_cfg)
+        want = train_kernels(mode, codec, cfg)
+    else:
+        tcfg = TrainConfig(comm_mode=planned.mode, dcn_compression=codec, plan=planned.plan,
+                           packed=planned.packed, cluster_weights=planned.cluster_weights,
+                           opt=opt_cfg)
+        want = planned_kernels(planned, cfg)
     runs = []
     for model in (cpu, gpu):
         step_fn, _ = make_train_step(model, tcfg)
@@ -689,17 +747,18 @@ def check_small_training(dev, rt, mode: str, codec: str | None) -> None:
         torch.stack(c) if isinstance(c, list) else c).abs().max().item()
         for g, c in zip(gpu.train_leaves(), cpu.train_leaves()))
     if mode in SYNC_PARITY_MODES:
-        held = check_sync_parity(gpu, rt, mode, codec)
+        held = check_sync_parity(gpu, rt, mode, tcfg)
         params = f"max param diff {perr:.3g} (reported; {held})"
     else:
         check(perr < 1e-4, f"small training params differ by {perr}")
         params = f"max param diff {perr:.3g} (tol 1e-4)"
-    print(f"[check] {cfg.name} f32 training, {mode} + {codec}, 3 steps on the card vs "
+    what = f"{mode} + {codec}" + ("" if planned is None else " as planned, per leaf")
+    print(f"[check] {cfg.name} f32 training, {what}, 3 steps on the card vs "
           f"the CPU: losses {[f'{l:.6f}' for l in runs[1]]}, max relative loss diff "
           f"{err:.3g} (tol 1e-4), {params}, launches per step {want}")
 
 
-def check_sync_parity(gpu, rt, mode: str, codec: str | None) -> str:
+def check_sync_parity(gpu, rt, mode: str, tcfg: TrainConfig) -> str:
     """A new gradient sync on the card against the same sync on the CPU,
     on the same gradients: one batch's raw gradients of the card model,
     synced on the card and, copied, on the CPU, bit-equal.  For
@@ -709,7 +768,7 @@ def check_sync_parity(gpu, rt, mode: str, codec: str | None) -> str:
     the card's and the CPU's gradients take apart into a step of up to
     lr on that value.)"""
     cfg = gpu.cfg
-    ccfg = TrainConfig(comm_mode=mode, dcn_compression=codec).comm_config(rt)
+    ccfg = tcfg.comm_config(rt)
     leaves = gpu.train_leaves()
     params, _ = opt_lib.flat_params(leaves)
     b = {k: torch.from_numpy(v).long().to(gpu.device) for k, v in synth_batch(
@@ -729,8 +788,9 @@ def check_sync_parity(gpu, rt, mode: str, codec: str | None) -> str:
         tree = gpu.param_tree()
         for grads in (card, host):
             by_id = dict(zip(map(id, params), grads))
-            overlap.tree_hier_psum_overlap(_map_tree(tree, lambda t: by_id[id(t)]), ccfg)
-        sync = overlap.BucketSync(tree, ccfg)
+            overlap.tree_hier_psum_overlap(_map_tree(tree, lambda t: by_id[id(t)]), ccfg,
+                                           packed=tcfg.packed)
+        sync = overlap.BucketSync(tree, ccfg, packed=tcfg.packed)
         with sync.attached():
             inside = backward()
         check(all(bits_equal(a, c) for a, c in zip(inside, card)),
@@ -1332,16 +1392,21 @@ def attention_ms(dev, cfg) -> float:
 
 
 def profile_training(dev, rt, smi: str, mode: str, codec: str | None,
-                     with_attention: bool) -> dict:
+                     with_attention: bool, planned=None) -> dict:
     """One full-width training step under torch.profiler, after one
     warm-up step: device time by kernel group (the codec kernels, the
     pack, matmul, the rest of the gradient sync, the gradient norm, the
     optimizer, everything else) and the device's idle share; then one
-    optimizer update timed apart (``optimizer_ms``)."""
+    optimizer update timed apart (``optimizer_ms``).  With ``planned`` the
+    plan's path."""
     cfg = get_config(ARCH)
     model = Model(cfg, rt, dev)
-    step_fn, init_fn = make_train_step(model, TrainConfig(
-        comm_mode=mode, dcn_compression=codec, opt=opt_lib.OptConfig(warmup_steps=20)))
+    ocfg = opt_lib.OptConfig(warmup_steps=20)
+    tcfg = (TrainConfig(comm_mode=mode, dcn_compression=codec, opt=ocfg) if planned is None
+            else TrainConfig(comm_mode=planned.mode, dcn_compression=codec, plan=planned.plan,
+                             packed=planned.packed, cluster_weights=planned.cluster_weights,
+                             opt=ocfg))
+    step_fn, init_fn = make_train_step(model, tcfg)
     opt = init_fn(0)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, global_batch=TRAIN_BATCH,
                       seq_len=TRAIN_SEQ)
@@ -1354,9 +1419,10 @@ def profile_training(dev, rt, smi: str, mode: str, codec: str | None,
         step_fn(opt, b)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    out = _report(prof, wall, f"training step {TRAIN_BATCH}x{TRAIN_SEQ}, {mode} + {codec}",
+    what = f"{mode} + {codec}" + ("" if planned is None else " as planned, per leaf")
+    out = _report(prof, wall, f"training step {TRAIN_BATCH}x{TRAIN_SEQ}, {what}",
                   smi, TRAIN_GROUPS, TRAIN_RANGES)
-    if mode == "hier_overlap":
+    if mode == "hier_overlap" and planned is None:
         out["overlap"] = ov = overlap_timeline(prof)
         print(f"[time] [{smi}] hier_overlap's profiled step: {ov['syncs_begun_before']} of "
               f"{ov['syncs']} bucket syncs began before the backward's last kernel "
@@ -1452,6 +1518,82 @@ def train_full_width(dev, smi: str, mode: str, codec: str | None) -> dict:
     return res
 
 
+def train_planned(dev, smi: str, planned, steps: int, label: str, **run_kw) -> dict:
+    """A planned training main path through ``run``: the launch counts
+    are set to 0 just before it and read just after; every step launches
+    what ``planned_kernels`` expects, and the plan run is ``planned``'s."""
+    cfg = get_config(ARCH)
+    want = planned_kernels(planned, cfg)
+    ops.reset_launch_counts()
+    res = train_launch.run(ARCH, steps=steps, global_batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                           device=dev, log=lambda line: print(f"[train] {line}"), **run_kw)
+    counts = ops.launch_counts()
+    vector = ops.vector_launch_counts()
+    check(res["plan"] == planned.plan.summary(), f"{label}: ran another plan")
+    check((res["mode"], res["packed"]) == (planned.mode, planned.packed),
+          f"{label}: mode {res['mode']}, packed {res['packed']}")
+    check(counts == {k: n * steps for k, n in want.items()},
+          f"{label} launches {counts} over {steps} steps")
+    for rec in res["records"]:
+        launched = {k: rec["launches"][k] for k in want}
+        check(launched == want, f"{label} step {rec['step']} launches {launched}")
+        check(math.isfinite(rec["loss"]) and math.isfinite(rec["gnorm"]),
+              f"step {rec['step']}: loss {rec['loss']}, grad norm {rec['gnorm']}")
+        check(not rec["gated"], f"step {rec['step']}: the finite gate tripped")
+    check(res["params"] == 3_085_938_688, f"params {res['params']}")
+    total_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    check(res["peak_mem_gb"] < total_gb, f"peak {res['peak_mem_gb']} GB of {total_gb} GB")
+    # the per-leaf path re-flattens its buffers without the packed layout's
+    # alignment: report which codec launches took the vector variant
+    split = {k: f"{vector[k]} vector, {counts[k] - vector[k]} scalar" for k in vector}
+    cands = sorted({(b["mode"], b["n_chunks"], b["compression"])
+                    for b in res["plan"]["buckets"]}, key=str)
+    print(f"[train] [{smi}] {label}: {res['arch']} planned for {res['plan']['n_clusters']} "
+          f"cluster(s) -> {res['mode']}, packed {res['packed']}, bucket schedules {cands}; "
+          f"step {res['step_ms']:.3f} ms ("
+          + (f"median of steps 1-{steps - 1}" if steps > 1 else "its one step")
+          + f"), {res['tokens_per_s']:.1f} tokens/s, peak memory {res['peak_mem_gb']:.3f} GB of "
+          f"{total_gb:.3f} GB, losses {[r['loss'] for r in res['records']]}; launches per "
+          f"step {want}; codec launches {split}; plan cache {res['plan_cache']}")
+    res["counts"] = counts
+    res["vector"] = vector
+    return res
+
+
+def train_planned_paths(dev, smi: str) -> tuple[dict, dict]:
+    """(a) The entry point as a user runs it on one card: --plan auto
+    --skew auto on a cache file, then a second launch on that file, which
+    must hit.  (b) The plan the launcher makes for PLAN_WORLD, run in the
+    world of one (``plan_world``): the per-leaf hier_overlap sync with
+    int8 on its largest bucket."""
+    cfg = get_config(ARCH)
+    quiet = dict(log=lambda line: None, global_batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    entry = train_launch.make_plan(cfg, 1, 1, "hier", None, plan="auto", skew="auto", **quiet)
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(plan="auto", skew="auto", plan_cache=str(pathlib.Path(tmp) / "plans.pkl"))
+        a = train_planned(dev, smi, entry, PLANNED_STEPS, "(a) --plan auto --skew auto", **kw)
+        free_memory()
+        again = train_planned(dev, smi, entry, 1, "(a) second launch on the cache", **kw)
+        free_memory()
+    check(a["plan_cache"]["misses"] > 0, f"first launch: plan cache {a['plan_cache']}")
+    check(again["plan_cache"]["hits"] > 0 == again["plan_cache"]["misses"],
+          f"second launch: plan cache {again['plan_cache']}")
+    check(sum(a["counts"].values()) == 0, f"(a) launched {a['counts']}")
+    pods, per_pod = PLAN_WORLD
+    kernels = train_launch.make_plan(cfg, pods, pods * per_pod, "hier", "int8", plan="auto",
+                                     **quiet)
+    check((kernels.mode, kernels.packed) == ("hier_overlap", False),
+          f"(b) planned {kernels.mode}, packed {kernels.packed}")
+    check(any((b.candidate.mode, b.candidate.n_chunks, b.candidate.compression)
+              == ("hier_pipelined", 32, "int8") for b in kernels.plan.buckets),
+          "(b) no bucket on hier_pipelined with 32 chunks and int8")
+    b = train_planned(dev, smi, kernels, PLANNED_STEPS,
+                      f"(b) the plan for {pods} pods x {per_pod} ranks",
+                      mode="hier", compression="int8", plan="auto", plan_world=PLAN_WORLD)
+    check(b["counts"]["amax_block"] > 0, "(b) launched no codec kernel")
+    return a, b
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -1487,6 +1629,11 @@ def main() -> int:
         rt_fsdp = runtime_for_groups(pods=1, data_per_pod=1, fsdp=True)
         for mode, codec in TRAIN_RUNS:
             check_small_training(dev, rt_fsdp if mode == "fsdp" else rt, mode, codec)
+        pods, per_pod = PLAN_WORLD
+        planned = train_launch.make_plan(get_config(ARCH), pods, pods * per_pod, "hier", "int8",
+                                         plan="auto", global_batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                         log=lambda line: None)
+        check_small_training(dev, rt, planned.mode, "int8", planned)
         serve, serve_counts, serve_profile = {}, {}, {}
         for arch in (ARCH, SSM_ARCH):
             serve[arch], serve_counts[arch] = serve_full_width(dev, smi, arch)
@@ -1497,6 +1644,8 @@ def main() -> int:
         for mode, codec in TRAIN_RUNS:
             train[mode] = train_full_width(dev, smi, mode, codec)
             free_memory()
+        planned_entry, planned_run = train_planned_paths(dev, smi)
+        free_memory()
         peaks = ", ".join(f"{m} {r['peak_mem_gb']:.3f} GB" for m, r in train.items())
         print(f"[train] [{smi}] peak memory by gradient sync: {peaks}")
         n_segment = packing.aligned_size(train["hier"]["params"],
@@ -1512,6 +1661,8 @@ def main() -> int:
         train_profile = {mode: profile_training(dev, rt_fsdp if mode == "fsdp" else rt, smi,
                                                 mode, codec, with_attention=mode == "hier")
                          for mode, codec in TRAIN_RUNS}
+        train_profile["planned"] = profile_training(dev, rt, smi, planned.mode, "int8",
+                                                    with_attention=False, planned=planned)
     finally:
         dist.destroy_process_group()
 
@@ -1521,7 +1672,8 @@ def main() -> int:
     rows["dequant_int8"]["int32_f32_grad_segment"] = f32["dequant_int8"]
     paths = {"serve": serve_counts[ARCH], "serve_mamba2": serve_counts[SSM_ARCH],
              **{f"train_{mode}": res["counts"] for mode, res in train.items()},
-             "conformance": conformance_counts}
+             "train_planned_entry": planned_entry["counts"],
+             "train_planned": planned_run["counts"], "conformance": conformance_counts}
     for name, row in rows.items():
         row["paths"] = {path: counts[name] for path, counts in paths.items()}
         row["launches"] = sum(row["paths"].values())
@@ -1561,6 +1713,11 @@ def main() -> int:
                   for mode, res in train.items()},
         "train_losses": {mode: [r["loss"] for r in res["records"]]
                          for mode, res in train.items()},
+        "train_planned": {name: {k: res[k] for k in (
+            "mode", "packed", "step_ms", "tokens_per_s", "peak_mem_gb", "plan_cache",
+            "vector")} | {"launches": res["counts"],
+                          "losses": [r["loss"] for r in res["records"]]}
+            for name, res in (("entry", planned_entry), ("plan_world", planned_run))},
         "train_profile": train_profile, "card": smi}))
     print(f"[time] chip_smoke: {time.perf_counter() - t_start:.1f} s from start to result")
     print(smi)

@@ -20,8 +20,9 @@ Ported: the ``flat``, ``hier``, ``hier_pipelined`` (the chunk loop of
 legs: a combining reduce-scatter, then an all-gather, over the pod
 group) schedules of the all-reduce, with the bf16 and int8 codecs (int8
 not with ``hier_border_rs``, as in the reference) and cluster weights,
-and the packed pytree entry point (``resolve_config`` takes a
-per-bucket plan as the reference does); ReduceScatterH
+and the pytree entry point, packed or per leaf (every entry point
+resolves a per-bucket plan through ``resolve_config`` as the reference
+does); ReduceScatterH
 (``hier_psum_scatter``) and AllGatherH (``hier_all_gather``, the
 raw-shard copy ring then the intra broadcast); and the ZeRO-1 flat-shard
 layer (``zero1_local_shard``, ``tree_hier_psum_scatter``,
@@ -76,11 +77,16 @@ def resolve_config(cfg, nbytes: int) -> CommConfig:
     """Per-bucket planner support: every collective entry point accepts
     either a plain ``CommConfig`` (one schedule for everything) or any
     object with a ``config_for(nbytes) -> CommConfig`` method — in
-    practice a ``planner.CommPlan`` — which picks the schedule by the
-    bucket's local payload size.  Duck-typed so core.collectives never
-    imports core.planner (which imports this module)."""
+    practice a ``planner.BoundPlan``, a plan on this process's groups —
+    which picks the schedule by the bucket's local payload size.
+    Duck-typed so core.collectives never imports core.planner (which
+    imports this module)."""
     fn = getattr(cfg, "config_for", None)
     return cfg if fn is None else fn(int(nbytes))
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
 
 
 def _cluster_weight_scalar(cfg: CommConfig) -> torch.Tensor:
@@ -258,6 +264,7 @@ def hier_psum(x: torch.Tensor, cfg: CommConfig) -> torch.Tensor:
     """Global all-reduce over (pod, intra): build the mode's schedule and
     execute it.  ``x`` is consumed: it may be reduced in place, and the
     result may share its memory."""
+    cfg = resolve_config(cfg, _nbytes(x))
     sched = schedule_ir.build_schedule("all_reduce", cfg.mode, cfg.n_chunks,
                                        cfg.compression)
     if cfg.cluster_weights is not None:
@@ -276,6 +283,7 @@ def hier_psum_scatter(x: torch.Tensor, cfg: CommConfig) -> torch.Tensor:
     a multiple of the intra group's size), globally summed.  This is the
     ZeRO-1 entry: the end AllGather is deferred to the parameter
     reconstruction.  ``x`` is consumed."""
+    cfg = resolve_config(cfg, _nbytes(x))
     intra = cfg.intra_group
     isize = primitives.axis_size(intra)
     sched = schedule_ir.build_schedule("reduce_scatter", cfg.mode, cfg.n_chunks,
@@ -313,6 +321,7 @@ def hier_all_gather(x: torch.Tensor, cfg: CommConfig, gather_dim: int = 0) -> to
     the raw shard crosses the pods first (C2CCpy: one copy crosses
     between clusters, Table-7 optimal), then the intra AllGather doubles
     as the end Bcast (IntraBcast)."""
+    cfg = resolve_config(cfg, _nbytes(x))
     sched = schedule_ir.build_schedule("all_gather", cfg.mode, cfg.n_chunks,
                                        cfg.compression)
     if cfg.pod_group is None:
@@ -351,28 +360,77 @@ def wire_block(compression_codec: str | None) -> int:
     return compression.BLOCK if compression_codec == "int8" else 1
 
 
-def comm_layout(leaves, cfg: CommConfig, world: int | None = None
-                ) -> packing.PackedLayout:
-    """The persistent packed layout of one gradient sync: one segment per
-    wire dtype, aligned for the schedule it will run."""
+def _comm_layout_resolved(leaves, cfg, world: int | None = None
+                          ) -> tuple[packing.PackedLayout, dict[str, CommConfig]]:
+    """The persistent packed layout of one gradient sync, one segment per
+    wire dtype, and the config each segment resolved to.  Each segment is
+    aligned for the schedule it will run: the config is resolved once, by
+    the segment's unpadded payload, and execution runs that config (at the
+    padded size a plan could resolve to a neighbouring bucket whose chunk
+    count the alignment never took in)."""
     if world is None:
         world = _dp_world(cfg)
-    align = packing.comm_alignment(world, cfg.n_chunks, wire_block(cfg.compression))
-    return packing.plan_layout(packing.tree_metas(leaves), world=world,
-                               align_for=lambda dt, used: align)
+    cfgs: dict[str, CommConfig] = {}
+
+    def align_for(dt: str, used: int) -> int:
+        c = cfgs[dt] = resolve_config(cfg, used * packing.itemsize_of(dt))
+        return packing.comm_alignment(world, c.n_chunks, wire_block(c.compression))
+
+    layout = packing.plan_layout(packing.tree_metas(leaves), world=world,
+                                 align_for=align_for)
+    return layout, cfgs
 
 
-def tree_hier_psum(leaves: list, cfg: CommConfig) -> list[torch.Tensor]:
+def comm_layout(leaves, cfg, world: int | None = None) -> packing.PackedLayout:
+    """The persistent packed layout of one gradient sync (see
+    ``_comm_layout_resolved``)."""
+    return _comm_layout_resolved(leaves, cfg, world)[0]
+
+
+def _per_leaf_psum(leaves: list, cfg) -> list[torch.Tensor]:
+    """The unpacked data path: each dtype's leaves concatenated into one
+    buffer in leaf order (``torch.cat``, a fresh copy every step), each
+    buffer synced by ``hier_psum`` resolving its own config by its size,
+    and one view of it per leaf."""
+    metas = []
+    parts: dict[torch.dtype, list[torch.Tensor]] = {}
+    for leaf in leaves:
+        ps = packing.leaf_parts(leaf)
+        shape = tuple(ps[0].shape)
+        if isinstance(leaf, (list, tuple)):
+            shape = (len(ps),) + shape
+        parts.setdefault(ps[0].dtype, []).extend(p.reshape(-1) for p in ps)
+        metas.append((ps[0].dtype, shape, sum(p.numel() for p in ps)))
+    leaves.clear()
+    out = {}
+    for dt in list(parts):
+        buf = _cat(parts.pop(dt))
+        out[dt] = hier_psum(buf, cfg)
+        del buf
+    offs = dict.fromkeys(out, 0)
+    views = []
+    for dt, shape, size in metas:
+        views.append(out[dt][offs[dt]:offs[dt] + size].view(shape))
+        offs[dt] += size
+    return views
+
+
+def tree_hier_psum(leaves: list, cfg, packed: bool = True) -> list[torch.Tensor]:
     """Gradient sync: AllReduceH over a list of leaves (each a tensor, or
-    a list of tensors standing for their stack), written into the
-    persistent layout of ``core/packing.py``.  Returns one view of the
-    synced segments per leaf, a list leaf as its (L, ...) stack.
+    a list of tensors standing for their stack).  Returns one view of the
+    synced buffers per leaf, a list leaf as its (L, ...) stack.  ``cfg``
+    is a ``CommConfig`` or a bound plan: each wire-dtype segment resolves
+    its own schedule.  ``packed`` writes the leaves into the persistent
+    layout of ``core/packing.py``; ``packed=False`` is the per-leaf path
+    of ``_per_leaf_psum``, which a plan chooses when packing does not pay.
     ``leaves`` is emptied once the buffers are built, so a caller holding
     no other reference frees the gradients before the sync runs."""
-    layout = comm_layout(leaves, cfg)
+    if not packed:
+        return _per_leaf_psum(leaves, cfg)
+    layout, cfgs = _comm_layout_resolved(leaves, cfg)
     bufs = packing.pack(layout, leaves)
     leaves.clear()
-    out = {dt: hier_psum(bufs.pop(dt), cfg) for dt in list(bufs)}
+    out = {dt: hier_psum(bufs.pop(dt), cfgs[dt]) for dt in list(bufs)}
     return packing.unpack(layout, out)
 
 

@@ -22,8 +22,9 @@ two give the same bits.
 A parameter tree is a dict at the top level (``Model.param_tree()``):
 each value a tensor, a dict of subtrees, or, for a stacked key
 (``layers``), a list of per-layer dicts standing for the reference's
-stacked (L, ...) leaves.  The reference's per-bucket re-flatten
-(``packed=False``) is not ported.
+stacked (L, ...) leaves.  With ``packed=False`` each bucket is
+re-flattened into a fresh f32 buffer per sync, the reference's per-leaf
+data path, which a plan chooses when packing does not pay.
 """
 
 from __future__ import annotations
@@ -184,20 +185,17 @@ def bucket_sizes_for_volume(total_bytes: int, n_layers: int,
 # Execution: bucketed AllReduceH in readiness order
 # ---------------------------------------------------------------------------
 
-def _packed_bucket_plan(tree: Any, layout: Sequence[BucketSpec], cfg):
-    """Enumerate bucket pieces in readiness order and compute the
-    bucket-sliced packed layout: each bucket's bound is aligned for the
-    schedule that bucket resolves to, so its buffer feeds ``hier_psum``
-    with zero re-padding.  Pieces go (entry, leaf, layer range): a leaf's
-    layers ``lo:hi`` follow each other, and the leaves of an entry follow
-    each other, as the reference slices its stacked leaves.  A piece is
-    a tensor or a list of layer tensors."""
-    world = collectives._dp_world(cfg)
+def _bucket_pieces(tree: Any, layout: Sequence[BucketSpec]):
+    """Enumerate bucket pieces in readiness order: (pieces, the bucket of
+    each piece, each bucket's (dtype, shape, size) metas).  Pieces go
+    (entry, leaf, layer range): a leaf's layers ``lo:hi`` follow each
+    other, and the leaves of an entry follow each other, as the reference
+    slices its stacked leaves.  A piece is a tensor or a list of layer
+    tensors."""
     pieces: list = []
+    bucket_of: list[int] = []
     bucket_metas: list[list[tuple]] = []
-    aligns: list[int] = []
-    rcs: list = []             # resolved CommConfig per bucket
-    for spec in layout:
+    for bi, spec in enumerate(layout):
         bm: list[tuple] = []
         for key, lo, hi in spec.entries:
             for lf in tree_leaves(tree[key]):
@@ -207,16 +205,25 @@ def _packed_bucket_plan(tree: Any, layout: Sequence[BucketSpec], cfg):
                 if isinstance(piece, list):
                     shape = (len(parts),) + shape
                 pieces.append(piece)
+                bucket_of.append(bi)
                 bm.append((packing.dtype_name(parts[0].dtype), shape,
                            sum(p.numel() for p in parts)))
         bucket_metas.append(bm)
-        # resolve ONCE per bucket, by the spec's payload: execution
-        # must run exactly the schedule the slice was aligned for
-        rc = collectives.resolve_config(cfg, spec.nbytes)
-        rcs.append(rc)
-        aligns.append(packing.comm_alignment(
-            world, rc.n_chunks, collectives.wire_block(rc.compression)))
-    return pieces, rcs, packing.plan_bucket_layout(bucket_metas, align=aligns)
+    return pieces, bucket_of, bucket_metas
+
+
+def _packed_bucket_plan(layout: Sequence[BucketSpec], bucket_metas: list, cfg):
+    """The bucket-sliced packed layout: each bucket's bound is aligned for
+    the schedule that bucket resolves to, so its buffer feeds
+    ``hier_psum`` with zero re-padding.  Returns (the resolved config per
+    bucket, the layout)."""
+    world = collectives._dp_world(cfg)
+    # resolve ONCE per bucket, by the spec's payload: execution must run
+    # exactly the schedule the slice was aligned for
+    rcs = [collectives.resolve_config(cfg, spec.nbytes) for spec in layout]
+    aligns = [packing.comm_alignment(world, rc.n_chunks, collectives.wire_block(rc.compression))
+              for rc in rcs]
+    return rcs, packing.plan_bucket_layout(bucket_metas, align=aligns)
 
 
 def sync_bucket(playout: packing.PackedLayout, bucket: int, pieces: list, rc) -> None:
@@ -235,50 +242,78 @@ def sync_bucket(playout: packing.PackedLayout, bucket: int, pieces: list, rc) ->
                 off += part.numel()
 
 
+def sync_bucket_unpacked(pieces: list, cfg) -> None:
+    """The per-leaf data path's AllReduceH of one bucket (the reference's
+    per-bucket re-flatten): the pieces cast to f32 and concatenated into
+    a fresh buffer, which ``hier_psum`` syncs on the config ``cfg``
+    resolves to for its size; each piece gets its values back, cast to
+    its dtype."""
+    parts = [part for piece in pieces for part in packing.leaf_parts(piece)]
+    out = collectives.hier_psum(torch.cat([p.reshape(-1).float() for p in parts]), cfg)
+    off = 0
+    with torch.no_grad():
+        for part in parts:
+            part.copy_(out[off:off + part.numel()].view(part.shape))
+            off += part.numel()
+
+
 def tree_hier_psum_overlap(tree: Any, cfg, cap_bytes: int = DEFAULT_CAP_BYTES,
-                           layout: Sequence[BucketSpec] | None = None) -> Any:
+                           layout: Sequence[BucketSpec] | None = None,
+                           packed: bool = True) -> Any:
     """Gradient sync: AllReduceH per readiness-ordered bucket, in index
     order, after the backward.  ``cfg`` is a ``CommConfig`` or a plan with
     ``config_for`` (each bucket resolves its own schedule by payload
-    size).  The tree's tensors receive the synced values in place (each
-    slot cast back to its leaf's dtype) and the tree is returned."""
+    size).  ``packed`` syncs slices of one bucket-aligned layout;
+    ``packed=False`` re-flattens each bucket (``sync_bucket_unpacked``).
+    The tree's tensors receive the synced values in place (each slot cast
+    back to its leaf's dtype) and the tree is returned."""
     if layout is None:
         layout = partition_tree(tree, cap_bytes)
-    pieces, rcs, playout = _packed_bucket_plan(tree, layout, cfg)
-    slot_bucket = [sl.bucket for sl in playout.slots]
-    for bi, rc in enumerate(rcs):
-        sync_bucket(playout, bi, [p for p, b in zip(pieces, slot_bucket) if b == bi], rc)
+    pieces, bucket_of, bucket_metas = _bucket_pieces(tree, layout)
+    if packed:
+        rcs, playout = _packed_bucket_plan(layout, bucket_metas, cfg)
+    for bi in range(len(layout)):
+        mine = [p for p, b in zip(pieces, bucket_of) if b == bi]
+        if packed:
+            sync_bucket(playout, bi, mine, rcs[bi])
+        else:
+            sync_bucket_unpacked(mine, cfg)
     return tree
 
 
 class BucketSync:
     """The readiness chain, run eagerly inside the backward.
 
-    ``BucketSync(params, cfg, cap_bytes)`` plans the buckets of a
+    ``BucketSync(params, cfg, cap_bytes, packed)`` plans the buckets of a
     parameter tree; within ``with sync.attached():`` a hook on every
     parameter takes its gradient as the backward produces it and counts
-    its bucket down.  A bucket is synced (``sync_bucket``, in a
-    ``grad_sync`` profiler range) as soon as it and every bucket with a
-    lower index are complete; the gradients that ``torch.autograd.grad``
-    returns then hold the synced values.  ``events`` logs ("grad",
-    bucket) per gradient and ("sync", bucket) per sync, in order."""
+    its bucket down.  A bucket is synced (``sync_bucket``, or with
+    ``packed=False`` ``sync_bucket_unpacked``, in a ``grad_sync``
+    profiler range) as soon as it and every bucket with a lower index are
+    complete; the gradients that ``torch.autograd.grad`` returns then hold
+    the synced values.  ``events`` logs ("grad", bucket) per gradient and
+    ("sync", bucket) per sync, in order."""
 
-    def __init__(self, params: Any, cfg, cap_bytes: int = DEFAULT_CAP_BYTES):
-        pieces, self.rcs, self.layout = _packed_bucket_plan(
-            params, partition_tree(params, cap_bytes), cfg)
+    def __init__(self, params: Any, cfg, cap_bytes: int = DEFAULT_CAP_BYTES,
+                 packed: bool = True):
+        specs = partition_tree(params, cap_bytes)
+        pieces, bucket_of, bucket_metas = _bucket_pieces(params, specs)
+        self.cfg = cfg
+        # the packed layout and each bucket's resolved config; None on the
+        # per-leaf path, where hier_psum resolves each re-flattened buffer
+        self.layout = self.rcs = None
+        if packed:
+            self.rcs, self.layout = _packed_bucket_plan(specs, bucket_metas, cfg)
+        self.n_buckets = len(specs)
         self._is_list = [isinstance(p, list) for p in pieces]
         self._n_parts = [len(packing.leaf_parts(p)) for p in pieces]
-        self._bucket_pieces: list[list[int]] = [[] for _ in self.rcs]
+        self._bucket_pieces: list[list[int]] = [[] for _ in specs]
         self._params: list[tuple[torch.Tensor, int, int, int]] = []  # (param, bucket, piece, part)
-        for pi, (piece, sl) in enumerate(zip(pieces, self.layout.slots)):
-            self._bucket_pieces[sl.bucket].append(pi)
+        for pi, (piece, bucket) in enumerate(zip(pieces, bucket_of)):
+            self._bucket_pieces[bucket].append(pi)
             for k, part in enumerate(packing.leaf_parts(piece)):
-                self._params.append((part, sl.bucket, pi, k))
+                self._params.append((part, bucket, pi, k))
         self.events: list[tuple[str, int]] = []
-
-    @property
-    def n_buckets(self) -> int:
-        return len(self.rcs)
 
     def _hook(self, bucket: int, pi: int, k: int):
         def hook(grad: torch.Tensor) -> torch.Tensor:
@@ -296,7 +331,10 @@ class BucketSync:
         pis = self._bucket_pieces[bucket]
         pieces = [self._grads[pi] if self._is_list[pi] else self._grads[pi][0] for pi in pis]
         with torch.profiler.record_function("grad_sync"):
-            sync_bucket(self.layout, bucket, pieces, self.rcs[bucket])
+            if self.layout is None:
+                sync_bucket_unpacked(pieces, self.cfg)
+            else:
+                sync_bucket(self.layout, bucket, pieces, self.rcs[bucket])
         for pi in pis:
             self._grads[pi] = None
         self.events.append(("sync", bucket))

@@ -6,6 +6,8 @@
     python -m repro_torch.launch.train --mode hier_zero1 --compression int8
     python -m repro_torch.launch.train --mode hier_overlap --compression int8
     python -m repro_torch.launch.train --mode fsdp --compression int8
+    python -m repro_torch.launch.train --plan auto --skew auto --plan-cache plans.pkl
+    python -m repro_torch.launch.train --mode hier --no-packed
     python -m repro_torch.launch.train --smoke --device cpu --steps 2
 
 Each process trains one replica on its slice of the global batch; the
@@ -17,7 +19,18 @@ at most 64 MiB of f32, each fired inside the backward), ``hier_zero1``
 moments are bootstrapped from the drawn parameters; the reconstruction
 is the deferred AllGather) or ``fsdp`` (the layer parameters sharded
 over the data group, gathered per layer; the pod hop per leaf),
-optionally bf16, or int8 except with ``hier_border_rs``, on the pod hop.  The world and this process's rank come from the usual
+optionally bf16, or int8 except with ``hier_border_rs``, on the pod hop.
+
+``--plan auto`` lets the planner (``core/planner.py``, a copy of the JAX
+package's) pick the schedule, its chunks and codec per gradient bucket,
+and whether the sync runs overlapped and packed; ``--skew auto`` derives
+the per-pod batch split (``core/skew.py``); ``--plan-cache PATH`` keeps
+plans on disk across launches; ``--no-packed`` runs the per-leaf data
+path.  The plan is priced on ``topology.tpu_multipod(pods, world //
+pods)``, the reference's model of a TPU v5e cluster: its predicted
+milliseconds per sync are the cost model's, not a time of this device.
+
+The world and this process's rank come from the usual
 ``torch.distributed`` environment (``RANK``, ``WORLD_SIZE``,
 ``MASTER_ADDR``, ``MASTER_PORT``); a lone process makes its own world
 of one over an in-process store, whose pod and data groups are real
@@ -34,6 +47,7 @@ unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -41,8 +55,11 @@ import time
 
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs import get_config
+from repro_torch.core import cost_model, overlap, planner, topology
+from repro_torch.core import skew as skew_lib
 from repro_torch.data.pipeline import DataConfig, batches
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import runtime_for_groups
@@ -77,14 +94,137 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@dataclasses.dataclass(frozen=True)
+class Planned:
+    """What the planning block decided: the plan (or None), the executed
+    comm mode, the data path, the per-pod gradient weights, and the plan
+    cache's counters."""
+    plan: planner.CommPlan | None
+    mode: str
+    packed: bool
+    cluster_weights: tuple[float, ...] | None
+    cache: dict | None = None
+
+
+def n_train_leaves(cfg) -> int:
+    """The number of ``Model.train_leaves()`` of ``cfg`` (the reference's
+    stacked leaves), from the parameters' shapes alone: drawn under
+    FakeTensorMode, nothing allocated."""
+    with FakeTensorMode():
+        return len(Model(cfg, device="cpu").init(0).train_leaves())
+
+
+def make_plan(cfg, pods: int, world: int, mode: str, compression: str | None,
+              plan: str = "manual", skew: str = "none", plan_cache: str | None = None,
+              packed: bool = True, global_batch: int = 4, seq: int = 1024,
+              log=print) -> Planned:
+    """The planning block of the JAX package's launcher: ``--plan auto``
+    and ``--skew auto`` priced on ``topology.tpu_multipod(pods, world //
+    pods)``, with a pod axis only if ``pods > 1``, as the reference prices
+    its mesh; then its mode override and its per-leaf fallback.  The MoE
+    All2All plan is not ported."""
+    plan_obj = cluster_weights = stats = None
+    if plan == "auto" or skew == "auto":
+        n_pods = max(1, pods)
+        topo = topology.tpu_multipod(n_pods, world // n_pods)
+        grad_bytes = max(1, cfg.param_count() * 4)
+        allowed = (None, compression) if compression else (None, "bf16")
+        cache = (planner.PlanCache(path=plan_cache) if plan_cache
+                 else planner.default_plan_cache())
+        plan_kw = dict(
+            cache=cache,
+            # the ZeRO-1 sync is a reduce_scatter (the end AllGather moves
+            # to the parameter update); everything else rides all_reduce
+            coll="reduce_scatter" if mode == "hier_zero1" else "all_reduce",
+            pod_axis="pod" if n_pods > 1 else None, intra_axis="data",
+            compressions=allowed, flat_mechanism="native",
+            # balanced subgroups are advisory: price the groups as they run
+            try_balanced=False,
+            # priced with the Pack/Unpack steps; the leaf count arms the
+            # per-leaf fallback below
+            packed=packed, n_leaves=n_train_leaves(cfg))
+        # overlap: price the readiness-ordered layer buckets against the
+        # backward's timeline; the structural modes run one monolithic sync
+        step_flops = 6.0 * cfg.active_param_count() * global_batch * seq
+        backward_s = None
+        bucket_sizes = [grad_bytes]
+        if mode not in ("fsdp", "hier_zero1"):
+            backward_s = cost_model.backward_compute_time(topo, step_flops)
+            bucket_sizes = overlap.bucket_sizes_for_volume(
+                grad_bytes, cfg.n_layers, overlap.DEFAULT_CAP_BYTES)
+        sim_cache: dict = {}
+        skew_split = skew_comp = None
+        if skew == "auto":
+            sp = skew_lib.optimize(
+                topo, step_flops, bucket_sizes,
+                total_microbatches=max(topo.n_clusters, global_batch),
+                backward_frac=0.0 if mode in ("fsdp", "hier_zero1") else 2.0 / 3.0,
+                _sim_cache=sim_cache, **plan_kw)
+            skew_split, skew_comp = sp.split, sp.compute_s
+            cluster_weights = sp.split.weights
+            log("[skew] " + sp.describe())
+            if any(abs(w - 1.0) > 1e-9 for w in cluster_weights):
+                # every rank takes an even slice of the batch: weighting the
+                # gradients of an even batch would bias the mean
+                log("[skew] data shards are even per device — keeping the "
+                    "unweighted sync (the split above describes the intended "
+                    "uneven assignment)")
+                cluster_weights = None
+            if plan == "auto":
+                plan_obj = sp.plan
+        if plan == "auto" and plan_obj is None:
+            plan_obj = planner.plan(topo, bucket_sizes, backward_compute_s=backward_s,
+                                    skew=skew_split, skew_compute_s=skew_comp,
+                                    _sim_cache=sim_cache, **plan_kw)
+        if (plan_obj is not None and plan_obj.overlap is not None
+                and plan_obj.recommended_mode() != "hier_overlap"):
+            # overlap does not win: the sync is one monolithic collective,
+            # so re-plan at that granularity
+            plan_obj = planner.plan(topo, [grad_bytes], skew=skew_split,
+                                    skew_compute_s=skew_comp, _sim_cache=sim_cache,
+                                    **plan_kw)
+        if (plan_obj is not None and cluster_weights is None
+                and plan_obj.cluster_weights is not None):
+            plan_obj = dataclasses.replace(plan_obj, cluster_weights=None)
+        if plan_obj is not None:
+            b = max(plan_obj.buckets, key=lambda x: x.nbytes)
+            msg = (f"[plan] {plan_obj.recommended_mode()} "
+                   f"(biggest bucket: {b.candidate.mode} "
+                   f"n_chunks={b.candidate.n_chunks} "
+                   f"compression={b.candidate.compression}) "
+                   f"predicted {plan_obj.predicted_step_s*1e3:.2f} ms/sync total")
+            if plan_obj.overlap is not None:
+                msg += (f", {plan_obj.exposed_comm_s*1e3:.2f} ms exposed "
+                        f"(backward {plan_obj.overlap.backward_compute_s*1e3:.2f} ms)")
+            log(msg + f" validated={plan_obj.validated}")
+            log(plan_obj.describe())
+        st = cache.stats()
+        stats = {"hits": st["hits"], "misses": st["misses"], "path": st["path"]}
+        log(f"[plan] cache: {st['hits']} hit(s), {st['misses']} miss(es)")
+    # the optimizer's structure (fsdp, hier_zero1) is not a per-bucket knob:
+    # the plan replaces only the schedule choice of the hier path
+    if plan_obj is not None and mode not in ("fsdp", "hier_zero1"):
+        mode = "hier_overlap" if plan_obj.recommended_mode() == "hier_overlap" else "hier"
+    if plan_obj is not None and plan_obj.data_path == "per_leaf":
+        log("[plan] per-leaf data path (pack overhead loses; packed disabled for this run)")
+        packed = False
+    return Planned(plan_obj, mode, packed,
+                   None if cluster_weights is None else tuple(cluster_weights), stats)
+
+
 def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, steps: int = 4,
         mode: str = "hier", compression: str | None = None,
         global_batch: int = 4, seq: int = 1024, lr: float = 3e-3,
         log_every: int = 1, seed: int = 0, pods: int = 1, device="cuda",
+        plan: str = "manual", skew: str = "none", plan_cache: str | None = None,
+        packed: bool = True, plan_world: tuple[int, int] | None = None,
         log=print) -> dict:
     """Train ``steps`` steps in the running process group and return what
     was measured.  Step times are host wall-clock around work that ends
-    in a device synchronize."""
+    in a device synchronize.  ``plan``, ``skew``, ``plan_cache`` and
+    ``packed`` are the flags of ``make_plan``; ``plan_world`` (pods, ranks
+    per pod) prices the plan for that cluster in place of the running
+    world, so that a small world runs the plan a larger one would get."""
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -98,8 +238,13 @@ def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, steps: int = 4,
     model = Model(cfg, rt, device)
     if mode == "fsdp":
         model.with_fsdp(group_size(rt.data_group))
-    tcfg = TrainConfig(comm_mode=mode, dcn_compression=compression,
-                       opt=OptConfig(lr=lr, warmup_steps=20))
+    plan_pods, per_pod = plan_world or (pods, world // pods)
+    planned = make_plan(cfg, plan_pods, plan_pods * per_pod, mode, compression, plan=plan,
+                        skew=skew, plan_cache=plan_cache, packed=packed,
+                        global_batch=global_batch, seq=seq, log=log)
+    tcfg = TrainConfig(comm_mode=planned.mode, dcn_compression=compression,
+                       plan=planned.plan, cluster_weights=planned.cluster_weights,
+                       packed=planned.packed, opt=OptConfig(lr=lr, warmup_steps=20))
     step_fn, init_fn = make_train_step(model, tcfg)
     opt = init_fn(seed)
     n_params = sum(p.numel() for p in model.parameters())
@@ -128,7 +273,9 @@ def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, steps: int = 4,
     step_ms = statistics.median(timed)
     return {
         "arch": cfg.name, "device": str(device), "world": world, "pods": pods,
-        "mode": mode, "compression": compression,
+        "mode": planned.mode, "compression": compression, "packed": planned.packed,
+        "plan": None if planned.plan is None else planned.plan.summary(),
+        "plan_cache": planned.cache,
         "global_batch": global_batch, "seq": seq, "params": n_params,
         "records": records, "step_ms": step_ms,
         "tokens_per_s": global_batch * seq / (step_ms / 1e3),
@@ -151,6 +298,17 @@ def main(argv=None) -> None:
     ap.add_argument("--pods", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--plan", default="manual", choices=["manual", "auto"],
+                    help="auto: the planner picks mode, chunks and codec per "
+                         "gradient bucket, replacing --mode's schedule")
+    ap.add_argument("--skew", default="none", choices=["none", "auto"],
+                    help="auto: derive the per-pod batch split and its "
+                         "gradient weights (core/skew.py)")
+    ap.add_argument("--plan-cache", default=None, metavar="PATH",
+                    help="disk-backed plan cache: a later launch with the same "
+                         "topology and knobs reuses the plan")
+    ap.add_argument("--no-packed", action="store_true",
+                    help="the per-leaf data path in place of the packed layout")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     started = init_world(device)
@@ -159,7 +317,8 @@ def main(argv=None) -> None:
                   compression=args.compression,
                   global_batch=args.global_batch, seq=args.seq, lr=args.lr,
                   log_every=args.log_every, seed=args.seed, pods=args.pods,
-                  device=device)
+                  device=device, plan=args.plan, skew=args.skew,
+                  plan_cache=args.plan_cache, packed=not args.no_packed)
     finally:
         if started:
             dist.destroy_process_group()

@@ -33,6 +33,11 @@ Communication modes (``TrainConfig.comm_mode``) ported here:
         (the codec on that hop); a replicated leaf goes through
         AllReduceH alone.
 
+With ``TrainConfig.plan`` (a ``core.planner.CommPlan``) each gradient
+buffer or bucket resolves its own schedule from the plan, bound to the
+runtime's groups; ``packed=False`` runs the per-leaf data path that plans
+choose when packing does not pay.
+
 Each process holds one replica of the model (``Model`` on its device)
 and its slice of the global batch.  The step updates the parameters and
 the Adam (or ZeRO) state in place.  With ``finite_gate`` a step whose synced loss
@@ -54,6 +59,7 @@ from repro_torch.core import collectives as coll
 from repro_torch.core import compression, primitives
 from repro_torch.core import overlap as overlap_lib
 from repro_torch.core.collectives import CommConfig
+from repro_torch.core.planner import BoundPlan
 from repro_torch.core.schedule import STRUCTURAL_MODES, build_schedule
 from repro_torch.kernels import quant as _qk
 from repro_torch.models.model import Model
@@ -72,12 +78,30 @@ class TrainConfig:
     n_chunks: int = 4                   # hier_pipelined's chunks; aligns the packed layout
     # hier_overlap's bucket size cap, the planner-side default
     bucket_cap_mb: int = overlap_lib.DEFAULT_CAP_BYTES >> 20
+    # the packed gradient data path (core/packing.py): one persistent
+    # layout, one pack and one unpack per step.  False is the per-leaf path
+    # (a fresh concatenate per dtype or per bucket each step), which a plan
+    # chooses when packing does not pay
+    packed: bool = True
     # per-pod gradient weights (mean 1 over pods) for an uneven batch split
     cluster_weights: tuple[float, ...] | None = None
+    # a planner.CommPlan: when set, the collectives resolve mode, chunks and
+    # codec per gradient bucket from the plan, and the fields above only
+    # steer the structure (hier_overlap, hier_zero1, fsdp)
+    plan: Any = None
     finite_gate: bool = True
     opt: opt_lib.OptConfig = dataclasses.field(default_factory=opt_lib.OptConfig)
 
-    def comm_config(self, rt: Runtime) -> CommConfig:
+    def comm_config(self, rt: Runtime) -> CommConfig | BoundPlan:
+        """The plan on ``rt``'s groups when there is one, else the one
+        schedule of ``manual_config``."""
+        if self.plan is not None:
+            return BoundPlan.of(self.plan, rt)
+        return self.manual_config(rt)
+
+    def manual_config(self, rt: Runtime) -> CommConfig:
+        """The schedule the fields give: fsdp's pod hop of a sharded leaf
+        takes it with a plan too, as in the reference."""
         # structural modes wrap the hier schedule; every other comm_mode IS
         # a schedule-builder mode: build once so that an unknown mode fails
         # here with the registry's error
@@ -140,11 +164,12 @@ def _stacked(g) -> torch.Tensor:
     return _qk.pack_slots_call(pieces, off, g[0].dtype).view((len(g),) + tuple(g[0].shape))
 
 
-def fsdp_sync(g, is_sharded: bool, ccfg: CommConfig, rt: Runtime) -> torch.Tensor:
+def fsdp_sync(g, is_sharded: bool, ccfg, rt: Runtime) -> torch.Tensor:
     """fsdp's sync of one leaf's gradient (a list leaf as its stack): a
     sharded leaf arrives reduce-scattered over data (the gather's
-    backward), so only the pod hop is left, with ``ccfg``'s codec; a
-    replicated leaf goes through AllReduceH alone."""
+    backward), so only the pod hop is left, with ``ccfg``'s codec (a
+    ``CommConfig``); a replicated leaf goes through AllReduceH alone
+    (``ccfg`` a config or a bound plan)."""
     x = _stacked(g)
     if not is_sharded:
         return coll.hier_psum(x, ccfg) if rt.dp_group is not None else x
@@ -197,6 +222,7 @@ def make_train_step(model: Model, tcfg: TrainConfig):
     # data-parallel group it is the plain step too
     overlapped = tcfg.comm_mode == "hier_overlap" and rt.dp_group is not None
     fsdp = tcfg.comm_mode == "fsdp"
+    hop = tcfg.manual_config(rt) if fsdp else None
 
     def init_fn(seed: int = 0):
         model.init(seed)
@@ -211,7 +237,8 @@ def make_train_step(model: Model, tcfg: TrainConfig):
         for p in params:
             p.requires_grad_(True)
         # planned on the live parameters (init replaces them)
-        overlap = (overlap_lib.BucketSync(model.param_tree(), ccfg, tcfg.bucket_cap_mb << 20)
+        overlap = (overlap_lib.BucketSync(model.param_tree(), ccfg, tcfg.bucket_cap_mb << 20,
+                                          packed=tcfg.packed)
                    if overlapped else None)
         sharded = ["data" in spec for spec in model.param_specs().values()]
         with torch.enable_grad():
@@ -253,10 +280,14 @@ def make_train_step(model: Model, tcfg: TrainConfig):
                     synced = []
                     for i, is_sharded in enumerate(sharded):
                         g, grads[i] = grads[i], None
-                        synced.append(fsdp_sync(g, is_sharded, ccfg, rt))
+                        # a plan resolves only AllReduceH; the pod hop of a
+                        # sharded leaf keeps the fields' codec, as in the
+                        # reference
+                        synced.append(fsdp_sync(g, is_sharded, hop if is_sharded else ccfg,
+                                                rt))
                         del g
                 elif rt.dp_group is not None:
-                    synced = coll.tree_hier_psum(grads, ccfg)
+                    synced = coll.tree_hier_psum(grads, ccfg, packed=tcfg.packed)
                 else:
                     synced = [torch.stack(g) if isinstance(g, list) else g
                               for g in grads]

@@ -27,6 +27,16 @@
   layer: ``zero1_local_shard``, then ``tree_hier_psum_scatter`` ->
   ``tree_hier_unscatter`` on a tree of f32, bf16 and list leaves, its
   ``_zero1_layout`` the reference's.
+* The per-leaf data path on the same 4 ranks: ``tree_hier_psum`` with
+  ``packed=False`` (one concatenate per dtype) and the unpacked overlap
+  sync (one f32 re-flatten per bucket), against the reference's
+  ``packed=False`` paths.  Then a three-bucket plan (``TREE_PLAN``, bound
+  to the ranks' groups on the port's side, the reference's ``CommPlan``
+  on its side): ``hier_psum``, ``hier_psum_scatter`` and
+  ``hier_all_gather`` resolve it by their payload, the packed tree sync
+  per wire-dtype segment (``_comm_layout_resolved``), the per-leaf one
+  per concatenated buffer, and the overlap sync per bucket.  The same
+  tolerances: int8 bit-equal, bf16 within ``bf16_ulps``.
 """
 
 import dataclasses
@@ -65,6 +75,24 @@ OVERLAP_LEAVES = (("embed", "bf16"), ("final_norm/scale", "f32"), ("head", "bf16
                   ("layers/a", "f32"), ("layers/b", "f32"))
 GATHER_DIMS = (0, 1)
 EF_CODECS = ("bf16", "int8")
+# TREE_PLAN's buckets (bytes, mode, chunks, codec): rank_tree's bf16 segment
+# (814 bytes) resolves to the first, its f32 segment (9948 bytes) and a bf16
+# rank_input (10006 bytes) to the second, an f32 rank_input (20012 bytes)
+# to the third
+TREE_PLAN = ((800, "hier", 1, "bf16"), (10_000, "hier_pipelined", 2, "int8"),
+             (20_000, "hier", 1, None))
+# the codec each planned payload resolves to
+PLAN_TREE_CODEC = {"a": "int8", "b": "bf16", "layers": "int8"}
+PLAN_X_CODEC = {"f32": None, "bf16": "int8"}
+PATHS = ("packed", "perleaf")
+
+
+def tree_plan(planner, topology):
+    """``TREE_PLAN`` as a ``CommPlan`` of the given package (2 pods of 2)."""
+    buckets = tuple(planner.BucketPlan(n, planner.Candidate(m, k, c), 0.0, 0.0, 0.0, True)
+                    for n, m, k, c in TREE_PLAN)
+    return planner.CommPlan(topology.tpu_multipod(2, 2), False, "all_reduce", "pod", "data",
+                            buckets)
 
 
 def case_id(case) -> str:
@@ -159,7 +187,72 @@ def _jax_main(out_dir: str) -> None:
             res[f"tree-{mode}-{codec}-{k}"] = np.asarray(v.astype(jnp.float32))
     _jax_gather_cases(mesh, spec, xs, trees, res)
     _jax_overlap_cases(mesh, spec, res)
+    _jax_per_leaf_cases(mesh, spec, xs, trees, res)
     np.savez(os.path.join(out_dir, "jax.npz"), **res)
+
+
+def _jax_per_leaf_cases(mesh, spec, xs, trees, res) -> None:
+    """The ``packed=False`` tree and overlap syncs, and ``TREE_PLAN``
+    through every entry point."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core import collectives as jcoll
+    from repro.core import overlap as joverlap
+    from repro.core import planner as jplanner
+    from repro.core import topology as jtopology
+    from repro.parallel.sharding import shard_map
+
+    def run(fn, x):
+        return jax.jit(shard_map(fn, mesh=mesh, in_specs=spec, out_specs=spec,
+                                 check_vma=False))(x)
+
+    def local(fn):
+        def body(t):
+            return jax.tree.map(lambda a: a[None], fn(jax.tree.map(lambda a: a[0], t)))
+        return body
+
+    plan = tree_plan(jplanner, jtopology)
+    tree = {"a": jnp.asarray(np.stack([t["a"] for t in trees])),
+            "b": jnp.asarray(np.stack([t["b"] for t in trees]), jnp.bfloat16),
+            "layers": jnp.asarray(np.stack([t["layers"] for t in trees]))}
+    for mode, codec in TREE_CASES:
+        cfg = jcoll.CommConfig(mode=mode, pod_axis="pod", intra_axis="data",
+                               compression=codec)
+        out = run(local(lambda t, cfg=cfg: jcoll.tree_hier_psum(t, cfg, packed=False)), tree)
+        for k, v in out.items():
+            res[f"perleaf-{mode}-{codec}-{k}"] = np.asarray(v.astype(jnp.float32))
+    for path in PATHS:
+        out = run(local(lambda t, path=path: jcoll.tree_hier_psum(
+            t, plan, packed=path == "packed")), tree)
+        for k, v in out.items():
+            res[f"plan-{path}-{k}"] = np.asarray(v.astype(jnp.float32))
+    for dt, jdt in (("f32", jnp.float32), ("bf16", jnp.bfloat16)):
+        x = jnp.asarray(xs, jdt)
+        res[f"plan-psum-{dt}"] = np.asarray(run(
+            lambda v: jcoll.hier_psum(v[0], plan)[None], x).astype(jnp.float32))
+        res[f"plan-scatter-{dt}"] = np.asarray(run(
+            lambda v: jcoll.hier_psum_scatter(v[0], plan)[None], x).astype(jnp.float32))
+    ms = jnp.asarray(np.stack([rank_matrix(r) for r in range(WORLD)]))
+    for dim in GATHER_DIMS:
+        res[f"plan-gather-{dim}"] = np.asarray(run(
+            lambda v, dim=dim: jcoll.hier_all_gather(v[0], plan, gather_dim=dim)[None], ms))
+    otree = jax.tree.map(jnp.asarray, jax.tree.map(
+        lambda *a: np.stack(a), *[rank_overlap_tree(r) for r in range(WORLD)]))
+    otree["embed"] = otree["embed"].astype(jnp.bfloat16)
+    otree["head"] = otree["head"].astype(jnp.bfloat16)
+    syncs = {f"perleaf-{c}": (jcoll.CommConfig(mode="hier", pod_axis="pod", intra_axis="data",
+                                               compression=c), False)
+             for c in OVERLAP_CODECS}
+    syncs.update({f"plan-{path}": (plan, path == "packed") for path in PATHS})
+    for name, (cfg, packed) in syncs.items():
+        out = run(local(lambda t, cfg=cfg, packed=packed: joverlap.tree_hier_psum_overlap(
+            t, cfg, cap_bytes=OVERLAP_CAP, packed=packed)), otree)
+        for leaf, _ in OVERLAP_LEAVES:
+            v = out
+            for k in leaf.split("/"):
+                v = v[k]
+            res[f"overlap-{name}-{leaf}"] = np.asarray(v.astype(jnp.float32))
 
 
 def _jax_overlap_cases(mesh, spec, res) -> None:
@@ -340,6 +433,7 @@ def _gloo_rank(rank: int, store_path: str, out_dir: str) -> None:
                 res[f"tree-{mode}-{codec}-{k}"] = v.float().numpy()
         _gloo_gather_cases(rank, rt, res)
         _gloo_overlap_cases(rank, rt, res)
+        _gloo_per_leaf_cases(rank, rt, res)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
     finally:
         dist.destroy_process_group()
@@ -437,6 +531,67 @@ def _gloo_overlap_cases(rank: int, rt, res: dict) -> None:
         for name, v in zip(("s1", "r1", "s2", "r2"), (s1, r1, s2, r2)):
             assert v.dtype == torch.float32 and v.shape == x1.shape
             res[f"ef-{codec}-{name}"] = v.numpy()
+
+
+def _gloo_per_leaf_cases(rank: int, rt, res: dict) -> None:
+    import torch
+
+    from repro_torch.core import collectives as tcoll
+    from repro_torch.core import overlap as toverlap
+    from repro_torch.core import planner as tplanner
+    from repro_torch.core import topology as ttopology
+
+    bound = tplanner.BoundPlan.of(tree_plan(tplanner, ttopology), rt)
+    t = rank_tree(rank)
+
+    def leaves():
+        return [torch.from_numpy(t["a"]).clone(),
+                torch.from_numpy(t["b"]).to(torch.bfloat16),
+                [torch.from_numpy(row).clone() for row in t["layers"]]]
+
+    for mode, codec in TREE_CASES:
+        cfg = tcoll.CommConfig(mode=mode, pod_group=rt.pod_group, intra_group=rt.data_group,
+                               dp_group=rt.dp_group, compression=codec)
+        out = tcoll.tree_hier_psum(leaves(), cfg, packed=False)
+        assert out[1].dtype == torch.bfloat16 and out[2].shape == (3, 129)
+        for k, v in zip(("a", "b", "layers"), out):
+            res[f"perleaf-{mode}-{codec}-{k}"] = v.float().numpy()
+    for path in PATHS:
+        out = tcoll.tree_hier_psum(leaves(), bound, packed=path == "packed")
+        for k, v in zip(("a", "b", "layers"), out):
+            res[f"plan-{path}-{k}"] = v.float().numpy()
+    x = torch.from_numpy(rank_input(rank))
+    for dt, tdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        res[f"plan-psum-{dt}"] = tcoll.hier_psum(x.to(tdt, copy=True), bound).float().numpy()
+        res[f"plan-scatter-{dt}"] = tcoll.hier_psum_scatter(x.to(tdt, copy=True),
+                                                            bound).float().numpy()
+    m = torch.from_numpy(rank_matrix(rank))
+    for dim in GATHER_DIMS:
+        res[f"plan-gather-{dim}"] = tcoll.hier_all_gather(m, bound, gather_dim=dim).numpy()
+    o = rank_overlap_tree(rank)
+
+    def overlap_tree():
+        return {"embed": torch.from_numpy(o["embed"]).to(torch.bfloat16),
+                "final_norm": {"scale": torch.from_numpy(o["final_norm"]["scale"]).clone()},
+                "head": torch.from_numpy(o["head"]).to(torch.bfloat16),
+                "layers": [{k: torch.from_numpy(v[i]).clone() for k, v in o["layers"].items()}
+                           for i in range(3)]}
+
+    syncs = {f"perleaf-{c}": (tcoll.CommConfig(mode="hier", pod_group=rt.pod_group,
+                                               intra_group=rt.data_group,
+                                               dp_group=rt.dp_group, compression=c), False)
+             for c in OVERLAP_CODECS}
+    syncs.update({f"plan-{path}": (bound, path == "packed") for path in PATHS})
+    for name, (cfg, packed) in syncs.items():
+        out = toverlap.tree_hier_psum_overlap(overlap_tree(), cfg, cap_bytes=OVERLAP_CAP,
+                                              packed=packed)
+        assert out["embed"].dtype == torch.bfloat16
+        flat = {"embed": out["embed"], "final_norm/scale": out["final_norm"]["scale"],
+                "head": out["head"],
+                "layers/a": torch.stack([lp["a"] for lp in out["layers"]]),
+                "layers/b": torch.stack([lp["b"] for lp in out["layers"]])}
+        for leaf, v in flat.items():
+            res[f"overlap-{name}-{leaf}"] = v.float().numpy()
 
 
 if __name__ == "__main__":
@@ -1057,3 +1212,88 @@ def test_psum_ef_four_ranks_match_jax(four_ranks, codec):
             else:
                 _assert_agree(ranks[r][key], jres[key][r], codec, "bf16",
                               ulps=bf16_ulps("hier"))
+
+
+@pytest.mark.parametrize("tcase", TREE_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_tree_hier_psum_per_leaf_four_ranks_match_jax(four_ranks, tcase):
+    jres, ranks = four_ranks
+    mode, codec = tcase
+    for leaf, dt in (("a", "f32"), ("b", "bf16"), ("layers", "f32")):
+        key = f"perleaf-{mode}-{codec}-{leaf}"
+        magnitude = sum(abs(rank_tree(r)[leaf]) for r in range(WORLD))
+        for r in range(WORLD):
+            np.testing.assert_array_equal(ranks[r][key], ranks[0][key])
+            assert ranks[r][key].shape == jres[key][r].shape
+            _assert_agree(ranks[r][key], jres[key][r], codec, dt, magnitude,
+                          bf16_ulps(mode))
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_planned_tree_hier_psum_four_ranks_match_jax(four_ranks, path):
+    """The f32 and the bf16 segment resolve TREE_PLAN to different buckets."""
+    jres, ranks = four_ranks
+    for leaf, dt in (("a", "f32"), ("b", "bf16"), ("layers", "f32")):
+        key = f"plan-{path}-{leaf}"
+        magnitude = sum(abs(rank_tree(r)[leaf]) for r in range(WORLD))
+        for r in range(WORLD):
+            np.testing.assert_array_equal(ranks[r][key], ranks[0][key])
+            _assert_agree(ranks[r][key], jres[key][r], PLAN_TREE_CODEC[leaf], dt, magnitude)
+
+
+@pytest.mark.parametrize("what", ["psum-f32", "psum-bf16", "scatter-f32", "scatter-bf16",
+                                  "gather-0", "gather-1"])
+def test_planned_collectives_four_ranks_match_jax(four_ranks, what):
+    jres, ranks = four_ranks
+    key = f"plan-{what}"
+    kind, arg = what.split("-")
+    for r in range(WORLD):
+        got, want = ranks[r][key], jres[key][r]
+        assert got.shape == want.shape
+        if kind == "gather":
+            np.testing.assert_array_equal(got, want)
+        else:
+            _assert_agree(got, want, PLAN_X_CODEC[arg], arg)
+
+
+def test_planned_layout_resolves_per_segment():
+    """``_comm_layout_resolved`` on the rank tree: the reference's layout
+    and, per segment, the bucket TREE_PLAN resolves to."""
+    from repro.core import planner as jplanner
+    from repro.core import topology as jtopology
+    from repro_torch.core import planner as tplanner
+    from repro_torch.core import topology as ttopology
+
+    t = rank_tree(0)
+    jtree = {"a": jnp.asarray(t["a"]), "b": jnp.asarray(t["b"], jnp.bfloat16),
+             "layers": jnp.asarray(t["layers"])}
+    want, wcfgs = jcoll._comm_layout_resolved(jax.tree.leaves(jtree),
+                                              tree_plan(jplanner, jtopology), world=4)
+    rt = tshard.Runtime(pod_group="P", data_group="D", dp_group="W")
+    leaves = [torch.from_numpy(t["a"]), torch.from_numpy(t["b"]).to(torch.bfloat16),
+              [torch.from_numpy(row) for row in t["layers"]]]
+    got, cfgs = tcoll._comm_layout_resolved(
+        leaves, tplanner.BoundPlan.of(tree_plan(tplanner, ttopology), rt), world=4)
+    assert [dataclasses.astuple(s) for s in got.segments] == \
+        [dataclasses.astuple(s) for s in want.segments]
+    assert [(s.offset, s.size) for s in got.slots] == [(s.offset, s.size) for s in want.slots]
+    assert sorted(cfgs) == sorted(wcfgs) == ["bfloat16", "float32"]
+    for dt, c in cfgs.items():
+        w = wcfgs[dt]
+        assert (c.mode, c.n_chunks, c.compression) == (w.mode, w.n_chunks, w.compression)
+        assert (c.pod_group, c.intra_group, c.dp_group) == ("P", "D", "W")
+    assert cfgs["bfloat16"].compression == "bf16" and cfgs["float32"].compression == "int8"
+
+
+@pytest.mark.parametrize("sync", [f"perleaf-{c}" for c in OVERLAP_CODECS]
+                         + [f"plan-{p}" for p in PATHS])
+def test_tree_hier_psum_overlap_per_leaf_and_planned_match_jax(four_ranks, sync):
+    jres, ranks = four_ranks
+    codec = sync.split("-")[1] if sync.startswith("perleaf") else "bf16"
+    codec = None if codec == "None" else codec
+    for name, dt in OVERLAP_LEAVES:
+        key = f"overlap-{sync}-{name}"
+        magnitude = sum(abs(_overlap_leaf(rank_overlap_tree(r), name)) for r in range(WORLD))
+        for r in range(WORLD):
+            np.testing.assert_array_equal(ranks[r][key], ranks[0][key])
+            assert ranks[r][key].shape == jres[key][r].shape
+            _assert_agree(ranks[r][key], jres[key][r], codec, dt, magnitude, bf16_ulps("hier"))

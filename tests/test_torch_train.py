@@ -8,8 +8,10 @@
   (pod 2, data 2) mesh, for ``hier``, ``hier_pipelined``, ``hier_overlap``
   (a 1 MiB bucket cap on both sides: final_norm, both layers, embed),
   ``hier_zero1`` and ``fsdp`` with int8 on the pod hop,
-  ``hier_border_rs`` with bf16, and ``fsdp`` with no codec: losses within
-  1e-3 over three steps.  The ``fsdp`` cases run the smoke model at d_ff
+  ``hier_border_rs`` with bf16, ``fsdp`` with no codec, and a plan of
+  each package's planner (``launcher_plan``) run on the per-leaf path it
+  chooses, with ``hier`` on the packed path, and with ``fsdp``: losses
+  within 1e-3 over three steps.  The ``fsdp`` cases run the smoke model at d_ff
   512, so that its MLP leaves reach FSDP_MIN_SIZE and are sharded over
   the data group; each rank's shards are exactly the reference's slices
   of the drawn parameters, and its prefill and decode (which gather the
@@ -51,18 +53,57 @@ LR, WARMUP = 1e-2, 1
 # (comm mode, pod-hop codec) of the four-rank runs
 FOUR_RANK_CASES = [("hier", "int8"), ("hier_pipelined", "int8"), ("hier_border_rs", "bf16"),
                    ("hier_zero1", "int8"), ("hier_overlap", "int8"), ("fsdp", "int8"),
-                   ("fsdp", None)]
+                   ("fsdp", None), ("plan_per_leaf", "int8"), ("plan_packed", "int8"),
+                   ("plan_fsdp", "int8")]
+# the planned cases: (comm mode, packed); None runs the plan's own mode
+PLAN_CASES = {"plan_per_leaf": (None, False), "plan_packed": ("hier", True),
+              "plan_fsdp": ("fsdp", True)}
+PLAN_DCN_BPS = 1e9        # the planned cases' per-chip pod link, bytes/s
 OVERLAP_CAP_MB = 1        # hier_overlap's bucket cap in the four-rank runs
 FSDP_D_FF = 512           # the fsdp runs' d_ff: w_gate/w_up/w_down reach 2 x 64 x 512 = 2^16
 
 
+def sharded(mode: str) -> bool:
+    """Whether a four-rank case runs FSDP."""
+    return mode in ("fsdp", "plan_fsdp")
+
+
 def smoke_cfg(mode: str, cfg):
     """The f32 smoke config of a four-rank run (JAX or torch)."""
-    return dataclasses.replace(cfg, d_ff=FSDP_D_FF) if mode == "fsdp" else cfg
+    return dataclasses.replace(cfg, d_ff=FSDP_D_FF) if sharded(mode) else cfg
 
 
 def train_kwargs(mode: str) -> dict:
     return {"bucket_cap_mb": OVERLAP_CAP_MB} if mode == "hier_overlap" else {}
+
+
+def launcher_plan(planner, topology, overlap, cost_model, full_cfg):
+    """The plan either package's launcher makes for full-width qwen2.5-3b
+    (``full_cfg``) on 4 x 1024 tokens with int8 allowed, over 2 pods of 2
+    ranks whose pod link is derated to PLAN_DCN_BPS: hier_overlap on the
+    per-leaf path, its first bucket (the one every smoke bucket resolves
+    to) on hier_pipelined with 32 chunks and int8."""
+    topo = topology.tpu_multipod(2, 2, dcn_Bps=PLAN_DCN_BPS)
+    grad_bytes = full_cfg.param_count() * 4
+    return planner.plan(
+        topo, overlap.bucket_sizes_for_volume(grad_bytes, full_cfg.n_layers,
+                                              overlap.DEFAULT_CAP_BYTES),
+        backward_compute_s=cost_model.backward_compute_time(
+            topo, 6.0 * full_cfg.active_param_count() * 4 * 1024),
+        coll="all_reduce", pod_axis="pod", intra_axis="data", compressions=(None, "int8"),
+        flat_mechanism="native", try_balanced=False, packed=True, n_leaves=14, cache=None)
+
+
+def case_train_kwargs(mode: str, codec, plan) -> dict:
+    """The TrainConfig arguments of a four-rank case but the optimizer; a
+    planned case runs the plan's mode on the per-leaf path, hier with the
+    packed layout resolved per segment, or fsdp (the plan resolves the
+    replicated leaves; the sharded ones keep ``codec`` on the pod hop)."""
+    if mode not in PLAN_CASES:
+        return {"comm_mode": mode, "dcn_compression": codec, **train_kwargs(mode)}
+    comm_mode, packed = PLAN_CASES[mode]
+    return {"comm_mode": comm_mode or plan.recommended_mode(), "dcn_compression": codec,
+            "plan": plan, "packed": packed}
 
 
 def batch(step: int, vocab: int) -> dict:
@@ -96,6 +137,10 @@ def _jax_main(out_dir: str) -> None:
     import jax
 
     from repro.configs import get_config as jax_config
+    from repro.core import cost_model as jcost
+    from repro.core import overlap as joverlap
+    from repro.core import planner as jplanner
+    from repro.core import topology as jtopology
     from repro.launch.mesh import runtime_for_mesh
     from repro.models import Model as JaxModel
     from repro.train import TrainConfig as JaxTrainConfig
@@ -106,13 +151,14 @@ def _jax_main(out_dir: str) -> None:
 
     mesh = jax.make_mesh((2, 2), ("pod", "data"))
     base = dataclasses.replace(jax_config("qwen2.5-3b", smoke=True), dtype=jax.numpy.float32)
+    plan = launcher_plan(jplanner, jtopology, joverlap, jcost, jax_config("qwen2.5-3b"))
     for mode, codec in FOUR_RANK_CASES:
         cfg = smoke_cfg(mode, base)
-        model = JaxModel(cfg, runtime_for_mesh(mesh, fsdp=mode == "fsdp"))
-        if mode == "fsdp":
+        model = JaxModel(cfg, runtime_for_mesh(mesh, fsdp=sharded(mode)))
+        if sharded(mode):
             model = model.with_fsdp(2)
-        tcfg = JaxTrainConfig(comm_mode=mode, dcn_compression=codec,
-                              opt=JaxOpt(lr=LR, warmup_steps=WARMUP), **train_kwargs(mode))
+        tcfg = JaxTrainConfig(opt=JaxOpt(lr=LR, warmup_steps=WARMUP),
+                              **case_train_kwargs(mode, codec, plan))
         build, init = jax_train_step(model, tcfg, mesh=mesh)
         params, opt = init(jax.random.key(0))
         shapes = jax.tree.map(lambda p: jax.ShapeDtypeStruct(p.shape, p.dtype), params)
@@ -148,10 +194,12 @@ def _gloo_rank(rank: int, store_path: str, out_dir: str) -> None:
 
     from repro_torch.configs import get_config
     from repro_torch.convert import params_from_jax
+    from repro_torch.core import cost_model, overlap, planner, topology
     from repro_torch.launch.mesh import runtime_for_groups
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train.train_step import TrainConfig, make_train_step, zero_bootstrap
 
+    plan = launcher_plan(planner, topology, overlap, cost_model, get_config("qwen2.5-3b"))
     dist.init_process_group("gloo", store=dist.FileStore(store_path, WORLD),
                             rank=rank, world_size=WORLD,
                             timeout=datetime.timedelta(seconds=60))
@@ -162,11 +210,11 @@ def _gloo_rank(rank: int, store_path: str, out_dir: str) -> None:
         rows = slice(rank * GB // WORLD, (rank + 1) * GB // WORLD)
         for mode, codec in FOUR_RANK_CASES:
             cfg = smoke_cfg(mode, base)
-            fsdp = mode == "fsdp"
+            fsdp = sharded(mode)
             params = _nest(np.load(os.path.join(out_dir, f"params_{'fsdp' if fsdp else 'base'}.npz")))
             model = params_from_jax(params, cfg, rt_fsdp if fsdp else rt, device="cpu",
                                     fsdp=2 if fsdp else 1)
-            if fsdp:
+            if mode == "fsdp":
                 shards = {f"{'/'.join(path)}": torch.stack(leaf).numpy()
                           for path, leaf in zip(model.param_specs(), model.train_leaves())
                           if "data" in model.param_specs()[path]}
@@ -179,9 +227,8 @@ def _gloo_rank(rank: int, store_path: str, out_dir: str) -> None:
                 dg, dw = model.apply_decode(nxt, cg)[0], whole.apply_decode(nxt, cw)[0]
                 shards["serving_equal"] = np.asarray(torch.equal(lg, lw) and torch.equal(dg, dw))
                 np.savez(os.path.join(out_dir, f"rank{rank}_shards_{codec}.npz"), **shards)
-            tcfg = TrainConfig(comm_mode=mode, dcn_compression=codec,
-                               opt=opt_lib.OptConfig(lr=LR, warmup_steps=WARMUP),
-                               **train_kwargs(mode))
+            tcfg = TrainConfig(opt=opt_lib.OptConfig(lr=LR, warmup_steps=WARMUP),
+                               **case_train_kwargs(mode, codec, plan))
             step_fn, _ = make_train_step(model, tcfg)
             if mode == "hier_zero1":
                 opt = zero_bootstrap(model, tcfg)
@@ -358,6 +405,25 @@ def test_train_step_four_ranks_matches_jax(four_rank_losses, mode, codec):
             assert {"layers/mlp/w_gate", "layers/mlp/w_down"} <= set(names)
             for name in names:
                 np.testing.assert_array_equal(got[name], jshards[f"rank{r}/{name}"])
+
+
+def test_four_rank_plan_is_the_reference_and_resolves_to_int8():
+    """The planned cases' plan: the reference's, hier_overlap on the
+    per-leaf path, and the smoke model's buckets (tens of KiB) resolve to
+    hier_pipelined with 32 chunks and int8."""
+    from repro.core import cost_model as jcost
+    from repro.core import overlap as joverlap
+    from repro.core import planner as jplanner
+    from repro.core import topology as jtopology
+    from repro_torch.core import cost_model, overlap, planner, topology
+
+    got = launcher_plan(planner, topology, overlap, cost_model, get_config("qwen2.5-3b"))
+    want = launcher_plan(jplanner, jtopology, joverlap, jcost, jax_config("qwen2.5-3b"))
+    assert got.summary() == want.summary()
+    assert (got.recommended_mode(), got.data_path) == ("hier_overlap", "per_leaf")
+    for nbytes in (1 << 10, 1 << 16, 1 << 20):
+        c = got.bucket_for(nbytes).candidate
+        assert (c.mode, c.n_chunks, c.compression) == ("hier_pipelined", 32, "int8")
 
 
 @pytest.mark.parametrize("window", [None, 40])
@@ -589,3 +655,18 @@ def test_entry_point_needs_cuda_unless_told_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         train_cli.main(["--smoke", "--steps", "1"])
+
+
+@pytest.mark.parametrize("mode", ["hier", "hier_overlap"])
+def test_entry_point_per_leaf_on_cpu(mode):
+    """``--no-packed``: the per-leaf data path from the command line."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), GLOO_SOCKET_IFNAME="lo")
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+                          "--device", "cpu", "--steps", "2", "--seq", "32", "--mode", mode,
+                          "--compression", "int8", "--no-packed"],
+                         env=env, capture_output=True, text=True, timeout=180)
+    assert res.returncode == 0, res.stdout + res.stderr
+    lines = [json.loads(line) for line in res.stdout.splitlines()]
+    steps, summary = lines[:-1], lines[-1]
+    assert all(np.isfinite(s["loss"]) and not s["gated"] for s in steps)
+    assert (summary["mode"], summary["packed"], summary["plan"]) == (mode, False, None)
