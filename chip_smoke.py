@@ -45,7 +45,21 @@
    ssd_chunk once per layer per prefill, quant/dequant twice per int8
    transfer, nothing per decode step, and every dequant_int8 launch in its
    vector variant.  Then, per model, a profile of one prefill and four
-   decode steps.
+   decode steps.  Then tensor parallelism, TP ranks as processes that
+   share the card through a gloo group (NCCL refuses two ranks of one
+   communicator on one device; the kernels are built before the spawn,
+   and the ranks load them): (a) qwen2.5-3b served at TP 2 (36 layers,
+   the TP-1 draw with its vocabulary padded by zero rows), (b) at TP 4
+   and 4 layers (2 KV heads over 4 ranks: the per-Q-head gather, a
+   4-head cache, flash at 4 Q / 4 KV), each rank checked as the TP-1
+   path is (launches per phase, the raw transfer exact, its cache shard
+   shape), and the prefill logits within tp_logit_tol of the TP-1 run's
+   at the same depth; TTFT, decode, peak memory and agreement printed per
+   rank, labelled one-card gloo; (c) the f32 smoke model trained at TP 2,
+   hier + int8, 3 steps on the card and on the CPU in the same world:
+   losses and grad norms within 1e-4, the codec and pack kernels once per
+   step on each rank's segment.  Flash is also checked at the TP paths'
+   local heads (8 Q / 1 KV and 4 Q / 4 KV at 4 x 1024).
 5. The training paths at full width: ``repro_torch.launch.train.run``
    trains qwen2.5-3b on 4 x 1024 tokens for 4 steps in a world of one,
    through real pod and data groups of one member, once per gradient sync
@@ -115,7 +129,10 @@ import dataclasses
 import gc
 import json
 import math
+import multiprocessing
+import os
 import pathlib
+import socket
 import statistics
 import subprocess
 import sys
@@ -524,6 +541,10 @@ FLASH_CASES = [
     (2, 8, 2, 130, 130, 64, True, 64, 0, None, torch.bfloat16),
     (1, 4, 1, 192, 192, 80, False, None, 0, None, torch.bfloat16),
     (2, 16, 2, 200, 200, 128, True, 100, 0, None, torch.bfloat16),
+    # the TP paths' local heads at the qwen2.5-3b serving shape: TP 2 (8 Q /
+    # 1 KV) and TP 4 (4 Q / 4 KV after the replicated-KV gather)
+    (BATCH, 8, 1, PROMPT, PROMPT, 128, True, None, 0, None, torch.bfloat16),
+    (BATCH, 4, 4, PROMPT, PROMPT, 128, True, None, 0, None, torch.bfloat16),
 ]
 
 
@@ -555,7 +576,7 @@ def check_flash(dev, gen, smi: str) -> dict:
         check(err <= TOL[dt], f"flash {B, H, K, Sq, Skv, dh, kw, dt}: err {err}")
         print(f"[check] flash B={B} H={H} K={K} Sq={Sq} Skv={Skv} dh={dh} "
               f"{kw} {dt}: max abs err {err:.3g} (tol {TOL[dt]})")
-        if Sq == PROMPT:
+        if (H, K, Sq) == (16, 2, PROMPT):
             main[dt] = err, (q, k, v)
     timing = {}
     for dt, (err, (q, k, v)) in main.items():
@@ -1595,6 +1616,212 @@ def train_planned_paths(dev, smi: str) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# Tensor parallelism: ranks as processes sharing the one card over gloo
+# ---------------------------------------------------------------------------
+
+TP_DEPTH = 4          # phase (b)'s layers: TP 4, replicated KV
+TP_TRAIN_STEPS = 3
+
+
+def tp_logit_tol(layers: int, tp: int) -> float:
+    """The bound on the prefill logits of TP ``tp`` against TP 1 (bf16), as
+    a share of the largest TP-1 logit.  Each row-parallel sublayer (two a
+    layer) rounds its ``tp`` partial sums to bf16 and adds them in bf16,
+    2 tp - 1 roundings of relative 2^-9 where TP 1 rounds once: about 2 tp
+    per sublayer between the two.  Over the 2 x layers sublayers they add
+    like a random walk to sqrt(4 layers tp) 2^-9 of an activation (3.3% at 36
+    layers and TP 2, 1.6% at 4 layers and TP 4).  The largest logit lies
+    ~4.5 sigma out of the logits' spread and the largest error of 4 x
+    151936 ~4.9 sigma out of the errors', so the expected largest
+    difference is ~1.09 x that share; the bound is 1.7 x it, 2^-4 at 36
+    layers and TP 2."""
+    return 2 ** -4 * math.sqrt(layers * tp / (36 * 2))
+
+
+def _tp_rank(rank: int, world: int, port: int, job: str, out_dir: str,
+             device: str = "cuda") -> None:
+    """One TP rank (a process of its own, on the one card, gloo): runs
+    ``job`` and saves what it measured as rank{rank}.pt in ``out_dir``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port), GLOO_SOCKET_IFNAME="lo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    train_launch.init_world(dev, "gloo")
+    try:
+        ops.reset_launch_counts()
+        if job == "train":
+            out = _tp_train(dev, world)
+        else:
+            out = disaggregated.run(ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN, device=dev,
+                                    tp=world, layers=TP_DEPTH if job == "serve4" else None)
+        out["counts"], out["vector"] = ops.launch_counts(), ops.vector_launch_counts()
+        torch.save(out, pathlib.Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_train(dev, tp: int) -> dict:
+    """hier + int8 on the f32 smoke model at TP ``tp`` (one replica: pod
+    and data groups of one), TP_TRAIN_STEPS steps on the CPU and then on
+    the card from the same parameters and batches; the card's launches
+    per step."""
+    rt = runtime_for_groups(pods=1, data_per_pod=1, tp=tp)
+    cfg = dataclasses.replace(get_config(ARCH, smoke=True), dtype=torch.float32)
+    cpu = Model(cfg, rt, device="cpu").init(0)
+    gpu = copy.deepcopy(cpu, {id(rt): rt}).to(dev)
+    tcfg = TrainConfig(comm_mode="hier", dcn_compression="int8",
+                       opt=opt_lib.OptConfig(lr=1e-3, warmup_steps=1))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, global_batch=2, seq_len=64)
+    out = {"want": train_kernels("hier", "int8", cfg)}
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        step_fn, _ = make_train_step(model, tcfg)
+        opt = opt_lib.adam_init(opt_lib.flat_params(model.train_leaves())[0])
+        metrics, launches = [], []
+        if model is gpu:
+            ops.reset_launch_counts()
+        for i in range(TP_TRAIN_STEPS):
+            b = {k: torch.from_numpy(v).long().to(model.device)
+                 for k, v in synth_batch(dcfg, i).items()}
+            before = ops.launch_counts()
+            m = step_fn(opt, b)
+            after = ops.launch_counts()
+            launches.append({k: after[k] - before[k] for k in after})
+            metrics.append((m["loss"], m["grad_norm"], m["gated"]))
+        out[name] = {"metrics": metrics, "launches": launches}
+    return out
+
+
+def _spawn_tp(job: str, world: int) -> list[dict]:
+    """``world`` TP ranks of ``job`` as processes on the one card; each
+    rank's results.  Every process is joined or killed before it returns."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=_tp_rank, args=(r, world, port, job, tmp))
+                 for r in range(world)]
+        try:
+            for p in procs:
+                p.start()
+            for p in procs:
+                p.join(timeout=600)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=30)
+        check([p.exitcode for p in procs] == [0] * world,
+              f"TP {job}: exit codes {[p.exitcode for p in procs]}")
+        return [torch.load(pathlib.Path(tmp) / f"rank{r}.pt", weights_only=False)
+                for r in range(world)]
+
+
+def serve_tp(smi: str, tp: int, ref: dict) -> tuple[dict[str, int], dict]:
+    """Phase (a) (TP 2, 36 layers) or (b) (TP 4, TP_DEPTH layers): the
+    server's TP ranks, each checked as the TP-1 path is (launches per
+    phase, the raw transfer exact, cache shapes at the local heads, vector
+    launches), then held together against ``ref``, the TP-1 run of the
+    same depth and seed: prefill logits within ``tp_logit_tol`` of the
+    largest TP-1 logit.  Returns the launches summed over the ranks and
+    what was measured."""
+    cfg = get_config(ARCH)
+    job = "serve2" if tp == 2 else "serve4"
+    ranks = _spawn_tp(job, tp)
+    depth = ranks[0]["layers"]
+    kl = cfg.local_q_heads(tp) if cfg.kv_replicated(tp) else cfg.padded_kv_heads(tp) // tp
+    label = f"TP {tp} ({depth} layers)"
+    total = dict.fromkeys(ranks[0]["counts"], 0)
+    for r, res in enumerate(ranks):
+        phases = res["launches"]
+        expect = {"prefill": {PATH_KERNEL[ARCH]: depth * res["prefills"]},
+                  "int8_transfer": {"quant_int8": 2 * res["int8_transfers"],
+                                    "dequant_int8": 2 * res["int8_transfers"]},
+                  "raw_transfer": {}, "decode": {}}
+        for phase, want in expect.items():
+            got = {k: n for k, n in phases[phase].items() if n}
+            check(got == want, f"{label} rank {r} {phase} launches {got}, expected {want}")
+        check(res["counts"] == {k: sum(p[k] for p in phases.values()) for k in res["counts"]},
+              f"{label} rank {r}: launches {res['counts']} against the phases {phases}")
+        check(all(res["vector"][k] == res["counts"][k] for k in res["vector"]),
+              f"{label} rank {r}: vector launches {res['vector']} of {res['counts']}")
+        leaf = [depth, BATCH, PROMPT, kl, cfg.head_dim]
+        check(res["cache_shapes"]["k"] == leaf == res["cache_shapes"]["v"],
+              f"{label} rank {r} cache {res['cache_shapes']}")
+        check(res["raw_transfer_exact"] and res["cache_finite"],
+              f"{label} rank {r}: raw transfer exact {res['raw_transfer_exact']}, cache "
+              f"finite {res['cache_finite']}")
+        check(torch.equal(torch.tensor(res["tokens"]), torch.tensor(ranks[0]["tokens"])),
+              f"{label}: rank {r} generated other tokens than rank 0")
+        for k, n in res["counts"].items():
+            total[k] += n
+    logits = torch.cat([res["prefill_logits"] for res in ranks], dim=-1)[:, :cfg.vocab_size]
+    want = ref["prefill_logits"]
+    diff = (logits - want).abs()
+    scale = want.abs().max().item()
+    check(bool(torch.isfinite(logits).all()), f"{label}: non-finite logits")
+    tol = tp_logit_tol(depth, tp)
+    check(diff.max().item() <= tol * scale,
+          f"{label}: prefill logits differ from TP 1 by {diff.max().item()} (scale {scale})")
+    tokens, ref_tokens = torch.tensor(ranks[0]["tokens"]), torch.tensor(ref["tokens"])
+    first = (tokens[:, 0] == ref_tokens[:, 0]).float().mean().item()
+    greedy = (tokens == ref_tokens).float().mean().item()
+    print(f"[tp] {label} against TP 1 at the same depth and seed: prefill logits max abs "
+          f"diff {diff.max().item():.4g}, mean {diff.mean().item():.4g} (tol {tol:.4g} x "
+          f"the largest TP-1 logit {scale:.4g} = {tol * scale:.4g}); first-token "
+          f"agreement {first:.4f}, greedy agreement over {GEN + 1} tokens {greedy:.4f}")
+    for r, res in enumerate(ranks):
+        print(f"[tp] [{smi}] {label} rank {r}, gloo TP group on one card: TTFT "
+              f"{res['ttft_ms']:.2f} ms, decode {res['decode_ms_per_step']:.2f} ms/step, int8 "
+              f"transfer of its {res['cache_bytes']} cache bytes {res['int8_transfer_ms']:.2f} "
+              f"ms, peak memory {res['peak_mem_gb']:.3f} GB, int8 token agreement "
+              f"{res['int8_token_agreement']:.4f}, raw transfer exact; launches by phase "
+              f"{ {p: {k: n for k, n in c.items() if n} for p, c in res['launches'].items()} }")
+    summary = {"logit_max_abs_diff": diff.max().item(), "logit_scale": scale,
+               "logit_tol": tol,
+               "first_token_agreement": first, "greedy_agreement": greedy,
+               "ranks": [{k: res[k] for k in ("ttft_ms", "decode_ms_per_step",
+                                              "int8_transfer_ms", "peak_mem_gb")}
+                         for res in ranks]}
+    return total, summary
+
+
+def train_tp(smi: str) -> dict[str, int]:
+    """Phase (c): hier + int8 on the f32 smoke model at TP 2, on the card
+    and on the CPU in the same two-rank world: losses and grad norms
+    within 1e-4 (relative), the finite gate open, and the codec and pack
+    kernels launched per step on each rank's own gradient segment."""
+    ranks = _spawn_tp("train", 2)
+    total = dict.fromkeys(ranks[0]["counts"], 0)
+    for r, res in enumerate(ranks):
+        want = res["want"]
+        for i, launched in enumerate(res["gpu"]["launches"]):
+            got = {k: launched[k] for k in want}
+            check(got == want, f"TP 2 training rank {r} step {i} launches {got}")
+        check(not any(launched[k] for launched in res["cpu"]["launches"] for k in launched),
+              f"TP 2 training rank {r}: the CPU steps launched kernels")
+        for (gl, gn, gg), (cl, cn, cg) in zip(res["gpu"]["metrics"], res["cpu"]["metrics"]):
+            check(not (gg or cg), f"TP 2 training rank {r}: the finite gate tripped")
+            err = max(abs(gl - cl) / abs(cl), abs(gn - cn) / abs(cn))
+            check(err < 1e-4, f"TP 2 training rank {r}: card {gl, gn} against CPU {cl, cn}")
+        check(all(abs(a - b) <= 1e-6 * abs(b) for m, m0 in zip(res["gpu"]["metrics"],
+                                                               ranks[0]["gpu"]["metrics"])
+                  for a, b in zip(m[:2], m0[:2])),
+              f"TP 2 training: rank {r}'s metrics differ from rank 0's")
+        for k, n in res["counts"].items():
+            total[k] += n
+    gm, cm = ranks[0]["gpu"]["metrics"], ranks[0]["cpu"]["metrics"]
+    err = max(max(abs(g[0] - c[0]) / abs(c[0]), abs(g[1] - c[1]) / abs(c[1]))
+              for g, c in zip(gm, cm))
+    print(f"[tp] [{smi}] TP 2 training, f32 smoke {ARCH}, hier + int8, {TP_TRAIN_STEPS} steps, "
+          f"gloo TP group on one card: losses {[f'{m[0]:.6f}' for m in gm]}, grad norms "
+          f"{[f'{m[1]:.6f}' for m in gm]}, max relative diff from the CPU's two-rank run "
+          f"{err:.3g} (tol 1e-4); launches per step and rank {ranks[0]['want']}")
+    return total
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -1640,6 +1867,15 @@ def main() -> int:
             free_memory()
             serve_profile[arch] = profile_serving(dev, smi, arch)
             free_memory()
+        # tensor parallelism: (a) TP 2 at full depth against the TP-1 run
+        # above, (b) TP 4 against TP 1 at TP_DEPTH layers, (c) TP 2 training
+        ref_depth = disaggregated.run(ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN, device=dev,
+                                      layers=TP_DEPTH)
+        free_memory()
+        tp_counts, tp_serve = {}, {}
+        for tp, ref in ((2, serve[ARCH]), (4, ref_depth)):
+            tp_counts[f"serve_tp{tp}"], tp_serve[f"tp{tp}"] = serve_tp(smi, tp, ref)
+        tp_counts["train_tp2"] = train_tp(smi)
         train = {}
         for mode, codec in TRAIN_RUNS:
             train[mode] = train_full_width(dev, smi, mode, codec)
@@ -1673,7 +1909,8 @@ def main() -> int:
     paths = {"serve": serve_counts[ARCH], "serve_mamba2": serve_counts[SSM_ARCH],
              **{f"train_{mode}": res["counts"] for mode, res in train.items()},
              "train_planned_entry": planned_entry["counts"],
-             "train_planned": planned_run["counts"], "conformance": conformance_counts}
+             "train_planned": planned_run["counts"], "conformance": conformance_counts,
+             **tp_counts}
     for name, row in rows.items():
         row["paths"] = {path: counts[name] for path, counts in paths.items()}
         row["launches"] = sum(row["paths"].values())
@@ -1718,7 +1955,7 @@ def main() -> int:
             "vector")} | {"launches": res["counts"],
                           "losses": [r["loss"] for r in res["records"]]}
             for name, res in (("entry", planned_entry), ("plan_world", planned_run))},
-        "train_profile": train_profile, "card": smi}))
+        "train_profile": train_profile, "serve_tp_gloo_one_card": tp_serve, "card": smi}))
     print(f"[time] chip_smoke: {time.perf_counter() - t_start:.1f} s from start to result")
     print(smi)
     print(json.dumps({"kernels": list(rows.values())}))

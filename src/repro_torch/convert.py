@@ -1,11 +1,16 @@
 """Load the JAX package's parameters into the port's ``Model``.
 
 ``params_from_jax`` takes the JAX param pytree as numpy arrays (for
-example ``jax.tree.map(np.asarray, params)``), with the layer leaves
-stacked on a leading (L, ...) axis, and returns a ``Model`` holding the
-same values: bf16 arrays are reinterpreted bit for bit.  With ``fsdp``
-> 1 the model shards its layer parameters over ``rt.fsdp_group`` and
-this rank keeps its slice of each global array (``Model.set_params``).
+example ``jax.tree.map(np.asarray, params)``), global as the reference
+draws them for the TP size of ``rt``, with the layer leaves stacked on a
+leading (L, ...) axis, and returns a ``Model`` holding the same values:
+bf16 arrays are reinterpreted bit for bit.  Each rank keeps its slice of
+every global array (``Model.set_params``): its TP shard over
+``rt.tp_group`` and, with ``fsdp`` > 1, its FSDP shard of that over
+``rt.fsdp_group``, the reference's addressable shard of the array under
+``NamedSharding(mesh, model.param_specs(...))``.  ``models.model.pad_vocab``
+turns a tree drawn at TP 1 into the tree of a larger TP size that
+computes the same function.
 """
 
 from __future__ import annotations

@@ -5,50 +5,111 @@ There is no device mesh: each process drives one device, and the roles
 of the mesh axes are ``torch.distributed`` groups.  The caller starts
 the process group (``init_process_group`` with an explicit store or
 address, world size and rank); ``runtime_for_groups`` either takes
-groups it is given or cuts the world into (pod, data) groups.
+groups it is given or cuts the world into (pod, data, model) groups.
 """
 
 from __future__ import annotations
 
+import itertools
+import os
+
+import torch
 import torch.distributed as dist
 
 from repro_torch.parallel.sharding import Runtime
 
 
+# --dist-backend: "nccl" sends CPU tensors through gloo and CUDA tensors
+# through NCCL; "gloo" sends both through gloo (staging CUDA tensors
+# through the host), which lets ranks share one card
+BACKENDS = {"nccl": "cpu:gloo,cuda:nccl", "gloo": "gloo"}
+
+
+def init_world(device: torch.device, backend: str | None = None) -> bool:
+    """Start the default process group unless one is running, and return
+    whether it started one.  The world comes from the usual environment
+    (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``, and
+    ``LOCAL_RANK`` for the card, else ``RANK``); without it a lone process
+    makes a world of one over an in-process store.  ``backend`` is a key
+    of ``BACKENDS``: "nccl" by default on the card, "gloo" on the CPU.
+    Nothing switches backend when one fails: NCCL refuses two ranks of one
+    communicator on one card, so a rank without a card of its own raises
+    here under "nccl", and shares the card under "gloo"."""
+    if dist.is_initialized():
+        return False
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    if backend == "nccl" and device.type != "cuda":
+        raise ValueError("the nccl backend needs device cuda")
+    if "WORLD_SIZE" in os.environ:
+        if device.type == "cuda":
+            local = int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", 0)))
+            cards = torch.cuda.device_count()
+            if backend == "nccl" and local >= cards:
+                raise RuntimeError(
+                    f"local rank {local} has no card of its own ({cards} visible): NCCL "
+                    f"cannot put two ranks of one communicator on one card; the gloo "
+                    f"backend can")
+            torch.cuda.set_device(local % cards)
+        dist.init_process_group(BACKENDS[backend], init_method="env://")
+    else:
+        dist.init_process_group(BACKENDS[backend], store=dist.HashStore(), rank=0,
+                                world_size=1)
+    return True
+
+
+def mesh_coords(rank: int, data_per_pod: int, tp: int) -> tuple[int, int, int]:
+    """(pod, data, model) of ``rank`` as ``jax.make_mesh((pods, data, model))``
+    lays out devices: rank = (pod * data_per_pod + data) * tp + model."""
+    return rank // (data_per_pod * tp), rank // tp % data_per_pod, rank % tp
+
+
 def runtime_for_groups(*, pod_group=None, tp_group=None, pods: int | None = None,
-                       data_per_pod: int | None = None, fsdp: bool = False) -> Runtime:
+                       data_per_pod: int | None = None, tp: int = 1, fsdp: bool = False,
+                       sp: bool = False) -> Runtime:
     """The Runtime for one process.
 
-    With ``pods`` and ``data_per_pod`` (model = 1) the current world of
-    ``pods * data_per_pod`` ranks is cut as the reference's mesh
-    (pod, data) lays out devices: rank r sits in pod r // data_per_pod at
-    data index r % data_per_pod.  Every rank builds every group (each
-    ``new_group`` is collective), and keeps its own pod group (the ranks
-    of its data index across pods) and data group (the ranks of its
-    pod); the data-parallel group is the whole world.  With ``fsdp``
-    the data group is also the FSDP group, as ``runtime_for_mesh(fsdp=True)``
-    makes the data axis the FSDP axis.  Groups of one
-    member are real groups, so a world of one still runs the pod hop and
-    its codec.  Otherwise the Runtime holds the given groups as they are
-    (``None`` is a group of one, no collective) and no data-parallel
-    group: ``pod_group`` is the ring the disaggregated KV transfer runs
-    over."""
+    With ``pods`` and ``data_per_pod`` the current world of ``pods *
+    data_per_pod * tp`` ranks is cut as the reference's (pod, data, model)
+    mesh lays out devices (``mesh_coords``).  Every rank builds every group
+    (each ``new_group`` is collective) and keeps its own: the TP group
+    (the ``tp`` consecutive ranks of its (pod, data) cell; none at tp 1),
+    the data group (its pod's ranks at its model index), the pod group
+    (the ranks of its (data, model) index across pods) and the
+    data-parallel group (every rank at its model index: the reference's
+    reductions over (pod, data) never cross model indices).  With
+    ``fsdp`` the data group is also the FSDP group, as
+    ``runtime_for_mesh(fsdp=True)`` makes the data axis the FSDP axis.
+    Groups of one member are real groups, so a world of one still runs
+    the pod hop and its codec.  Otherwise the Runtime holds the given
+    groups as they are (``None`` is a group of one, no collective) and no
+    data-parallel group: ``pod_group`` is the ring the disaggregated KV
+    transfer runs over."""
     if pods is None and data_per_pod is None:
-        return Runtime(tp_group=tp_group, pod_group=pod_group)
-    if pods is None or data_per_pod is None or pods < 1 or data_per_pod < 1:
-        raise ValueError(f"pods {pods} x data_per_pod {data_per_pod}")
+        return Runtime(tp_group=tp_group, pod_group=pod_group, sp=sp)
+    if pods is None or data_per_pod is None or min(pods, data_per_pod, tp) < 1:
+        raise ValueError(f"pods {pods} x data_per_pod {data_per_pod} x tp {tp}")
     world = dist.get_world_size()
-    if pods * data_per_pod != world:
-        raise ValueError(f"pods {pods} x data_per_pod {data_per_pod} != world {world}")
-    rank = dist.get_rank()
-    mine_pod = mine_data = None
-    for p in range(pods):
-        g = dist.new_group([p * data_per_pod + d for d in range(data_per_pod)])
-        if rank // data_per_pod == p:
-            mine_data = g
-    for d in range(data_per_pod):
-        g = dist.new_group([p * data_per_pod + d for p in range(pods)])
-        if rank % data_per_pod == d:
-            mine_pod = g
-    return Runtime(tp_group=tp_group, pod_group=mine_pod, data_group=mine_data,
-                   dp_group=dist.group.WORLD, fsdp_group=mine_data if fsdp else None)
+    if pods * data_per_pod * tp != world:
+        raise ValueError(f"pods {pods} x data_per_pod {data_per_pod} x tp {tp} "
+                         f"!= world {world}")
+    mine = mesh_coords(dist.get_rank(), data_per_pod, tp)
+    P, D, T = range(pods), range(data_per_pod), range(tp)
+
+    def rank(p, d, m):
+        return (p * data_per_pod + d) * tp + m
+
+    def cut(keys, members, own):
+        """One group per key, of the ranks ``members(key)``; returns this
+        rank's, the one of key ``own``."""
+        groups = {k: dist.new_group(members(*k)) for k in keys}
+        return groups[own]
+
+    p0, d0, m0 = mine
+    tp_group = (cut(itertools.product(P, D), lambda p, d: [rank(p, d, m) for m in T],
+                    (p0, d0)) if tp > 1 else None)
+    data = cut(itertools.product(P, T), lambda p, m: [rank(p, d, m) for d in D], (p0, m0))
+    pod = cut(itertools.product(D, T), lambda d, m: [rank(p, d, m) for p in P], (d0, m0))
+    dp = (dist.group.WORLD if tp == 1 else
+          cut(((m,) for m in T), lambda m: [rank(p, d, m) for p in P for d in D], (m0,)))
+    return Runtime(tp_group=tp_group, pod_group=pod, data_group=data, dp_group=dp,
+                   fsdp_group=data if fsdp else None, sp=sp)

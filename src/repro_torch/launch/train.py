@@ -9,12 +9,15 @@
     python -m repro_torch.launch.train --plan auto --skew auto --plan-cache plans.pkl
     python -m repro_torch.launch.train --mode hier --no-packed
     python -m repro_torch.launch.train --smoke --device cpu --steps 2
+    RANK=r WORLD_SIZE=8 MASTER_ADDR=localhost MASTER_PORT=29500 \
+        python -m repro_torch.launch.train --smoke --device cpu --pods 2 --tp 2
 
-Each process trains one replica on its slice of the global batch; the
-gradients meet through ``flat``, ``hier``, ``hier_pipelined`` (the pod
-hop in 4 chunks, as ``TrainConfig.n_chunks`` sets), ``hier_border_rs``,
-``hier_overlap`` (one AllReduceH per readiness-ordered gradient bucket of
-at most 64 MiB of f32, each fired inside the backward), ``hier_zero1``
+Each process trains one replica (or its TP shard of one) on its slice of
+the global batch; the gradients meet through ``flat``, ``hier``,
+``hier_pipelined`` (the pod hop in 4 chunks, as ``TrainConfig.n_chunks``
+sets), ``hier_border_rs``, ``hier_overlap`` (one AllReduceH per
+readiness-ordered gradient bucket of at most 64 MiB of f32, each fired
+inside the backward), ``hier_zero1``
 (ReduceScatterH into the ZeRO-1 flat-shard AdamW, whose f32 master and
 moments are bootstrapped from the drawn parameters; the reconstruction
 is the deferred AllGather) or ``fsdp`` (the layer parameters sharded
@@ -35,7 +38,11 @@ The world and this process's rank come from the usual
 ``MASTER_ADDR``, ``MASTER_PORT``); a lone process makes its own world
 of one over an in-process store, whose pod and data groups are real
 groups of one member, so the pod hop and its codec still run.  The
-world is cut into ``--pods`` pods of equal size, pod-major.
+world is cut into ``--pods`` pods x data x ``--tp`` model ranks, as the
+reference's (pod, data, model) mesh lays out devices; ``--sp`` adds
+sequence parallelism.  Each data-parallel index takes its slice of the
+batch, and the TP ranks of one index share it.  ``--dist-backend gloo``
+sends CUDA tensors through gloo, so that ranks can share one card.
 
 Weights are random, drawn from ``--seed``; the data is the synthetic
 zipf-ish stream of ``data/pipeline.py``.  Every ``--log-every`` steps a
@@ -49,7 +56,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import os
 import statistics
 import time
 
@@ -62,7 +68,7 @@ from repro_torch.core import cost_model, overlap, planner, topology
 from repro_torch.core import skew as skew_lib
 from repro_torch.data.pipeline import DataConfig, batches
 from repro_torch.kernels import ops
-from repro_torch.launch.mesh import runtime_for_groups
+from repro_torch.launch.mesh import BACKENDS, init_world, mesh_coords, runtime_for_groups
 from repro_torch.models.model import Model, resolve_device
 from repro_torch.parallel.sharding import group_size
 from repro_torch.train.optimizer import OptConfig
@@ -70,23 +76,6 @@ from repro_torch.train.train_step import TrainConfig, make_train_step
 
 MODES = ("flat", "hier", "hier_pipelined", "hier_border_rs", "hier_overlap",
          "hier_zero1", "fsdp")
-
-
-def init_world(device: torch.device) -> bool:
-    """Start the default process group unless one is running.  Returns
-    whether it started one.  On the GPU one group serves CPU tensors
-    through gloo and CUDA tensors through NCCL."""
-    if dist.is_initialized():
-        return False
-    backend = "cpu:gloo,cuda:nccl" if device.type == "cuda" else "gloo"
-    if "WORLD_SIZE" in os.environ:
-        if device.type == "cuda":
-            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
-        dist.init_process_group(backend, init_method="env://")
-    else:
-        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
-                                world_size=1)
-    return True
 
 
 def _sync(device: torch.device) -> None:
@@ -106,6 +95,16 @@ class Planned:
     cache: dict | None = None
 
 
+def dp_rows(rank: int, global_batch: int, pods: int, data_per_pod: int, tp: int) -> slice:
+    """The rows of the global batch ``rank`` trains on: the batch is split
+    over the data-parallel index (pod-major, pod * data_per_pod + data) and
+    shared by the TP ranks of an index, as the reference shards it over
+    (pod, data) and replicates it over model."""
+    pod, data, _ = mesh_coords(rank, data_per_pod, tp)
+    index, per = pod * data_per_pod + data, global_batch // (pods * data_per_pod)
+    return slice(index * per, (index + 1) * per)
+
+
 def n_train_leaves(cfg) -> int:
     """The number of ``Model.train_leaves()`` of ``cfg`` (the reference's
     stacked leaves), from the parameters' shapes alone: drawn under
@@ -117,17 +116,19 @@ def n_train_leaves(cfg) -> int:
 def make_plan(cfg, pods: int, world: int, mode: str, compression: str | None,
               plan: str = "manual", skew: str = "none", plan_cache: str | None = None,
               packed: bool = True, global_batch: int = 4, seq: int = 1024,
-              log=print) -> Planned:
+              tp: int = 1, log=print) -> Planned:
     """The planning block of the JAX package's launcher: ``--plan auto``
     and ``--skew auto`` priced on ``topology.tpu_multipod(pods, world //
     pods)``, with a pod axis only if ``pods > 1``, as the reference prices
-    its mesh; then its mode override and its per-leaf fallback.  The MoE
-    All2All plan is not ported."""
+    its mesh; then its mode override and its per-leaf fallback.  ``world``
+    counts every rank, TP ranks included; each syncs the gradients of its
+    own TP shard, a ``tp``-th of the parameters.  The MoE All2All plan is
+    not ported."""
     plan_obj = cluster_weights = stats = None
     if plan == "auto" or skew == "auto":
         n_pods = max(1, pods)
         topo = topology.tpu_multipod(n_pods, world // n_pods)
-        grad_bytes = max(1, cfg.param_count() * 4)
+        grad_bytes = max(1, cfg.param_count() * 4 // tp)
         allowed = (None, compression) if compression else (None, "bf16")
         cache = (planner.PlanCache(path=plan_cache) if plan_cache
                  else planner.default_plan_cache())
@@ -218,7 +219,7 @@ def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, steps: int = 4,
         log_every: int = 1, seed: int = 0, pods: int = 1, device="cuda",
         plan: str = "manual", skew: str = "none", plan_cache: str | None = None,
         packed: bool = True, plan_world: tuple[int, int] | None = None,
-        log=print) -> dict:
+        tp: int = 1, sp: bool = False, log=print) -> dict:
     """Train ``steps`` steps in the running process group and return what
     was measured.  Step times are host wall-clock around work that ends
     in a device synchronize.  ``plan``, ``skew``, ``plan_cache`` and
@@ -229,9 +230,12 @@ def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, steps: int = 4,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     world, rank = dist.get_world_size(), dist.get_rank()
-    if world % pods or global_batch % world:
-        raise ValueError(f"world {world}, pods {pods}, global batch {global_batch}")
-    rt = runtime_for_groups(pods=pods, data_per_pod=world // pods, fsdp=mode == "fsdp")
+    n_dp = world // tp
+    if world % (pods * tp) or global_batch % n_dp:
+        raise ValueError(f"world {world}, pods {pods}, tp {tp}, global batch {global_batch}")
+    data_per_pod = n_dp // pods
+    rt = runtime_for_groups(pods=pods, data_per_pod=data_per_pod, tp=tp,
+                            fsdp=mode == "fsdp", sp=sp)
     cfg = get_config(arch, smoke=smoke)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -241,7 +245,7 @@ def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, steps: int = 4,
     plan_pods, per_pod = plan_world or (pods, world // pods)
     planned = make_plan(cfg, plan_pods, plan_pods * per_pod, mode, compression, plan=plan,
                         skew=skew, plan_cache=plan_cache, packed=packed,
-                        global_batch=global_batch, seq=seq, log=log)
+                        global_batch=global_batch, seq=seq, tp=tp, log=log)
     tcfg = TrainConfig(comm_mode=planned.mode, dcn_compression=compression,
                        plan=planned.plan, cluster_weights=planned.cluster_weights,
                        packed=planned.packed, opt=OptConfig(lr=lr, warmup_steps=20))
@@ -250,7 +254,7 @@ def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, steps: int = 4,
     n_params = sum(p.numel() for p in model.parameters())
     dcfg = DataConfig(vocab_size=cfg.vocab_size, global_batch=global_batch,
                       seq_len=seq, seed=seed)
-    rows = slice(rank * (global_batch // world), (rank + 1) * (global_batch // world))
+    rows = dp_rows(rank, global_batch, pods, data_per_pod, tp)
     records = []
     for step, batch in batches(dcfg):
         if step >= steps:
@@ -272,7 +276,8 @@ def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, steps: int = 4,
     timed = [r["ms_per_step"] for r in records[1:]] or [records[0]["ms_per_step"]]
     step_ms = statistics.median(timed)
     return {
-        "arch": cfg.name, "device": str(device), "world": world, "pods": pods,
+        "arch": cfg.name, "device": str(device), "world": world, "pods": pods, "tp": tp,
+        "sp": sp, "rank": rank,
         "mode": planned.mode, "compression": compression, "packed": planned.packed,
         "plan": None if planned.plan is None else planned.plan.summary(),
         "plan_cache": planned.cache,
@@ -296,6 +301,11 @@ def main(argv=None) -> None:
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--log-every", type=int, default=1)
     ap.add_argument("--pods", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1, help="tensor-parallel ranks per replica")
+    ap.add_argument("--sp", action="store_true", help="sequence parallelism (with --tp)")
+    ap.add_argument("--dist-backend", default=None, choices=list(BACKENDS),
+                    help="nccl (the default on the card) or gloo (the CPU's, and "
+                         "ranks sharing one card)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--plan", default="manual", choices=["manual", "auto"],
@@ -311,14 +321,15 @@ def main(argv=None) -> None:
                     help="the per-leaf data path in place of the packed layout")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
-    started = init_world(device)
+    started = init_world(device, args.dist_backend)
     try:
         res = run(args.arch, smoke=args.smoke, steps=args.steps, mode=args.mode,
                   compression=args.compression,
                   global_batch=args.global_batch, seq=args.seq, lr=args.lr,
                   log_every=args.log_every, seed=args.seed, pods=args.pods,
                   device=device, plan=args.plan, skew=args.skew,
-                  plan_cache=args.plan_cache, packed=not args.no_packed)
+                  plan_cache=args.plan_cache, packed=not args.no_packed, tp=args.tp,
+                  sp=args.sp)
     finally:
         if started:
             dist.destroy_process_group()

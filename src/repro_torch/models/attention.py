@@ -1,7 +1,11 @@
 """GQA attention: training, prefill (writes the KV cache) and decode.
 
-Parameters, as in the JAX package: ``wq (D, H*dh)``, ``wk/wv (D, K*dh)``,
-``wo (H*dh, D)``, optional ``bq/bk/bv``.  Prefill attention goes through
+Parameters, as in the JAX package, hold this rank's TP shard:
+``wq (D, Hl*dh)``, ``wk/wv (D, Kl*dh)``, ``wo (Hl*dh, D)``, optional
+``bq/bk/bv``.  Q heads are padded to a multiple of the TP size; when
+there are fewer KV heads than TP ranks every rank holds all of them and
+gathers, per local Q head, the one it uses (replicated-KV GQA), and the
+cache keeps that gathered layout.  Prefill attention goes through
 the flash kernel (``kernels/ops.flash_attention``) with a plain integer
 offset; short prompts and decode use plain PyTorch, as the reference
 does.
@@ -31,7 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
-from repro_torch.parallel.sharding import Runtime, copy_to_tp, reduce_from_tp
+from repro_torch.parallel.sharding import Runtime, copy_to_tp, reduce_from_tp, tp_entry_group
 from . import layers
 
 NEG_INF = -1e30
@@ -76,8 +80,18 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, tp: int, dtype) -> di
     return p
 
 
+def _kv_map_for_local_q(cfg: ModelConfig, rt: Runtime) -> torch.Tensor:
+    """Replicated-KV path: the KV head each local Q head uses.  Global Q
+    head h takes KV head h * K // Hp (phantom heads wrap to the last)."""
+    tp = rt.tp
+    hl, hp, K = cfg.local_q_heads(tp), cfg.padded_heads(tp), cfg.n_kv_heads
+    qh = rt.tp_rank * hl + torch.arange(hl)
+    return torch.clamp(qh * K // hp, 0, K - 1)
+
+
 def _project_qkv(p, xq, xkv, cfg: ModelConfig, rt: Runtime):
-    """q (B,Sq,H,dh) and k/v (B,Skv,K,dh)."""
+    """q (B,Sq,Hl,dh) and k/v (B,Skv,Kl,dh), Hl % Kl == 0 after the
+    replicated-KV gather."""
     dh = cfg.head_dim
     q = xq @ p["wq"]
     k = xkv @ p["wk"]
@@ -88,6 +102,9 @@ def _project_qkv(p, xq, xkv, cfg: ModelConfig, rt: Runtime):
     q = q.reshape(B, Sq, -1, dh)
     k = k.reshape(B, Skv, -1, dh)
     v = v.reshape(B, Skv, -1, dh)
+    if rt.tp_group is not None and cfg.kv_replicated(rt.tp):
+        kv_map = _kv_map_for_local_q(cfg, rt).to(k.device)
+        k, v = k.index_select(2, kv_map), v.index_select(2, kv_map)
     return q, k, v
 
 
@@ -156,9 +173,10 @@ def chunked_attention(q, k, v, *, causal: bool, window: int | None,
 
 
 def attention_train(p, x, cfg: ModelConfig, rt: Runtime, *,
-                    causal: bool = True) -> torch.Tensor:
-    """Full-sequence self-attention for training, x: (B, S, D)."""
-    x = copy_to_tp(x, rt.tp_group)
+                    causal: bool = True, reduce: bool = True) -> torch.Tensor:
+    """Full-sequence self-attention for training, x: (B, S, D);
+    ``reduce=False`` returns the row-parallel partial sums."""
+    x = copy_to_tp(x, tp_entry_group(rt))
     q, k, v = _project_qkv(p, x, x, cfg, rt)
     B, S = x.shape[0], x.shape[1]
     pos = torch.arange(S, device=x.device)[None, :]
@@ -169,7 +187,7 @@ def attention_train(p, x, cfg: ModelConfig, rt: Runtime, *,
     else:
         out = sdpa_reference(q, k, v, causal=causal, window=cfg.sliding_window)
     out = out.reshape(B, S, -1) @ p["wo"]
-    return reduce_from_tp(out, rt.tp_group)
+    return reduce_from_tp(out, rt.tp_group) if reduce else out
 
 
 def _attn_core(q, k, v, cfg: ModelConfig) -> torch.Tensor:
@@ -240,8 +258,13 @@ def attention_decode(p, x, cfg: ModelConfig, rt: Runtime, cache: KVCache):
 def make_cache(cfg: ModelConfig, n_layers: int, batch: int, tp: int,
                seq_len: int, dtype, device) -> KVCache:
     """An empty KV cache, stacked over layers: (L, B, W, kl, dh) for k and
-    v and (L,) for the length, the layout the transfer moves."""
-    kl = max(1, cfg.padded_kv_heads(tp) // max(1, tp))
+    v and (L,) for the length, the layout the transfer moves.  kl is the
+    local KV shard, or with replicated KV the local Q heads (the gathered
+    layout)."""
+    if cfg.kv_replicated(tp):
+        kl = cfg.local_q_heads(tp)
+    else:
+        kl = max(1, cfg.padded_kv_heads(tp) // max(1, tp))
     W = seq_len if cfg.sliding_window is None else min(cfg.sliding_window, seq_len)
     shape = (n_layers, batch, W, kl, cfg.head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),

@@ -13,7 +13,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.parallel.sharding import Runtime, copy_to_tp, reduce_from_tp
+from repro_torch.parallel.sharding import Runtime, copy_to_tp, reduce_from_tp, tp_entry_group
 
 
 def init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype,
@@ -85,12 +85,23 @@ def init_embedding(gen: torch.Generator, vocab_padded: int, d: int, dtype) -> to
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor, rt: Runtime) -> torch.Tensor:
-    return reduce_from_tp(table[ids], rt.tp_group)
+    """Vocab-sharded lookup: each rank holds rows [r * Vl, (r + 1) * Vl)
+    of the table, takes the ids that fall there, zeroes the rest, and the
+    rows meet in a sum over the TP group."""
+    if rt.tp_group is None:
+        return table[ids]
+    vl = table.shape[0]
+    local = ids - rt.tp_rank * vl
+    ok = (local >= 0) & (local < vl)
+    emb = table[torch.where(ok, local, 0)]
+    emb = torch.where(ok[..., None], emb, torch.zeros((), dtype=emb.dtype, device=emb.device))
+    return reduce_from_tp(emb, rt.tp_group)
 
 
 def lm_head_logits(x: torch.Tensor, table: torch.Tensor, rt: Runtime) -> torch.Tensor:
-    """Logits (B, S, V) in f32.  As in the reference, the whole table is
-    cast to f32 on every call (151936 x 2048 for qwen2.5-3b: 1.24 GB)."""
+    """Vocab-sharded logits (B, S, Vl) in f32.  As in the reference, the
+    local table is cast to f32 on every call (151936 x 2048 for
+    qwen2.5-3b at TP 1: 1.24 GB)."""
     x = copy_to_tp(x, rt.tp_group)
     return x.float() @ table.float().T
 
@@ -105,7 +116,10 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, dtype) -> dict:
             "w_down": init_dense(gen, d_ff, d, dtype)}
 
 
-def apply_mlp(p, x: torch.Tensor, rt: Runtime) -> torch.Tensor:
-    x = copy_to_tp(x, rt.tp_group)
+def apply_mlp(p, x: torch.Tensor, rt: Runtime, reduce: bool = True) -> torch.Tensor:
+    """Column-parallel gate and up, row-parallel down; ``reduce=False``
+    returns the partial sums (sequence parallelism reduce-scatters them)."""
+    x = copy_to_tp(x, tp_entry_group(rt))
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-    return reduce_from_tp(h @ p["w_down"], rt.tp_group)
+    out = h @ p["w_down"]
+    return reduce_from_tp(out, rt.tp_group) if reduce else out

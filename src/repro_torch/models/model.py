@@ -11,11 +11,15 @@ in the reference, so the transfer cuts the same int8 blocks: a
 ``SSMState`` of (L, B, W-1, ch) conv and (L, B, h, p, n) ssm leaves for
 the SSM family, each with an (L,) length.
 
-FSDP (``with_fsdp(n)``, before ``init`` or ``set_params``): the layer
-parameters are sharded over ``rt.fsdp_group`` by the reference's rules
-(``param_specs``, from the global stacked (L, ...) shapes), each rank
-keeping its slice of every layer tensor along the chosen dim, and each
-layer gathers them before it runs (``fsdp_dims``).
+Tensor parallelism (``rt.tp_group``): each rank keeps its slice of every
+global parameter along the dim the reference's rules (``param_specs``)
+shard over "model", and caches hold the local heads.  FSDP
+(``with_fsdp(n)``, before ``init`` or ``set_params``): the layer
+parameters are also sharded over ``rt.fsdp_group`` along the dim the
+rules give "data" (never the TP dim or the stacked-layer dim), and each
+layer gathers them before it runs (``fsdp_dims``).  Under sequence
+parallelism (``rt.sp``) the decoder stack runs on this rank's shard of
+the sequence.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch.distributed as dist
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.parallel.sharding import Runtime, fsdp_dim, fsdp_gather, group_size
+from repro_torch.parallel.sharding import Runtime, fsdp_dim, fsdp_gather, gather_sp
 from . import attention, layers, ssm, transformer
 
 
@@ -116,6 +120,20 @@ def param_specs(params: dict, cfg: ModelConfig, tp: int = 1, fsdp: int = 1) -> d
     return specs
 
 
+def pad_vocab(params: dict, cfg: ModelConfig, tp: int) -> dict:
+    """A global param tree with the TP-1 vocabulary as the tree of TP
+    ``tp`` that computes the same function: the embedding (and the LM
+    head) gain zero rows up to ``padded_vocab(tp)``, which every logit
+    masks and no id looks up.  Heads padded for ``tp`` would change the
+    GQA grouping, so a configuration whose heads need padding raises."""
+    if (cfg.padded_heads(tp), cfg.padded_kv_heads(tp)) != (cfg.n_heads, cfg.n_kv_heads):
+        raise ValueError(f"{cfg.name}: {cfg.n_heads} Q / {cfg.n_kv_heads} KV heads need "
+                         f"padding at TP {tp}, which changes the function")
+    rows = cfg.padded_vocab(tp)
+    return {k: torch.nn.functional.pad(v, (0, 0, 0, rows - v.shape[0]))
+            if k in _VOCAB and v.shape[0] < rows else v for k, v in params.items()}
+
+
 def _paths(tree, prefix: tuple = ()):
     """(path, tensor) of every tensor of a nested dict, keys sorted."""
     for key in sorted(tree):
@@ -149,12 +167,10 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, rt: Runtime | None = None,
                  device="cuda"):
         super().__init__()
-        if cfg.family not in transformer.PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} ({cfg.name}) is not ported yet")
         self.cfg = cfg
         self.rt = rt if rt is not None else Runtime()
-        self.tp = group_size(self.rt.tp_group)
+        self.tp = self.rt.tp
+        transformer.check_ported(cfg, self.tp)
         self.fsdp = 1
         self.init_device = resolve_device(device)
 
@@ -167,10 +183,15 @@ class Model(nn.Module):
     # ------------------------------------------------------------- init --
 
     def init(self, seed: int = 0) -> "Model":
+        """Draw the global parameters from ``seed`` and keep this rank's
+        shards.  The vocabulary is drawn at its TP-1 padding and padded
+        with zero rows to this TP size's (``pad_vocab``), so a seed gives
+        the same function at every TP size; a TP size whose heads need
+        padding raises."""
         cfg, tp, dtype = self.cfg, self.tp, self.cfg.dtype
         gen = torch.Generator(device=self.init_device)
         gen.manual_seed(seed)
-        params = {"embed": layers.init_embedding(gen, cfg.padded_vocab(tp),
+        params = {"embed": layers.init_embedding(gen, cfg.padded_vocab(1),
                                                  cfg.d_model, dtype),
                   "layers": [transformer.init_layer(gen, cfg, tp, dtype)
                              for _ in range(cfg.n_layers)],
@@ -178,30 +199,42 @@ class Model(nn.Module):
                                                  self.init_device)}
         if not cfg.tie_embeddings:
             params["lm_head"] = layers.init_embedding(
-                gen, cfg.padded_vocab(tp), cfg.d_model, dtype)
-        return self.set_params(params)
+                gen, cfg.padded_vocab(1), cfg.d_model, dtype)
+        return self.set_params(pad_vocab(params, cfg, tp))
 
     def set_params(self, params: dict) -> "Model":
-        """Take a param tree (dicts of tensors, ``layers`` a list of
-        per-layer trees) as the model's parameters.  With FSDP the layer
-        tensors are the global ones: each rank keeps its slice."""
+        """Take a global param tree (dicts of tensors, ``layers`` a list of
+        per-layer trees, shaped for this TP size) as the model's
+        parameters: each rank keeps its TP slice and, with FSDP, its FSDP
+        slice of that."""
         self._specs = param_specs(params, self.cfg, self.tp, self.fsdp)
         # the local gather dim of each layer leaf (its leading L consumed)
         dims = {path[1:]: spec.index("data") - 1 if "data" in spec else -1
                 for path, spec in self._specs.items() if path[0] == "layers"}
         self._fdims = _nested(dims)
-        layer_trees = params["layers"]
-        if self.fsdp > 1:
-            rank = dist.get_rank(self.rt.fsdp_group)
-            layer_trees = [_nested({path: t if dims[path] < 0 else
-                                    t.chunk(self.fsdp, dims[path])[rank].clone()
-                                    for path, t in _paths(lp)})
-                           for lp in layer_trees]
-        self.embed = nn.Parameter(params["embed"], requires_grad=False)
-        self.layers = nn.ModuleList(_to_module(lp) for lp in layer_trees)
-        self.final_norm = _to_module(params["final_norm"])
+        ranks = {"model": (self.tp, self.rt.tp_rank),
+                 "data": (self.fsdp, dist.get_rank(self.rt.fsdp_group) if self.fsdp > 1 else 0)}
+
+        def local(spec: tuple, t: torch.Tensor, stacked: bool) -> torch.Tensor:
+            out = t
+            for axis, (n, r) in ranks.items():
+                if axis in spec:
+                    out = out.chunk(n, spec.index(axis) - stacked)[r]
+            return t if out is t else out.clone(memory_format=torch.contiguous_format)
+
+        def tree(node, prefix: tuple, stacked: bool):
+            if isinstance(node, torch.Tensor):
+                return local(self._specs[prefix], node, stacked)
+            return {k: tree(v, prefix + (k,), stacked) for k, v in node.items()}
+
+        self.embed = nn.Parameter(tree(params["embed"], ("embed",), False),
+                                  requires_grad=False)
+        self.layers = nn.ModuleList(_to_module(tree(lp, ("layers",), True))
+                                    for lp in params["layers"])
+        self.final_norm = _to_module(tree(params["final_norm"], ("final_norm",), False))
         if "lm_head" in params:
-            self.lm_head = nn.Parameter(params["lm_head"], requires_grad=False)
+            self.lm_head = nn.Parameter(tree(params["lm_head"], ("lm_head",), False),
+                                        requires_grad=False)
         return self
 
     @property
@@ -267,13 +300,18 @@ class Model(nn.Module):
         return leaves
 
     def apply_train(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) -> logits (B, S, V) f32, differentiable in the
-        parameters."""
+        """tokens (B, S) -> vocab-sharded logits (B, S, Vl) f32,
+        differentiable in the parameters."""
         cfg, rt = self.cfg, self.rt
+        sp = rt.sp and rt.tp_group is not None
         x = layers.embed_lookup(self.embed, tokens, rt)
+        if sp:
+            x = transformer.scatter_from_full(x, rt)
         x = transformer.decoder_stack(self.layers, x, cfg, rt,
                                       self.fsdp_dims() if self.fsdp > 1 else None)
         x = layers.apply_norm(self.final_norm, x, cfg.norm)
+        if sp:
+            x = gather_sp(x, rt.tp_group)
         return layers.lm_head_logits(x, self._head(), rt)
 
     # --------------------------------------------------------- serving --
@@ -319,7 +357,8 @@ class Model(nn.Module):
 
     @torch.inference_mode()
     def apply_prefill(self, tokens: torch.Tensor, max_len: int | None = None):
-        """tokens (B, S) -> (last-token logits (B, 1, V) f32, caches).
+        """tokens (B, S) -> (last-token vocab-sharded logits (B, 1, Vl) f32,
+        caches).
         ``max_len`` sizes the KV cache (>= S) to leave decode headroom."""
         cfg, rt = self.cfg, self.rt
         B, S = tokens.shape
@@ -332,7 +371,7 @@ class Model(nn.Module):
 
     @torch.inference_mode()
     def apply_decode(self, token: torch.Tensor, caches):
-        """One decode step, token (B, 1) -> (logits (B, 1, V) f32, caches);
+        """One decode step, token (B, 1) -> (logits (B, 1, Vl) f32, caches);
         ``caches`` is updated in place and returned."""
         cfg, rt = self.cfg, self.rt
         x = layers.embed_lookup(self.embed, token, rt)

@@ -4,14 +4,23 @@ the JAX package's mesh axis names.
 ``Runtime`` carries one ``torch.distributed`` process group per role
 (``None`` is a group of one): tensor parallel ("model"), the cluster
 ("pod"), the intra-cluster data-parallel group ("data") and the group
-of every data-parallel rank (the reference's ``dp_axes``, pod x data),
-and the group the FSDP shards of the layer parameters live on
-(``fsdp_group``, the data group when FSDP is on).  The MoE knobs come
-with their slice.  ``copy_to_tp``/``reduce_from_tp`` mark
-the edges of a tensor-parallel region as in the JAX package; at a TP
-group of one they are the identity, and tensor parallelism across
-processes is not ported yet, so a larger group raises.  Kernels are chosen by the
-device of the tensor they get, so there is no ``use_pallas`` switch.
+of every data-parallel rank that shares this rank's model index (the
+reference's ``dp_axes``, pod x data), and the group the FSDP shards of
+the layer parameters live on (``fsdp_group``, the data group when FSDP
+is on); ``sp`` turns on Megatron sequence parallelism.  The MoE knobs
+come with their slice.  Kernels are chosen by the device of the tensor
+they get, so there is no ``use_pallas`` switch.
+
+The collectives below carry the reference's autodiff semantics.  Its
+model code runs inside ``shard_map`` without replication checks, where
+every device differentiates its own copy of the loss and a raw
+collective transposes to its mirror: ``psum`` to ``psum``, a tiled
+``all_gather`` to ``psum_scatter`` and back.  ``copy_to_tp`` and
+``reduce_from_tp`` override that with custom VJPs (forward identity /
+backward sum, forward sum / backward identity).  Each is a
+``torch.autograd.Function`` here, so every rank's backward issues the
+same collectives the reference's transposes do.  With a group of
+``None`` each is the identity.
 """
 
 from __future__ import annotations
@@ -32,6 +41,15 @@ class Runtime:
     data_group: Any = None          # intra-cluster data-parallel group ("data")
     dp_group: Any = None            # every data-parallel rank (pod x data)
     fsdp_group: Any = None          # FSDP shard group ("data"), or None: no FSDP
+    sp: bool = False                # Megatron sequence parallelism
+
+    @property
+    def tp(self) -> int:
+        return group_size(self.tp_group)
+
+    @property
+    def tp_rank(self) -> int:
+        return 0 if self.tp_group is None else dist.get_rank(self.tp_group)
 
 
 def group_size(group) -> int:
@@ -39,23 +57,73 @@ def group_size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
-def _single(group, what: str) -> None:
-    if group_size(group) != 1:
-        raise NotImplementedError(
-            f"{what} over a tensor-parallel group larger than one is not "
-            f"ported yet")
+def _summed(x: torch.Tensor, group) -> torch.Tensor:
+    """A new tensor: ``x`` summed over ``group``."""
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+class _CopyToTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return _summed(g, ctx.group), None
+
+
+class _ReduceFromTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        return _summed(x, group)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g, None
 
 
 def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
-    """Entry of a TP region (forward identity)."""
-    _single(group, "copy_to_tp")
-    return x
+    """Entry of a TP region: forward identity, backward sum over ``group``
+    (each shard consumes the same x; their cotangents add up)."""
+    return x if group is None else _CopyToTp.apply(x, group)
 
 
 def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
-    """Exit of a row-parallel product (forward sum over the TP group)."""
-    _single(group, "reduce_from_tp")
-    return x
+    """Exit of a row-parallel product: forward sum over ``group``,
+    backward identity."""
+    return x if group is None else _ReduceFromTp.apply(x, group)
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """A raw ``lax.psum`` of the reference: forward sum over ``group``,
+    and, as its transpose under ``shard_map`` without replication checks,
+    backward sum too (``reduce_from_tp``'s forward, ``copy_to_tp``'s
+    backward)."""
+    return copy_to_tp(reduce_from_tp(x, group), group)
+
+
+def tp_entry_group(rt: Runtime):
+    """The group for ``copy_to_tp`` at a TP-region entry.  Under sequence
+    parallelism the gather/scatter pair already carries the reduction
+    (``gather_sp``'s backward is a reduce-scatter); the copy's backward
+    sum on top would count the gradient tp times, so SP drops it."""
+    return None if rt.sp else rt.tp_group
+
+
+def gather_sp(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """Sequence parallelism: (B, S/t, D) -> (B, S, D), a tiled all-gather
+    along ``dim`` whose backward is the reduce-scatter (sum)."""
+    return x if group is None else _Gather.apply(x, dim, group)
+
+
+def scatter_sp(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """Sequence parallelism: partial sums (B, S, D) -> this rank's reduced
+    (B, S/t, D), a reduce-scatter along ``dim`` whose backward is the
+    tiled all-gather."""
+    return x if group is None else _Scatter.apply(x, dim, group)
 
 
 # ---------------------------------------------------------------------------
@@ -88,26 +156,49 @@ def _to_front(x: torch.Tensor, dim: int) -> torch.Tensor:
     return x.movedim(dim, 0).contiguous()
 
 
-class _FsdpGather(torch.autograd.Function):
-    """Tiled all-gather along ``dim`` over ``group``, in group-rank order;
-    its backward is the reduce-scatter (sum) of the cotangent along the
-    same dim, as the reference's all_gather transposes to psum_scatter.
-    The collectives run on dim 0: another dim is moved to the front."""
+def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Tiled all-gather along ``dim``, in group-rank order; the collective
+    runs on dim 0 (another dim is moved to the front)."""
+    front = _to_front(x, dim)
+    out = front.new_empty((group_size(group) * front.shape[0],) + front.shape[1:])
+    dist.all_gather_into_tensor(out, front, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Reduce-scatter (sum) along ``dim``: this rank's 1/n slice of the sum."""
+    front = _to_front(x, dim)
+    out = front.new_empty((front.shape[0] // group_size(group),) + front.shape[1:])
+    dist.reduce_scatter_tensor(out, front, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+class _Gather(torch.autograd.Function):
+    """Tiled all-gather whose backward is the reduce-scatter of the
+    cotangent along the same dim, as the reference's all_gather
+    transposes to psum_scatter."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, dim: int, group) -> torch.Tensor:
         ctx.dim, ctx.group = dim, group
-        front = _to_front(x, dim)
-        out = front.new_empty((group_size(group) * front.shape[0],) + front.shape[1:])
-        dist.all_gather_into_tensor(out, front, group=group)
-        return out.movedim(0, dim).contiguous()
+        return _all_gather(x, dim, group)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        front = _to_front(g, ctx.dim)
-        out = front.new_empty((front.shape[0] // group_size(ctx.group),) + front.shape[1:])
-        dist.reduce_scatter_tensor(out, front, group=ctx.group)
-        return out.movedim(0, ctx.dim).contiguous(), None, None
+        return _reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+
+class _Scatter(torch.autograd.Function):
+    """Reduce-scatter whose backward is the tiled all-gather."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, dim: int, group) -> torch.Tensor:
+        ctx.dim, ctx.group = dim, group
+        return _reduce_scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return _all_gather(g, ctx.dim, ctx.group), None, None
 
 
 def fsdp_gather(params: Any, dims: Any, group) -> Any:
@@ -120,5 +211,5 @@ def fsdp_gather(params: Any, dims: Any, group) -> Any:
     if group is None:
         return params
     if isinstance(params, torch.Tensor):
-        return params if dims < 0 else _FsdpGather.apply(params, dims, group)
+        return params if dims < 0 else _Gather.apply(params, dims, group)
     return {k: fsdp_gather(v, dims[k], group) for k, v in params.items()}

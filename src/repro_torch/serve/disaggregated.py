@@ -8,27 +8,36 @@ raw transfer must reproduce same-side generation token for token; the
 int8 transfer reports its token agreement.  Weights are random, drawn
 from ``--seed``.
 
-It runs in one process, so the pod group has one member: the
-permutation is the identity and only the codec kernels run on the
-transfer (``kv_transfer_body`` shifts over a real pod group).
+It runs as one pod, so the pod group has one member: the permutation is
+the identity and only the codec kernels run on the transfer
+(``kv_transfer_body`` shifts over a real pod group).  With ``--tp N`` the
+pod is N tensor-parallel ranks, one process each, from the usual
+``RANK``/``WORLD_SIZE``/``MASTER_*`` environment: every rank prefills,
+moves and decodes its own shard of the cache, and prints its own line.
 
     python -m repro_torch.serve.disaggregated                  # qwen2.5-3b on the GPU
     python -m repro_torch.serve.disaggregated --arch mamba2-2.7b
     python -m repro_torch.serve.disaggregated --smoke --device cpu
+    RANK=r WORLD_SIZE=2 MASTER_ADDR=localhost MASTER_PORT=29500 \
+        python -m repro_torch.serve.disaggregated --tp 2
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import BACKENDS, init_world, runtime_for_groups
 from repro_torch.models.model import Model, resolve_device
 from repro_torch.serve.serve_step import make_kv_transfer, make_serve_steps
+from repro_torch.train.loss import sharded_argmax
 
 
 def _sync(device: torch.device) -> None:
@@ -64,16 +73,25 @@ def _generate(decode, token, caches, steps: int) -> torch.Tensor:
 
 def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, batch: int = 4,
         prompt_len: int = 1024, gen: int = 16, seed: int = 0,
-        device="cuda") -> dict:
+        device="cuda", tp: int = 1, layers: int | None = None) -> dict:
     """Serve one batch end to end and return what it measured.  One
-    warm-up prefill and transfer run first (the kernels build then).
-    Times are host wall-clock around work that ends in a device
-    synchronize."""
+    warm-up prefill and transfer run first (the kernels build then); the
+    warm-up's last-token logits (this rank's vocabulary shard) come back
+    as ``prefill_logits``.  With ``tp`` > 1 the running process group must
+    be ``tp`` ranks.  ``layers`` cuts the depth.  Times are host
+    wall-clock around work that ends in a device synchronize."""
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(arch, smoke=smoke)
-    model = Model(cfg, device=device).init(seed)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    rt = None
+    if tp > 1:
+        if not dist.is_initialized() or dist.get_world_size() != tp:
+            raise ValueError(f"tp {tp} needs a process group of {tp} ranks")
+        rt = runtime_for_groups(pods=1, data_per_pod=1, tp=tp)
+    model = Model(cfg, rt, device).init(seed)
     gen_tok = torch.Generator(device="cpu").manual_seed(seed + 1)
     prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                            generator=gen_tok).to(device)
@@ -82,7 +100,9 @@ def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, batch: int = 4,
     transfer_q = make_kv_transfer(model, compress="int8")
 
     phase = _PhaseLaunches()
-    tok, caches = phase("prefill", prefill, prompt)          # warm-up
+    # warm-up: ``prefill`` in its two halves, to keep the logits
+    logits, caches = phase("prefill", model.apply_prefill, prompt)
+    phase("prefill", sharded_argmax, logits, model.rt, cfg.vocab_size)
     phase("int8_transfer", transfer_q, caches)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -112,7 +132,8 @@ def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, batch: int = 4,
     _sync(device)
 
     return {
-        "arch": cfg.name, "device": str(device), "batch": batch,
+        "arch": cfg.name, "device": str(device), "tp": tp, "layers": cfg.n_layers,
+        "rank": dist.get_rank() if tp > 1 else 0, "batch": batch,
         "prompt_len": prompt_len, "gen": gen,
         "params": sum(p.numel() for p in model.parameters()),
         "prefills": 2, "int8_transfers": 2, "decode_steps": 3 * gen,
@@ -126,6 +147,7 @@ def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, batch: int = 4,
         "cache_finite": cache_finite,
         "int8_token_agreement": float((ref == dis_q).float().mean()),
         "tokens": ref.cpu().tolist(),
+        "prefill_logits": logits[:, -1].cpu(),
         "cache_shapes": {name: list(leaf.shape)
                          for name, leaf in caches._asdict().items()},
         "cache_bytes": sum(leaf.numel() * leaf.element_size() for leaf in caches),
@@ -141,11 +163,22 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=1024)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tp", type=int, default=1, help="tensor-parallel ranks")
+    ap.add_argument("--dist-backend", default=None, choices=list(BACKENDS),
+                    help="with --tp: nccl (the default on the card) or gloo (the "
+                         "CPU's, and ranks sharing one card)")
     args = ap.parse_args(argv)
-    res = run(args.arch, smoke=args.smoke, batch=args.batch,
-              prompt_len=args.prompt_len, gen=args.gen, seed=args.seed,
-              device=args.device)
+    device = resolve_device(args.device)
+    started = args.tp > 1 and init_world(device, args.dist_backend)
+    try:
+        res = run(args.arch, smoke=args.smoke, batch=args.batch,
+                  prompt_len=args.prompt_len, gen=args.gen, seed=args.seed,
+                  device=device, tp=args.tp)
+    finally:
+        if started:
+            dist.destroy_process_group()
     res.pop("tokens")
+    res.pop("prefill_logits")
     print(json.dumps(res))
 
 

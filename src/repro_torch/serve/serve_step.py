@@ -5,7 +5,10 @@ with the cache crossing between them through the HetCCL SendRecv
 (``kv_transfer_body``: a shift over the pod group, optionally with int8
 on the wire) instead of forwarding through the hosts.  The cache is a
 ``KVCache`` (dense family) or an ``SSMState`` (Mamba2); the transfer
-moves every leaf of either.
+moves every leaf of either.  Under tensor parallelism each rank holds
+its shard of the cache (its local heads) and moves it over its own pod
+group; the next token is the argmax over the TP group's vocabulary
+shards.
 """
 
 from __future__ import annotations

@@ -1,39 +1,55 @@
-"""Cross-entropy over the vocabulary and greedy sampling.
+"""Vocab-sharded cross-entropy and greedy sampling (Megatron-style), the
+JAX package's ``train/loss.py``.
 
-The counterpart of the JAX package's ``train/loss.py`` at a tensor-
-parallel group of one: the logits hold the whole (padded) vocabulary,
-padded columns are masked to -1e30 out of the logsumexp, and labels
-outside the vocabulary are masked out of the mean.  A larger TP group
-raises: vocab-sharded statistics come with tensor parallelism.
+The LM head gives logits sharded over the TP group on the vocabulary;
+rank r holds columns [r * Vl, (r + 1) * Vl).  The softmax statistics meet
+in one max and two sums of (B, S) values over the group instead of ever
+materializing the full logits.  Padded columns (the vocabulary rounded
+up for an even split) are masked to -1e30 out of the logsumexp, and
+labels outside the vocabulary are masked out of the mean.  At a TP group
+of one (``None``) every collective is skipped.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.parallel.sharding import Runtime, group_size
+from repro_torch.parallel.sharding import Runtime, psum
 
 
-def _single_tp(rt: Runtime, what: str) -> None:
-    if group_size(rt.tp_group) != 1:
-        raise NotImplementedError(f"vocab-sharded {what} over a TP group "
-                                  "larger than one is not ported yet")
+def _masked(logits: torch.Tensor, rt: Runtime, vocab_size: int):
+    """(logits with the padded columns at -1e30, this shard's first id)."""
+    vl = logits.shape[-1]
+    off = rt.tp_rank * vl
+    gid = off + torch.arange(vl, device=logits.device)
+    return torch.where(gid < vocab_size, logits, -1e30), off
+
+
+def _all_reduce(x: torch.Tensor, rt: Runtime, op) -> torch.Tensor:
+    """``x`` reduced over the TP group, outside autograd (the max of the
+    softmax shift and the argmax carry no gradient)."""
+    if rt.tp_group is not None:
+        x = x.detach().clone()
+        dist.all_reduce(x, op=op, group=rt.tp_group)
+    return x
 
 
 def sharded_xent(logits: torch.Tensor, labels: torch.Tensor, rt: Runtime,
                  vocab_size: int):
-    """logits (B, S, V) f32, labels (B, S) ids -> (mean loss over the
-    valid tokens, metrics {"nll_sum", "n_tok", "mean_logp"})."""
-    _single_tp(rt, "cross-entropy")
-    V = logits.shape[-1]
-    gid = torch.arange(V, device=logits.device)
-    logits = torch.where(gid < vocab_size, logits, -1e30)
-    gmax = logits.amax(dim=-1).detach()
-    sumexp = torch.exp(logits - gmax[..., None]).sum(dim=-1)
+    """logits (B, S, Vl) f32 vocab-sharded, labels (B, S) global ids ->
+    (mean loss over the valid tokens, metrics {"nll_sum", "n_tok",
+    "mean_logp"}).  The sums over the group are the reference's raw psums,
+    whose backward sums too (``sharding.psum``)."""
+    vl = logits.shape[-1]
+    logits, off = _masked(logits, rt, vocab_size)
+    gmax = _all_reduce(logits.amax(dim=-1).detach(), rt, dist.ReduceOp.MAX)
+    sumexp = psum(torch.exp(logits - gmax[..., None]).sum(dim=-1), rt.tp_group)
     lse = torch.log(sumexp) + gmax
-    in_range = (labels >= 0) & (labels < V)
-    picked = logits.gather(-1, labels.clamp(0, V - 1)[..., None])[..., 0]
-    picked = torch.where(in_range, picked, 0.0)
+    local = labels - off
+    in_shard = (local >= 0) & (local < vl)
+    picked = logits.gather(-1, local.clamp(0, vl - 1)[..., None])[..., 0]
+    picked = psum(torch.where(in_shard, picked, 0.0), rt.tp_group)
     tok_mask = (labels >= 0) & (labels < vocab_size)
     nll = torch.where(tok_mask, lse - picked, 0.0)
     n_tok = tok_mask.sum().clamp(min=1)
@@ -44,10 +60,15 @@ def sharded_xent(logits: torch.Tensor, labels: torch.Tensor, rt: Runtime,
 
 
 def sharded_argmax(logits: torch.Tensor, rt: Runtime, vocab_size: int) -> torch.Tensor:
-    """(B, S, V) logits -> (B, S) token ids.  Padded vocab columns are
-    masked to -1e30; ties go to the smallest id (argmax returns the
-    first maximum)."""
-    _single_tp(rt, "argmax")
-    gid = torch.arange(logits.shape[-1], device=logits.device)
-    logits = torch.where(gid < vocab_size, logits, -1e30)
-    return logits.argmax(dim=-1)
+    """(B, S, Vl) vocab-sharded logits -> (B, S) token ids.  Padded columns
+    are masked; ties go to the smallest id, within a shard (argmax returns
+    the first maximum) and across shards (the smallest id among the
+    shards that hold the maximum)."""
+    logits, off = _masked(logits, rt, vocab_size)
+    local_max, local_arg = logits.max(dim=-1)
+    local_arg = local_arg + off
+    if rt.tp_group is None:
+        return local_arg
+    gmax = _all_reduce(local_max, rt, dist.ReduceOp.MAX)
+    cand = torch.where(local_max >= gmax, local_arg, 2 ** 30)
+    return _all_reduce(cand, rt, dist.ReduceOp.MIN)

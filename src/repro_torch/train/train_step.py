@@ -38,8 +38,10 @@ buffer or bucket resolves its own schedule from the plan, bound to the
 runtime's groups; ``packed=False`` runs the per-leaf data path that plans
 choose when packing does not pay.
 
-Each process holds one replica of the model (``Model`` on its device)
-and its slice of the global batch.  The step updates the parameters and
+Each process holds one TP shard of one replica of the model (``Model``
+on its device) and its data-parallel slice of the global batch; the
+gradients of a shard are synced over the data-parallel groups of its
+model index, so the TP ranks of a replica each run their own sync.  The step updates the parameters and
 the Adam (or ZeRO) state in place.  With ``finite_gate`` a step whose synced loss
 or grad norm is not finite leaves both untouched (the reference selects
 the old values inside its compiled step; here the host reads the two
@@ -114,19 +116,24 @@ class TrainConfig:
                           cluster_weights=self.cluster_weights)
 
 
-def _global_grad_norm(grads: list[torch.Tensor], sharded: list[bool] | None = None,
-                      fsdp_group=None) -> torch.Tensor:
-    """L2 norm over the gradient leaves, summed in f32: the squares of the
-    FSDP-sharded leaves (``sharded``) are summed over ``fsdp_group``, the
-    replicated leaves' are not (the reference sums per set of axes)."""
-    parts: dict[bool, torch.Tensor] = {}
-    for g, s in zip(grads, sharded or [False] * len(grads)):
-        key = s and fsdp_group is not None
+def _global_grad_norm(grads: list[torch.Tensor], specs: list[tuple],
+                      rt: Runtime) -> torch.Tensor:
+    """L2 norm over the gradient leaves, summed in f32: each leaf's square
+    is summed over the groups its spec is sharded on, "model" over the TP
+    group and "data" over the FSDP group (the reference sums per set of
+    axes)."""
+    parts: dict[tuple, torch.Tensor] = {}
+    for g, spec in zip(grads, specs):
+        groups = tuple(group for axis, group in (("model", rt.tp_group),
+                                                 ("data", rt.fsdp_group))
+                       if group is not None and axis in spec)
         val = g.float().square().sum()
-        parts[key] = parts[key] + val if key in parts else val
+        parts[groups] = parts[groups] + val if groups in parts else val
     total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
-    for key, val in parts.items():
-        total = total + (primitives.hom_psum(val, fsdp_group) if key else val)
+    for groups, val in parts.items():
+        for group in groups:
+            val = primitives.hom_psum(val, group)
+        total = total + val
     return torch.sqrt(total)
 
 
@@ -240,7 +247,7 @@ def make_train_step(model: Model, tcfg: TrainConfig):
         overlap = (overlap_lib.BucketSync(model.param_tree(), ccfg, tcfg.bucket_cap_mb << 20,
                                           packed=tcfg.packed)
                    if overlapped else None)
-        sharded = ["data" in spec for spec in model.param_specs().values()]
+        specs = list(model.param_specs().values())
         with torch.enable_grad():
             logits = model.apply_train(batch["tokens"])
             lval, metrics = loss_lib.sharded_xent(logits, batch["labels"], rt,
@@ -262,23 +269,27 @@ def make_train_step(model: Model, tcfg: TrainConfig):
             with torch.profiler.record_function("grad_sync"):
                 shard, fmeta = coll.tree_hier_psum_scatter(grads, ccfg)
                 del grads
-            # the norm of the pod-summed shard: sum over the intra group only
+            # the norm of the pod-summed shard: summed over the intra group,
+            # then over the TP group, where the reference counts the
+            # replicated leaves tp times (ROADMAP R10)
             with torch.profiler.record_function("grad_norm"):
-                sq = _sq_norm(shard)
-                if group_size(ccfg.intra_group) > 1:
-                    dist.all_reduce(sq, group=ccfg.intra_group)
-                gnorm = torch.sqrt(sq) / n_dp
+                sq = primitives.hom_psum(_sq_norm(shard), ccfg.intra_group)
+                gnorm = torch.sqrt(primitives.hom_psum(sq, rt.tp_group)) / n_dp
         elif overlap is not None:
             synced = grads           # one per parameter, synced in the backward
             del grads
             with torch.profiler.record_function("grad_norm"):
-                gnorm = _global_grad_norm(synced) / n_dp
+                # one spec per parameter: a list leaf's for each of its layers
+                per_param = [spec for spec, leaf in zip(specs, leaves)
+                             for _ in (leaf if isinstance(leaf, list) else [leaf])]
+                gnorm = _global_grad_norm(synced, per_param, rt) / n_dp
         else:
             with torch.profiler.record_function("grad_sync"):
                 if fsdp:
                     # leaf by leaf, each released once synced
                     synced = []
-                    for i, is_sharded in enumerate(sharded):
+                    for i, spec in enumerate(specs):
+                        is_sharded = "data" in spec
                         g, grads[i] = grads[i], None
                         # a plan resolves only AllReduceH; the pod hop of a
                         # sharded leaf keeps the fields' codec, as in the
@@ -293,7 +304,7 @@ def make_train_step(model: Model, tcfg: TrainConfig):
                               for g in grads]
                 del grads
             with torch.profiler.record_function("grad_norm"):
-                gnorm = _global_grad_norm(synced, sharded, rt.fsdp_group) / n_dp
+                gnorm = _global_grad_norm(synced, specs, rt) / n_dp
         clip = torch.clamp(tcfg.opt.grad_clip / (gnorm + 1e-9), max=1.0)
 
         m = torch.stack([lval.detach().float(), gnorm / n_dp,

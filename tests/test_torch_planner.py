@@ -22,9 +22,9 @@
   in ``sys.modules`` after reading it.
 * The launcher's ``make_plan`` equals the reference's planner called
   with the arguments the reference's launcher computes, for 1 and 2 pods
-  on worlds of 1, 4 and 8 ranks; the CPU entry point prints its ``[plan]``
-  lines and the plan's summary, and a second launch on the same cache
-  file reports a hit.
+  on worlds of 1, 4 and 8 ranks, and with a model axis of 2; the CPU
+  entry point prints its ``[plan]`` lines and the plan's summary, and a
+  second launch on the same cache file reports a hit.
 """
 
 import dataclasses
@@ -285,13 +285,14 @@ def full_width_leaves():
 
 
 def _reference_launcher_plan(arch: str, n_leaves: int, pods: int, world: int, mode: str,
-                             compression, plan: str, skew: str, cache):
+                             compression, plan: str, skew: str, cache, tp: int = 1):
     """The reference launcher's planning block (src/repro/launch/train.py)
-    for a (pods, world // pods) mesh, with its mode override and per-leaf
-    fallback: (plan, mode, packed, cluster_weights)."""
+    for a (pods, world // pods) mesh whose model axis is ``tp``, with its
+    mode override and per-leaf fallback: (plan, mode, packed,
+    cluster_weights)."""
     cfg = jax_config(arch)
     topo = jtopo.tpu_multipod(pods, world // pods)
-    grad_bytes = max(1, cfg.param_count() * 4)
+    grad_bytes = max(1, cfg.param_count() * 4 // tp)
     plan_kw = dict(cache=cache, coll="reduce_scatter" if mode == "hier_zero1" else "all_reduce",
                    pod_axis="pod" if pods > 1 else None, intra_axis="data",
                    compressions=(None, compression) if compression else (None, "bf16"),
@@ -337,17 +338,18 @@ LAUNCH_CASES = [(1, 1, "hier", None, "auto", "auto"), (2, 4, "hier", "int8", "au
                 (1, 4, "fsdp", "int8", "auto", "none"), (2, 2, "hier", None, "manual", "auto")]
 
 
-@pytest.mark.parametrize("pods, world, mode, codec, plan, skew", LAUNCH_CASES)
-def test_make_plan_is_the_reference_launchers(full_width_leaves, pods, world, mode, codec,
-                                              plan, skew):
+TP_LAUNCH_CASES = [(2, 8, "hier", "int8", "auto", "auto"), (1, 4, "hier_zero1", "int8", "auto", "none")]
+
+
+def _check_make_plan(full_width_leaves, pods, world, mode, codec, plan, skew, tp=1):
     n_leaves, jn_leaves = full_width_leaves
     assert n_leaves == jn_leaves == 14
     lines: list[str] = []
     got = train_cli.make_plan(get_config("qwen2.5-3b"), pods, world, mode, codec, plan=plan,
-                              skew=skew, global_batch=4, seq=1024, log=lines.append)
+                              skew=skew, global_batch=4, seq=1024, tp=tp, log=lines.append)
     cache = jcache.PlanCache()
     want, wmode, wpacked, wweights = _reference_launcher_plan(
-        "qwen2.5-3b", jn_leaves, pods, world, mode, codec, plan, skew, cache)
+        "qwen2.5-3b", jn_leaves, pods, world, mode, codec, plan, skew, cache, tp=tp)
     assert (got.mode, got.packed, got.cluster_weights) == (
         wmode, wpacked, None if wweights is None else tuple(wweights))
     if want is None:
@@ -357,6 +359,24 @@ def test_make_plan_is_the_reference_launchers(full_width_leaves, pods, world, mo
         assert got.plan.describe() == want.describe()
         assert got.plan.describe() in lines
     assert any(line.startswith("[plan] cache: ") for line in lines)
+    return got
+
+
+@pytest.mark.parametrize("pods, world, mode, codec, plan, skew", LAUNCH_CASES)
+def test_make_plan_is_the_reference_launchers(full_width_leaves, pods, world, mode, codec,
+                                              plan, skew):
+    _check_make_plan(full_width_leaves, pods, world, mode, codec, plan, skew)
+
+
+@pytest.mark.parametrize("pods, world, mode, codec, plan, skew", TP_LAUNCH_CASES)
+def test_make_plan_is_the_reference_launchers_at_tp2(full_width_leaves, pods, world, mode,
+                                                     codec, plan, skew):
+    """With a model axis of 2 each rank syncs half the gradients: the
+    buckets are priced at half the bytes, as the reference divides them
+    by its model axis."""
+    got = _check_make_plan(full_width_leaves, pods, world, mode, codec, plan, skew, tp=2)
+    half = get_config("qwen2.5-3b").param_count() * 4 // 2
+    assert sum(b.nbytes for b in got.plan.buckets) == half
 
 
 def test_planned_path_of_the_issue_plans(full_width_leaves):
