@@ -117,6 +117,29 @@
    optimizer update per sync timed apart, free of the profiler's
    attribution of kernels to ranges.
 
+9. MoE (qwen3-moe-30b-a3b: 48 layers, 128 experts top-8, d_model 2048,
+   32 Q / 4 KV heads of dim 64), run where each phase of the script
+   reaches it: (a) first on the emptied card, served at full width and
+   depth (60.16 GB of bf16 weights drawn one bank at a time) through
+   ``disaggregated.run`` and checked as the other serving paths (48
+   flash launches per prefill, none per decode step, the codec twice per
+   int8 transfer, the raw transfer exact), with finite logits, the peak
+   under the card's memory, TTFT and decode beside their bounds, then a
+   profile of one prefill and one decode step by MoE range (routing,
+   pack, expert matmuls, combine) and the tokens each layer dropped at
+   capacity; flash is also checked and timed at its prefill heads (32 Q
+   / 4 KV, and 16 Q / 2 KV per TP-2 rank); (b) the f32 smoke MoE models
+   (qwen3-moe, and mixtral with its window of 32) with phase 3's checks,
+   training held on losses and aux (int8 AdamW parameters reported);
+   (c) with phase 5, qwen3-moe cut to MOE_LAYERS layers trained with
+   hier + int8 (two wire segments: bf16, and the f32 routers); (d) with
+   phase 4's TP ranks, the smoke MoE trained at TP 2 by expert
+   parallelism against the CPU, and qwen3-moe at MOE_LAYERS layers served
+   at TP 2 (expert parallelism, the All2All over the TP group) against
+   TP 1 at capacity factor MOE_TP_FACTOR (no token can drop), the
+   last-token logits within ``tp_logit_tol`` plus MOE_FLIP_TOL per router
+   flip at the token.
+
 Any failed check raises, and the script exits non-zero without printing
 its result line.  The last line is the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -157,7 +180,7 @@ from repro_torch.kernels import ssd  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.launch.mesh import runtime_for_groups  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
-from repro_torch.models import attention  # noqa: E402
+from repro_torch.models import attention, moe  # noqa: E402
 from repro_torch.serve import disaggregated  # noqa: E402
 from repro_torch.serve.serve_step import make_serve_steps  # noqa: E402
 from repro_torch.train import loss as loss_lib  # noqa: E402
@@ -173,8 +196,11 @@ TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-3}
 
 ARCH = "qwen2.5-3b"
 SSM_ARCH = "mamba2-2.7b"
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_SMOKE_ARCHS = (MOE_ARCH, "mixtral-8x7b")    # mixtral's smoke: a window of 32
 # the kernel each serving path launches once per layer per prefill
-PATH_KERNEL = {ARCH: "flash_attention_bhsd", SSM_ARCH: "ssd_chunk"}
+PATH_KERNEL = {ARCH: "flash_attention_bhsd", SSM_ARCH: "ssd_chunk",
+               MOE_ARCH: "flash_attention_bhsd", "mixtral-8x7b": "flash_attention_bhsd"}
 BATCH, PROMPT, GEN = 4, 1024, 16
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 4
 # (gradient sync, pod-hop codec) of the training paths
@@ -193,25 +219,28 @@ SYNC_PARITY_MODES = ("hier_overlap", "fsdp")
 def grad_layout(cfg) -> dict[str, int]:
     """The gradient layout of ``cfg``'s parameters, from their shapes alone
     (drawn under FakeTensorMode, nothing allocated): hier_overlap's buckets
-    under the default cap, the leaves, and the list leaves (per-layer
-    parameters, each one stacked (L, ...) leaf)."""
+    under the default cap, the leaves, the list leaves (per-layer
+    parameters, each one stacked (L, ...) leaf) and the packed segments
+    (one per wire dtype: bf16, and f32 for an MoE model's routers)."""
     with FakeTensorMode():
         model = Model(cfg, device="cpu").init(0)
         leaves = model.train_leaves()
         buckets = overlap.partition_tree(model.param_tree(), TrainConfig().bucket_cap_mb << 20)
-    return {"buckets": len(buckets), "leaves": len(leaves),
+        segments = len({part.dtype for leaf in leaves for part in packing.leaf_parts(leaf)})
+    return {"buckets": len(buckets), "leaves": len(leaves), "segments": segments,
             "list_leaves": sum(isinstance(leaf, list) for leaf in leaves)}
 
 
 def train_kernels(mode: str, codec: str | None, cfg) -> dict[str, int]:
     """Launches per training step of ``cfg``'s model in a world of one.
-    The packed syncs pack one gradient segment and run the shared-scale
-    codec once per pod-hop chunk; hier_overlap packs and codes each
-    bucket; fsdp (nothing sharded in a world of one) syncs leaf by leaf,
-    packing each list leaf into its stack."""
+    The packed syncs pack each gradient segment (one per wire dtype) and
+    run the shared-scale codec once per segment and pod-hop chunk;
+    hier_overlap packs and codes each bucket; fsdp (nothing sharded in a
+    world of one) syncs leaf by leaf, packing each list leaf into its
+    stack."""
     layout = grad_layout(cfg)
     chunks = TrainConfig().n_chunks if mode == "hier_pipelined" else 1
-    packs, syncs = 1, chunks
+    packs, syncs = layout["segments"], layout["segments"] * chunks
     if mode == "hier_overlap":
         packs = syncs = layout["buckets"]
     elif mode == "fsdp":
@@ -545,7 +574,16 @@ FLASH_CASES = [
     # 1 KV) and TP 4 (4 Q / 4 KV after the replicated-KV gather)
     (BATCH, 8, 1, PROMPT, PROMPT, 128, True, None, 0, None, torch.bfloat16),
     (BATCH, 4, 4, PROMPT, PROMPT, 128, True, None, 0, None, torch.bfloat16),
+    # qwen3-moe-30b-a3b's prefill at head dim 64: TP 1 (32 Q / 4 KV) and each
+    # rank of TP 2 (16 Q / 2 KV)
+    (BATCH, 32, 4, PROMPT, PROMPT, 64, True, None, 0, None, torch.bfloat16),
+    (BATCH, 16, 2, PROMPT, PROMPT, 64, True, None, 0, None, torch.bfloat16),
 ]
+# the timed flash cases: (H, K, dh, dtype) -> the row's key for its numbers
+# (the first two are the row's own, bf16, and its "f32" entry)
+FLASH_TIMED = {(16, 2, 128, torch.bfloat16): None, (16, 2, 128, torch.float32): "f32",
+               (32, 4, 64, torch.bfloat16): "qwen3_moe_tp1",
+               (16, 2, 64, torch.bfloat16): "qwen3_moe_tp2"}
 
 
 def flash_bound_ms(B, H, K, Sq, dh, q_offset, valid_kv, causal,
@@ -576,12 +614,13 @@ def check_flash(dev, gen, smi: str) -> dict:
         check(err <= TOL[dt], f"flash {B, H, K, Sq, Skv, dh, kw, dt}: err {err}")
         print(f"[check] flash B={B} H={H} K={K} Sq={Sq} Skv={Skv} dh={dh} "
               f"{kw} {dt}: max abs err {err:.3g} (tol {TOL[dt]})")
-        if (H, K, Sq) == (16, 2, PROMPT):
-            main[dt] = err, (q, k, v)
+        if Sq == PROMPT and (H, K, dh, dt) in FLASH_TIMED:
+            main[(H, K, dh, dt)] = err, (q, k, v)
     timing = {}
-    for dt, (err, (q, k, v)) in main.items():
-        bound, by = flash_bound_ms(BATCH, 16, 2, PROMPT, 128, 0, PROMPT, True, dt)
-        timing[dt] = {
+    for (H, K, dh, dt), (err, (q, k, v)) in main.items():
+        bound, by = flash_bound_ms(BATCH, H, K, PROMPT, dh, 0, PROMPT, True, dt)
+        key = FLASH_TIMED[(H, K, dh, dt)]
+        timing[key] = {
             "max_abs_err": err,
             "ms": time_ms(lambda: fa.flash_attention_bhsd(q, k, v, causal=True), 20),
             "plain_ms": time_ms(lambda: fa.flash_attention_bhsd_plain(q, k, v, causal=True),
@@ -589,16 +628,18 @@ def check_flash(dev, gen, smi: str) -> dict:
             "bound_ms": bound, "bound_by": by,
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True), 20)}
-        t = timing[dt]
-        print(f"[time] [{smi}] flash_attention_bhsd qwen2.5-3b prefill shape, {dt}: "
+        t = timing[key]
+        shape = ("qwen2.5-3b prefill shape" if dh == 128 else
+                 f"qwen3-moe-30b-a3b prefill shape at TP {32 // H} ({H} Q / {K} KV, dh 64)")
+        print(f"[time] [{smi}] flash_attention_bhsd {shape}, {dt}: "
               f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({by}), plain "
               f"{t['plain_ms']:.4f} ms, F.scaled_dot_product_attention "
               f"{t['library_ms']:.4f} ms")
+    own = timing.pop(None)
     return {"flash_attention_bhsd": {
         "name": "flash_attention_bhsd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:85",
-        **timing[torch.bfloat16], "f32": timing[torch.float32]}}
+        "replaces": "src/repro/kernels/flash_attention.py:85", **own, **timing}}
 
 
 SSD_CASES = [
@@ -725,11 +766,13 @@ def check_small_model(dev, arch: str) -> None:
           f"launched {cfg.n_layers} times (prefill only)")
 
 
-def check_small_training(dev, rt, mode: str, codec: str | None, planned=None) -> None:
+def check_small_training(dev, rt, mode: str, codec: str | None, planned=None,
+                         arch: str = ARCH) -> None:
     """3 steps of a smoke f32 model on the card and on the CPU, from the
-    same parameters and batches, through the same groups.  With
-    ``planned`` (``launch.train.make_plan``'s result) the plan's path."""
-    cfg = dataclasses.replace(get_config(ARCH, smoke=True), dtype=torch.float32)
+    same parameters and batches, through the same groups: losses (and an
+    MoE model's aux) within 1e-4.  With ``planned``
+    (``launch.train.make_plan``'s result) the plan's path."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32)
     cpu = Model(cfg, rt, device="cpu").init(0)
     gpu = copy.deepcopy(cpu, {id(rt): rt}).to(dev)
     opt_cfg = opt_lib.OptConfig(lr=1e-3, warmup_steps=1)
@@ -741,7 +784,7 @@ def check_small_training(dev, rt, mode: str, codec: str | None, planned=None) ->
                            packed=planned.packed, cluster_weights=planned.cluster_weights,
                            opt=opt_cfg)
         want = planned_kernels(planned, cfg)
-    runs = []
+    runs, aux_runs = [], []
     for model in (cpu, gpu):
         step_fn, _ = make_train_step(model, tcfg)
         if mode == "hier_zero1":
@@ -749,7 +792,7 @@ def check_small_training(dev, rt, mode: str, codec: str | None, planned=None) ->
         else:
             opt = opt_lib.adam_init(opt_lib.flat_params(model.train_leaves())[0])
         dcfg = DataConfig(vocab_size=cfg.vocab_size, global_batch=2, seq_len=64)
-        losses = []
+        losses, auxes = [], []
         for i in range(3):
             b = {k: torch.from_numpy(v).long().to(model.device)
                  for k, v in synth_batch(dcfg, i).items()}
@@ -761,22 +804,33 @@ def check_small_training(dev, rt, mode: str, codec: str | None, planned=None) ->
                 check(launched == want, f"small training {mode} launches {launched}")
             check(not m["gated"], "small training: finite gate tripped")
             losses.append(m["loss"])
+            auxes.append(m["aux"])
         runs.append(losses)
+        aux_runs.append(auxes)
     err = max(abs(a - b) / abs(b) for a, b in zip(runs[1], runs[0]))
     check(err < 1e-4, f"small training losses {runs}")
+    if cfg.family == "moe":
+        aux_err = max(abs(a - b) / abs(b) for a, b in zip(aux_runs[1], aux_runs[0]))
+        check(aux_err < 1e-4 and min(aux_runs[1]) > 0, f"small training aux {aux_runs}")
     perr = max((torch.stack(g) if isinstance(g, list) else g).cpu().sub(
         torch.stack(c) if isinstance(c, list) else c).abs().max().item()
         for g, c in zip(gpu.train_leaves(), cpu.train_leaves()))
     if mode in SYNC_PARITY_MODES:
         held = check_sync_parity(gpu, rt, mode, tcfg)
         params = f"max param diff {perr:.3g} (reported; {held})"
+    elif cfg.family == "moe":
+        # one int8 rounding apart moves an AdamW parameter by up to lr:
+        # the losses and the aux are what an MoE run is held to
+        params = f"max param diff {perr:.3g} (reported)"
     else:
         check(perr < 1e-4, f"small training params differ by {perr}")
         params = f"max param diff {perr:.3g} (tol 1e-4)"
     what = f"{mode} + {codec}" + ("" if planned is None else " as planned, per leaf")
+    aux = (f", aux {[f'{a:.6f}' for a in aux_runs[1]]} (within 1e-4 of the CPU's)"
+           if cfg.family == "moe" else "")
     print(f"[check] {cfg.name} f32 training, {what}, 3 steps on the card vs "
           f"the CPU: losses {[f'{l:.6f}' for l in runs[1]]}, max relative loss diff "
-          f"{err:.3g} (tol 1e-4), {params}, launches per step {want}")
+          f"{err:.3g} (tol 1e-4){aux}, {params}, launches per step {want}")
 
 
 def check_sync_parity(gpu, rt, mode: str, tcfg: TrainConfig) -> str:
@@ -797,7 +851,7 @@ def check_sync_parity(gpu, rt, mode: str, tcfg: TrainConfig) -> str:
 
     def backward():
         with torch.enable_grad():
-            lval, _ = loss_lib.sharded_xent(gpu.apply_train(b["tokens"]), b["labels"], rt,
+            lval, _ = loss_lib.sharded_xent(gpu.apply_train(b["tokens"])[0], b["labels"], rt,
                                             cfg.vocab_size)
             return torch.autograd.grad(lval, params)
 
@@ -1250,13 +1304,17 @@ def _in_range(ev, ranges) -> str | None:
     return None
 
 
-def _breakdown(prof, name_groups, ranges) -> tuple[dict, dict, float, int, list]:
+def _breakdown(prof, name_groups, ranges,
+               range_first: bool = False) -> tuple[dict, dict, float, int, list]:
     """Device time by group: kernels matching ``name_groups`` by name; the
     rest by the record_function range (of ``ranges``) their launching op
-    ran in; everything else as "other".  The kernels that the ctypes
-    wrappers launch have no launching aten op, so device time and names
-    come from the device events, and the ranges only from the kernels an
-    aten op launched.  Also the host time spent inside each range."""
+    ran in; everything else as "other".  With ``range_first`` a kernel
+    launched inside a range counts for the range whatever its name (the
+    MoE's expert matmuls against the other matmuls).  The kernels that the
+    ctypes wrappers launch have no launching aten op, so device time and
+    names come from the device events, and the ranges only from the
+    kernels an aten op launched.  Also the host time spent inside each
+    range."""
     groups = {g: 0.0 for g, _ in name_groups}
     busy, n_kernels, top = 0.0, 0, []
     for ev in prof.key_averages():
@@ -1281,14 +1339,19 @@ def _breakdown(prof, name_groups, ranges) -> tuple[dict, dict, float, int, list]
             host[ev.name] += ev.cpu_time_total / 1e3
         rng = _in_range(ev, ranges)
         for kern in ev.kernels:
-            if rng is not None and _name_group(kern.name, name_groups) is None:
+            named = _name_group(kern.name, name_groups)
+            if rng is not None and named is None:
                 groups[rng] += kern.duration / 1e3
+            elif rng is not None and range_first:
+                groups[rng] += kern.duration / 1e3
+                groups[named] -= kern.duration / 1e3
     groups["other"] = busy - sum(groups.values())
     return groups, host, busy, n_kernels, sorted(top, reverse=True)[:6]
 
 
-def _report(prof, wall_ms: float, label: str, smi: str, name_groups, ranges) -> dict:
-    groups, host, busy, n_kernels, top = _breakdown(prof, name_groups, ranges)
+def _report(prof, wall_ms: float, label: str, smi: str, name_groups, ranges,
+            range_first: bool = False) -> dict:
+    groups, host, busy, n_kernels, top = _breakdown(prof, name_groups, ranges, range_first)
     idle = 1.0 - busy / wall_ms
     shares = ", ".join(f"{g} {ms:.3f} ms ({ms / busy:.1%})"
                        for g, ms in sorted(groups.items(), key=lambda t: -t[1]) if ms > 0)
@@ -1390,6 +1453,274 @@ def profile_serving(dev, smi: str, arch: str) -> dict:
     out["decode"] = _report(prof, wall, f"{cfg.name} {steps} decode steps", smi,
                             SERVE_GROUPS, SERVE_RANGES)
     return out
+
+
+# ---------------------------------------------------------------------------
+# MoE: qwen3-moe-30b-a3b served at full width (a), trained at MOE_LAYERS (c)
+# ---------------------------------------------------------------------------
+
+MOE_GROUPS = (("flash_attention", ("flash_attention",)), ("matmul", MATMUL_KEYS),
+              ("int8 codec", ("quant_int8_kernel", "dequant_int8")))
+# the MoE layer's record_function ranges: they take their kernels whatever
+# the name (the expert bmm's from the matmul group)
+MOE_RANGES = ("moe_experts", "moe_pack", "moe_combine", "moe_route")
+MOE_LAYERS = 4        # the depth of phases (c) and (d)
+# the capacity factor of phase (d): E / k makes every expert's capacity
+# T * k / E * factor at least T (at TP 1; T / tp per rank at TP 2), so no
+# token can drop on either side.  check_moe's 4.0 dropped 9212 routed
+# slots at TP 2 on the random weights, whose routing collapses onto few
+# experts with depth
+MOE_TP_FACTOR = 16.0
+MOE_FLIP_TOL = 0.5    # share of the largest logit one router flip at a token may move
+
+
+def moe_bounds(cfg, batch: int, prompt: int) -> dict:
+    """Least times of one prefill and one decode step on the card (bf16 peak,
+    memory rate): the prefill's operations, every expert over its
+    capacity-padded buffer, the attention projections, causal attention
+    and the router; a decode step reads every expert's weights once (at
+    capacity 8 all E experts run)."""
+    T = batch * prompt
+    E, k, D, F = cfg.n_experts, cfg.top_k, cfg.d_model, cfg.moe_d_ff
+    dh, H, K = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    experts = 2 * 3 * E * moe._capacity(T, k, E, 1.25) * D * F
+    proj = 2 * T * (2 * D * H * dh + 2 * D * K * dh)
+    attn = 2 * 2 * batch * H * prompt * prompt * dh / 2
+    router = 2 * T * D * E
+    flops = cfg.n_layers * (experts + proj + attn + router)
+    weights = cfg.n_layers * 3 * E * D * F * 2
+    return {"prefill_tflop": flops / 1e12,
+            "prefill_bound_ms": flops / PEAK_FLOPS[torch.bfloat16] * 1e3,
+            "experts_gflop_per_layer": experts / 1e9,
+            "parts_tflop": {name: cfg.n_layers * f / 1e12 for name, f in (
+                ("experts", experts), ("projections", proj), ("attention", attn),
+                ("router", router))},
+            "decode_expert_gb": weights / 1e9,
+            "decode_bound_ms": weights / PEAK_BYTES_PER_S * 1e3}
+
+
+class MoeTrace:
+    """While in use, wraps the MoE layer's ``_route`` and ``_pack``: the ids
+    routed by the first ``n`` ``_route`` calls (one prefill's layers) and,
+    per ``_pack`` call, the tokens dropped at capacity (device scalars,
+    read once at the end)."""
+
+    def __init__(self, n: int):
+        self.n, self.ids, self.drops = n, [], []
+
+    def __enter__(self):
+        self._route, self._pack = moe._route, moe._pack
+
+        def route(*args, **kw):
+            out = self._route(*args, **kw)
+            if len(self.ids) < self.n:
+                self.ids.append(out[1].detach().clone())
+            return out
+
+        def pack(*args, **kw):
+            buf, r = self._pack(*args, **kw)
+            self.drops.append((~r[2]).sum())
+            return buf, r
+
+        moe._route, moe._pack = route, pack
+        return self
+
+    def __exit__(self, *exc):
+        moe._route, moe._pack = self._route, self._pack
+
+    def result(self) -> dict:
+        return {"route_ids": [i.cpu() for i in self.ids],
+                "drops": [int(d) for d in self.drops]}
+
+
+def serve_moe(dev, smi: str) -> tuple[dict, dict]:
+    """Phase (a): qwen3-moe-30b-a3b served at full width and depth (48
+    layers, 128 experts top-8, 60.16 GB of bf16 weights) through
+    ``disaggregated.run``, checked as the other serving paths are (48 flash
+    launches per prefill, none in decode, the codec twice per int8
+    transfer, the raw transfer exact), with finite logits and the peak
+    under the card's memory; its times beside their bounds."""
+    cfg = get_config(MOE_ARCH)
+    res, counts = serve_full_width(dev, smi, MOE_ARCH)
+    total_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    check(res["params"] == cfg.param_count() + (2 * cfg.n_layers + 1) * cfg.d_model,
+          f"qwen3-moe params {res['params']}")
+    check(bool(torch.isfinite(res["prefill_logits"]).all()), "qwen3-moe: non-finite logits")
+    check(res["peak_mem_gb"] < total_gb, f"qwen3-moe peak {res['peak_mem_gb']} of {total_gb} GB")
+    b = moe_bounds(cfg, BATCH, PROMPT)
+    print(f"[moe] [{smi}] {MOE_ARCH} TP 1, {BATCH} x {PROMPT}: TTFT {res['ttft_ms']:.2f} ms "
+          f"against the bound {b['prefill_bound_ms']:.2f} ms ({b['prefill_tflop']:.2f} TFLOP at "
+          f"989 TFLOP/s: {', '.join(f'{k} {v:.2f}' for k, v in b['parts_tflop'].items())}); "
+          f"decode {res['decode_ms_per_step']:.2f} ms/step against {b['decode_bound_ms']:.2f} "
+          f"ms ({b['decode_expert_gb']:.2f} GB of expert weights at 3.35 TB/s); peak "
+          f"{res['peak_mem_gb']:.3f} GB of {total_gb:.3f} GB")
+    res["bounds"] = b
+    return res, counts
+
+
+def profile_moe(dev, smi: str) -> dict:
+    """One prefill and one decode step of qwen3-moe-30b-a3b under
+    torch.profiler, after a warm-up prefill and decode step that count the
+    tokens each layer dropped at capacity: device time by expert matmuls,
+    pack, combine, routing, flash, other matmuls and the rest, and the
+    idle share."""
+    cfg = get_config(MOE_ARCH)
+    model = Model(cfg, device=dev).init(0)
+    prefill, decode = make_serve_steps(model)
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    with MoeTrace(0) as trace:
+        tok, caches = prefill(prompt)
+        decode(tok, caches)
+    drops = trace.result()["drops"]
+    check(len(drops) == 2 * cfg.n_layers, f"{len(drops)} MoE layers ran")
+    out = {"prefill_drops": drops[:cfg.n_layers], "decode_drops": drops[cfg.n_layers:]}
+    C = moe._capacity(BATCH * PROMPT, cfg.top_k, cfg.n_experts, 1.25)
+    print(f"[moe] {MOE_ARCH} tokens dropped at capacity per layer (of {BATCH * PROMPT} x "
+          f"{cfg.top_k} routed, capacity {C} per expert): prefill {out['prefill_drops']}, "
+          f"sum {sum(out['prefill_drops'])}; decode step {out['decode_drops']}")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, caches = prefill(prompt)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    out["prefill"] = _report(prof, wall, f"{cfg.name} prefill {BATCH}x{PROMPT}", smi,
+                             MOE_GROUPS, MOE_RANGES, range_first=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode(tok, caches)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    out["decode"] = _report(prof, wall, f"{cfg.name} 1 decode step", smi, MOE_GROUPS,
+                            MOE_RANGES, range_first=True)
+    return out
+
+
+def train_moe(dev, smi: str) -> dict:
+    """Phase (c): qwen3-moe-30b-a3b cut to MOE_LAYERS layers, trained with
+    hier + int8 on 4 x 1024 tokens; launches per step as qwen's hier row
+    (pack_slots and the codec once each), finite losses, aux > 0."""
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    ops.reset_launch_counts()
+    res = train_launch.run(MOE_ARCH, layers=MOE_LAYERS, steps=TRAIN_STEPS, mode="hier",
+                           compression="int8", global_batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                           device=dev, log=lambda line: print(f"[train] {line}"))
+    counts = ops.launch_counts()
+    want = train_kernels("hier", "int8", cfg)
+    check(counts == {k: n * TRAIN_STEPS for k, n in want.items()},
+          f"qwen3-moe training launches {counts} over {TRAIN_STEPS} steps")
+    check_vector_launches(counts, "train_moe")
+    for rec in res["records"]:
+        launched = {k: rec["launches"][k] for k in want}
+        check(launched == want, f"qwen3-moe step {rec['step']} launches {launched}")
+        check(math.isfinite(rec["loss"]) and math.isfinite(rec["gnorm"]) and rec["aux"] > 0,
+              f"qwen3-moe step {rec['step']}: {rec}")
+        check(not rec["gated"], f"qwen3-moe step {rec['step']}: the finite gate tripped")
+    check(res["params"] == cfg.param_count() + (2 * cfg.n_layers + 1) * cfg.d_model,
+          f"qwen3-moe {MOE_LAYERS}-layer params {res['params']}")
+    total_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    check(res["peak_mem_gb"] < total_gb, f"peak {res['peak_mem_gb']} GB of {total_gb} GB")
+    print(f"[moe] [{smi}] {MOE_ARCH} at {MOE_LAYERS} layers ({res['params']} params, bf16), "
+          f"hier + int8, {TRAIN_BATCH} x {TRAIN_SEQ} tokens: step {res['step_ms']:.3f} ms "
+          f"(median of steps 1-{TRAIN_STEPS - 1}), {res['tokens_per_s']:.1f} tokens/s, peak "
+          f"{res['peak_mem_gb']:.3f} GB of {total_gb:.3f} GB, losses "
+          f"{[r['loss'] for r in res['records']]}, aux {[r['aux'] for r in res['records']]}; "
+          f"launches per step {want}")
+    res["counts"] = counts
+    return res
+
+
+def router_flips(ids_a: list, ids_b: list) -> torch.Tensor:
+    """Per token, the number of layers whose routed expert set differs
+    between two runs of one prompt."""
+    flips = torch.zeros(ids_a[0].shape[0], dtype=torch.long)
+    for a, b in zip(ids_a, ids_b):
+        flips += (a.sort(-1).values != b.sort(-1).values).any(-1).long()
+    return flips
+
+
+def serve_moe_tp(dev, smi: str) -> tuple[dict[str, int], dict]:
+    """Phase (d), serving: qwen3-moe-30b-a3b at MOE_LAYERS layers served
+    at TP 2 (expert parallelism: 64 experts and 16 Q / 2 KV heads per rank;
+    two spawned ranks on the one card through gloo) against TP 1 at the
+    same depth and seed, capacity factor MOE_TP_FACTOR on both sides, so
+    that no token can drop and both compute one function.  Each rank is
+    checked as the TP-1 path is; the prefill logits of each prompt's last
+    token within ``tp_logit_tol`` of the largest TP-1 logit plus
+    MOE_FLIP_TOL per router flip at that token (its top-8 set differing
+    from TP 1's in a layer) and MOE_FLIP_TOL x sqrt(flips elsewhere in its
+    prompt) / PROMPT for what attention carries from the other tokens."""
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    with MoeTrace(MOE_LAYERS) as trace:
+        ref = disaggregated.run(MOE_ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN,
+                                device=dev, layers=MOE_LAYERS,
+                                moe_capacity_factor=MOE_TP_FACTOR)
+    ref.update(trace.result())
+    free_memory()
+    ranks = _spawn_tp("moe_serve", 2)
+    label = f"qwen3-moe TP 2 ep ({MOE_LAYERS} layers)"
+    total = dict.fromkeys(ranks[0]["counts"], 0)
+    for r, res in enumerate(ranks):
+        phases = res["launches"]
+        expect = {"prefill": {"flash_attention_bhsd": MOE_LAYERS * res["prefills"]},
+                  "int8_transfer": {"quant_int8": 2 * res["int8_transfers"],
+                                    "dequant_int8": 2 * res["int8_transfers"]},
+                  "raw_transfer": {}, "decode": {}}
+        for phase, want in expect.items():
+            got = {k: n for k, n in phases[phase].items() if n}
+            check(got == want, f"{label} rank {r} {phase} launches {got}, expected {want}")
+        check(res["counts"] == {k: sum(p[k] for p in phases.values()) for k in res["counts"]},
+              f"{label} rank {r}: launches {res['counts']} against the phases {phases}")
+        leaf = [MOE_LAYERS, BATCH, PROMPT, cfg.n_kv_heads // 2, cfg.head_dim]
+        check(res["cache_shapes"]["k"] == leaf == res["cache_shapes"]["v"],
+              f"{label} rank {r} cache {res['cache_shapes']}")
+        check(res["raw_transfer_exact"] and res["cache_finite"],
+              f"{label} rank {r}: raw transfer exact {res['raw_transfer_exact']}")
+        check(torch.equal(torch.tensor(res["tokens"]), torch.tensor(ranks[0]["tokens"])),
+              f"{label}: rank {r} generated other tokens than rank 0")
+        check(sum(res["drops"]) == 0, f"{label} rank {r} dropped {sum(res['drops'])} tokens")
+        for k, n in res["counts"].items():
+            total[k] += n
+    check(sum(ref["drops"]) == 0, f"qwen3-moe TP 1 dropped {sum(ref['drops'])} tokens")
+    flips = router_flips(ref["route_ids"], ranks[0]["route_ids"]).view(BATCH, PROMPT)
+    logits = torch.cat([res["prefill_logits"] for res in ranks], dim=-1)[:, :cfg.vocab_size]
+    want = ref["prefill_logits"]
+    check(bool(torch.isfinite(logits).all()), f"{label}: non-finite logits")
+    scale = want.abs().max().item()
+    diffs, tols = [], []
+    for b in range(BATCH):
+        last = flips[b, -1].item()
+        tol = (tp_logit_tol(MOE_LAYERS, 2) + MOE_FLIP_TOL * last
+               + MOE_FLIP_TOL * math.sqrt(flips[b, :-1].sum().item()) / PROMPT)
+        diffs.append((logits[b] - want[b]).abs().max().item())
+        tols.append(tol)
+        check(diffs[-1] <= tol * scale, f"{label}: prompt {b} logits differ by {diffs[-1]} "
+              f"(tol {tol} x {scale}; {last} flips at its last token)")
+    tokens, ref_tokens = torch.tensor(ranks[0]["tokens"]), torch.tensor(ref["tokens"])
+    greedy = (tokens == ref_tokens).float().mean().item()
+    print(f"[moe] {label} against TP 1 at the same depth and seed, capacity factor "
+          f"{MOE_TP_FACTOR}, no token dropped on either side: router flips (token, layer) "
+          f"{int(flips.sum())} of {BATCH * PROMPT * MOE_LAYERS}, at the last tokens "
+          f"{flips[:, -1].tolist()}; last-token logit max abs diff per prompt "
+          f"{[f'{d:.4g}' for d in diffs]} against tol {[f'{t:.4g}' for t in tols]} x the "
+          f"largest TP-1 logit {scale:.4g}; greedy agreement over {GEN + 1} tokens {greedy:.4f}")
+    print(f"[moe] [{smi}] TP 1 ({MOE_LAYERS} layers, factor {MOE_TP_FACTOR}): TTFT "
+          f"{ref['ttft_ms']:.2f} ms, decode {ref['decode_ms_per_step']:.2f} ms/step")
+    for r, res in enumerate(ranks):
+        print(f"[moe] [{smi}] {label} rank {r}, gloo on one card: TTFT {res['ttft_ms']:.2f} "
+              f"ms, decode {res['decode_ms_per_step']:.2f} ms/step, peak memory "
+              f"{res['peak_mem_gb']:.3f} GB, int8 token agreement "
+              f"{res['int8_token_agreement']:.4f}, raw transfer exact")
+    summary = {"logit_max_abs_diff": diffs, "logit_tol": tols, "logit_scale": scale,
+               "router_flips": int(flips.sum()), "last_token_flips": flips[:, -1].tolist(),
+               "greedy_agreement": greedy,
+               "tp1": {k: ref[k] for k in ("ttft_ms", "decode_ms_per_step", "peak_mem_gb")},
+               "ranks": [{k: res[k] for k in ("ttft_ms", "decode_ms_per_step", "peak_mem_gb")}
+                         for res in ranks]}
+    return total, summary
 
 
 def attention_ms(dev, cfg) -> float:
@@ -1650,8 +1981,14 @@ def _tp_rank(rank: int, world: int, port: int, job: str, out_dir: str,
     train_launch.init_world(dev, "gloo")
     try:
         ops.reset_launch_counts()
-        if job == "train":
-            out = _tp_train(dev, world)
+        if job in ("train", "moe_train"):
+            out = _tp_train(dev, world, MOE_ARCH if job == "moe_train" else ARCH)
+        elif job == "moe_serve":
+            with MoeTrace(MOE_LAYERS) as trace:
+                out = disaggregated.run(MOE_ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN,
+                                        device=dev, tp=world, layers=MOE_LAYERS,
+                                        moe_capacity_factor=MOE_TP_FACTOR)
+            out.update(trace.result())
         else:
             out = disaggregated.run(ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN, device=dev,
                                     tp=world, layers=TP_DEPTH if job == "serve4" else None)
@@ -1661,13 +1998,13 @@ def _tp_rank(rank: int, world: int, port: int, job: str, out_dir: str,
         dist.destroy_process_group()
 
 
-def _tp_train(dev, tp: int) -> dict:
-    """hier + int8 on the f32 smoke model at TP ``tp`` (one replica: pod
-    and data groups of one), TP_TRAIN_STEPS steps on the CPU and then on
-    the card from the same parameters and batches; the card's launches
-    per step."""
+def _tp_train(dev, tp: int, arch: str) -> dict:
+    """hier + int8 on ``arch``'s f32 smoke model at TP ``tp`` (one replica:
+    pod and data groups of one; an MoE model by expert parallelism),
+    TP_TRAIN_STEPS steps on the CPU and then on the card from the same
+    parameters and batches; the card's launches per step."""
     rt = runtime_for_groups(pods=1, data_per_pod=1, tp=tp)
-    cfg = dataclasses.replace(get_config(ARCH, smoke=True), dtype=torch.float32)
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32)
     cpu = Model(cfg, rt, device="cpu").init(0)
     gpu = copy.deepcopy(cpu, {id(rt): rt}).to(dev)
     tcfg = TrainConfig(comm_mode="hier", dcn_compression="int8",
@@ -1787,12 +2124,16 @@ def serve_tp(smi: str, tp: int, ref: dict) -> tuple[dict[str, int], dict]:
     return total, summary
 
 
-def train_tp(smi: str) -> dict[str, int]:
-    """Phase (c): hier + int8 on the f32 smoke model at TP 2, on the card
-    and on the CPU in the same two-rank world: losses and grad norms
-    within 1e-4 (relative), the finite gate open, and the codec and pack
-    kernels launched per step on each rank's own gradient segment."""
-    ranks = _spawn_tp("train", 2)
+def train_tp(smi: str, arch: str = ARCH) -> dict[str, int]:
+    """Phase (c) (and the MoE phase (d) with ``arch`` MOE_ARCH): hier + int8
+    on the f32 smoke model at TP 2, on the card and on the CPU in the same
+    two-rank world: losses and grad norms within 1e-4 (relative), the
+    finite gate open, and the codec and pack kernels launched per step on
+    each rank's own gradient segment.  The dense ranks report one
+    replica's metrics; under expert parallelism each rank's router copy
+    takes its own gradient (ROADMAP R14), so only the card against the
+    CPU is held per rank."""
+    ranks = _spawn_tp("moe_train" if arch == MOE_ARCH else "train", 2)
     total = dict.fromkeys(ranks[0]["counts"], 0)
     for r, res in enumerate(ranks):
         want = res["want"]
@@ -1805,16 +2146,17 @@ def train_tp(smi: str) -> dict[str, int]:
             check(not (gg or cg), f"TP 2 training rank {r}: the finite gate tripped")
             err = max(abs(gl - cl) / abs(cl), abs(gn - cn) / abs(cn))
             check(err < 1e-4, f"TP 2 training rank {r}: card {gl, gn} against CPU {cl, cn}")
-        check(all(abs(a - b) <= 1e-6 * abs(b) for m, m0 in zip(res["gpu"]["metrics"],
-                                                               ranks[0]["gpu"]["metrics"])
-                  for a, b in zip(m[:2], m0[:2])),
+        check(arch == MOE_ARCH or all(
+            abs(a - b) <= 1e-6 * abs(b) for m, m0 in zip(res["gpu"]["metrics"],
+                                                         ranks[0]["gpu"]["metrics"])
+            for a, b in zip(m[:2], m0[:2])),
               f"TP 2 training: rank {r}'s metrics differ from rank 0's")
         for k, n in res["counts"].items():
             total[k] += n
     gm, cm = ranks[0]["gpu"]["metrics"], ranks[0]["cpu"]["metrics"]
     err = max(max(abs(g[0] - c[0]) / abs(c[0]), abs(g[1] - c[1]) / abs(c[1]))
               for g, c in zip(gm, cm))
-    print(f"[tp] [{smi}] TP 2 training, f32 smoke {ARCH}, hier + int8, {TP_TRAIN_STEPS} steps, "
+    print(f"[tp] [{smi}] TP 2 training, f32 smoke {arch}, hier + int8, {TP_TRAIN_STEPS} steps, "
           f"gloo TP group on one card: losses {[f'{m[0]:.6f}' for m in gm]}, grad norms "
           f"{[f'{m[1]:.6f}' for m in gm]}, max relative diff from the CPU's two-rank run "
           f"{err:.3g} (tol 1e-4); launches per step and rank {ranks[0]['want']}")
@@ -1847,8 +2189,13 @@ def main() -> int:
     rows.update(check_flash(dev, gen, smi))
     rows.update(check_ssd(dev, gen, smi))
     free_memory()
-    check_small_model(dev, ARCH)
-    check_small_model(dev, SSM_ARCH)
+    # MoE phase (a) on the emptied card: 60.16 GB of weights
+    moe_serve, moe_counts = serve_moe(dev, smi)
+    free_memory()
+    moe_profile = profile_moe(dev, smi)
+    free_memory()
+    for arch in (ARCH, SSM_ARCH) + MOE_SMOKE_ARCHS:
+        check_small_model(dev, arch)
     train_launch.init_world(dev)        # a world of one: gloo for CPU, NCCL for CUDA
     try:
         rt = runtime_for_groups(pods=1, data_per_pod=1)
@@ -1856,6 +2203,8 @@ def main() -> int:
         rt_fsdp = runtime_for_groups(pods=1, data_per_pod=1, fsdp=True)
         for mode, codec in TRAIN_RUNS:
             check_small_training(dev, rt_fsdp if mode == "fsdp" else rt, mode, codec)
+        for arch in MOE_SMOKE_ARCHS:       # MoE phase (b)
+            check_small_training(dev, rt, "hier", "int8", arch=arch)
         pods, per_pod = PLAN_WORLD
         planned = train_launch.make_plan(get_config(ARCH), pods, pods * per_pod, "hier", "int8",
                                          plan="auto", global_batch=TRAIN_BATCH, seq=TRAIN_SEQ,
@@ -1876,10 +2225,15 @@ def main() -> int:
         for tp, ref in ((2, serve[ARCH]), (4, ref_depth)):
             tp_counts[f"serve_tp{tp}"], tp_serve[f"tp{tp}"] = serve_tp(smi, tp, ref)
         tp_counts["train_tp2"] = train_tp(smi)
+        # MoE phase (d): expert parallelism, two ranks on the one card
+        tp_counts["serve_moe_tp2"], moe_tp = serve_moe_tp(dev, smi)
+        tp_counts["train_moe_tp2"] = train_tp(smi, MOE_ARCH)
         train = {}
         for mode, codec in TRAIN_RUNS:
             train[mode] = train_full_width(dev, smi, mode, codec)
             free_memory()
+        moe_train = train_moe(dev, smi)     # MoE phase (c)
+        free_memory()
         planned_entry, planned_run = train_planned_paths(dev, smi)
         free_memory()
         peaks = ", ".join(f"{m} {r['peak_mem_gb']:.3f} GB" for m, r in train.items())
@@ -1907,6 +2261,7 @@ def main() -> int:
     rows["quant_scaled"]["f32_grad_segment"] = f32["quant_scaled"]
     rows["dequant_int8"]["int32_f32_grad_segment"] = f32["dequant_int8"]
     paths = {"serve": serve_counts[ARCH], "serve_mamba2": serve_counts[SSM_ARCH],
+             "serve_moe": moe_counts, "train_moe": moe_train["counts"],
              **{f"train_{mode}": res["counts"] for mode, res in train.items()},
              "train_planned_entry": planned_entry["counts"],
              "train_planned": planned_run["counts"], "conformance": conformance_counts,
@@ -1955,7 +2310,17 @@ def main() -> int:
             "vector")} | {"launches": res["counts"],
                           "losses": [r["loss"] for r in res["records"]]}
             for name, res in (("entry", planned_entry), ("plan_world", planned_run))},
-        "train_profile": train_profile, "serve_tp_gloo_one_card": tp_serve, "card": smi}))
+        "train_profile": train_profile, "serve_tp_gloo_one_card": tp_serve,
+        "moe": {"serve": {k: moe_serve[k] for k in (
+                    "ttft_ms", "decode_ms_per_step", "int8_transfer_ms", "peak_mem_gb",
+                    "int8_token_agreement", "cache_bytes", "params", "bounds")},
+                "profile": moe_profile,
+                "train": {k: moe_train[k] for k in ("step_ms", "tokens_per_s", "peak_mem_gb",
+                                                     "params")}
+                | {"losses": [r["loss"] for r in moe_train["records"]],
+                   "aux": [r["aux"] for r in moe_train["records"]]},
+                "tp2_gloo_one_card": moe_tp},
+        "card": smi}))
     print(f"[time] chip_smoke: {time.perf_counter() - t_start:.1f} s from start to result")
     print(smi)
     print(json.dumps({"kernels": list(rows.values())}))

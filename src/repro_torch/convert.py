@@ -8,7 +8,9 @@ bf16 arrays are reinterpreted bit for bit.  Each rank keeps its slice of
 every global array (``Model.set_params``): its TP shard over
 ``rt.tp_group`` and, with ``fsdp`` > 1, its FSDP shard of that over
 ``rt.fsdp_group``, the reference's addressable shard of the array under
-``NamedSharding(mesh, model.param_specs(...))``.  ``models.model.pad_vocab``
+``NamedSharding(mesh, model.param_specs(...))``; an MoE layer's expert banks
+split on the expert dim under ``ep`` and on d_ff under ``etp``, and its f32
+router stays whole.  ``models.model.pad_vocab``
 turns a tree drawn at TP 1 into the tree of a larger TP size that
 computes the same function.
 """

@@ -26,11 +26,13 @@ does); ReduceScatterH
 (``hier_psum_scatter``) and AllGatherH (``hier_all_gather``, the
 raw-shard copy ring then the intra broadcast); and the ZeRO-1 flat-shard
 layer (``zero1_local_shard``, ``tree_hier_psum_scatter``,
-``tree_hier_unscatter``).  Every entry point consumes its input:
+``tree_hier_unscatter``); and All2AllH (``hier_all_to_all``, the
+``hier_a2a`` and ``flat_a2a`` schedules, differentiable, with the bf16
+wire cast on the pod exchange).  Every entry point but the All2All
+consumes its input:
 buffers are reduced in place where the collective allows it, and the
 interpreter holds the payload in a list of one that the int8 codec
-empties, so the payload is freed once it is quantized.  The All2All
-steps raise ``NotImplementedError`` naming the slice that brings them.
+empties, so the payload is freed once it is quantized.
 """
 
 from __future__ import annotations
@@ -57,8 +59,9 @@ class CommConfig:
       cluster, no C2C hop).
     intra_group — the intra-cluster group of the start and end homColl
       (``None``: a group of one).
-    dp_group — the group of every data-parallel rank (pods x intra), over
-      which ``flat`` makes its one all-reduce (``None``: a group of one).
+    dp_group — the group of every data-parallel rank (pods x intra, in
+      pod-major rank order), over which ``flat`` makes its one all-reduce
+      and the All2All its global exchange (``None``: a group of one).
     compression — optional codec for the pod hop only: ``bf16`` or ``int8``.
     cluster_weights — per-pod gradient weights (mean 1 over pods), one
       entry per pod-group rank; ``None`` is the even split.
@@ -157,10 +160,6 @@ def _wire_cast(buf: torch.Tensor, codec: str | None, fn) -> torch.Tensor:
     return fn(buf)
 
 
-def _not_ported(what: str, slice_: str):
-    return NotImplementedError(f"{what} is not ported yet (the {slice_} slice)")
-
-
 def _exec_step(step: schedule_ir.Step, payload: list, cfg: CommConfig,
                ctx: _ExecCtx) -> torch.Tensor:
     """Run one step on ``payload[0]``, taking it out of the list, and return
@@ -242,7 +241,9 @@ def _exec_step(step: schedule_ir.Step, payload: list, cfg: CommConfig,
     if isinstance(step, schedule_ir.Flat):
         raise ValueError("Flat steps are handled by the entry points")
     if isinstance(step, (schedule_ir.IntraAll2All, schedule_ir.BorderExchange)):
-        raise _not_ported("All2All", "MoE")
+        # the flat-buffer interpreter has no split/concat dims; the
+        # token-dimension walker in hier_all_to_all executes these
+        raise ValueError("All2All steps are handled by hier_all_to_all")
     raise NotImplementedError(f"no executor for step {step!r}")
 
 
@@ -341,6 +342,78 @@ def hier_all_gather(x: torch.Tensor, cfg: CommConfig, gather_dim: int = 0) -> to
     alld = torch.movedim(pods, (0, 1), (g, g + 1))                     # x[:g], P, D, x[g:]
     new_shape = x.shape[:g] + (pods.shape[0] * pods.shape[1] * x.shape[g],) + x.shape[g + 1:]
     return alld.reshape(new_shape)
+
+
+# ---------------------------------------------------------------------------
+# All2AllH (paper §5): intra dispatch -> border exchange -> redistribute
+# ---------------------------------------------------------------------------
+
+def _block_transpose(x: torch.Tensor, axis: int, a: int, b: int) -> torch.Tensor:
+    """View dim ``axis`` (length a * b * m) as [a, b, m] blocks and swap to
+    [b, a, m]: a local relayout, no communication (the token resort
+    between the phases of the hierarchical All2All)."""
+    m = x.shape[axis] // (a * b)
+    y = x.reshape(tuple(x.shape[:axis]) + (a, b, m) + tuple(x.shape[axis + 1:]))
+    return y.transpose(axis, axis + 1).reshape(x.shape)
+
+
+def hier_all_to_all(x: torch.Tensor, cfg: CommConfig, split_dim: int,
+                    concat_dim: int) -> torch.Tensor:
+    """Global All2All over (pod, intra) through the mode's schedule,
+    value-identical to the one native exchange over ``cfg.dp_group`` (rank
+    order pod-major).  The ``hier_a2a`` decomposition:
+
+      IntraAll2All (start) — resort the destination blocks along
+            ``split_dim`` from pod-major (p', d') to intra-major (d', p')
+            by a local block transpose, then exchange over the intra group:
+            each rank holds the tokens its intra index is responsible
+            for, grouped per destination pod.
+      BorderExchange — the pairwise cross-cluster exchange over the pod
+            group of the destination-pod-contiguous blocks (when split and
+            concat share a dim, the intra exchange concatenated the sender
+            blocks onto it, so one more block transpose regroups
+            [D'', P'] -> [P', D'']), under the bf16 wire cast if the
+            schedule compresses.
+      IntraAll2All (end) — model-only: the pairwise exchange already lands
+            tokens on their ranks.
+
+    A BorderExchange with no intra dispatch before it (``flat_a2a``, or
+    ``hier``'s C2CCpy) is the one global exchange.  Differentiable: each
+    exchange transposes to the exchange with split and concat swapped,
+    each block transpose and cast to its own transpose."""
+    cfg = resolve_config(cfg, _nbytes(x))
+    sched = schedule_ir.build_schedule("all_to_all", cfg.mode, cfg.n_chunks,
+                                       cfg.compression)
+    if cfg.pod_group is None:
+        return primitives.hom_all_to_all(x, cfg.intra_group, split_dim, concat_dim)
+    if any(isinstance(s, schedule_ir.Flat) for s in sched.steps):
+        return primitives.hom_all_to_all(x, cfg.dp_group, split_dim, concat_dim)
+    pod, intra = cfg.pod_group, cfg.intra_group
+    P_, D_ = primitives.axis_size(pod), primitives.axis_size(intra)
+    steps, _ = sched.unrolled()          # the a2a path is not chunk-pipelined
+    codec: str | None = None
+    dispatched = False
+    for step in steps:
+        if isinstance(step, schedule_ir.Compress):
+            codec = step.codec
+        elif isinstance(step, schedule_ir.Decompress):
+            codec = None
+        elif isinstance(step, schedule_ir.IntraAll2All):
+            if step.model_only:
+                continue
+            x = _block_transpose(x, split_dim, P_, D_)
+            x = primitives.hom_all_to_all(x, intra, split_dim, concat_dim)
+            dispatched = True
+        elif isinstance(step, (schedule_ir.BorderExchange, schedule_ir.C2CCpy)):
+            if not dispatched:
+                x = _wire_cast(x, codec, lambda b: primitives.hom_all_to_all(
+                    b, cfg.dp_group, split_dim, concat_dim))
+                continue
+            if split_dim == concat_dim:
+                x = _block_transpose(x, split_dim, D_, P_)
+            x = _wire_cast(x, codec, lambda b: primitives.hom_all_to_all(
+                b, pod, split_dim, concat_dim))
+    return x
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,9 @@ reference names a mesh axis inside ``shard_map``, these take a
                    all-reduce (``c2c_red``), or the mechanism-faithful
                    reduce ring (``c2c_red_ring``).
 
+  * ``hom_all_to_all`` -> the native exchange (``all_to_all_single``),
+                   the reference's tiled ``lax.all_to_all``, differentiable.
+
 A collective over a group of one is the identity and issues no call, as
 a reduction over an axis of size one is in the reference.  The
 primitives consume their input: an all-reduce sums it in place (every
@@ -73,6 +76,48 @@ def hom_all_gather(x: torch.Tensor, group, gather_dim: int = 0) -> torch.Tensor:
     if gather_dim == 0:
         return out
     return torch.cat(out.view((n,) + tuple(x.shape)).unbind(0), dim=gather_dim)
+
+
+def _exchange(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """The tiled all-to-all: ``x`` cut into n blocks along ``split_dim``,
+    block i sent to group rank i, and the blocks received concatenated
+    along ``concat_dim`` in source rank order.  The exchange runs on dim 0
+    (``split_dim`` moved to the front), then the received blocks are laid
+    along ``concat_dim``."""
+    n = group_size(group)
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} over {n} ranks")
+    front = x.movedim(split_dim, 0).contiguous()
+    out = torch.empty_like(front)
+    dist.all_to_all_single(out, front, group=group)
+    # out: [source, block of split_dim, rest of x's dims in front's order]
+    blocks = out.view((n, front.shape[0] // n) + tuple(front.shape[1:])).movedim(1, split_dim + 1)
+    return torch.cat(blocks.unbind(0), dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The exchange whose backward is the exchange with split and concat
+    swapped, as ``lax.all_to_all`` transposes."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch.Tensor:
+        ctx.args = (group, split_dim, concat_dim)
+        return _exchange(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        group, split_dim, concat_dim = ctx.args
+        return _exchange(g, group, concat_dim, split_dim), None, None, None
+
+
+def hom_all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """The reference's ``lax.all_to_all(x, axis, split_dim, concat_dim,
+    tiled=True)`` over ``group`` (for the reference's pair of axes, one
+    group of pod x intra ranks in pod-major order); the identity over a
+    group of one."""
+    if group_size(group) == 1:
+        return x
+    return _AllToAll.apply(x, group, split_dim, concat_dim)
 
 
 def c2c_red(x: torch.Tensor, group) -> torch.Tensor:

@@ -65,7 +65,8 @@ def mesh_coords(rank: int, data_per_pod: int, tp: int) -> tuple[int, int, int]:
 
 def runtime_for_groups(*, pod_group=None, tp_group=None, pods: int | None = None,
                        data_per_pod: int | None = None, tp: int = 1, fsdp: bool = False,
-                       sp: bool = False) -> Runtime:
+                       sp: bool = False, moe_capacity_factor: float = 1.25,
+                       moe_a2a_mode: str = "flat", moe_cluster_weights=None) -> Runtime:
     """The Runtime for one process.
 
     With ``pods`` and ``data_per_pod`` the current world of ``pods *
@@ -83,9 +84,14 @@ def runtime_for_groups(*, pod_group=None, tp_group=None, pods: int | None = None
     the pod hop and its codec.  Otherwise the Runtime holds the given
     groups as they are (``None`` is a group of one, no collective) and no
     data-parallel group: ``pod_group`` is the ring the disaggregated KV
-    transfer runs over."""
+    transfer runs over.  The MoE knobs go to the Runtime as the
+    reference's ``runtime_for_mesh`` passes them; the ep exchange's cluster
+    group stays ``None`` (experts never shard over pods)."""
+    moe = dict(moe_capacity_factor=moe_capacity_factor, moe_a2a_mode=moe_a2a_mode,
+               moe_cluster_weights=(tuple(moe_cluster_weights) if moe_cluster_weights
+                                    else None))
     if pods is None and data_per_pod is None:
-        return Runtime(tp_group=tp_group, pod_group=pod_group, sp=sp)
+        return Runtime(tp_group=tp_group, pod_group=pod_group, sp=sp, **moe)
     if pods is None or data_per_pod is None or min(pods, data_per_pod, tp) < 1:
         raise ValueError(f"pods {pods} x data_per_pod {data_per_pod} x tp {tp}")
     world = dist.get_world_size()
@@ -112,4 +118,4 @@ def runtime_for_groups(*, pod_group=None, tp_group=None, pods: int | None = None
     dp = (dist.group.WORLD if tp == 1 else
           cut(((m,) for m in T), lambda m: [rank(p, d, m) for p in P for d in D], (m0,)))
     return Runtime(tp_group=tp_group, pod_group=pod, data_group=data, dp_group=dp,
-                   fsdp_group=data if fsdp else None, sp=sp)
+                   fsdp_group=data if fsdp else None, sp=sp, **moe)

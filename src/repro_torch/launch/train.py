@@ -9,6 +9,7 @@
     python -m repro_torch.launch.train --plan auto --skew auto --plan-cache plans.pkl
     python -m repro_torch.launch.train --mode hier --no-packed
     python -m repro_torch.launch.train --smoke --device cpu --steps 2
+    python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b --smoke --device cpu
     RANK=r WORLD_SIZE=8 MASTER_ADDR=localhost MASTER_PORT=29500 \
         python -m repro_torch.launch.train --smoke --device cpu --pods 2 --tp 2
 
@@ -69,8 +70,9 @@ from repro_torch.core import skew as skew_lib
 from repro_torch.data.pipeline import DataConfig, batches
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import BACKENDS, init_world, mesh_coords, runtime_for_groups
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.model import Model, resolve_device
-from repro_torch.parallel.sharding import group_size
+from repro_torch.parallel.sharding import Runtime, group_size
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.train_step import TrainConfig, make_train_step
 
@@ -93,6 +95,10 @@ class Planned:
     packed: bool
     cluster_weights: tuple[float, ...] | None
     cache: dict | None = None
+    # the MoE dispatch/combine All2All: the planned schedule mode and the
+    # skew weights steering expert capacity (the Runtime's moe_* knobs)
+    moe_a2a_mode: str = "flat"
+    moe_cluster_weights: tuple[float, ...] | None = None
 
 
 def dp_rows(rank: int, global_batch: int, pods: int, data_per_pod: int, tp: int) -> slice:
@@ -122,9 +128,13 @@ def make_plan(cfg, pods: int, world: int, mode: str, compression: str | None,
     pods)``, with a pod axis only if ``pods > 1``, as the reference prices
     its mesh; then its mode override and its per-leaf fallback.  ``world``
     counts every rank, TP ranks included; each syncs the gradients of its
-    own TP shard, a ``tp``-th of the parameters.  The MoE All2All plan is
-    not ported."""
+    own TP shard, a ``tp``-th of the parameters.  For an MoE model
+    ``--plan auto`` also plans the expert dispatch/combine All2All over
+    the a2a candidate family (flat / flat_a2a / hier_a2a), one bucket of
+    E x capacity x d_model f32 per layer, and ``--skew auto``'s split
+    steers the expert capacity."""
     plan_obj = cluster_weights = stats = None
+    moe_a2a_mode, moe_weights = "flat", None
     if plan == "auto" or skew == "auto":
         n_pods = max(1, pods)
         topo = topology.tpu_multipod(n_pods, world // n_pods)
@@ -199,6 +209,27 @@ def make_plan(cfg, pods: int, world: int, mode: str, compression: str | None,
                         f"(backward {plan_obj.overlap.backward_compute_s*1e3:.2f} ms)")
             log(msg + f" validated={plan_obj.validated}")
             log(plan_obj.describe())
+        if plan == "auto" and cfg.n_experts:
+            # the ep payload is token activations, not gradients, so it gets
+            # its own plan; int8 is left out (activations have no error
+            # feedback to absorb the quantization bias)
+            t_loc = max(1, max(1, global_batch * seq) // max(1, topo.n_ranks))
+            cap = moe_lib._capacity(t_loc, cfg.top_k, cfg.n_experts,
+                                    Runtime.moe_capacity_factor)
+            a2a_bytes = max(1, cfg.n_experts * cap * cfg.d_model * 4)
+            a2a_plan = planner.plan(
+                topo, [a2a_bytes] * max(1, cfg.n_layers), coll="all_to_all",
+                pod_axis="pod" if n_pods > 1 else None, intra_axis="data",
+                compressions=(None, "bf16"), flat_mechanism="native",
+                try_balanced=False, cache=cache, _sim_cache=sim_cache)
+            moe_a2a_mode = a2a_plan.recommended_mode()
+            # capacity allocation weights no gradient, so the even-data
+            # guard above does not apply
+            if skew_split is not None:
+                moe_weights = tuple(skew_split.weights)
+            log(f"[plan] MoE dispatch/combine All2All -> {moe_a2a_mode} "
+                f"({a2a_bytes / 2 ** 20:.1f} MiB/layer)")
+            log(a2a_plan.describe())
         st = cache.stats()
         stats = {"hits": st["hits"], "misses": st["misses"], "path": st["path"]}
         log(f"[plan] cache: {st['hits']} hit(s), {st['misses']} miss(es)")
@@ -210,7 +241,8 @@ def make_plan(cfg, pods: int, world: int, mode: str, compression: str | None,
         log("[plan] per-leaf data path (pack overhead loses; packed disabled for this run)")
         packed = False
     return Planned(plan_obj, mode, packed,
-                   None if cluster_weights is None else tuple(cluster_weights), stats)
+                   None if cluster_weights is None else tuple(cluster_weights), stats,
+                   moe_a2a_mode, moe_weights)
 
 
 def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, steps: int = 4,
@@ -219,13 +251,14 @@ def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, steps: int = 4,
         log_every: int = 1, seed: int = 0, pods: int = 1, device="cuda",
         plan: str = "manual", skew: str = "none", plan_cache: str | None = None,
         packed: bool = True, plan_world: tuple[int, int] | None = None,
-        tp: int = 1, sp: bool = False, log=print) -> dict:
+        tp: int = 1, sp: bool = False, layers: int | None = None, log=print) -> dict:
     """Train ``steps`` steps in the running process group and return what
     was measured.  Step times are host wall-clock around work that ends
     in a device synchronize.  ``plan``, ``skew``, ``plan_cache`` and
     ``packed`` are the flags of ``make_plan``; ``plan_world`` (pods, ranks
     per pod) prices the plan for that cluster in place of the running
-    world, so that a small world runs the plan a larger one would get."""
+    world, so that a small world runs the plan a larger one would get.
+    ``layers`` cuts the depth."""
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -234,18 +267,22 @@ def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, steps: int = 4,
     if world % (pods * tp) or global_batch % n_dp:
         raise ValueError(f"world {world}, pods {pods}, tp {tp}, global batch {global_batch}")
     data_per_pod = n_dp // pods
-    rt = runtime_for_groups(pods=pods, data_per_pod=data_per_pod, tp=tp,
-                            fsdp=mode == "fsdp", sp=sp)
     cfg = get_config(arch, smoke=smoke)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    plan_pods, per_pod = plan_world or (pods, world // pods)
+    planned = make_plan(cfg, plan_pods, plan_pods * per_pod, mode, compression, plan=plan,
+                        skew=skew, plan_cache=plan_cache, packed=packed,
+                        global_batch=global_batch, seq=seq, tp=tp, log=log)
+    # the Runtime takes the planned MoE All2All knobs before the model is built
+    rt = runtime_for_groups(pods=pods, data_per_pod=data_per_pod, tp=tp,
+                            fsdp=mode == "fsdp", sp=sp, moe_a2a_mode=planned.moe_a2a_mode,
+                            moe_cluster_weights=planned.moe_cluster_weights)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     model = Model(cfg, rt, device)
     if mode == "fsdp":
         model.with_fsdp(group_size(rt.data_group))
-    plan_pods, per_pod = plan_world or (pods, world // pods)
-    planned = make_plan(cfg, plan_pods, plan_pods * per_pod, mode, compression, plan=plan,
-                        skew=skew, plan_cache=plan_cache, packed=packed,
-                        global_batch=global_batch, seq=seq, tp=tp, log=log)
     tcfg = TrainConfig(comm_mode=planned.mode, dcn_compression=compression,
                        plan=planned.plan, cluster_weights=planned.cluster_weights,
                        packed=planned.packed, opt=OptConfig(lr=lr, warmup_steps=20))
@@ -267,7 +304,7 @@ def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, steps: int = 4,
         _sync(device)
         ms = (time.perf_counter() - t0) * 1e3
         after = ops.launch_counts()
-        rec = {"step": step, "loss": m["loss"], "gnorm": m["grad_norm"],
+        rec = {"step": step, "loss": m["loss"], "gnorm": m["grad_norm"], "aux": m["aux"],
                "ms_per_step": ms, "gated": m["gated"],
                "launches": {k: after[k] - before[k] for k in after}}
         records.append(rec)
@@ -279,6 +316,7 @@ def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, steps: int = 4,
         "arch": cfg.name, "device": str(device), "world": world, "pods": pods, "tp": tp,
         "sp": sp, "rank": rank,
         "mode": planned.mode, "compression": compression, "packed": planned.packed,
+        "moe_a2a_mode": rt.moe_a2a_mode if cfg.n_experts else None,
         "plan": None if planned.plan is None else planned.plan.summary(),
         "plan_cache": planned.cache,
         "global_batch": global_batch, "seq": seq, "params": n_params,

@@ -7,7 +7,7 @@ embeddings are not tied, ``lm_head``.  ``init(seed)`` draws them from a
 ``torch.Generator`` on the model's device; ``convert.params_from_jax``
 loads the reference's arrays instead.  Caches are stacked per leaf, as
 in the reference, so the transfer cuts the same int8 blocks: a
-``KVCache`` of (L, B, W, kl, dh) k and v for the dense family, an
+``KVCache`` of (L, B, W, kl, dh) k and v for the dense and MoE families, an
 ``SSMState`` of (L, B, W-1, ch) conv and (L, B, h, p, n) ssm leaves for
 the SSM family, each with an (L,) length.
 
@@ -30,7 +30,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.parallel.sharding import Runtime, fsdp_dim, fsdp_gather, gather_sp
-from . import attention, layers, ssm, transformer
+from . import attention, layers, moe, ssm, transformer
 
 
 def resolve_device(device) -> torch.device:
@@ -61,7 +61,19 @@ def _tp_dim(path: tuple, shape, cfg: ModelConfig, tp: int, stacked: bool) -> int
     off = 1 if stacked else 0
     nd = len(shape)
     if "moe" in path and name in ("w_gate", "w_up", "w_down"):
-        raise NotImplementedError("MoE sharding is not ported yet (the MoE slice)")
+        if moe.strategy(cfg, tp) == "ep":
+            if cfg.n_experts % tp:
+                # fail here, not deep inside the layer
+                raise ValueError(
+                    f"MoE expert parallelism needs the tensor-parallel "
+                    f"size to divide the expert count: "
+                    f"n_experts={cfg.n_experts} % tp={tp} = "
+                    f"{cfg.n_experts % tp}; pick a tp that divides "
+                    f"{cfg.n_experts} or drop below n_experts to select "
+                    f"the etp strategy")
+            return off  # shard the expert dim
+        # etp: shard d_ff (the last dim of gate and up, the middle of down)
+        return nd - 1 if name in ("w_gate", "w_up") else off + 1
     if name in _KV:
         if cfg.kv_replicated(tp):
             return None
@@ -299,20 +311,21 @@ class Model(nn.Module):
                 leaves.extend(walk(top[key]))
         return leaves
 
-    def apply_train(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) -> vocab-sharded logits (B, S, Vl) f32,
-        differentiable in the parameters."""
+    def apply_train(self, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """tokens (B, S) -> (vocab-sharded logits (B, S, Vl) f32, the MoE
+        aux loss summed over the layers, f32), differentiable in the
+        parameters."""
         cfg, rt = self.cfg, self.rt
         sp = rt.sp and rt.tp_group is not None
         x = layers.embed_lookup(self.embed, tokens, rt)
         if sp:
             x = transformer.scatter_from_full(x, rt)
-        x = transformer.decoder_stack(self.layers, x, cfg, rt,
-                                      self.fsdp_dims() if self.fsdp > 1 else None)
+        x, aux = transformer.decoder_stack(self.layers, x, cfg, rt,
+                                           self.fsdp_dims() if self.fsdp > 1 else None)
         x = layers.apply_norm(self.final_norm, x, cfg.norm)
         if sp:
             x = gather_sp(x, rt.tp_group)
-        return layers.lm_head_logits(x, self._head(), rt)
+        return layers.lm_head_logits(x, self._head(), rt), aux
 
     # --------------------------------------------------------- serving --
 
@@ -338,8 +351,7 @@ class Model(nn.Module):
         h = layers.apply_norm(lp["norm_attn"], x, cfg.norm)
         a, _ = attention.attention_prefill(lp["attn"], h, cfg, rt, cache)
         x = x + a
-        h = layers.apply_norm(lp["norm_mlp"], x, cfg.norm)
-        return x + layers.apply_mlp(lp["mlp"], h, rt)
+        return x + self._ffn(lp, layers.apply_norm(lp["norm_mlp"], x, cfg.norm))
 
     def _layer_decode(self, lp, x: torch.Tensor, cache) -> torch.Tensor:
         """One layer, one token; updates the layer's cache views in place."""
@@ -352,8 +364,14 @@ class Model(nn.Module):
         h = layers.apply_norm(lp["norm_attn"], x, cfg.norm)
         a, _ = attention.attention_decode(lp["attn"], h, cfg, rt, cache)
         x = x + a
-        h = layers.apply_norm(lp["norm_mlp"], x, cfg.norm)
-        return x + layers.apply_mlp(lp["mlp"], h, rt)
+        return x + self._ffn(lp, layers.apply_norm(lp["norm_mlp"], x, cfg.norm))
+
+    def _ffn(self, lp, h: torch.Tensor) -> torch.Tensor:
+        """The feed-forward sublayer of serving: the MoE layer (its aux loss
+        dropped) or the MLP."""
+        if self.cfg.family == "moe":
+            return moe.apply_moe(lp["moe"], h, self.cfg, self.rt)[0]
+        return layers.apply_mlp(lp["mlp"], h, self.rt)
 
     @torch.inference_mode()
     def apply_prefill(self, tokens: torch.Tensor, max_len: int | None = None):

@@ -1,8 +1,10 @@
 """Per-layer init, the training layer and the layer stack.  The dense
-decoder family is ported for serving and training, at any tensor-parallel
-size and with sequence parallelism; the SSM family (Mamba2) for serving
-at a TP group of one; the other families (MoE, hybrid, encoder-decoder,
-VLM), SSM training and Mamba2 under TP come with their slices."""
+decoder family and the MoE family are ported for serving and training,
+at any tensor-parallel size (MoE by expert parallelism or expert-tensor
+parallelism, ``models/moe.py``) and with sequence parallelism; the SSM
+family (Mamba2) for serving at a TP group of one; the other families
+(hybrid, encoder-decoder, VLM), SSM training and Mamba2 under TP come
+with their slices."""
 
 from __future__ import annotations
 
@@ -13,9 +15,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.parallel.sharding import Runtime, fsdp_gather, gather_sp, scatter_sp
-from . import attention, layers, ssm
+from . import attention, layers, moe, ssm
 
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "ssm")
 
 
 def check_ported(cfg: ModelConfig, tp: int) -> None:
@@ -39,12 +41,16 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, tp: int, dtype) -> dict:
     if cfg.family == "ssm":
         return {"norm_ssm": layers.init_norm(cfg.norm, cfg.d_model, dtype, gen.device),
                 "ssm": ssm.init_ssm(gen, cfg, tp, dtype)}
-    return {
+    p = {
         "norm_attn": layers.init_norm(cfg.norm, cfg.d_model, dtype, gen.device),
         "attn": attention.init_attention(gen, cfg, tp, dtype),
         "norm_mlp": layers.init_norm(cfg.norm, cfg.d_model, dtype, gen.device),
-        "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype),
     }
+    if cfg.family == "moe":
+        p["moe"] = moe.init_moe(gen, cfg, tp, dtype)
+    else:
+        p["mlp"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype)
+    return p
 
 
 def _sub(x_res: torch.Tensor, fn, rt: Runtime) -> torch.Tensor:
@@ -57,6 +63,15 @@ def _sub(x_res: torch.Tensor, fn, rt: Runtime) -> torch.Tensor:
     return fn(x_res, True)
 
 
+def _sub_reduced(x_res: torch.Tensor, fn_full, rt: Runtime) -> torch.Tensor:
+    """A sublayer that sums over the TP group itself (MoE): under sequence
+    parallelism gather the sequence, run it, and keep this rank's shard of
+    the reduced output."""
+    if rt.sp and rt.tp_group is not None:
+        return scatter_from_full(fn_full(gather_sp(x_res, rt.tp_group)), rt)
+    return fn_full(x_res)
+
+
 def scatter_from_full(out_full: torch.Tensor, rt: Runtime) -> torch.Tensor:
     """This rank's sequence shard of an already reduced full output."""
     shard = out_full.shape[1] // rt.tp
@@ -64,11 +79,11 @@ def scatter_from_full(out_full: torch.Tensor, rt: Runtime) -> torch.Tensor:
 
 
 def apply_layer(p, x: torch.Tensor, cfg: ModelConfig, rt: Runtime, *,
-                causal: bool = True) -> torch.Tensor:
-    """One dense decoder layer for training, x: (B, S, D) -> (B, S, D), or
-    (B, S/tp, D) under sequence parallelism.  The dense family has no
-    auxiliary loss; it comes with MoE."""
-    if cfg.family != "dense":
+                causal: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """One dense or MoE decoder layer for training, x: (B, S, D) -> (B, S,
+    D), or (B, S/tp, D) under sequence parallelism; returns (x, aux), the
+    MoE load-balance loss (0 for a dense layer)."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"training the {cfg.family!r} family ({cfg.name}) is not ported "
             f"yet: it comes with the SSM training slice (the SSD kernel has "
@@ -77,25 +92,40 @@ def apply_layer(p, x: torch.Tensor, cfg: ModelConfig, rt: Runtime, *,
     x = x + _sub(h, lambda xg, red: attention.attention_train(
         p["attn"], xg, cfg, rt, causal=causal, reduce=red), rt)
     h = layers.apply_norm(p["norm_mlp"], x, cfg.norm)
-    return x + _sub(h, lambda xg, red: layers.apply_mlp(p["mlp"], xg, rt, red), rt)
+    if cfg.family == "moe":
+        aux = []
+
+        def moe_full(xg):
+            out, a = moe.apply_moe(p["moe"], xg, cfg, rt)
+            aux.append(a)
+            return out
+
+        return x + _sub_reduced(h, moe_full, rt), aux[0]
+    aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + _sub(h, lambda xg, red: layers.apply_mlp(p["mlp"], xg, rt, red), rt), aux0
 
 
 def _gathered_layer(lp, fsdp_dims, x: torch.Tensor, *, cfg: ModelConfig, rt: Runtime,
-                    causal: bool) -> torch.Tensor:
+                    causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
     if fsdp_dims is not None:
         lp = fsdp_gather(lp, fsdp_dims, rt.fsdp_group)
     return apply_layer(lp, x, cfg, rt, causal=causal)
 
 
 def decoder_stack(stack, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
-                  fsdp_dims=None, *, causal: bool = True) -> torch.Tensor:
+                  fsdp_dims=None, *, causal: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """The layers in order, each checkpointed (its activations are
     recomputed in the backward pass), as the reference checkpoints its
-    scan body.  With ``fsdp_dims`` each layer first gathers its FSDP
-    shards over ``rt.fsdp_group``, inside the checkpoint, so the gather
-    runs again in the recompute and its reduce-scatter in the backward."""
+    scan body; returns (x, the aux losses summed over the layers in f32,
+    as the reference's scan carries them).  Each layer's aux leaves the
+    checkpoint as part of its output, so the recompute adds nothing.
+    With ``fsdp_dims`` each layer first gathers its FSDP shards over
+    ``rt.fsdp_group``, inside the checkpoint, so the gather runs again in
+    the recompute and its reduce-scatter in the backward."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in stack:
         fn = functools.partial(_gathered_layer, lp, fsdp_dims, cfg=cfg, rt=rt,
                                causal=causal)
-        x = checkpoint(fn, x, use_reentrant=False)
-    return x
+        x, a = checkpoint(fn, x, use_reentrant=False)
+        aux = aux + a
+    return x, aux

@@ -8,8 +8,12 @@ of every data-parallel rank that shares this rank's model index (the
 reference's ``dp_axes``, pod x data), and the group the FSDP shards of
 the layer parameters live on (``fsdp_group``, the data group when FSDP
 is on); ``sp`` turns on Megatron sequence parallelism.  The MoE knobs
-come with their slice.  Kernels are chosen by the device of the tensor
-they get, so there is no ``use_pallas`` switch.
+are the reference's: the expert capacity factor, the All2All schedule
+mode of the expert-parallel dispatch and combine, the cluster group of
+that exchange (``None`` on every mesh the launchers build: experts shard
+over the TP group only) and the per-cluster capacity weights.  Kernels
+are chosen by the device of the tensor they get, so there is no
+``use_pallas`` switch.
 
 The collectives below carry the reference's autodiff semantics.  Its
 model code runs inside ``shard_map`` without replication checks, where
@@ -42,6 +46,14 @@ class Runtime:
     dp_group: Any = None            # every data-parallel rank (pod x data)
     fsdp_group: Any = None          # FSDP shard group ("data"), or None: no FSDP
     sp: bool = False                # Megatron sequence parallelism
+    moe_capacity_factor: float = 1.25
+    # MoE expert-parallel dispatch/combine (models/moe.py's ep path): the
+    # planner-chosen All2All schedule mode, the cluster group of the ep
+    # exchange (None: one cluster, the TP group alone) and the skew
+    # per-cluster weights steering expert capacity
+    moe_a2a_mode: str = "flat"
+    moe_a2a_pod_group: Any = None
+    moe_cluster_weights: tuple[float, ...] | None = None
 
     @property
     def tp(self) -> int:

@@ -3,7 +3,8 @@
 Prefill a batch of prompts, move the cache to the decode side through
 ``kv_transfer_body`` (raw, and int8 on the wire), then decode greedily
 from the moved caches and from the original one.  The cache is the KV
-cache of a dense model or the conv and SSM state of a Mamba2 model.  The
+cache of a dense or MoE model or the conv and SSM state of a Mamba2
+model.  The
 raw transfer must reproduce same-side generation token for token; the
 int8 transfer reports its token agreement.  Weights are random, drawn
 from ``--seed``.
@@ -17,6 +18,7 @@ moves and decodes its own shard of the cache, and prints its own line.
 
     python -m repro_torch.serve.disaggregated                  # qwen2.5-3b on the GPU
     python -m repro_torch.serve.disaggregated --arch mamba2-2.7b
+    python -m repro_torch.serve.disaggregated --arch qwen3-moe-30b-a3b
     python -m repro_torch.serve.disaggregated --smoke --device cpu
     RANK=r WORLD_SIZE=2 MASTER_ADDR=localhost MASTER_PORT=29500 \
         python -m repro_torch.serve.disaggregated --tp 2
@@ -73,24 +75,29 @@ def _generate(decode, token, caches, steps: int) -> torch.Tensor:
 
 def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, batch: int = 4,
         prompt_len: int = 1024, gen: int = 16, seed: int = 0,
-        device="cuda", tp: int = 1, layers: int | None = None) -> dict:
+        device="cuda", tp: int = 1, layers: int | None = None,
+        moe_capacity_factor: float = 1.25) -> dict:
     """Serve one batch end to end and return what it measured.  One
     warm-up prefill and transfer run first (the kernels build then); the
     warm-up's last-token logits (this rank's vocabulary shard) come back
     as ``prefill_logits``.  With ``tp`` > 1 the running process group must
-    be ``tp`` ranks.  ``layers`` cuts the depth.  Times are host
-    wall-clock around work that ends in a device synchronize."""
+    be ``tp`` ranks (an MoE model runs expert parallelism over them when
+    it has at least ``tp`` experts).  ``layers`` cuts the depth;
+    ``moe_capacity_factor`` is the Runtime's.  Times are host wall-clock
+    around work that ends in a device synchronize."""
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(arch, smoke=smoke)
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
-    rt = None
     if tp > 1:
         if not dist.is_initialized() or dist.get_world_size() != tp:
             raise ValueError(f"tp {tp} needs a process group of {tp} ranks")
-        rt = runtime_for_groups(pods=1, data_per_pod=1, tp=tp)
+        rt = runtime_for_groups(pods=1, data_per_pod=1, tp=tp,
+                                moe_capacity_factor=moe_capacity_factor)
+    else:
+        rt = runtime_for_groups(moe_capacity_factor=moe_capacity_factor)
     model = Model(cfg, rt, device).init(seed)
     gen_tok = torch.Generator(device="cpu").manual_seed(seed + 1)
     prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),

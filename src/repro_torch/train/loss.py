@@ -36,11 +36,12 @@ def _all_reduce(x: torch.Tensor, rt: Runtime, op) -> torch.Tensor:
 
 
 def sharded_xent(logits: torch.Tensor, labels: torch.Tensor, rt: Runtime,
-                 vocab_size: int):
+                 vocab_size: int, z_loss: float = 0.0):
     """logits (B, S, Vl) f32 vocab-sharded, labels (B, S) global ids ->
     (mean loss over the valid tokens, metrics {"nll_sum", "n_tok",
-    "mean_logp"}).  The sums over the group are the reference's raw psums,
-    whose backward sums too (``sharding.psum``)."""
+    "mean_logp"}).  ``z_loss`` adds ``z_loss * lse^2`` per valid token.  The
+    sums over the group are the reference's raw psums, whose backward sums
+    too (``sharding.psum``)."""
     vl = logits.shape[-1]
     logits, off = _masked(logits, rt, vocab_size)
     gmax = _all_reduce(logits.amax(dim=-1).detach(), rt, dist.ReduceOp.MAX)
@@ -52,6 +53,8 @@ def sharded_xent(logits: torch.Tensor, labels: torch.Tensor, rt: Runtime,
     picked = psum(torch.where(in_shard, picked, 0.0), rt.tp_group)
     tok_mask = (labels >= 0) & (labels < vocab_size)
     nll = torch.where(tok_mask, lse - picked, 0.0)
+    if z_loss:
+        nll = nll + torch.where(tok_mask, z_loss * lse * lse, 0.0)
     n_tok = tok_mask.sum().clamp(min=1)
     loss = nll.sum() / n_tok
     metrics = {"nll_sum": nll.sum(), "n_tok": n_tok,

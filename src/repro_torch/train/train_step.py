@@ -93,6 +93,8 @@ class TrainConfig:
     plan: Any = None
     finite_gate: bool = True
     opt: opt_lib.OptConfig = dataclasses.field(default_factory=opt_lib.OptConfig)
+    aux_weight: float = 1e-2          # MoE load-balance loss weight
+    z_loss: float = 0.0
 
     def comm_config(self, rt: Runtime) -> CommConfig | BoundPlan:
         """The plan on ``rt``'s groups when there is one, else the one
@@ -216,7 +218,8 @@ def make_train_step(model: Model, tcfg: TrainConfig):
     this rank's ``{"tokens", "labels"}`` (B, S) tensors on the model's
     device, runs forward, backward, gradient sync and the update in
     place, and returns the metrics synced over the data-parallel group
-    as Python numbers: loss, grad_norm, mean_logp and ``gated`` (the
+    as Python numbers: loss (the cross-entropy plus ``aux_weight`` times the
+    MoE aux loss), grad_norm, aux, mean_logp and ``gated`` (the
     finite gate skipped the update).  Without a data-parallel group there
     is no sync (the reference's single-device step)."""
     rt = model.rt
@@ -249,10 +252,11 @@ def make_train_step(model: Model, tcfg: TrainConfig):
                    if overlapped else None)
         specs = list(model.param_specs().values())
         with torch.enable_grad():
-            logits = model.apply_train(batch["tokens"])
+            logits, aux = model.apply_train(batch["tokens"])
             lval, metrics = loss_lib.sharded_xent(logits, batch["labels"], rt,
-                                                  model.cfg.vocab_size)
+                                                  model.cfg.vocab_size, tcfg.z_loss)
             del logits
+            lval = lval + tcfg.aux_weight * aux
             if overlap is not None:
                 # the gradients come back synced, bucket by bucket
                 with overlap.attached():
@@ -307,12 +311,12 @@ def make_train_step(model: Model, tcfg: TrainConfig):
                 gnorm = _global_grad_norm(synced, specs, rt) / n_dp
         clip = torch.clamp(tcfg.opt.grad_clip / (gnorm + 1e-9), max=1.0)
 
-        m = torch.stack([lval.detach().float(), gnorm / n_dp,
+        m = torch.stack([lval.detach().float(), gnorm / n_dp, aux.detach().float(),
                          metrics["mean_logp"].detach().float()])
         if n_dp > 1:
             dist.all_reduce(m, group=rt.dp_group)
         m = (m / n_dp).tolist()
-        out = dict(zip(("loss", "grad_norm", "mean_logp"), m))
+        out = dict(zip(("loss", "grad_norm", "aux", "mean_logp"), m))
         ok = math.isfinite(out["loss"]) and math.isfinite(out["grad_norm"])
         out["gated"] = tcfg.finite_gate and not ok
         if out["gated"]:

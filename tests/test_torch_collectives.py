@@ -812,11 +812,17 @@ def test_comm_layout_matches_reference(codec, world):
 
 
 def test_unported_modes_raise():
-    """The All2All steps wait for the MoE slice."""
+    """The flat-buffer interpreter hands the All2All steps to
+    ``hier_all_to_all`` and raises for them, with the reference's error."""
     cfg = tcoll.CommConfig(mode="hier", pod_group=object())
-    for step in (tsched.IntraAll2All("start"), tsched.BorderExchange("c2c")):
-        with pytest.raises(NotImplementedError, match="MoE"):
-            tcoll._exec_step(step, [torch.ones(8)], cfg, tcoll._ExecCtx())
+    jcfg = jcoll.CommConfig(mode="hier")
+    for name, arg in (("IntraAll2All", "start"), ("BorderExchange", "c2c")):
+        with pytest.raises(ValueError) as got:
+            tcoll._exec_step(getattr(tsched, name)(arg), [torch.ones(8)], cfg,
+                             tcoll._ExecCtx())
+        with pytest.raises(ValueError) as want:
+            jcoll._exec_step(getattr(jsched, name)(arg), jnp.ones(8), jcfg, jcoll._ExecCtx())
+        assert str(got.value) == str(want.value) == "All2All steps are handled by hier_all_to_all"
 
 
 def _jax_tree(tree: dict) -> dict:

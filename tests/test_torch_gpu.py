@@ -512,7 +512,7 @@ def test_smoke_training_on_card_matches_cpu(cuda, mode):
 
         def backward():
             with torch.enable_grad():
-                lval, _ = loss_lib.sharded_xent(gpu.apply_train(b["tokens"]), b["labels"],
+                lval, _ = loss_lib.sharded_xent(gpu.apply_train(b["tokens"])[0], b["labels"],
                                                 rt, cfg.vocab_size)
                 return torch.autograd.grad(lval, params)
 
@@ -688,3 +688,39 @@ def test_mamba2_smoke_on_card_matches_cpu(cuda):
         tok = lc.argmax(-1)
     assert ops.launch_counts()["ssd_chunk"] == before + cfg.n_layers   # decode: none
     assert torch.equal(cg.length.cpu(), cc.length)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mixtral-8x7b"])
+def test_moe_smoke_on_card_matches_cpu(cuda, arch):
+    """The f32 MoE smoke models (mixtral's with its window of 32): prefill
+    and four decode steps within 1e-3 of the CPU's logits, tokens equal,
+    flash once per layer in the prefill and never in decode; then the
+    MoE layer's training forward and backward within 1e-4."""
+    cfg = get_config(arch, smoke=True)
+    cfg = type(cfg)(**{**cfg.__dict__, "dtype": torch.float32})
+    cpu = Model(cfg, device="cpu").init(0)
+    gpu = copy.deepcopy(cpu).to(cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 130), generator=torch.Generator().manual_seed(0))
+    before = ops.launch_counts()["flash_attention_bhsd"]
+    lc, cc = cpu.apply_prefill(toks)
+    lg, cg = gpu.apply_prefill(toks.to(cuda))
+    assert ops.launch_counts()["flash_attention_bhsd"] == before + cfg.n_layers
+    assert (lg.cpu() - lc).abs().max().item() < 1e-3
+    tok = lc.argmax(-1)
+    assert torch.equal(lg.argmax(-1).cpu(), tok)
+    for _ in range(4):
+        lc, cc = cpu.apply_decode(tok, cc)
+        lg, cg = gpu.apply_decode(tok.to(cuda), cg)
+        assert (lg.cpu() - lc).abs().max().item() < 1e-3
+        assert torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1))
+        tok = lc.argmax(-1)
+    assert ops.launch_counts()["flash_attention_bhsd"] == before + cfg.n_layers
+    grads = []
+    for model in (cpu, gpu):
+        params = [p.requires_grad_(True) for p in model.layers[0]["moe"].values()]
+        with torch.enable_grad():
+            logits, aux = model.apply_train(toks[:, :64].to(model.device))
+            grads.append([g.cpu() for g in torch.autograd.grad(
+                logits.square().mean() + aux, params)])
+    for g, c in zip(grads[1], grads[0]):
+        assert (g - c).abs().max().item() <= 1e-4 * max(1.0, c.abs().max().item())

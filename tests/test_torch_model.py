@@ -111,8 +111,6 @@ def _train_forward(arch: str):
 
 
 @pytest.mark.parametrize("what, build", [
-    ("mixtral-8x7b (moe)", lambda: Model(get_config("mixtral-8x7b", smoke=True),
-                                         device="cpu")),
     ("hymba-1.5b (hybrid)", lambda: Model(get_config("hymba-1.5b", smoke=True),
                                           device="cpu")),
     ("whisper-tiny (encdec)", lambda: Model(get_config("whisper-tiny", smoke=True),

@@ -50,6 +50,7 @@ from repro.core import topology as jtopo
 from repro.core import transport_sim as jsim
 from repro.data import pipeline as jpipe
 from repro.models import Model as JaxModel
+from repro.models import moe as jmoe
 from repro.parallel.sharding import Runtime as JaxRuntime
 from repro_torch.configs import get_config
 from repro_torch.core import collectives as tcoll
@@ -285,12 +286,14 @@ def full_width_leaves():
 
 
 def _reference_launcher_plan(arch: str, n_leaves: int, pods: int, world: int, mode: str,
-                             compression, plan: str, skew: str, cache, tp: int = 1):
+                             compression, plan: str, skew: str, cache, tp: int = 1,
+                             smoke: bool = False):
     """The reference launcher's planning block (src/repro/launch/train.py)
     for a (pods, world // pods) mesh whose model axis is ``tp``, with its
-    mode override and per-leaf fallback: (plan, mode, packed,
-    cluster_weights)."""
-    cfg = jax_config(arch)
+    mode override and per-leaf fallback, and for an MoE model its All2All
+    plan: (plan, mode, packed, cluster_weights, MoE a2a mode, MoE capacity
+    weights, the a2a plan and its log line, or None)."""
+    cfg = jax_config(arch, smoke=smoke)
     topo = jtopo.tpu_multipod(pods, world // pods)
     grad_bytes = max(1, cfg.param_count() * 4 // tp)
     plan_kw = dict(cache=cache, coll="reduce_scatter" if mode == "hier_zero1" else "all_reduce",
@@ -325,12 +328,26 @@ def _reference_launcher_plan(arch: str, n_leaves: int, pods: int, world: int, mo
                                _sim_cache=sim, **plan_kw)
     if result is not None and weights is None and result.cluster_weights is not None:
         result = dataclasses.replace(result, cluster_weights=None)
+    moe_mode, moe_weights, a2a = "flat", None, None
+    if plan == "auto" and cfg.n_experts:
+        t_loc = max(1, 4 * 1024 // max(1, topo.n_ranks))
+        a2a_bytes = cfg.n_experts * jmoe._capacity(t_loc, cfg.top_k, cfg.n_experts,
+                                                   1.25) * cfg.d_model * 4
+        a2a_plan = jplanner.plan(topo, [a2a_bytes] * cfg.n_layers, coll="all_to_all",
+                                 pod_axis="pod" if pods > 1 else None, intra_axis="data",
+                                 compressions=(None, "bf16"), flat_mechanism="native",
+                                 try_balanced=False, cache=cache, _sim_cache=sim)
+        moe_mode = a2a_plan.recommended_mode()
+        if split is not None:
+            moe_weights = tuple(split.weights)
+        a2a = (a2a_plan, f"[plan] MoE dispatch/combine All2All -> {moe_mode} "
+                         f"({a2a_bytes / 2 ** 20:.1f} MiB/layer)")
     packed = True
     if result is not None and mode not in ("fsdp", "hier_zero1"):
         mode = "hier_overlap" if result.recommended_mode() == "hier_overlap" else "hier"
     if result is not None and result.data_path == "per_leaf":
         packed = False
-    return result, mode, packed, weights
+    return result, mode, packed, weights, moe_mode, moe_weights, a2a
 
 
 LAUNCH_CASES = [(1, 1, "hier", None, "auto", "auto"), (2, 4, "hier", "int8", "auto", "auto"),
@@ -348,7 +365,7 @@ def _check_make_plan(full_width_leaves, pods, world, mode, codec, plan, skew, tp
     got = train_cli.make_plan(get_config("qwen2.5-3b"), pods, world, mode, codec, plan=plan,
                               skew=skew, global_batch=4, seq=1024, tp=tp, log=lines.append)
     cache = jcache.PlanCache()
-    want, wmode, wpacked, wweights = _reference_launcher_plan(
+    want, wmode, wpacked, wweights, _, _, _ = _reference_launcher_plan(
         "qwen2.5-3b", jn_leaves, pods, world, mode, codec, plan, skew, cache, tp=tp)
     assert (got.mode, got.packed, got.cluster_weights) == (
         wmode, wpacked, None if wweights is None else tuple(wweights))
@@ -377,6 +394,35 @@ def test_make_plan_is_the_reference_launchers_at_tp2(full_width_leaves, pods, wo
     got = _check_make_plan(full_width_leaves, pods, world, mode, codec, plan, skew, tp=2)
     half = get_config("qwen2.5-3b").param_count() * 4 // 2
     assert sum(b.nbytes for b in got.plan.buckets) == half
+
+
+@pytest.mark.parametrize("pods, world, skew, smoke", [(2, 8, "none", True), (2, 8, "auto", True),
+                                                     (1, 4, "auto", True),
+                                                     (2, 8, "none", False)])
+def test_make_plan_plans_the_moe_all_to_all_as_the_reference(pods, world, skew, smoke):
+    """An MoE model with --plan auto: the reference launcher's All2All plan,
+    its mode, its log line and table, and the skew weights that steer
+    expert capacity; the gradient plan as before.  Full-width
+    qwen3-moe-30b-a3b's 40 MiB per layer on 2 pods x 4 ranks rides
+    ``hier_a2a``."""
+    cfg = get_config("qwen3-moe-30b-a3b", smoke=smoke)
+    shapes = jax.eval_shape(JaxModel(jax_config("qwen3-moe-30b-a3b", smoke=smoke),
+                                     JaxRuntime()).init, jax.random.key(0))
+    n_leaves = len(jax.tree.leaves(shapes))
+    assert train_cli.n_train_leaves(cfg) == n_leaves
+    lines: list[str] = []
+    got = train_cli.make_plan(cfg, pods, world, "hier", "int8", plan="auto", skew=skew,
+                              log=lines.append)
+    want, wmode, wpacked, _, moe_mode, moe_weights, (a2a, line) = _reference_launcher_plan(
+        "qwen3-moe-30b-a3b", n_leaves, pods, world, "hier", "int8", "auto", skew,
+        jcache.PlanCache(), smoke=smoke)
+    assert (got.mode, got.packed) == (wmode, wpacked)
+    assert got.plan.describe() == want.describe()
+    assert (got.moe_a2a_mode, got.moe_cluster_weights) == (moe_mode, moe_weights)
+    if (pods, smoke) == (2, False):
+        assert moe_mode == "hier_a2a"
+    assert line in lines and a2a.describe() in lines
+    assert any(x.startswith("[plan] cache: ") for x in lines[lines.index(line):])
 
 
 def test_planned_path_of_the_issue_plans(full_width_leaves):

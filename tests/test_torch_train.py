@@ -496,7 +496,7 @@ def _bucket_sync_run(out_dir: str) -> None:
         b = {k: torch.from_numpy(v).long() for k, v in batch(0, cfg.vocab_size).items()}
 
         def grads():
-            logits = model.apply_train(b["tokens"])
+            logits, _ = model.apply_train(b["tokens"])
             lval, _ = loss_lib.sharded_xent(logits, b["labels"], rt, cfg.vocab_size)
             return torch.autograd.grad(lval, params)
 
