@@ -13,8 +13,12 @@
    within 1e-4 of its plain output's largest magnitude (bf16 on the
    tensor cores, f32 on the CUDA cores; at the JAX suite's SSD shapes, at
    p = 100 / n = 16, also as column slices of one conv output, at the
-   shapes that test the bf16 kernel's runs of heads, and at mamba2-2.7b's
-   prefill shape in bf16 and f32).  Each kernel is timed with CUDA events beside
+   shapes that test the bf16 kernel's runs of heads, at mamba2-2.7b's
+   prefill shape in bf16 and f32, and as the model hands them over at a
+   mamba2-2.7b TP-2 rank's 40 heads and at hymba-1.5b's 32 heads of
+   p 100, n 16 over 4 x 2048 tokens; flash also at hymba-1.5b's 25 Q / 5
+   KV heads of 64, window 1024 over 2048 tokens, timed beside SDPA with
+   the window as a boolean mask).  Each kernel is timed with CUDA events beside
    its bound, its plain version and, for flash attention and dequant_int8,
    one PyTorch call computing the same function (timed only; the port
    never calls it; a codec's yardstick counts only if it is bit-equal to
@@ -23,8 +27,10 @@
    also by their device time from torch.profiler, and dequant_int8 from
    int8 to f32 at mamba2-2.7b's SSM state.
 3. Smoke-size models on the card against the same models on the CPU:
-   qwen2.5-3b and mamba2-2.7b prefill and decode (f32, logits within 1e-3,
-   equal tokens), and 3 qwen training steps for each gradient sync of
+   qwen2.5-3b, mamba2-2.7b and hymba-1.5b prefill and decode (f32, logits
+   within 1e-3, equal tokens; hymba launches flash and the SSD chunk once
+   per layer each), 3 hier + int8 training steps of the smoke mamba2 and
+   hymba (losses within 1e-4), and 3 qwen training steps for each gradient sync of
    TRAIN_RUNS (hier, hier_pipelined, hier_zero1, hier_overlap and fsdp
    with int8 on the pod hop, hier_border_rs with bf16) through the same
    process groups (gloo for the CPU, NCCL for the card), losses within
@@ -39,11 +45,13 @@
    bit-equal to the CPU's on the card's gradients.
 4. The serving paths at full width, random weights from a seed: qwen2.5-3b
    (36 layers) and mamba2-2.7b (64 layers) each prefill 4 requests of
-   1024 tokens, move the cache (KV, or conv + SSM state) raw and int8 on
-   the wire, and decode 16 tokens greedily from each.  The launch counters,
-   per phase, must show every kernel on each path: flash attention or
-   ssd_chunk once per layer per prefill, quant/dequant twice per int8
-   transfer, nothing per decode step, and every dequant_int8 launch in its
+   1024 tokens, hymba-1.5b (32 layers) 4 of 2048 (its window of 1024
+   shorter than the prompt), move the cache (KV, conv + SSM state, or
+   both) raw and int8 on the wire, and decode 16 tokens greedily from
+   each.  The launch counters, per phase, must show every kernel on each
+   path: flash attention and/or ssd_chunk once per layer per prefill,
+   quant/dequant once per codec leaf per int8 transfer (2, or 4 for
+   hymba), nothing per decode step, and every dequant_int8 launch in its
    vector variant.  Then, per model, a profile of one prefill and four
    decode steps.  Then tensor parallelism, TP ranks as processes that
    share the card through a gloo group (NCCL refuses two ranks of one
@@ -58,15 +66,29 @@
    rank, labelled one-card gloo; (c) the f32 smoke model trained at TP 2,
    hier + int8, 3 steps on the card and on the CPU in the same world:
    losses and grad norms within 1e-4, the codec and pack kernels once per
-   step on each rank's segment.  Flash is also checked at the TP paths'
-   local heads (8 Q / 1 KV and 4 Q / 4 KV at 4 x 1024).
+   step on each rank's segment; then the SSM families: mamba2-2.7b served
+   at TP 2 (SSM_TP_DEPTH = 16 of its 64 layers, to keep the script within
+   ~10 minutes; 40 heads per rank), checked as TP 1 is,
+   and in f32 against TP 1 with the gated norm over the same two channel
+   groups (each rank takes it over its own channels, so TP 2 is another
+   function than TP 1, ROADMAP R18; the bf16 difference from TP 1 is
+   printed), logits within SSM_TP_F32_TOL, and the smoke
+   mamba2 and hymba trained at TP 2 as (c) (their ranks share the loss;
+   each rank's B/C copy takes its own gradient, R16, so not the norm).
+   Flash is also checked at the TP paths' local heads (8 Q / 1 KV and
+   4 Q / 4 KV at 4 x 1024).
 5. The training paths at full width: ``repro_torch.launch.train.run``
    trains qwen2.5-3b on 4 x 1024 tokens for 4 steps in a world of one,
    through real pod and data groups of one member, once per gradient sync
    of TRAIN_RUNS.  Every step must launch pack_slots once for its one bf16
    gradient segment, amax_block, quant_scaled and dequant_int8 once per
    pod-hop chunk with int8 (hier, hier_zero1: 1, hier_pipelined: 4) and not
-   with bf16; hier_overlap all four once per bucket of its partition_tree
+   with bf16 (mamba2-2.7b, 64 layers, on 4 x 1024 and hymba-1.5b, 32
+   layers, on 4 x 2048 train 4 hier + int8 steps too: two wire segments,
+   bf16 and the f32 per-head leaves, so 2 packs and 2 of each codec
+   kernel per step, no ssd_chunk and no flash (both train through their
+   plain versions; ``tools/ssm_phases.py`` also profiles a step of each,
+   with the plain SSD's and the conv's ranges)); hier_overlap all four once per bucket of its partition_tree
    (38 for qwen2.5-3b under the 64 MiB cap), synced inside the backward;
    fsdp (nothing sharded over a data group of one) the codec once per
    leaf (14) and pack_slots once per per-layer leaf (12), which it syncs
@@ -147,6 +169,7 @@ its result line.  The last line is the result:
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -181,6 +204,9 @@ from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.launch.mesh import runtime_for_groups  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import attention, moe  # noqa: E402
+from repro_torch.models import layers as model_layers  # noqa: E402
+from repro_torch.models import ssm as ssm_model  # noqa: E402
+from repro_torch.parallel.sharding import reduce_from_tp  # noqa: E402
 from repro_torch.serve import disaggregated  # noqa: E402
 from repro_torch.serve.serve_step import make_serve_steps  # noqa: E402
 from repro_torch.train import loss as loss_lib  # noqa: E402
@@ -196,12 +222,21 @@ TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-3}
 
 ARCH = "qwen2.5-3b"
 SSM_ARCH = "mamba2-2.7b"
+HYBRID_ARCH = "hymba-1.5b"
 MOE_ARCH = "qwen3-moe-30b-a3b"
 MOE_SMOKE_ARCHS = (MOE_ARCH, "mixtral-8x7b")    # mixtral's smoke: a window of 32
-# the kernel each serving path launches once per layer per prefill
-PATH_KERNEL = {ARCH: "flash_attention_bhsd", SSM_ARCH: "ssd_chunk",
-               MOE_ARCH: "flash_attention_bhsd", "mixtral-8x7b": "flash_attention_bhsd"}
+# the kernels each serving path launches once per layer per prefill
+PATH_KERNELS = {ARCH: ("flash_attention_bhsd",), SSM_ARCH: ("ssd_chunk",),
+                HYBRID_ARCH: ("flash_attention_bhsd", "ssd_chunk"),
+                MOE_ARCH: ("flash_attention_bhsd",), "mixtral-8x7b": ("flash_attention_bhsd",)}
 BATCH, PROMPT, GEN = 4, 1024, 16
+# hymba serves and trains 4 x 2048 tokens, so that its 1024-token window is
+# shorter than the prompt (flash's window branch, the ring cache)
+HYBRID_SEQ = 2048
+# the parameters of the full-width models (the reference's tree; for the SSM
+# families ModelConfig.param_count() plus the norms, conv biases and per-head
+# leaves)
+FULL_PARAMS = {ARCH: 3_085_938_688, SSM_ARCH: 2_702_640_640, HYBRID_ARCH: 1_588_950_592}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 4
 # (gradient sync, pod-hop codec) of the training paths
 TRAIN_RUNS = [("hier", "int8"), ("hier_pipelined", "int8"), ("hier_border_rs", "bf16"),
@@ -578,21 +613,30 @@ FLASH_CASES = [
     # rank of TP 2 (16 Q / 2 KV)
     (BATCH, 32, 4, PROMPT, PROMPT, 64, True, None, 0, None, torch.bfloat16),
     (BATCH, 16, 2, PROMPT, PROMPT, 64, True, None, 0, None, torch.bfloat16),
+    # hymba-1.5b's prefill: 25 Q / 5 KV heads of 64, the 1024-token window
+    # shorter than the 2048-token prompt
+    (BATCH, 25, 5, HYBRID_SEQ, HYBRID_SEQ, 64, True, 1024, 0, None, torch.bfloat16),
 ]
-# the timed flash cases: (H, K, dh, dtype) -> the row's key for its numbers
-# (the first two are the row's own, bf16, and its "f32" entry)
-FLASH_TIMED = {(16, 2, 128, torch.bfloat16): None, (16, 2, 128, torch.float32): "f32",
-               (32, 4, 64, torch.bfloat16): "qwen3_moe_tp1",
-               (16, 2, 64, torch.bfloat16): "qwen3_moe_tp2"}
+# the timed flash cases: (H, K, dh, dtype, Sq, window) -> the row's key for
+# its numbers (the first two are the row's own, bf16, and its "f32" entry)
+FLASH_TIMED = {(16, 2, 128, torch.bfloat16, PROMPT, None): None,
+               (16, 2, 128, torch.float32, PROMPT, None): "f32",
+               (32, 4, 64, torch.bfloat16, PROMPT, None): "qwen3_moe_tp1",
+               (16, 2, 64, torch.bfloat16, PROMPT, None): "qwen3_moe_tp2",
+               (25, 5, 64, torch.bfloat16, HYBRID_SEQ, 1024): "hymba"}
 
 
 def flash_bound_ms(B, H, K, Sq, dh, q_offset, valid_kv, causal,
-                   dtype) -> tuple[float, str]:
+                   dtype, window: int | None = None) -> tuple[float, str]:
     """Least time for the work these inputs need: 4 flops per (q, k) pair
-    and head dim over the unmasked pairs, against reading q, k, v and
-    writing o once."""
-    pairs = sum(min(valid_kv, q_offset + i + 1) if causal else valid_kv
-                for i in range(Sq))
+    and head dim over the unmasked pairs (causal, and inside the window),
+    against reading q, k, v and writing o once."""
+    def keys(i):
+        hi = min(valid_kv, q_offset + i + 1) if causal else valid_kv
+        lo = 0 if window is None else max(0, q_offset + i + 1 - window)
+        return max(0, hi - lo)
+
+    pairs = sum(keys(i) for i in range(Sq))
     flops = 4.0 * B * H * dh * pairs
     elem = torch.finfo(dtype).bits // 8
     nbytes = elem * B * dh * (2 * H * Sq + 2 * K * valid_kv)
@@ -614,27 +658,36 @@ def check_flash(dev, gen, smi: str) -> dict:
         check(err <= TOL[dt], f"flash {B, H, K, Sq, Skv, dh, kw, dt}: err {err}")
         print(f"[check] flash B={B} H={H} K={K} Sq={Sq} Skv={Skv} dh={dh} "
               f"{kw} {dt}: max abs err {err:.3g} (tol {TOL[dt]})")
-        if Sq == PROMPT and (H, K, dh, dt) in FLASH_TIMED:
-            main[(H, K, dh, dt)] = err, (q, k, v)
+        if B == BATCH and off == 0 and (H, K, dh, dt, Sq, window) in FLASH_TIMED:
+            main[(H, K, dh, dt, Sq, window)] = err, (q, k, v)
     timing = {}
-    for (H, K, dh, dt), (err, (q, k, v)) in main.items():
-        bound, by = flash_bound_ms(BATCH, H, K, PROMPT, dh, 0, PROMPT, True, dt)
-        key = FLASH_TIMED[(H, K, dh, dt)]
+    for (H, K, dh, dt, Sq, window), (err, (q, k, v)) in main.items():
+        bound, by = flash_bound_ms(BATCH, H, K, Sq, dh, 0, Sq, True, dt, window)
+        key = FLASH_TIMED[(H, K, dh, dt, Sq, window)]
+        if window is None:
+            library = lambda: F.scaled_dot_product_attention(   # noqa: E731
+                q, k, v, is_causal=True, enable_gqa=True)
+        else:       # the causal window as a boolean mask
+            pos = torch.arange(Sq, device=q.device)
+            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+            library = lambda: F.scaled_dot_product_attention(   # noqa: E731
+                q, k, v, attn_mask=mask, enable_gqa=True)
         timing[key] = {
             "max_abs_err": err,
-            "ms": time_ms(lambda: fa.flash_attention_bhsd(q, k, v, causal=True), 20),
-            "plain_ms": time_ms(lambda: fa.flash_attention_bhsd_plain(q, k, v, causal=True),
-                                5),
-            "bound_ms": bound, "bound_by": by,
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), 20)}
+            "ms": time_ms(lambda: fa.flash_attention_bhsd(q, k, v, causal=True,
+                                                          window=window), 20),
+            "plain_ms": time_ms(lambda: fa.flash_attention_bhsd_plain(q, k, v, causal=True,
+                                                                      window=window), 5),
+            "bound_ms": bound, "bound_by": by, "library_ms": time_ms(library, 20)}
         t = timing[key]
         shape = ("qwen2.5-3b prefill shape" if dh == 128 else
+                 f"hymba-1.5b prefill shape ({H} Q / {K} KV, dh 64, {Sq} tokens, window "
+                 f"{window})" if window else
                  f"qwen3-moe-30b-a3b prefill shape at TP {32 // H} ({H} Q / {K} KV, dh 64)")
         print(f"[time] [{smi}] flash_attention_bhsd {shape}, {dt}: "
               f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({by}), plain "
-              f"{t['plain_ms']:.4f} ms, F.scaled_dot_product_attention "
-              f"{t['library_ms']:.4f} ms")
+              f"{t['plain_ms']:.4f} ms, F.scaled_dot_product_attention"
+              f"{' with the window mask' if window else ''} {t['library_ms']:.4f} ms")
     own = timing.pop(None)
     return {"flash_attention_bhsd": {
         "name": "flash_attention_bhsd", "route": "cuda",
@@ -661,7 +714,14 @@ SSD_CASES = [
     (2, 256, 4, 100, 1, 16, 128, torch.bfloat16, True),
     (BATCH, PROMPT, 80, 64, 1, 128, 128, torch.bfloat16, False),
     (BATCH, PROMPT, 80, 64, 1, 128, 128, torch.float32, False),
+    # as the model hands them over (column slices of the conv output): a
+    # mamba2-2.7b TP-2 rank's prefill (40 of the 80 heads) and hymba-1.5b's
+    # prefill (32 heads of p 100, n 16, 4 x 2048 tokens)
+    (BATCH, PROMPT, 40, 64, 1, 128, 128, torch.bfloat16, True),
+    (BATCH, HYBRID_SEQ, 32, 100, 1, 16, 128, torch.bfloat16, True),
 ]
+# the timed SSD cases beside the row's own: (s, h, p) -> the row's key
+SSD_TIMED = {(PROMPT, 40, 64): "mamba2_tp2", (HYBRID_SEQ, 32, 100): "hymba"}
 SSD_TOL = 1e-4      # of the plain output's largest magnitude
 
 
@@ -700,7 +760,7 @@ def ssd_bound_ms(b, s, h, p, g, n, q, dt) -> tuple[float, str]:
 
 
 def check_ssd(dev, gen, smi: str) -> dict:
-    row = {}
+    row, timed = {}, {}
     for b, s, h, p, g, n, q, dt, view in SSD_CASES:
         args = ssd_inputs(dev, gen, b, s, h, p, g, n, dt, view)
         got = ssd.ssd_chunk_call(*args, q)
@@ -714,22 +774,28 @@ def check_ssd(dev, gen, smi: str) -> dict:
               f"{', conv slices' if view else ''}: "
               f"max abs err y_diag {errs[0]:.3g} (|y| <= {mags[0]:.3g}), states "
               f"{errs[1]:.3g} (<= {mags[1]:.3g}); tol {SSD_TOL} of the largest")
-        if s != PROMPT:
+        if b != BATCH:
             continue
         timing = {"max_abs_err": max(errs),
                   "ms": time_ms(lambda: ssd.ssd_chunk_call(*args, q), 20),
                   "plain_ms": time_ms(lambda: ssd.ssd_chunk_plain(*args, q), 5)}
         timing["bound_ms"], timing["bound_by"] = ssd_bound_ms(b, s, h, p, g, n, q, dt)
-        print(f"[time] [{smi}] ssd_chunk mamba2-2.7b prefill shape, {dt}: "
+        key = SSD_TIMED.get((s, h, p))
+        shape = {None: "mamba2-2.7b prefill shape", "mamba2_tp2": "mamba2-2.7b TP-2 rank's "
+                 "prefill shape (40 heads)", "hymba": "hymba-1.5b prefill shape (32 heads, p "
+                 "100, n 16, 4 x 2048)"}[key]
+        print(f"[time] [{smi}] ssd_chunk {shape}, {dt}: "
               f"{timing['ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms "
               f"({timing['bound_by']}), plain {timing['plain_ms']:.4f} ms")
-        if dt == torch.bfloat16:
+        if key is not None:
+            timed[key] = timing
+        elif dt == torch.bfloat16:
             row = {"name": "ssd_chunk", "route": "cuda", "source": "src/repro_torch/csrc/ssd.cu",
                    "replaces": "src/repro/kernels/ssd.py:59", **timing,
                    "library_ms": None}       # no one PyTorch call computes it
         else:
             row["f32"] = timing
-    return {"ssd_chunk": row}
+    return {"ssd_chunk": {**row, **timed}}
 
 
 # ---------------------------------------------------------------------------
@@ -737,18 +803,22 @@ def check_ssd(dev, gen, smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 def check_small_model(dev, arch: str) -> None:
-    """Prefill + 4 decode steps of the f32 smoke model; the path's kernel
-    launches once per layer in the prefill and never in decode."""
+    """Prefill + 4 decode steps of the f32 smoke model; the path's kernels
+    launch once per layer each in the prefill and never in decode."""
     cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32)
     cpu = Model(cfg, device="cpu").init(0)
     gpu = copy.deepcopy(cpu).to(dev)
     toks = torch.randint(0, cfg.vocab_size, (2, 130),
                          generator=torch.Generator().manual_seed(0))
-    kernel = PATH_KERNEL[arch]
-    before = ops.launch_counts()[kernel]
+    kernels = PATH_KERNELS[arch]
+
+    def launched():
+        return [ops.launch_counts()[k] for k in kernels]
+
+    before = launched()
     lc, cc = cpu.apply_prefill(toks, max_len=136)
     lg, cg = gpu.apply_prefill(toks.to(dev), max_len=136)
-    check(ops.launch_counts()[kernel] == before + cfg.n_layers, f"small {kernel} launches")
+    check(launched() == [n + cfg.n_layers for n in before], f"small {kernels} launches")
     err = (lg.cpu() - lc).abs().max().item()
     check(err < 1e-3, f"small prefill logits differ by {err}")
     tok = lc.argmax(-1)
@@ -760,10 +830,10 @@ def check_small_model(dev, arch: str) -> None:
         check(torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1)), "small decode tokens")
         tok = lc.argmax(-1)
     check(err < 1e-3, f"small decode logits differ by {err}")
-    check(ops.launch_counts()[kernel] == before + cfg.n_layers, f"decode launched {kernel}")
+    check(launched() == [n + cfg.n_layers for n in before], f"decode launched {kernels}")
     print(f"[check] {cfg.name} f32 on the card vs the CPU: prefill + 4 decode "
-          f"steps, max logit diff {err:.3g}, greedy tokens equal, {kernel} "
-          f"launched {cfg.n_layers} times (prefill only)")
+          f"steps, max logit diff {err:.3g}, greedy tokens equal, {' and '.join(kernels)} "
+          f"launched {cfg.n_layers} times each (prefill only)")
 
 
 def check_small_training(dev, rt, mode: str, codec: str | None, planned=None,
@@ -818,9 +888,9 @@ def check_small_training(dev, rt, mode: str, codec: str | None, planned=None,
     if mode in SYNC_PARITY_MODES:
         held = check_sync_parity(gpu, rt, mode, tcfg)
         params = f"max param diff {perr:.3g} (reported; {held})"
-    elif cfg.family == "moe":
+    elif cfg.family in ("moe", "ssm", "hybrid"):
         # one int8 rounding apart moves an AdamW parameter by up to lr:
-        # the losses and the aux are what an MoE run is held to
+        # the losses (and an MoE run's aux) are what these runs are held to
         params = f"max param diff {perr:.3g} (reported)"
     else:
         check(perr < 1e-4, f"small training params differ by {perr}")
@@ -1373,20 +1443,20 @@ def check_vector_launches(counts: dict[str, int], path: str) -> None:
           f"{path}: vector launches {vector} of {counts}")
 
 
-def serve_full_width(dev, smi: str, arch: str) -> tuple[dict, dict]:
+def serve_full_width(dev, smi: str, arch: str, prompt_len: int = PROMPT) -> tuple[dict, dict]:
     """A serving main path; the launch counts are set to 0 just before it
     and read just after, and each phase's launches are checked."""
     ops.reset_launch_counts()
-    res = disaggregated.run(arch, batch=BATCH, prompt_len=PROMPT, gen=GEN, device=dev)
+    res = disaggregated.run(arch, batch=BATCH, prompt_len=prompt_len, gen=GEN, device=dev)
     counts = ops.launch_counts()
     cfg = get_config(arch)
-    kernel = PATH_KERNEL[arch]
     phases = res["launches"]
-    expect = {"prefill": {kernel: cfg.n_layers * res["prefills"]},
-              # two leaves of at least 1024 values cross as int8 (k and v,
-              # or conv and ssm); the lengths travel raw
-              "int8_transfer": {"quant_int8": 2 * res["int8_transfers"],
-                                "dequant_int8": 2 * res["int8_transfers"]},
+    # the leaves of at least 1024 values cross as int8 (k and v, conv and
+    # ssm, or all four for hymba); the lengths travel raw
+    leaves = 4 if cfg.family == "hybrid" else 2
+    expect = {"prefill": {k: cfg.n_layers * res["prefills"] for k in PATH_KERNELS[arch]},
+              "int8_transfer": {"quant_int8": leaves * res["int8_transfers"],
+                                "dequant_int8": leaves * res["int8_transfers"]},
               "raw_transfer": {}, "decode": {}}
     for phase, want in expect.items():
         got = {k: n for k, n in phases[phase].items() if n}
@@ -1395,23 +1465,31 @@ def serve_full_width(dev, smi: str, arch: str) -> tuple[dict, dict]:
           f"{arch} launches {counts} against the phases {phases}")
     check_vector_launches(counts, arch)
     shapes = res["cache_shapes"]
-    if cfg.family == "ssm":
-        ch = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
-        want_shapes = {"conv": [cfg.n_layers, BATCH, cfg.conv_width - 1, ch],
-                       "ssm": [cfg.n_layers, BATCH, cfg.d_inner // cfg.ssm_head_dim,
-                               cfg.ssm_head_dim, cfg.ssm_state]}
-    else:
-        leaf = [cfg.n_layers, BATCH, PROMPT, cfg.n_kv_heads, cfg.head_dim]
-        want_shapes = {"k": leaf, "v": leaf}
-    check(all(shapes[k] == v for k, v in want_shapes.items())
-          and shapes["length"] == [cfg.n_layers], f"{arch} cache {shapes}")
+    ch = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    ssm_shapes = {"conv": [cfg.n_layers, BATCH, cfg.conv_width - 1, ch],
+                  "ssm": [cfg.n_layers, BATCH, cfg.ssm_heads(), cfg.ssm_head_dim, cfg.ssm_state],
+                  "length": [cfg.n_layers]}
+    window = min(prompt_len, cfg.sliding_window or prompt_len)
+    leaf = [cfg.n_layers, BATCH, window, cfg.n_kv_heads, cfg.head_dim]
+    kv_shapes = {"k": leaf, "v": leaf, "length": [cfg.n_layers]}
+    want_shapes = {"ssm": ssm_shapes,
+                   "hybrid": {**{f"kv.{k}": v for k, v in kv_shapes.items()},
+                              **{f"ssm.{k}": v for k, v in ssm_shapes.items()}}
+                   }.get(cfg.family, kv_shapes)
+    check(shapes == want_shapes, f"{arch} cache {shapes}, expected {want_shapes}")
     check(res["cache_finite"], f"{arch}: non-finite cache")
     tokens = torch.tensor(res["tokens"])
     check(tokens.shape == (BATCH, GEN + 1), f"tokens {tuple(tokens.shape)}")
     check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "token ids")
     check(res["raw_transfer_exact"], f"{arch}: the raw transfer changed the generation")
+    check(bool(torch.isfinite(res["prefill_logits"]).all()), f"{arch}: non-finite logits")
+    check(arch == MOE_ARCH or res["params"] == FULL_PARAMS[arch],
+          f"{arch} params {res['params']}")
+    if cfg.family in ("ssm", "hybrid"):
+        total_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+        check(res["peak_mem_gb"] < total_gb, f"{arch} peak {res['peak_mem_gb']} GB")
     print(f"[serve] [{smi}] {res['arch']} ({res['params'] / 1e9:.3f} B params, bf16, "
-          f"{cfg.n_layers} layers), {BATCH} x {PROMPT}-token prompts: TTFT "
+          f"{cfg.n_layers} layers), {BATCH} x {prompt_len}-token prompts: TTFT "
           f"{res['ttft_ms']:.2f} ms, decode {res['decode_ms_per_step']:.2f} ms/step, int8 "
           f"transfer of {res['cache_bytes']} cache bytes {res['int8_transfer_ms']:.2f} ms, "
           f"peak memory {res['peak_mem_gb']:.2f} GB, int8 token agreement "
@@ -1422,13 +1500,13 @@ def serve_full_width(dev, smi: str, arch: str) -> tuple[dict, dict]:
     return res, counts
 
 
-def profile_serving(dev, smi: str, arch: str) -> dict:
+def profile_serving(dev, smi: str, arch: str, prompt_len: int = PROMPT) -> dict:
     """One prefill and four decode steps under torch.profiler (after a
     warm-up) on one full-width model."""
     cfg = get_config(arch)
     model = Model(cfg, device=dev).init(0)
     prefill, decode = make_serve_steps(model)
-    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, prompt_len),
                            generator=torch.Generator().manual_seed(1)).to(dev)
     tok, caches = prefill(prompt)                         # warm-up
     decode(tok, caches)
@@ -1440,7 +1518,7 @@ def profile_serving(dev, smi: str, arch: str) -> dict:
         tok, caches = prefill(prompt)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    out["prefill"] = _report(prof, wall, f"{cfg.name} prefill {BATCH}x{PROMPT}", smi,
+    out["prefill"] = _report(prof, wall, f"{cfg.name} prefill {BATCH}x{prompt_len}", smi,
                              SERVE_GROUPS, SERVE_RANGES)
     steps = 4
     with torch.profiler.profile(activities=acts) as prof:
@@ -1743,15 +1821,22 @@ def attention_ms(dev, cfg) -> float:
     return fwd + time_ms(fwd_bwd, 5)
 
 
+# an SSM's training ranges: the plain SSD and the conv, forward and the
+# checkpoint's recompute (their backward kernels run outside the ranges)
+SSM_TRAIN_RANGES = TRAIN_RANGES + ("ssd_plain", "causal_conv1d")
+
+
 def profile_training(dev, rt, smi: str, mode: str, codec: str | None,
-                     with_attention: bool, planned=None) -> dict:
-    """One full-width training step under torch.profiler, after one
-    warm-up step: device time by kernel group (the codec kernels, the
+                     with_attention: bool, planned=None, arch: str = ARCH,
+                     seq: int = TRAIN_SEQ) -> dict:
+    """One full-width training step of ``arch`` under torch.profiler, after
+    one warm-up step: device time by kernel group (the codec kernels, the
     pack, matmul, the rest of the gradient sync, the gradient norm, the
-    optimizer, everything else) and the device's idle share; then one
-    optimizer update timed apart (``optimizer_ms``).  With ``planned`` the
-    plan's path."""
-    cfg = get_config(ARCH)
+    optimizer, an SSM's plain SSD and conv, everything else) and the
+    device's idle share; then one optimizer update timed apart
+    (``optimizer_ms``).  With ``planned`` the plan's path."""
+    cfg = get_config(arch)
+    ranges = SSM_TRAIN_RANGES if cfg.family in ("ssm", "hybrid") else TRAIN_RANGES
     model = Model(cfg, rt, dev)
     ocfg = opt_lib.OptConfig(warmup_steps=20)
     tcfg = (TrainConfig(comm_mode=mode, dcn_compression=codec, opt=ocfg) if planned is None
@@ -1760,8 +1845,7 @@ def profile_training(dev, rt, smi: str, mode: str, codec: str | None,
                              opt=ocfg))
     step_fn, init_fn = make_train_step(model, tcfg)
     opt = init_fn(0)
-    dcfg = DataConfig(vocab_size=cfg.vocab_size, global_batch=TRAIN_BATCH,
-                      seq_len=TRAIN_SEQ)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, global_batch=TRAIN_BATCH, seq_len=seq)
     b = {k: torch.from_numpy(v).long().to(dev) for k, v in synth_batch(dcfg, 0).items()}
     step_fn(opt, b)                                       # warm-up
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -1772,8 +1856,8 @@ def profile_training(dev, rt, smi: str, mode: str, codec: str | None,
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     what = f"{mode} + {codec}" + ("" if planned is None else " as planned, per leaf")
-    out = _report(prof, wall, f"training step {TRAIN_BATCH}x{TRAIN_SEQ}, {what}",
-                  smi, TRAIN_GROUPS, TRAIN_RANGES)
+    out = _report(prof, wall, f"{cfg.name} training step {TRAIN_BATCH}x{seq}, {what}",
+                  smi, TRAIN_GROUPS, ranges)
     if mode == "hier_overlap" and planned is None:
         out["overlap"] = ov = overlap_timeline(prof)
         print(f"[time] [{smi}] hier_overlap's profiled step: {ov['syncs_begun_before']} of "
@@ -1837,15 +1921,20 @@ def optimizer_ms(model, opt, ocfg) -> dict[str, float]:
     return {"device_ms": device_ms(update, iters=3), "ms": time_ms(update, 3, warmup=1)}
 
 
-def train_full_width(dev, smi: str, mode: str, codec: str | None) -> dict:
+def train_full_width(dev, smi: str, mode: str, codec: str | None, arch: str = ARCH,
+                     seq: int = TRAIN_SEQ) -> dict:
     """A training main path; the launch counts are set to 0 just before
-    it and read just after."""
+    it and read just after.  mamba2-2.7b and hymba-1.5b have two wire
+    segments (bf16, and f32 for dt_bias, A_log and D_skip), and train
+    their SSD and attention through the plain versions: no ssd_chunk and
+    no flash launch."""
+    cfg = get_config(arch)
     ops.reset_launch_counts()
-    res = train_launch.run(ARCH, steps=TRAIN_STEPS, mode=mode, compression=codec,
-                           global_batch=TRAIN_BATCH, seq=TRAIN_SEQ, device=dev,
+    res = train_launch.run(arch, steps=TRAIN_STEPS, mode=mode, compression=codec,
+                           global_batch=TRAIN_BATCH, seq=seq, device=dev,
                            log=lambda line: print(f"[train] {line}"))
     counts = ops.launch_counts()
-    want = train_kernels(mode, codec, get_config(ARCH))
+    want = train_kernels(mode, codec, cfg)
     boot = bootstrap_kernels(mode)
     check(counts == {k: n * TRAIN_STEPS + boot.get(k, 0) for k, n in want.items()},
           f"{mode} launches {counts} over {TRAIN_STEPS} steps and the bootstrap {boot}")
@@ -1856,12 +1945,13 @@ def train_full_width(dev, smi: str, mode: str, codec: str | None) -> dict:
         check(math.isfinite(rec["loss"]) and math.isfinite(rec["gnorm"]),
               f"step {rec['step']}: loss {rec['loss']}, grad norm {rec['gnorm']}")
         check(not rec["gated"], f"step {rec['step']}: the finite gate tripped")
-    check(res["params"] == 3_085_938_688, f"params {res['params']}")
+    check(res["params"] == FULL_PARAMS[arch], f"params {res['params']}")
     total_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
     check(res["peak_mem_gb"] < total_gb, f"peak {res['peak_mem_gb']} GB of {total_gb} GB")
     losses = [r["loss"] for r in res["records"]]
-    print(f"[train] [{smi}] {res['arch']} ({res['params']} params, bf16, 36 layers), {mode} + "
-          f"{codec} over a pod and a data group of one, {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
+    print(f"[train] [{smi}] {res['arch']} ({res['params']} params, bf16, {cfg.n_layers} "
+          f"layers), {mode} + {codec} over a pod and a data group of one, {TRAIN_BATCH} x "
+          f"{seq} tokens: "
           f"step {res['step_ms']:.3f} ms (median of steps 1-{TRAIN_STEPS - 1}), "
           f"{res['tokens_per_s']:.1f} tokens/s, peak memory {res['peak_mem_gb']:.3f} GB of "
           f"the card's {total_gb:.3f} GB, losses {losses}; launches per step {want}, "
@@ -1952,6 +2042,12 @@ def train_planned_paths(dev, smi: str) -> tuple[dict, dict]:
 
 TP_DEPTH = 4          # phase (b)'s layers: TP 4, replicated KV
 TP_TRAIN_STEPS = 3
+# mamba2-2.7b at TP 2: 16 of its 64 layers, so that the script stays within
+# ~10 minutes (at 64 layers the whole run took 940.7 s on a slow host)
+SSM_TP_DEPTH = 16
+# the f32 smoke models trained at TP 2, by job
+TP_TRAIN_JOBS = {"train": ARCH, "moe_train": MOE_ARCH, "ssm_train": SSM_ARCH,
+                 "hybrid_train": HYBRID_ARCH}
 
 
 def tp_logit_tol(layers: int, tp: int) -> float:
@@ -1969,6 +2065,52 @@ def tp_logit_tol(layers: int, tp: int) -> float:
     return 2 ** -4 * math.sqrt(layers * tp / (36 * 2))
 
 
+# mamba2-2.7b's TP-2 logits in f32 against TP 1 with the gated norm over the
+# same two channel groups (the function TP 2 computes, ROADMAP R18), as a
+# share of the largest logit.  Each layer's out_proj sums its 5120 products
+# in another order at TP 2: ~2^-24 sqrt(5120) = 4.3e-6 of its output.  The
+# random model grows such a difference through its 64 layers: at d_model
+# 512, f32, TP 2 lay 7.2e-4 of the largest logit from the grouped TP 1
+# (``tools/ssm_tp_norm.py``, on the CPU); at full width the per-layer part
+# is sqrt(5) larger (K 5120 against 1024), 1.6e-3, and the bound takes 12x
+# that for the card's GEMMs, which split K otherwise (at 64 layers the
+# card read 1.848e-3 of 4.262; SSM_TP_DEPTH's 16 layers grow less).  R18
+# alone moves the logits by O(1) of the largest (1.77 of 1.33 at d_model
+# 256, f32; 5.575 of 4.262 on the card at 64 layers).
+SSM_TP_F32_TOL = 2e-2
+
+
+@contextlib.contextmanager
+def grouped_gated_norm(groups: int):
+    """TP 1's Mamba2 gated norm taken over ``groups`` equal channel groups,
+    as each of ``groups`` TP ranks takes it over its own channels (ROADMAP
+    R18): the function the reference computes at TP ``groups``."""
+    def gated_out(p, y, z, x_dtype, rt):
+        y = y.float() * F.silu(z.float())
+        parts = [model_layers.apply_norm({"scale": sc}, part, "rmsnorm")
+                 for part, sc in zip(y.chunk(groups, -1), p["norm_scale"].chunk(groups, -1))]
+        return reduce_from_tp(torch.cat(parts, -1).to(x_dtype) @ p["w_out"], rt.tp_group)
+
+    plain, ssm_model._gated_out = ssm_model._gated_out, gated_out
+    try:
+        yield
+    finally:
+        ssm_model._gated_out = plain
+
+
+def ssm_f32_logits(dev, rt) -> torch.Tensor:
+    """Last-token prefill logits (B, this rank's vocabulary) of mamba2-2.7b
+    in f32 at SSM_TP_DEPTH layers, on the serving path's prompt."""
+    cfg = dataclasses.replace(get_config(SSM_ARCH), n_layers=SSM_TP_DEPTH, dtype=torch.float32)
+    model = Model(cfg, rt, dev).init(0)
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),   # disaggregated.run's, seed 0
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    logits = model.apply_prefill(prompt)[0][:, -1].cpu()
+    del model
+    free_memory()
+    return logits
+
+
 def _tp_rank(rank: int, world: int, port: int, job: str, out_dir: str,
              device: str = "cuda") -> None:
     """One TP rank (a process of its own, on the one card, gloo): runs
@@ -1981,8 +2123,11 @@ def _tp_rank(rank: int, world: int, port: int, job: str, out_dir: str,
     train_launch.init_world(dev, "gloo")
     try:
         ops.reset_launch_counts()
-        if job in ("train", "moe_train"):
-            out = _tp_train(dev, world, MOE_ARCH if job == "moe_train" else ARCH)
+        if job in TP_TRAIN_JOBS:
+            out = _tp_train(dev, world, TP_TRAIN_JOBS[job])
+        elif job == "ssm_serve":
+            out = disaggregated.run(SSM_ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN,
+                                    device=dev, tp=world, layers=SSM_TP_DEPTH)
         elif job == "moe_serve":
             with MoeTrace(MOE_LAYERS) as trace:
                 out = disaggregated.run(MOE_ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN,
@@ -1993,6 +2138,10 @@ def _tp_rank(rank: int, world: int, port: int, job: str, out_dir: str,
             out = disaggregated.run(ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN, device=dev,
                                     tp=world, layers=TP_DEPTH if job == "serve4" else None)
         out["counts"], out["vector"] = ops.launch_counts(), ops.vector_launch_counts()
+        if job == "ssm_serve":      # after the main path's counts: the f32 function
+            free_memory()
+            out["logits_f32"] = ssm_f32_logits(
+                dev, runtime_for_groups(pods=1, data_per_pod=1, tp=world))
         torch.save(out, pathlib.Path(out_dir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -2072,7 +2221,7 @@ def serve_tp(smi: str, tp: int, ref: dict) -> tuple[dict[str, int], dict]:
     total = dict.fromkeys(ranks[0]["counts"], 0)
     for r, res in enumerate(ranks):
         phases = res["launches"]
-        expect = {"prefill": {PATH_KERNEL[ARCH]: depth * res["prefills"]},
+        expect = {"prefill": {"flash_attention_bhsd": depth * res["prefills"]},
                   "int8_transfer": {"quant_int8": 2 * res["int8_transfers"],
                                     "dequant_int8": 2 * res["int8_transfers"]},
                   "raw_transfer": {}, "decode": {}}
@@ -2124,16 +2273,102 @@ def serve_tp(smi: str, tp: int, ref: dict) -> tuple[dict[str, int], dict]:
     return total, summary
 
 
+def serve_ssm_tp(dev, smi: str) -> tuple[dict[str, int], dict]:
+    """mamba2-2.7b at TP 2 (SSM_TP_DEPTH layers; 40 heads and 2560 + 256
+    conv channels per rank), two spawned ranks on the one card through
+    gloo.  The served bf16 path through ``disaggregated.run``, each rank
+    checked as the TP-1 path is (ssd_chunk once per layer per prefill, the
+    codec twice per int8 transfer, nothing in decode, the raw transfer
+    exact, its cache shard's shapes).  Then the function in f32: each
+    rank's prefill logits within SSM_TP_F32_TOL of TP 1's with the gated
+    norm over the same two channel groups (``grouped_gated_norm``, R18),
+    from the same seed.  How far the f32 TP-2 logits lie from plain TP 1
+    (R18) is printed."""
+    cfg = get_config(SSM_ARCH)
+    tp = 2
+    cfg32 = dataclasses.replace(cfg, n_layers=SSM_TP_DEPTH, dtype=torch.float32)
+    model = Model(cfg32, runtime_for_groups(), dev).init(0)
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    plain32 = model.apply_prefill(prompt)[0][:, -1, :cfg.vocab_size].cpu()
+    with grouped_gated_norm(tp):
+        grouped32 = model.apply_prefill(prompt)[0][:, -1, :cfg.vocab_size].cpu()
+    del model
+    free_memory()
+    ranks = _spawn_tp("ssm_serve", tp)
+    depth = ranks[0]["layers"]
+    check(depth == SSM_TP_DEPTH, f"TP 2 depth {depth}")
+    label = f"mamba2-2.7b TP {tp} ({depth} layers)"
+    di_l, gn = cfg.d_inner // tp, cfg.ssm_groups * cfg.ssm_state
+    want_shapes = {"conv": [depth, BATCH, cfg.conv_width - 1, di_l + 2 * gn],
+                   "ssm": [depth, BATCH, cfg.ssm_heads() // tp, cfg.ssm_head_dim,
+                           cfg.ssm_state], "length": [depth]}
+    total = dict.fromkeys(ranks[0]["counts"], 0)
+    for r, res in enumerate(ranks):
+        phases = res["launches"]
+        expect = {"prefill": {"ssd_chunk": depth * res["prefills"]},
+                  "int8_transfer": {"quant_int8": 2 * res["int8_transfers"],
+                                    "dequant_int8": 2 * res["int8_transfers"]},
+                  "raw_transfer": {}, "decode": {}}
+        for phase, want in expect.items():
+            got = {k: n for k, n in phases[phase].items() if n}
+            check(got == want, f"{label} rank {r} {phase} launches {got}, expected {want}")
+        check(res["counts"] == {k: sum(p[k] for p in phases.values()) for k in res["counts"]},
+              f"{label} rank {r}: launches {res['counts']} against the phases {phases}")
+        check(all(res["vector"][k] == res["counts"][k] for k in res["vector"]),
+              f"{label} rank {r}: vector launches {res['vector']} of {res['counts']}")
+        check(res["cache_shapes"] == want_shapes, f"{label} rank {r} cache {res['cache_shapes']}")
+        check(res["raw_transfer_exact"] and res["cache_finite"],
+              f"{label} rank {r}: raw transfer exact {res['raw_transfer_exact']}, cache "
+              f"finite {res['cache_finite']}")
+        check(torch.equal(torch.tensor(res["tokens"]), torch.tensor(ranks[0]["tokens"])),
+              f"{label}: rank {r} generated other tokens than rank 0")
+        for k, n in res["counts"].items():
+            total[k] += n
+    logits32 = torch.cat([res["logits_f32"] for res in ranks], dim=-1)[:, :cfg.vocab_size]
+    check(bool(torch.isfinite(logits32).all()), f"{label}: non-finite f32 logits")
+    scale32 = grouped32.abs().max().item()
+    diff32 = (logits32 - grouped32).abs().max().item()
+    check(diff32 <= SSM_TP_F32_TOL * scale32,
+          f"{label}, f32: logits differ from TP 1 with 2 norm groups by {diff32} (largest "
+          f"{scale32})")
+    r18 = (logits32 - plain32).abs().max().item()
+    logits = torch.cat([res["prefill_logits"] for res in ranks], dim=-1)[:, :cfg.vocab_size]
+    check(bool(torch.isfinite(logits).all()), f"{label}: non-finite logits")
+    print(f"[tp] {label}, f32 from the same seed: prefill logits {diff32:.4g} from TP 1 with "
+          f"the gated norm over the same 2 channel groups (tol {SSM_TP_F32_TOL} x the largest "
+          f"{scale32:.4g} = {SSM_TP_F32_TOL * scale32:.4g}), and {r18:.4g} from plain TP 1 "
+          f"(ROADMAP R18, not held)")
+    for r, res in enumerate(ranks):
+        print(f"[tp] [{smi}] {label} rank {r}, gloo TP group on one card: TTFT "
+              f"{res['ttft_ms']:.2f} ms, decode {res['decode_ms_per_step']:.2f} ms/step, int8 "
+              f"transfer of its {res['cache_bytes']} cache bytes {res['int8_transfer_ms']:.2f} "
+              f"ms, peak memory {res['peak_mem_gb']:.3f} GB, int8 token agreement "
+              f"{res['int8_token_agreement']:.4f}, raw transfer exact")
+    summary = {"f32_logit_diff_grouped": diff32, "f32_logit_scale": scale32,
+               "f32_tol": SSM_TP_F32_TOL, "f32_logit_diff_plain": r18, "layers": depth,
+               "ranks": [{k: res[k] for k in ("ttft_ms", "decode_ms_per_step",
+                                              "int8_transfer_ms", "peak_mem_gb")}
+                         for res in ranks]}
+    return total, summary
+
+
 def train_tp(smi: str, arch: str = ARCH) -> dict[str, int]:
-    """Phase (c) (and the MoE phase (d) with ``arch`` MOE_ARCH): hier + int8
-    on the f32 smoke model at TP 2, on the card and on the CPU in the same
-    two-rank world: losses and grad norms within 1e-4 (relative), the
-    finite gate open, and the codec and pack kernels launched per step on
-    each rank's own gradient segment.  The dense ranks report one
-    replica's metrics; under expert parallelism each rank's router copy
-    takes its own gradient (ROADMAP R14), so only the card against the
-    CPU is held per rank."""
-    ranks = _spawn_tp("moe_train" if arch == MOE_ARCH else "train", 2)
+    """Phase (c) (and the MoE phase (d) with ``arch`` MOE_ARCH, and the SSM
+    families with SSM_ARCH and HYBRID_ARCH): hier + int8 on the f32 smoke
+    model at TP 2, on the card and on the CPU in the same two-rank world:
+    losses and grad norms within 1e-4 (relative), the finite gate open,
+    and the codec and pack kernels launched per step on each rank's own
+    gradient segment.  The dense ranks report one replica's metrics;
+    under expert parallelism each rank's router copy takes its own
+    gradient (ROADMAP R14), and an SSM's B/C projection and conv do too
+    (R16), so there the ranks share the loss but not the grad norm, and
+    the card against the CPU is held per rank."""
+    ranks = _spawn_tp({v: k for k, v in TP_TRAIN_JOBS.items()}[arch], 2)
+    # a replicated leaf whose gradient no TP sum covers steps apart per rank:
+    # the MoE router under ep (ROADMAP R14), the SSM's B/C projection and
+    # conv (R16); each rank's loss, a sum over the TP group, stays one value
+    drift = get_config(arch).family in ("moe", "ssm", "hybrid")
     total = dict.fromkeys(ranks[0]["counts"], 0)
     for r, res in enumerate(ranks):
         want = res["want"]
@@ -2149,7 +2384,7 @@ def train_tp(smi: str, arch: str = ARCH) -> dict[str, int]:
         check(arch == MOE_ARCH or all(
             abs(a - b) <= 1e-6 * abs(b) for m, m0 in zip(res["gpu"]["metrics"],
                                                          ranks[0]["gpu"]["metrics"])
-            for a, b in zip(m[:2], m0[:2])),
+            for a, b in zip(m[:1] if drift else m[:2], m0[:2])),
               f"TP 2 training: rank {r}'s metrics differ from rank 0's")
         for k, n in res["counts"].items():
             total[k] += n
@@ -2194,7 +2429,7 @@ def main() -> int:
     free_memory()
     moe_profile = profile_moe(dev, smi)
     free_memory()
-    for arch in (ARCH, SSM_ARCH) + MOE_SMOKE_ARCHS:
+    for arch in (ARCH, SSM_ARCH, HYBRID_ARCH) + MOE_SMOKE_ARCHS:
         check_small_model(dev, arch)
     train_launch.init_world(dev)        # a world of one: gloo for CPU, NCCL for CUDA
     try:
@@ -2203,7 +2438,7 @@ def main() -> int:
         rt_fsdp = runtime_for_groups(pods=1, data_per_pod=1, fsdp=True)
         for mode, codec in TRAIN_RUNS:
             check_small_training(dev, rt_fsdp if mode == "fsdp" else rt, mode, codec)
-        for arch in MOE_SMOKE_ARCHS:       # MoE phase (b)
+        for arch in MOE_SMOKE_ARCHS + (SSM_ARCH, HYBRID_ARCH):     # and MoE phase (b)
             check_small_training(dev, rt, "hier", "int8", arch=arch)
         pods, per_pod = PLAN_WORLD
         planned = train_launch.make_plan(get_config(ARCH), pods, pods * per_pod, "hier", "int8",
@@ -2211,10 +2446,10 @@ def main() -> int:
                                          log=lambda line: None)
         check_small_training(dev, rt, planned.mode, "int8", planned)
         serve, serve_counts, serve_profile = {}, {}, {}
-        for arch in (ARCH, SSM_ARCH):
-            serve[arch], serve_counts[arch] = serve_full_width(dev, smi, arch)
+        for arch, prompt in ((ARCH, PROMPT), (SSM_ARCH, PROMPT), (HYBRID_ARCH, HYBRID_SEQ)):
+            serve[arch], serve_counts[arch] = serve_full_width(dev, smi, arch, prompt)
             free_memory()
-            serve_profile[arch] = profile_serving(dev, smi, arch)
+            serve_profile[arch] = profile_serving(dev, smi, arch, prompt)
             free_memory()
         # tensor parallelism: (a) TP 2 at full depth against the TP-1 run
         # above, (b) TP 4 against TP 1 at TP_DEPTH layers, (c) TP 2 training
@@ -2225,6 +2460,11 @@ def main() -> int:
         for tp, ref in ((2, serve[ARCH]), (4, ref_depth)):
             tp_counts[f"serve_tp{tp}"], tp_serve[f"tp{tp}"] = serve_tp(smi, tp, ref)
         tp_counts["train_tp2"] = train_tp(smi)
+        # the SSM families: mamba2-2.7b served at TP 2 against its TP-1 run
+        # above, the smoke mamba2 and hymba trained at TP 2
+        tp_counts["serve_mamba2_tp2"], ssm_tp = serve_ssm_tp(dev, smi)
+        tp_counts["train_mamba2_tp2"] = train_tp(smi, SSM_ARCH)
+        tp_counts["train_hymba_tp2"] = train_tp(smi, HYBRID_ARCH)
         # MoE phase (d): expert parallelism, two ranks on the one card
         tp_counts["serve_moe_tp2"], moe_tp = serve_moe_tp(dev, smi)
         tp_counts["train_moe_tp2"] = train_tp(smi, MOE_ARCH)
@@ -2234,6 +2474,10 @@ def main() -> int:
             free_memory()
         moe_train = train_moe(dev, smi)     # MoE phase (c)
         free_memory()
+        ssm_train = {}         # (their profiled steps: tools/ssm_phases.py)
+        for arch, seq in ((SSM_ARCH, TRAIN_SEQ), (HYBRID_ARCH, HYBRID_SEQ)):
+            ssm_train[arch] = train_full_width(dev, smi, "hier", "int8", arch, seq)
+            free_memory()
         planned_entry, planned_run = train_planned_paths(dev, smi)
         free_memory()
         peaks = ", ".join(f"{m} {r['peak_mem_gb']:.3f} GB" for m, r in train.items())
@@ -2261,6 +2505,9 @@ def main() -> int:
     rows["quant_scaled"]["f32_grad_segment"] = f32["quant_scaled"]
     rows["dequant_int8"]["int32_f32_grad_segment"] = f32["dequant_int8"]
     paths = {"serve": serve_counts[ARCH], "serve_mamba2": serve_counts[SSM_ARCH],
+             "serve_hymba": serve_counts[HYBRID_ARCH],
+             "train_mamba2": ssm_train[SSM_ARCH]["counts"],
+             "train_hymba": ssm_train[HYBRID_ARCH]["counts"],
              "serve_moe": moe_counts, "train_moe": moe_train["counts"],
              **{f"train_{mode}": res["counts"] for mode, res in train.items()},
              "train_planned_entry": planned_entry["counts"],
@@ -2320,6 +2567,12 @@ def main() -> int:
                 | {"losses": [r["loss"] for r in moe_train["records"]],
                    "aux": [r["aux"] for r in moe_train["records"]]},
                 "tp2_gloo_one_card": moe_tp},
+        "ssm": {"mamba2_tp2_gloo_one_card": ssm_tp,
+                "train": {arch: {k: res[k] for k in ("step_ms", "tokens_per_s", "peak_mem_gb",
+                                                     "params", "seq")}
+                          | {"losses": [r["loss"] for r in res["records"]],
+                             "grad_norms": [r["gnorm"] for r in res["records"]]}
+                          for arch, res in ssm_train.items()}},
         "card": smi}))
     print(f"[time] chip_smoke: {time.perf_counter() - t_start:.1f} s from start to result")
     print(smi)

@@ -148,5 +148,20 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
+class NoBackwardError(RuntimeError):
+    """A forward-only kernel was called where autograd would differentiate
+    its output."""
+
+
+def refuse_autograd(what: str, *tensors) -> None:
+    """Raise ``NoBackwardError`` when autograd records and an input
+    requires grad: the kernel writes fresh tensors with no ``grad_fn``, so
+    the gradients to its inputs would silently be zero."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise NoBackwardError(
+            f"{what}: the kernel has no backward, and an input requires grad; run it "
+            f"under torch.no_grad() or inference_mode, or differentiate the plain version")
+
+
 def stream_handle(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream

@@ -68,7 +68,9 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True,
                          out: torch.Tensor | None = None) -> torch.Tensor:
     """q: (B, H, Sq, dh), k/v: (B, K, Skv, dh) -> (B, H, Sq, dh), written
     into ``out`` when given (any strides with a contiguous last axis).
-    ``q_offset`` and ``valid_kv`` are Python ints."""
+    ``q_offset`` and ``valid_kv`` are Python ints.  On the card it raises
+    ``NoBackwardError`` under autograd when an input requires grad (the
+    kernel has no backward)."""
     if not isinstance(q_offset, int) or not (valid_kv is None or isinstance(valid_kv, int)):
         raise TypeError("flash_attention: q_offset and valid_kv are Python ints")
     if window is not None and window < 1:
@@ -77,6 +79,7 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True,
         res = flash_attention_bhsd_plain(q, k, v, causal=causal, window=window,
                                          q_offset=q_offset, valid_kv=valid_kv)
         return res if out is None else out.copy_(res)
+    _build.refuse_autograd("flash_attention", q, k, v, out)
     B, H, Sq, dh = q.shape
     K, Skv = k.shape[1], k.shape[2]
     if out is None:

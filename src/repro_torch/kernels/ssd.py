@@ -86,9 +86,12 @@ def ssd_chunk_call(x, dt, A, B, C, chunk: int, *, heads_per_block: int = 0):
     bf16 runs on the tensor cores, one block per (batch, chunk) and run
     of at most ``heads_per_block`` heads of one group (0: the kernel picks
     the runs by wave count; at most 32, and as many as a block's shared
-    memory holds); f32 runs one block per head and takes only 0."""
+    memory holds); f32 runs one block per head and takes only 0.  On the
+    card it raises ``NoBackwardError`` under autograd when an input
+    requires grad (the kernel has no backward)."""
     if x.device.type == "cpu":
         return ssd_chunk_plain(x, dt, A, B, C, chunk)
+    _build.refuse_autograd("ssd_chunk", x, dt, A, B, C)
     _check(x, dt, A, B, C, chunk)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]

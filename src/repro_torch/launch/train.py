@@ -10,6 +10,8 @@
     python -m repro_torch.launch.train --mode hier --no-packed
     python -m repro_torch.launch.train --smoke --device cpu --steps 2
     python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b --smoke --device cpu
+    python -m repro_torch.launch.train --arch mamba2-2.7b --mode hier --compression int8
+    python -m repro_torch.launch.train --arch hymba-1.5b --seq 2048 --compression int8
     RANK=r WORLD_SIZE=8 MASTER_ADDR=localhost MASTER_PORT=29500 \
         python -m repro_torch.launch.train --smoke --device cpu --pods 2 --tp 2
 

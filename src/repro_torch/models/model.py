@@ -9,7 +9,8 @@ loads the reference's arrays instead.  Caches are stacked per leaf, as
 in the reference, so the transfer cuts the same int8 blocks: a
 ``KVCache`` of (L, B, W, kl, dh) k and v for the dense and MoE families, an
 ``SSMState`` of (L, B, W-1, ch) conv and (L, B, h, p, n) ssm leaves for
-the SSM family, each with an (L,) length.
+the SSM family, each with an (L,) length, and for the hybrid family a
+``HybridCache`` of both (the reference's (kv, ssm) pair).
 
 Tensor parallelism (``rt.tp_group``): each rank keeps its slice of every
 global parameter along the dim the reference's rules (``param_specs``)
@@ -24,6 +25,8 @@ the sequence.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.distributed as dist
 from torch import nn
@@ -31,6 +34,17 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.parallel.sharding import Runtime, fsdp_dim, fsdp_gather, gather_sp
 from . import attention, layers, moe, ssm, transformer
+
+
+class HybridCache(NamedTuple):
+    """A hybrid model's cache: its attention's ``KVCache`` and its SSM's
+    ``SSMState``, each stacked over layers."""
+    kv: attention.KVCache
+    ssm: ssm.SSMState
+
+    def layer(self, i: int) -> "HybridCache":
+        """Views of layer ``i`` of both parts."""
+        return HybridCache(self.kv.layer(i), self.ssm.layer(i))
 
 
 def resolve_device(device) -> torch.device:
@@ -314,7 +328,7 @@ class Model(nn.Module):
     def apply_train(self, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """tokens (B, S) -> (vocab-sharded logits (B, S, Vl) f32, the MoE
         aux loss summed over the layers, f32), differentiable in the
-        parameters."""
+        parameters, for every ported family (an SSM by its plain path)."""
         cfg, rt = self.cfg, self.rt
         sp = rt.sp and rt.tp_group is not None
         x = layers.embed_lookup(self.embed, tokens, rt)
@@ -331,12 +345,18 @@ class Model(nn.Module):
 
     def make_caches(self, batch: int, seq_len: int):
         """Empty caches stacked over layers: a ``KVCache`` of ``seq_len``
-        slots, or for the SSM family an ``SSMState`` (no length to size)."""
+        slots (at most the sliding window), for the SSM family an
+        ``SSMState`` (no length to size), for the hybrid family a
+        ``HybridCache`` of both."""
         cfg = self.cfg
         if cfg.family == "ssm":
             return ssm.make_ssm_state(cfg, cfg.n_layers, batch, self.tp, self.device)
-        return attention.make_cache(cfg, cfg.n_layers, batch, self.tp, seq_len,
-                                    cfg.dtype, self.device)
+        kv = attention.make_cache(cfg, cfg.n_layers, batch, self.tp, seq_len,
+                                  cfg.dtype, self.device)
+        if cfg.parallel_ssm:
+            return HybridCache(kv, ssm.make_ssm_state(cfg, cfg.n_layers, batch, self.tp,
+                                                      self.device))
+        return kv
 
     def _layer_prefill(self, lp, x: torch.Tensor, cache) -> torch.Tensor:
         """One layer over the prompt; writes the layer's cache views."""
@@ -344,13 +364,14 @@ class Model(nn.Module):
         lp = self._gathered(lp)
         if cfg.family == "ssm":
             h = layers.apply_norm(lp["norm_ssm"], x, cfg.norm)
-            out, st = ssm.apply_ssm(lp["ssm"], h, cfg, rt)
-            for dst, src in zip(cache, st):
-                dst.copy_(src)
-            return x + out
+            return x + _ssm_prefill(lp, h, cfg, rt, cache)
         h = layers.apply_norm(lp["norm_attn"], x, cfg.norm)
-        a, _ = attention.attention_prefill(lp["attn"], h, cfg, rt, cache)
-        x = x + a
+        if cfg.parallel_ssm:      # one norm feeds attention and the SSM heads
+            a, _ = attention.attention_prefill(lp["attn"], h, cfg, rt, cache.kv)
+            x = x + (a + _ssm_prefill(lp, h, cfg, rt, cache.ssm)) * 0.5
+        else:
+            a, _ = attention.attention_prefill(lp["attn"], h, cfg, rt, cache)
+            x = x + a
         return x + self._ffn(lp, layers.apply_norm(lp["norm_mlp"], x, cfg.norm))
 
     def _layer_decode(self, lp, x: torch.Tensor, cache) -> torch.Tensor:
@@ -362,8 +383,13 @@ class Model(nn.Module):
             out, _ = ssm.apply_ssm_decode(lp["ssm"], h, cfg, rt, cache)
             return x + out
         h = layers.apply_norm(lp["norm_attn"], x, cfg.norm)
-        a, _ = attention.attention_decode(lp["attn"], h, cfg, rt, cache)
-        x = x + a
+        if cfg.parallel_ssm:
+            a, _ = attention.attention_decode(lp["attn"], h, cfg, rt, cache.kv)
+            s, _ = ssm.apply_ssm_decode(lp["ssm"], h, cfg, rt, cache.ssm)
+            x = x + (a + s) * 0.5
+        else:
+            a, _ = attention.attention_decode(lp["attn"], h, cfg, rt, cache)
+            x = x + a
         return x + self._ffn(lp, layers.apply_norm(lp["norm_mlp"], x, cfg.norm))
 
     def _ffn(self, lp, h: torch.Tensor) -> torch.Tensor:
@@ -397,3 +423,12 @@ class Model(nn.Module):
             x = self._layer_decode(lp, x, caches.layer(i))
         x = layers.apply_norm(self.final_norm, x, cfg.norm)
         return layers.lm_head_logits(x, self._head(), rt), caches
+
+
+def _ssm_prefill(lp, h: torch.Tensor, cfg: ModelConfig, rt: Runtime, state) -> torch.Tensor:
+    """The SSM sublayer over the prompt; writes its final state into
+    ``state``, one layer's views."""
+    out, st = ssm.apply_ssm(lp["ssm"], h, cfg, rt)
+    for dst, src in zip(state, st):
+        dst.copy_(src)
+    return out

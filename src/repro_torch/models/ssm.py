@@ -1,11 +1,23 @@
 """Mamba2 (SSD) block: projections, causal conv, chunked SSD, gated norm.
 
-The counterpart of the JAX package's ``models/ssm.py`` at a tensor-
-parallel group of one.  The in-projection is split as there (z, x, B/C,
-dt), and the conv runs over the x channels and the B/C channels as one
-depthwise stack.  Decode carries an ``SSMState``: the last W - 1 conv
-inputs, kept in bf16 whatever the model's dtype (as the reference keeps
-them), the (h, p, n) SSM state in f32 and the token count.
+The counterpart of the JAX package's ``models/ssm.py``.  The in-projection
+is split as there (z, x, B/C, dt), and the conv runs over the x channels
+and the B/C channels as one depthwise stack.  Under tensor parallelism
+the inner dim (z, x, the conv over x, the gated norm) and the SSM heads
+(dt, dt_bias, A_log, D_skip) are sharded over the TP group; the B/C
+projection and its conv are replicated (g * n channels, small); out_proj
+is row-parallel.  The gated norm normalizes each rank's d_inner / tp
+channels, as the reference's does (ROADMAP R18).  Decode carries an
+``SSMState``: the last W - 1 conv inputs [local x channels, B/C
+channels], kept in bf16 whatever the model's dtype (as the reference
+keeps them), the (h_local, p, n) SSM state in f32 and the token count.
+
+Serving runs the chunked SSD through the ``ssd_chunk`` kernel
+(``ops.ssd_chunked``); training (``train=True``) runs the plain chunked
+SSD under autograd (``ref.ssd_chunked``, in a ``ssd_plain`` profiler
+range), as the reference trains: its SSD kernel has no VJP (ROADMAP
+R15).  The conv is plain PyTorch on both paths (the reference has no
+conv kernel).
 """
 
 from __future__ import annotations
@@ -18,7 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops, ref
-from repro_torch.parallel.sharding import Runtime, copy_to_tp, reduce_from_tp
+from repro_torch.parallel.sharding import Runtime, copy_to_tp, reduce_from_tp, tp_entry_group
 from . import layers
 
 
@@ -64,10 +76,18 @@ def init_ssm(gen: torch.Generator, cfg: ModelConfig, tp: int, dtype) -> dict:
     }
 
 
-def _dims(cfg: ModelConfig):
-    """(d_inner, g * n, heads, head dim, n, g) at a TP group of one."""
-    di, hd, ns, g = cfg.d_inner, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
-    return di, g * ns, di // hd, hd, ns, g
+def _split_conv_channels(cfg: ModelConfig, tp: int) -> tuple[int, int]:
+    """(local inner channels d_inner / tp, g * n replicated B (or C)
+    channels); ``cfg.ssm_heads(tp)`` asserts the heads split evenly."""
+    cfg.ssm_heads(tp)
+    return cfg.d_inner // tp, cfg.ssm_groups * cfg.ssm_state
+
+
+def _dims(cfg: ModelConfig, tp: int):
+    """(local d_inner, g * n, local heads, head dim, n, g) at TP ``tp``."""
+    di_l, gn = _split_conv_channels(cfg, tp)
+    hd = cfg.ssm_head_dim
+    return di_l, gn, di_l // hd, hd, cfg.ssm_state, cfg.ssm_groups
 
 
 def _conv_params(p):
@@ -84,13 +104,17 @@ def _gated_out(p, y: torch.Tensor, z: torch.Tensor, x_dtype, rt: Runtime):
 
 
 def apply_ssm(p, x: torch.Tensor, cfg: ModelConfig, rt: Runtime, *,
-              chunk: int = 128):
+              chunk: int = 128, train: bool = False):
     """x: (B, S, D) -> ((B, S, D), the state after the S tokens).  The
     state starts at zero, as every caller of the reference starts it.
-    S % chunk != 0 pads x, dt, B and C with zeros to the chunk."""
+    S % chunk != 0 pads x, dt, B and C with zeros to the chunk.  The
+    input enters the TP region through ``tp_entry_group`` (none under
+    sequence parallelism, whose gather carries the reduction).
+    ``train`` takes the plain SSD, differentiable; otherwise the SSD goes
+    through the kernel, which refuses autograd."""
     Bsz, S, _ = x.shape
-    x = copy_to_tp(x, rt.tp_group)
-    di, gn, h, hd, ns, g = _dims(cfg)
+    x = copy_to_tp(x, tp_entry_group(rt))
+    di, gn, h, hd, ns, g = _dims(cfg, rt.tp)
 
     z = x @ p["w_z"]                                   # (B, S, di)
     xs = x @ p["w_x"]
@@ -99,7 +123,7 @@ def apply_ssm(p, x: torch.Tensor, cfg: ModelConfig, rt: Runtime, *,
 
     conv_in = torch.cat([xs, bc], dim=-1)              # (B, S, di + 2gn)
     conv_w, conv_b = _conv_params(p)
-    conv = ops.causal_conv1d(conv_in, conv_w, conv_b)
+    conv = ops.causal_conv1d(conv_in, conv_w, conv_b)     # plain, differentiable
     conv = F.silu(conv.float()).to(conv_in.dtype)
     xs = conv[..., :di].reshape(Bsz, S, h, hd)         # views of conv
     Bmat = conv[..., di:di + gn].reshape(Bsz, S, g, ns)
@@ -116,7 +140,11 @@ def apply_ssm(p, x: torch.Tensor, cfg: ModelConfig, rt: Runtime, *,
         C_p = F.pad(Cmat, (0, 0, 0, 0, 0, pad))
     else:
         xs_p, dt_p, B_p, C_p = xs, dt, Bmat, Cmat
-    y, h_last = ops.ssd_chunked(xs_p, dt_p, A, B_p, C_p, chunk)
+    if train:       # the plain SSD under autograd: the kernel has no backward
+        with torch.profiler.record_function("ssd_plain"):
+            y, h_last = ref.ssd_chunked(xs_p, dt_p, A, B_p, C_p, chunk)
+    else:
+        y, h_last = ops.ssd_chunked(xs_p, dt_p, A, B_p, C_p, chunk)
     y = y[:, :S] + xs * p["D_skip"][None, None, :, None].to(y.dtype)
     out = _gated_out(p, y.reshape(Bsz, S, di), z, x.dtype, rt)
     W = cfg.conv_width
@@ -132,7 +160,7 @@ def apply_ssm_decode(p, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
     shifts by one, the SSM state takes one step, the length advances."""
     Bsz = x.shape[0]
     x = copy_to_tp(x, rt.tp_group)
-    di, gn, h, hd, ns, g = _dims(cfg)
+    di, gn, h, hd, ns, g = _dims(cfg, rt.tp)
     xt = x[:, 0]                                       # (B, D)
 
     z = xt @ p["w_z"]
@@ -162,10 +190,11 @@ def apply_ssm_decode(p, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
 
 def make_ssm_state(cfg: ModelConfig, n_layers: int, batch: int, tp: int,
                    device) -> SSMState:
-    """An empty state stacked over layers: (L, B, W-1, ch) bf16,
-    (L, B, h, p, n) f32 and (L,) int32, the layout the transfer moves."""
-    di = cfg.d_inner // tp
-    ch = di + 2 * cfg.ssm_groups * cfg.ssm_state
+    """An empty state stacked over layers: (L, B, W-1, ch) bf16 with ch
+    the local x channels then the B/C channels, (L, B, h_local, p, n) f32
+    and (L,) int32, the layout the transfer moves."""
+    di, gn = _split_conv_channels(cfg, tp)
+    ch = di + 2 * gn
     return SSMState(
         conv=torch.zeros((n_layers, batch, cfg.conv_width - 1, ch),
                          dtype=torch.bfloat16, device=device),

@@ -1,10 +1,10 @@
 """Per-layer init, the training layer and the layer stack.  The dense
-decoder family and the MoE family are ported for serving and training,
-at any tensor-parallel size (MoE by expert parallelism or expert-tensor
-parallelism, ``models/moe.py``) and with sequence parallelism; the SSM
-family (Mamba2) for serving at a TP group of one; the other families
-(hybrid, encoder-decoder, VLM), SSM training and Mamba2 under TP come
-with their slices."""
+decoder family, the MoE family (by expert parallelism or expert-tensor
+parallelism, ``models/moe.py``), the SSM family (Mamba2) and the hybrid
+family (Hymba: attention and SSM heads side by side on one norm) are
+ported for serving and training, at any tensor-parallel size their heads
+split into and with sequence parallelism; the encoder-decoder and VLM
+families come with their slice."""
 
 from __future__ import annotations
 
@@ -17,22 +17,30 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.parallel.sharding import Runtime, fsdp_gather, gather_sp, scatter_sp
 from . import attention, layers, moe, ssm
 
-PORTED_FAMILIES = ("dense", "moe", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_ported(cfg: ModelConfig, tp: int) -> None:
-    """Raise for a family, or a family at a TP size, the port lacks."""
+    """Raise for a family the port lacks, and for a hybrid model whose
+    local Q heads are no multiple of its local KV heads at ``tp``: the
+    reference's GQA repeat (``_repeat_kv(k, H // K)``) would give fewer KV
+    rows than Q heads there (ROADMAP R17; hymba-1.5b's 25 Q / 5 KV are
+    13 / 3 per rank at TP 2 and 7 / 2 at TP 4; at TP 8 the KV heads are
+    replicated and gathered per Q head, which pairs)."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet; "
             f"{PORTED_FAMILIES} are")
-    if cfg.family == "ssm" and tp > 1:
-        # its projections are not split by head yet: a sum over the TP group
-        # would add up whole outputs
-        raise NotImplementedError(
-            f"the SSM family ({cfg.name}) at a tensor-parallel size of {tp} is not "
-            f"ported yet: it comes with the slice 'Mamba2 serving under TP' "
-            f"(ssm_heads(tp), the sharded conv and state)")
+    if cfg.family != "hybrid":
+        return
+    # replicated KV is gathered per local Q head: one KV row per Q head
+    hl = cfg.local_q_heads(tp)
+    kl = hl if cfg.kv_replicated(tp) else cfg.local_kv_heads(tp)
+    if hl % kl:
+        raise ValueError(
+            f"{cfg.name} at a tensor-parallel size of {tp}: {hl} local Q heads are no "
+            f"multiple of {kl} local KV heads (heads padded to {cfg.padded_heads(tp)} / "
+            f"{cfg.padded_kv_heads(tp)}), so the reference's GQA repeat cannot pair them")
 
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, tp: int, dtype) -> dict:
@@ -46,6 +54,8 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, tp: int, dtype) -> dict:
         "attn": attention.init_attention(gen, cfg, tp, dtype),
         "norm_mlp": layers.init_norm(cfg.norm, cfg.d_model, dtype, gen.device),
     }
+    if cfg.parallel_ssm:        # hymba: SSM heads beside the attention heads
+        p["ssm"] = ssm.init_ssm(gen, cfg, tp, dtype)
     if cfg.family == "moe":
         p["moe"] = moe.init_moe(gen, cfg, tp, dtype)
     else:
@@ -64,7 +74,7 @@ def _sub(x_res: torch.Tensor, fn, rt: Runtime) -> torch.Tensor:
 
 
 def _sub_reduced(x_res: torch.Tensor, fn_full, rt: Runtime) -> torch.Tensor:
-    """A sublayer that sums over the TP group itself (MoE): under sequence
+    """A sublayer that sums over the TP group itself (SSM, hybrid, MoE): under sequence
     parallelism gather the sequence, run it, and keep this rank's shard of
     the reduced output."""
     if rt.sp and rt.tp_group is not None:
@@ -80,17 +90,26 @@ def scatter_from_full(out_full: torch.Tensor, rt: Runtime) -> torch.Tensor:
 
 def apply_layer(p, x: torch.Tensor, cfg: ModelConfig, rt: Runtime, *,
                 causal: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
-    """One dense or MoE decoder layer for training, x: (B, S, D) -> (B, S,
-    D), or (B, S/tp, D) under sequence parallelism; returns (x, aux), the
-    MoE load-balance loss (0 for a dense layer)."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family ({cfg.name}) is not ported "
-            f"yet: it comes with the SSM training slice (the SSD kernel has "
-            f"no backward)")
+    """One decoder layer for training, x: (B, S, D) -> (B, S, D), or
+    (B, S/tp, D) under sequence parallelism; returns (x, aux), the MoE
+    load-balance loss (0 for any other layer).  The SSM runs its plain,
+    differentiable path (``apply_ssm(train=True)``)."""
+    aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "ssm":
+        h = layers.apply_norm(p["norm_ssm"], x, cfg.norm)
+        return x + _sub_reduced(h, lambda xg: ssm.apply_ssm(p["ssm"], xg, cfg, rt,
+                                                            train=True)[0], rt), aux0
     h = layers.apply_norm(p["norm_attn"], x, cfg.norm)
-    x = x + _sub(h, lambda xg, red: attention.attention_train(
-        p["attn"], xg, cfg, rt, causal=causal, reduce=red), rt)
+    if cfg.parallel_ssm:        # hymba: attention and SSM heads on the same input
+        def both(xg):
+            a = attention.attention_train(p["attn"], xg, cfg, rt, causal=causal)
+            s = ssm.apply_ssm(p["ssm"], xg, cfg, rt, train=True)[0]
+            return (a + s) * 0.5
+
+        x = x + _sub_reduced(h, both, rt)
+    else:
+        x = x + _sub(h, lambda xg, red: attention.attention_train(
+            p["attn"], xg, cfg, rt, causal=causal, reduce=red), rt)
     h = layers.apply_norm(p["norm_mlp"], x, cfg.norm)
     if cfg.family == "moe":
         aux = []
@@ -101,7 +120,6 @@ def apply_layer(p, x: torch.Tensor, cfg: ModelConfig, rt: Runtime, *,
             return out
 
         return x + _sub_reduced(h, moe_full, rt), aux[0]
-    aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + _sub(h, lambda xg, red: layers.apply_mlp(p["mlp"], xg, rt, red), rt), aux0
 
 

@@ -3,8 +3,8 @@
 Prefill a batch of prompts, move the cache to the decode side through
 ``kv_transfer_body`` (raw, and int8 on the wire), then decode greedily
 from the moved caches and from the original one.  The cache is the KV
-cache of a dense or MoE model or the conv and SSM state of a Mamba2
-model.  The
+cache of a dense or MoE model, the conv and SSM state of a Mamba2
+model, or both for a Hymba model.  The
 raw transfer must reproduce same-side generation token for token; the
 int8 transfer reports its token agreement.  Weights are random, drawn
 from ``--seed``.
@@ -18,10 +18,11 @@ moves and decodes its own shard of the cache, and prints its own line.
 
     python -m repro_torch.serve.disaggregated                  # qwen2.5-3b on the GPU
     python -m repro_torch.serve.disaggregated --arch mamba2-2.7b
+    python -m repro_torch.serve.disaggregated --arch hymba-1.5b --prompt-len 2048
     python -m repro_torch.serve.disaggregated --arch qwen3-moe-30b-a3b
     python -m repro_torch.serve.disaggregated --smoke --device cpu
     RANK=r WORLD_SIZE=2 MASTER_ADDR=localhost MASTER_PORT=29500 \
-        python -m repro_torch.serve.disaggregated --tp 2
+        python -m repro_torch.serve.disaggregated --tp 2      # or --arch mamba2-2.7b --tp 2
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import BACKENDS, init_world, runtime_for_groups
 from repro_torch.models.model import Model, resolve_device
-from repro_torch.serve.serve_step import make_kv_transfer, make_serve_steps
+from repro_torch.serve.serve_step import cache_leaves, make_kv_transfer, make_serve_steps
 from repro_torch.train.loss import sharded_argmax
 
 
@@ -127,7 +128,7 @@ def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, batch: int = 4,
     _sync(device)
     transfer_s = time.perf_counter() - t0
     cache_finite = all(bool(torch.isfinite(leaf).all())
-                       for c in (caches, moved_q) for leaf in c
+                       for c in (caches, moved_q) for _, leaf in cache_leaves(c)
                        if leaf.is_floating_point())
 
     t0 = time.perf_counter()
@@ -155,9 +156,9 @@ def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, batch: int = 4,
         "int8_token_agreement": float((ref == dis_q).float().mean()),
         "tokens": ref.cpu().tolist(),
         "prefill_logits": logits[:, -1].cpu(),
-        "cache_shapes": {name: list(leaf.shape)
-                         for name, leaf in caches._asdict().items()},
-        "cache_bytes": sum(leaf.numel() * leaf.element_size() for leaf in caches),
+        "cache_shapes": {name: list(leaf.shape) for name, leaf in cache_leaves(caches)},
+        "cache_bytes": sum(leaf.numel() * leaf.element_size()
+                           for _, leaf in cache_leaves(caches)),
     }
 
 

@@ -4,11 +4,13 @@ The paper's §6.2.2 scenario: prefill on one cluster, decode on another,
 with the cache crossing between them through the HetCCL SendRecv
 (``kv_transfer_body``: a shift over the pod group, optionally with int8
 on the wire) instead of forwarding through the hosts.  The cache is a
-``KVCache`` (dense family) or an ``SSMState`` (Mamba2); the transfer
-moves every leaf of either.  Under tensor parallelism each rank holds
-its shard of the cache (its local heads) and moves it over its own pod
-group; the next token is the argmax over the TP group's vocabulary
-shards.
+``KVCache`` (dense family), an ``SSMState`` (Mamba2) or a
+``HybridCache`` of both (Hymba); the transfer moves every leaf of any of
+them.  Under tensor parallelism each rank holds its shard of the cache,
+the reference's ``cache_specs`` shard: its local KV heads, its conv
+state's [local x channels, replicated B/C channels] and its local SSM
+heads; it moves that shard over its own pod group.  The next token is
+the argmax over the TP group's vocabulary shards.
 """
 
 from __future__ import annotations
@@ -46,11 +48,22 @@ def make_serve_steps(model: Model):
     return prefill, decode
 
 
+def cache_leaves(caches, prefix: str = ""):
+    """(name, tensor) of every leaf of a cache NamedTuple, nested ones
+    named by their path ("kv.k", "ssm.conv")."""
+    for name, leaf in caches._asdict().items():
+        if isinstance(leaf, torch.Tensor):
+            yield prefix + name, leaf
+        else:
+            yield from cache_leaves(leaf, f"{prefix}{name}.")
+
+
 @torch.inference_mode()
 def kv_transfer_body(caches, rt: Runtime, compress: str | None = None,
                      shift: int = 1):
-    """Move every leaf of ``caches`` (a NamedTuple of tensors) from pod i
-    to pod (i + shift), returned as the same NamedTuple type.  With
+    """Move every leaf of ``caches`` (a NamedTuple of tensors, or of such
+    NamedTuples) from pod i to pod (i + shift), leaf by leaf, returned as
+    the same structure.  With
     ``compress="int8"`` a bf16 or f32 leaf of at least 1024 elements
     crosses as int8 blocks plus f32 scales (the codec kernels run even
     when the permutation is the identity); other leaves travel raw.
@@ -65,9 +78,13 @@ def kv_transfer_body(caches, rt: Runtime, compress: str | None = None,
         (out,) = primitives.shift([leaf], rt.pod_group, shift)
         return out.clone() if out is leaf else out
 
+    def tree(node):
+        return type(node)(*(move(leaf) if isinstance(leaf, torch.Tensor) else tree(leaf)
+                            for leaf in node))
+
     if compress not in (None, "int8"):
         raise ValueError(f"unknown KV codec {compress!r}")
-    return type(caches)(*(move(leaf) for leaf in caches))
+    return tree(caches)
 
 
 def make_kv_transfer(model: Model, compress: str | None = None, shift: int = 1):

@@ -17,7 +17,9 @@ tests/test_kernels.py's tolerances (f32 2e-3 on the CUDA cores, bf16 3e-2
 on the tensor cores, whose P is rounded to bf16); the SSD chunk
 within 1e-4 of its plain output's largest magnitude (f32 inputs: f32
 arithmetic in both, summed in another order; bf16 inputs: the tensor
-cores, with the f32 operands split into bf16 hi + lo).  Three f32 smoke
+cores, with the f32 operands split into bf16 hi + lo).  The SSD chunk
+and flash attention, which have no backward, refuse to run under
+autograd with an input that requires grad.  Three f32 smoke
 training steps with ``hier_overlap`` (its buckets synced inside the
 backward) and with ``fsdp``, int8 on the pod hop, in a world of one
 (NCCL for the card, gloo for the CPU): losses and parameters within 1e-4
@@ -32,8 +34,8 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import packing
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels import flash_attention as tfa
-from repro_torch.kernels import ops
 from repro_torch.kernels import quant as tquant
 from repro_torch.kernels import ssd as tssd
 from repro_torch.models import Model
@@ -445,6 +447,32 @@ def test_flash_attention_refuses_misaligned_bf16(cuda, what):
     with pytest.raises(ValueError, match="16-byte"):
         tfa.flash_attention_bhsd(q, q, q)
     assert ops.launch_counts()["flash_attention_bhsd"] == before
+
+
+@pytest.mark.parametrize("kernel", ["ssd_chunk", "flash_attention_bhsd"])
+@pytest.mark.parametrize("which", [0, 1])
+def test_forward_only_kernels_refuse_autograd(cuda, kernel, which):
+    """Neither kernel has a backward, and each returns tensors with no
+    ``grad_fn``: under autograd, with an input that requires grad, the
+    wrapper raises before launching; under ``no_grad`` it launches."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    if kernel == "ssd_chunk":
+        args = [torch.randn(1, 64, 2, 16, device=cuda, generator=g),
+                torch.rand(1, 64, 2, device=cuda, generator=g) * 0.1,
+                -torch.rand(2, device=cuda, generator=g),
+                torch.randn(1, 64, 1, 16, device=cuda, generator=g),
+                torch.randn(1, 64, 1, 16, device=cuda, generator=g)]
+        call = lambda *a: tssd.ssd_chunk_call(*a, 32)                       # noqa: E731
+    else:
+        args = [torch.randn(1, 2, 64, 64, device=cuda, generator=g).bfloat16() for _ in range(3)]
+        call = tfa.flash_attention_bhsd
+    args[which * (len(args) - 1)].requires_grad_(True)
+    before = ops.launch_counts()[kernel]
+    with pytest.raises(_build.NoBackwardError, match="no backward"):
+        call(*args)
+    assert ops.launch_counts()[kernel] == before
+    with torch.no_grad():
+        call(*args)
 
 
 def _map_tree(tree, fn):

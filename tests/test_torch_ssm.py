@@ -430,12 +430,6 @@ def test_prefill_decode_vs_jax(dt):
     assert _np(tc.length).tolist() == [S + EXTRA] * tm.cfg.n_layers
 
 
-def test_training_forward_is_not_ported():
-    cfg = get_config(ARCH, smoke=True)
-    with pytest.raises(NotImplementedError, match="SSM training"):
-        Model(cfg, device="cpu").init(0).apply_train(torch.zeros((1, 8), dtype=torch.long))
-
-
 # ---------------------------------------------------------------------------
 # serving: the transfer and disaggregated generation
 # ---------------------------------------------------------------------------

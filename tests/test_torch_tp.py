@@ -26,16 +26,13 @@
   parallelism came: the replicated-KV cache layout, the per-Q-head K/V
   gather, the data-parallel group (the ranks of one model index) and
   the batch rows (by data-parallel index).
-* Both entry points at ``--tp 2`` on the CPU, and a Mamba2 model at TP 2
-  raises by name.
+* Both entry points at ``--tp 2`` on the CPU.
 """
 
 import dataclasses
 import datetime
 import json
-import multiprocessing
 import os
-import pathlib
 import socket
 import subprocess
 import sys
@@ -99,27 +96,6 @@ def loss_inputs() -> tuple[np.ndarray, np.ndarray]:
     return logits, labels
 
 
-def _flat_tree(tree: dict, prefix: str = "") -> dict:
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out.update(_flat_tree(v, f"{prefix}{k}/"))
-        else:
-            out[f"{prefix}{k}"] = np.asarray(v)
-    return out
-
-
-def _nest(flat) -> dict:
-    tree: dict = {}
-    for path in flat:
-        node = tree
-        *head, last = path.split("/")
-        for k in head:
-            node = node.setdefault(k, {})
-        node[last] = np.asarray(flat[path])
-    return tree
-
-
 def _jax_main(out_dir: str, part: str) -> None:
     """The reference on 8 host devices: the results this file compares,
     the training cases of ``part`` "train<i>" or the rest ("serve")."""
@@ -138,6 +114,8 @@ def _jax_main(out_dir: str, part: str) -> None:
     from repro.train import make_train_step as jax_train_step
     from repro.train import optimizer as jopt
     from repro.train.optimizer import OptConfig as JaxOpt
+
+    from _torch_world import nest as _nest
 
     out = {}
     base = dataclasses.replace(jax_config("qwen2.5-3b", smoke=True), dtype=jnp.float32)
@@ -265,6 +243,8 @@ def _gloo_rank(rank: int, store_path: str, out_dir: str) -> None:
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train.train_step import TrainConfig, make_train_step, zero_bootstrap
 
+    from _torch_world import nest as _nest
+
     torch.set_num_threads(1)        # eight ranks share the host's cores
     dist.init_process_group("gloo", store=dist.FileStore(store_path, WORLD), rank=rank,
                             world_size=WORLD, timeout=datetime.timedelta(seconds=120))
@@ -347,6 +327,7 @@ def _gloo_rank(rank: int, store_path: str, out_dir: str) -> None:
 
 
 if __name__ == "__main__":
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     _jax_main(sys.argv[1], sys.argv[2])
     sys.exit(0)
 
@@ -356,6 +337,7 @@ import jax.numpy as jnp  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
 
+from _torch_world import ROOT, flat_tree, run_world  # noqa: E402
 from repro.configs import get_config as jax_config  # noqa: E402
 from repro.models import Model as JaxModel  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
@@ -366,7 +348,6 @@ from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models.model import Model, pad_vocab  # noqa: E402
 from repro_torch.parallel.sharding import Runtime  # noqa: E402
 
-ROOT = pathlib.Path(__file__).resolve().parent.parent
 MESH_RANKS = {"tp_group": lambda p, d, m: [(p * 2 + d) * 2 + i for i in range(2)],
               "data_group": lambda p, d, m: [(p * 2 + i) * 2 + m for i in range(2)],
               "pod_group": lambda p, d, m: [(i * 2 + d) * 2 + m for i in range(2)],
@@ -376,7 +357,7 @@ MESH_RANKS = {"tp_group": lambda p, d, m: [(p * 2 + d) * 2 + i for i in range(2)
 def _jax_params(tp: int, **overrides) -> dict:
     cfg = dataclasses.replace(jax_config("qwen2.5-3b", smoke=True), dtype=jnp.float32, **overrides)
     params = JaxModel(cfg, JaxRuntime(tp_axis="model", tp_size=tp)).init(jax.random.key(0))
-    return _flat_tree(jax.tree.map(np.asarray, params))
+    return flat_tree(jax.tree.map(np.asarray, params))
 
 
 @pytest.fixture(scope="module")
@@ -388,36 +369,7 @@ def results(tmp_path_factory):
     np.savez(tmp / "params_fsdp.npz", **_jax_params(2, d_ff=FSDP_D_FF))
     for tp in SERVE_TP:
         np.savez(tmp / f"params_tp{tp}.npz", **_jax_params(tp))
-    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
-               JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"))
-    jax_procs = [subprocess.Popen([sys.executable, __file__, str(tmp), part], env=env,
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-                 for part in JAX_PARTS]
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_gloo_rank, args=(r, str(tmp / "store"), str(tmp)))
-             for r in range(WORLD)]
-    try:
-        for p in procs:
-            p.start()
-        for p in procs:
-            p.join(timeout=300)
-        jax_outs = [jp.communicate(timeout=300)[0] for jp in jax_procs]
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(timeout=10)
-        for jp in jax_procs:
-            if jp.poll() is None:
-                jp.kill()
-                jp.wait(timeout=10)
-    for jp, out in zip(jax_procs, jax_outs):
-        assert jp.returncode == 0, out.decode()[-3000:]
-    assert [p.exitcode for p in procs] == [0] * WORLD
-    want = {}
-    for part in JAX_PARTS:
-        want.update(np.load(tmp / f"jax_{part}.npz"))
-    return want, [np.load(tmp / f"rank{r}.npz") for r in range(WORLD)]
+    return run_world(__file__, tmp, JAX_PARTS, WORLD, _gloo_rank, WORLD)
 
 
 @pytest.mark.parametrize("mode, codec, sp", TRAIN_CASES)
@@ -600,12 +552,6 @@ def test_pad_to_tp_keeps_the_function_and_refuses_head_padding():
         pad_vocab(tree, padded_heads, 4)
     with pytest.raises(ValueError, match="padding"):
         Model(padded_heads, _RankRt(tp_group="tp", size=4), device="cpu").init(0)
-
-
-def test_mamba2_at_tp2_raises_by_name():
-    cfg = get_config("mamba2-2.7b", smoke=True)
-    with pytest.raises(NotImplementedError, match="Mamba2 serving under TP"):
-        Model(cfg, _RankRt(tp_group="tp", size=2), device="cpu")
 
 
 def test_nccl_refuses_ranks_sharing_a_card(monkeypatch):
