@@ -161,6 +161,24 @@
    TP 1 at capacity factor MOE_TP_FACTOR (no token can drop), the
    last-token logits within ``tp_logit_tol`` plus MOE_FLIP_TOL per router
    flip at the token.
+10. Runtime robustness, after the planned paths: (a) qwen2.5-3b at full
+   width trained with hier + int8 under the collective guard and seed
+   CHAOS_SEED's chaos plan for CHAOS_STEPS steps: each fault class that
+   fires is logged, the transient costs one retry, the hang is caught and
+   charged to rank 0, no other guard event, every loss finite, and the
+   guard's host milliseconds per step printed, split into the CRC32 and
+   the finiteness check; a NaN block through the int8 codec decodes on
+   the card as on the CPU (ROADMAP R20); (b) checkpoint and resume at
+   CKPT_LAYERS layers: save_async, save and restore timed, with the
+   state's GB, the resumed losses bit-equal to an uninterrupted run's;
+   (c) four ranks as 2 pods x 2 data on the card over gloo, hier_zero1 +
+   int8 at ELASTIC_LAYERS layers: pod 1 lost before step ELASTIC_FAIL,
+   the ZeRO-1 master carried through the slot map, each survivor's losses
+   bit-equal to a survivor run restored from the failure step's
+   checkpoint; the re-plan, the failover's parts, the survivors' step, and
+   per rank the launches and peak memory printed.  Phases (b) and (c)
+   check the free disk first.  Their launches are the kernels line's
+   paths ``train_chaos``, ``train_resume`` and ``train_elastic``.
 
 Any failed check raises, and the script exits non-zero without printing
 its result line.  The last line is the result:
@@ -178,6 +196,8 @@ import math
 import multiprocessing
 import os
 import pathlib
+import resource
+import shutil
 import socket
 import statistics
 import subprocess
@@ -201,19 +221,21 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import quant  # noqa: E402
 from repro_torch.kernels import ssd  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
-from repro_torch.launch.mesh import runtime_for_groups  # noqa: E402
+from repro_torch.launch.mesh import runtime_for_groups, survivor_mesh  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import attention, moe  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import ssm as ssm_model  # noqa: E402
 from repro_torch.parallel.sharding import reduce_from_tp  # noqa: E402
+from repro_torch.runtime import guard as guard_lib  # noqa: E402
+from repro_torch.runtime.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.serve import disaggregated  # noqa: E402
 from repro_torch.serve.serve_step import make_serve_steps  # noqa: E402
 from repro_torch.train import loss as loss_lib  # noqa: E402
 from repro_torch.train import optimizer as opt_lib  # noqa: E402
 from repro_torch.train import train_step  # noqa: E402
 from repro_torch.train.train_step import (  # noqa: E402
-    TrainConfig, make_train_step, zero_bootstrap)
+    TrainConfig, load_state, make_train_step, state_like, state_shardings, zero_bootstrap)
 
 # NVIDIA H100 SXM data sheet, dense rates without sparsity
 PEAK_BYTES_PER_S = 3.35e12
@@ -2125,6 +2147,8 @@ def _tp_rank(rank: int, world: int, port: int, job: str, out_dir: str,
         ops.reset_launch_counts()
         if job in TP_TRAIN_JOBS:
             out = _tp_train(dev, world, TP_TRAIN_JOBS[job])
+        elif job == "elastic":
+            out = _elastic_rank(dev, rank, out_dir)
         elif job == "ssm_serve":
             out = disaggregated.run(SSM_ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN,
                                     device=dev, tp=world, layers=SSM_TP_DEPTH)
@@ -2399,6 +2423,290 @@ def train_tp(smi: str, arch: str = ARCH) -> dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
+# Runtime robustness: the guard and the chaos engine, checkpoints, elastic
+# ---------------------------------------------------------------------------
+
+CHAOS_SEED, CHAOS_STEPS = 8, 12   # seed 8 in 12 steps: the hang at step 9, after the
+#                                   guard's 5-step calibration
+CKPT_LAYERS = 4                   # phase (b)'s depth
+# phase (c)'s depth: 2 of the issue's 4 layers.  At 4 the four ranks ran
+# the machine's 96 GiB of host memory out (gloo stages every CUDA
+# collective through host buffers, and the files of the sandbox's disk are
+# held in its memory)
+ELASTIC_LAYERS = 2
+ELASTIC_FAIL, ELASTIC_STEPS = 2, 5  # pod 1 is lost before step 2; 3 survivor steps
+
+
+def _median(xs) -> float:
+    return statistics.median(xs) if xs else float("nan")
+
+
+def check_nan_on_int8_wire(dev, rt) -> None:
+    """ROADMAP R20 on the card: a NaN block through the shared-scale int8
+    codec (amax_block keeps the NaN; the scale rule maps it to 1) decodes
+    bit-equal to the CPU's, finite."""
+    gen = torch.Generator().manual_seed(3)
+    x = (torch.randn(1 << 20, generator=gen) * 1e-2).to(torch.bfloat16)
+    x[0] = float("nan")
+    got = compression.compressed_psum(x.to(dev), rt.pod_group, "int8").cpu()
+    want = compression.compressed_psum(x.clone(), rt.pod_group, "int8")
+    check(bits_equal(got, want) and bool(torch.isfinite(got).all()),
+          "R20: the NaN block on the int8 wire decodes otherwise on the card than on the CPU")
+
+
+def train_chaos(dev, smi: str) -> dict:
+    """Phase (a): qwen2.5-3b at full width, hier + int8 in a world of one,
+    ``run(guard=True, chaos=CHAOS_SEED)`` for CHAOS_STEPS steps, the launch
+    counts set to 0 just before and read just after.  Each fault class
+    that fires is logged (one cluster: no link feed, so the degraded link
+    does not); the transient costs one retry; the hang is detected at its
+    step and attributed to rank 0; no other guard event; every loss
+    finite; the NaN step's payload is silenced by the int8 codec's scale
+    rule (R20), so its gate stays open.  The guard's host milliseconds per
+    step are printed, split into the CRC and the finiteness check
+    (ROADMAP fact 4: every parameter is copied to the host each step)."""
+    cfg = get_config(ARCH)
+    spent: dict[str, list] = {"crc": [], "nonfinite": []}
+    real = guard_lib.payload_checksum, guard_lib.nonfinite_leaves
+
+    def clocked(key, fn):
+        def run_timed(tree):
+            t0 = time.perf_counter()
+            out = fn(tree)
+            spent[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run_timed
+
+    guard_lib.payload_checksum = clocked("crc", real[0])
+    guard_lib.nonfinite_leaves = clocked("nonfinite", real[1])
+    lines: list[str] = []
+    try:
+        ops.reset_launch_counts()
+        res = train_launch.run(ARCH, steps=CHAOS_STEPS, mode="hier", compression="int8",
+                               global_batch=TRAIN_BATCH, seq=TRAIN_SEQ, device=dev, guard=True,
+                               chaos=CHAOS_SEED, log=lines.append)
+        counts = ops.launch_counts()
+    finally:
+        guard_lib.payload_checksum, guard_lib.nonfinite_leaves = real
+    for line in lines:
+        if not line.startswith("{"):
+            print(f"[chaos] {line}")
+    want = train_kernels("hier", "int8", cfg)
+    check(counts == {k: n * CHAOS_STEPS for k, n in want.items()},
+          f"chaos launches {counts} over {CHAOS_STEPS} steps")
+    check_vector_launches(counts, "train_chaos")
+    events = {e["kind"]: e["step"] for e in res["chaos"]["plan"]["events"]}
+    injected = {i["kind"] for i in res["chaos"]["injected"]}
+    check(injected == {"transient", "hang", "nan_payload", "bitflip"},
+          f"chaos: injected {injected}")
+    report = res["guard"]
+    check(report["counts"] == {"transient_retry": 1, "hang": 1},
+          f"chaos: guard events {report['counts']}")
+    by_kind = {e["kind"]: e for e in report["events"]}
+    check(by_kind["transient_retry"]["step"] == events["transient"]
+          and by_kind["transient_retry"]["measured"] == 1.0, "chaos: the transient's retry")
+    check(by_kind["hang"]["step"] == events["hang"] and by_kind["hang"]["attribution"] == "rank 0",
+          f"chaos: hang {by_kind['hang']}")
+    recs = {r["step"]: r for r in res["records"]}
+    check([r["step"] for r in res["records"]] == list(range(CHAOS_STEPS)), "chaos: steps")
+    for r in res["records"]:
+        check(math.isfinite(r["loss"]) and math.isfinite(r["gnorm"]) and not r["gated"],
+              f"chaos step {r['step']}: loss {r['loss']}, grad norm {r['gnorm']}, "
+              f"gated {r['gated']}")
+        check({k: r["launches"][k] for k in want} == want, f"chaos step {r['step']} launches")
+    clean = [r["ms_per_step"] for s, r in recs.items() if s and s not in events.values()]
+    guard_ms = [r["guard_ms"] for r in res["records"]]
+    n_bytes = res["params"] * 2
+    print(f"[chaos] [{smi}] {ARCH} ({res['params']} params), hier + int8, seed {CHAOS_SEED}, "
+          f"{CHAOS_STEPS} steps: faults {events}; guard events {report['counts']} "
+          f"(deadline {report['deadline_s']:.3f} s); step {_median(clean):.3f} ms (median of "
+          f"the fault-free steps 1-{CHAOS_STEPS - 1}); guard host ms per step median "
+          f"{_median(guard_ms):.1f} (min {min(guard_ms):.1f}, max {max(guard_ms):.1f}): CRC32 "
+          f"over {n_bytes / 1e9:.3f} GB of bf16 parameters {_median(spent['crc']):.1f} ms, "
+          f"finiteness check {_median(spent['nonfinite']):.1f} ms (medians of "
+          f"{len(spent['crc'])}); NaN step {events['nan_payload']}: loss "
+          f"{recs[events['nan_payload']]['loss']:.6f}, grad norm "
+          f"{recs[events['nan_payload']]['gnorm']:.6f}, gate open (R20); losses "
+          f"{[r['loss'] for r in res['records']]}")
+    res["counts"] = counts
+    res["guard_split_ms"] = {k: _median(v) for k, v in spent.items()}
+    return res
+
+
+def _state_gb(layers: int) -> float:
+    """The checkpointed state of qwen2.5-3b at ``layers`` layers with Adam:
+    bf16 parameters and two f32 moments, 10 bytes a parameter."""
+    with FakeTensorMode():
+        model = Model(dataclasses.replace(get_config(ARCH), n_layers=layers),
+                      device="cpu").init(0)
+        n = sum(p.numel() for p in model.parameters())
+    return n * 10 / 1e9
+
+
+def _disk_check(directory: str, need_gb: float, what: str) -> None:
+    free = shutil.disk_usage(directory).free / 1e9
+    print(f"[ckpt] {what}: {free:.1f} GB free under {directory}, {need_gb:.1f} GB needed")
+    check(free >= need_gb, f"{what}: {free:.1f} GB free under {directory}, {need_gb:.1f} GB "
+          f"needed for the checkpoints")
+
+
+def train_resume(dev, smi: str) -> dict:
+    """Phase (b): qwen2.5-3b at full width and CKPT_LAYERS layers, hier +
+    int8 in a world of one: 4 steps with ``save_async`` at step 2 and the
+    final ``save`` at 4, then a resumed launch (``restore``) for steps 4-5,
+    whose losses must be bit-equal to an uninterrupted 6-step run's.  The
+    launch counts of the resumed launch are set to 0 just before it and
+    read just after.  Writes in a temporary directory it removes."""
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=CKPT_LAYERS)
+    gb = _state_gb(CKPT_LAYERS)
+    with tempfile.TemporaryDirectory() as d:
+        _disk_check(d, 3.5 * gb, "phase (b)")
+        kw = dict(layers=CKPT_LAYERS, mode="hier", compression="int8",
+                  global_batch=TRAIN_BATCH, seq=TRAIN_SEQ, device=dev, log=lambda line: None)
+        first = train_launch.run(ARCH, steps=4, ckpt_dir=d, ckpt_every=2, **kw)
+        free_memory()
+        ops.reset_launch_counts()
+        resumed = train_launch.run(ARCH, steps=6, ckpt_dir=d, resume=True, **kw)
+        counts = ops.launch_counts()
+        free_memory()
+    whole = train_launch.run(ARCH, steps=6, **kw)
+    free_memory()
+    want = train_kernels("hier", "int8", cfg)
+    check(resumed["resumed_from"] == 4 and [r["step"] for r in resumed["records"]] == [4, 5],
+          f"resume: from {resumed['resumed_from']}, steps {resumed['records']}")
+    check(counts == {k: 2 * n for k, n in want.items()}, f"resume launches {counts}")
+    got = [r["loss"] for r in resumed["records"]]
+    ref = [r["loss"] for r in whole["records"][4:]]
+    check(got == ref, f"resumed losses {got} against the uninterrupted run's {ref}")
+    check(first["checkpoints"] == [2, 4] and resumed["checkpoints"] == [6],
+          f"checkpoints {first['checkpoints']}, {resumed['checkpoints']}")
+    op = {(o["op"], o["step"]): o for o in first["checkpoint_ops"] + resumed["checkpoint_ops"]}
+    print(f"[ckpt] [{smi}] {ARCH} at {CKPT_LAYERS} layers (hier + int8, Adam, "
+          f"{op[('save', 4)]['gb']:.3f} GB of state): save_async at step 2 "
+          f"{op[('save_async', 2)]['ms']:.1f} ms on the training thread, save at step 4 "
+          f"{op[('save', 4)]['ms']:.1f} ms, restore {op[('restore', 4)]['ms']:.1f} ms, final "
+          f"save at step 6 {op[('save', 6)]['ms']:.1f} ms; resumed losses {got} bit-equal to "
+          f"the uninterrupted run's; step {resumed['step_ms']:.3f} ms")
+    resumed["counts"] = counts
+    return {"resumed": resumed, "ops": first["checkpoint_ops"] + resumed["checkpoint_ops"],
+            "counts": counts, "losses": got}
+
+
+def _elastic_rank(dev, rank: int, out_dir: str) -> dict:
+    """One rank of phase (c): 2 pods x 2 data, hier_zero1 + int8 at
+    ELASTIC_LAYERS layers.  A launch of ELASTIC_FAIL steps writes the
+    checkpoint of the failure step.  A second launch (its launch counts set
+    to 0 just before it and read just after) takes the same steps, as
+    training is deterministic here, loses pod 1 before step ELASTIC_FAIL,
+    and the survivors train to ELASTIC_STEPS.  Then the survivors'
+    reference: a run on the same survivor groups restored from the failure
+    step's checkpoint."""
+    d = os.path.join(out_dir, "ck")
+    lines: list[str] = []
+    kw = dict(layers=ELASTIC_LAYERS, pods=2, mode="hier_zero1", compression="int8",
+              global_batch=TRAIN_BATCH, seq=TRAIN_SEQ, device=dev, log=lines.append)
+    before = train_launch.run(ARCH, steps=ELASTIC_FAIL, ckpt_dir=d, **kw)["losses"]
+    free_memory()
+    ops.reset_launch_counts()
+    res = train_launch.run(ARCH, steps=ELASTIC_STEPS, elastic=True,
+                           inject_pod_failure=ELASTIC_FAIL, **kw)
+    counts = ops.launch_counts()
+    free_memory()
+    # (``_tp_rank`` overwrites "counts" with the process's, the reference run's included)
+    out = {"path_counts": counts, "records": res["records"], "losses": res["losses"],
+           "before": before,
+           "survivor_step_ms": _median([r["ms_per_step"] for r in res["records"]
+                                        if r["step"] > ELASTIC_FAIL]),
+           "alive": res["alive"], "peak_mem_gb": res["peak_mem_gb"], "step_ms": res["step_ms"],
+           "failover": res["failover"], "elastic": res["elastic"],
+           "checkpoint_ops": res["checkpoint_ops"],
+           "lines": [line for line in lines if line.startswith("[elastic]")]}
+    new_rt, _ = survivor_mesh(2, 2, 1, 1)
+    if new_rt is not None:
+        cfg = dataclasses.replace(get_config(ARCH), n_layers=ELASTIC_LAYERS)
+        model = Model(cfg, new_rt, dev).init(0)
+        tcfg = TrainConfig(comm_mode="hier_zero1", dcn_compression="int8",
+                           opt=opt_lib.OptConfig(lr=3e-3, warmup_steps=20))
+        step_fn, _ = make_train_step(model, tcfg)
+        zero_like = train_launch._zero_like(model, tcfg)
+        _, state, _ = CheckpointManager(d).restore(
+            state_like(model, zero_like, tcfg), step=ELASTIC_FAIL,
+            shardings=state_shardings(model, zero_like, tcfg))
+        opt = load_state(model, state, tcfg, sliced=True)
+        del state
+        rows = train_launch.dp_rows(rank, TRAIN_BATCH, 1, 2, 1)
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+        out["ref_losses"] = [step_fn(opt, {k: torch.from_numpy(v[rows]).long().to(dev)
+                                           for k, v in synth_batch(dcfg, i).items()})["loss"]
+                             for i in range(ELASTIC_FAIL, ELASTIC_STEPS)]
+    dist.barrier()
+    out["host_peak_gb"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+    return out
+
+
+def train_elastic(smi: str) -> dict[str, int]:
+    """Phase (c): four ranks as 2 pods x 2 data on the one card over gloo
+    (as the TP phases share it).  Each survivor's losses after the pod
+    failure are bit-equal to the survivor run restored from the failure
+    step's checkpoint; the ZeRO-1 master crossed through the slot map.
+    Prints the re-plan latency, the failover's parts (the state gather,
+    the survivor cut, the remap) and the survivors' step ms, and per rank
+    the launch counts and the peak memory.  Returns the launches summed
+    over the ranks."""
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=ELASTIC_LAYERS)
+    # one checkpoint of ZeRO-1's state: 14 bytes a parameter (bf16, and the
+    # f32 master and moments) against _state_gb's 10
+    _disk_check(tempfile.gettempdir(), 1.4 * _state_gb(ELASTIC_LAYERS) + 1.0, "phase (c)")
+    ranks = _spawn_tp("elastic", 4)
+    per_step = train_kernels("hier_zero1", None, cfg)     # no pod hop on the survivors
+    total = dict.fromkeys(ranks[0]["path_counts"], 0)
+    for r, res in enumerate(ranks):
+        alive = r < 2
+        check(res["alive"] == alive, f"elastic rank {r}: alive {res['alive']}")
+        fo = res["failover"]
+        check(fo["remap_path"] == "slot_map" if alive else "remap_path" not in fo,
+              f"elastic rank {r}: failover {fo}")
+        # ELASTIC_FAIL steps on 2 pods (the int8 pod hop), then the survivors'
+        # steps with no pod group (no codec), and the bootstrap's pack
+        before = train_kernels("hier_zero1", "int8", cfg)
+        after = ELASTIC_STEPS - ELASTIC_FAIL if alive else 0
+        boot = bootstrap_kernels("hier_zero1")
+        want = {k: before[k] * ELASTIC_FAIL + n * after + boot.get(k, 0)
+                for k, n in per_step.items()}
+        check(res["path_counts"] == want,
+              f"elastic rank {r}: launches {res['path_counts']}, want {want}; per step "
+              f"{[(x['step'], x['launches']['pack_slots']) for x in res['records']]}")
+        check(res["losses"][:ELASTIC_FAIL] == res["before"],
+              f"elastic rank {r}: the steps before the failure {res['losses']} against the "
+              f"checkpointing launch's {res['before']}")
+        if alive:
+            check(res["losses"][ELASTIC_FAIL:] == res["ref_losses"],
+                  f"elastic rank {r}: losses {res['losses']} against the survivor run "
+                  f"restored from step {ELASTIC_FAIL}: {res['ref_losses']}")
+            check(all(math.isfinite(x) for x in res["losses"]), "elastic: non-finite loss")
+        for k, n in res["path_counts"].items():
+            total[k] += n
+    rep = ranks[0]["elastic"][0]
+    fo = ranks[0]["failover"]
+    print(f"[elastic] [{smi}] {ARCH} at {ELASTIC_LAYERS} layers, hier_zero1 + int8, 2 pods x "
+          f"2 data on one card over gloo, pod 1 lost before step {ELASTIC_FAIL}: re-plan "
+          f"{fo['replan_ms']:.1f} ms ({rep['old_fingerprint']} -> {rep['new_fingerprint']}, "
+          f"plan {rep['plan_mode']} validated via {rep['validated_via']}), parameter gather "
+          f"{fo['gather_ms']:.1f} ms, survivor cut {fo['cut_ms']:.1f} ms, ZeRO-1 state "
+          f"gathered, remapped ({fo['remap_path']}) and placed {fo['remap_ms']:.1f} ms, "
+          f"failover total {fo['total_ms']:.1f} ms; survivors' step "
+          f"{ranks[0]['survivor_step_ms']:.3f} / {ranks[1]['survivor_step_ms']:.3f} ms (median "
+          f"of steps {ELASTIC_FAIL + 1}-{ELASTIC_STEPS - 1}); "
+          f"losses {ranks[0]['losses']} bit-equal to the restored survivor run")
+    for r, res in enumerate(ranks):
+        print(f"[elastic] [{smi}] rank {r}: launches {res['path_counts']}, peak memory "
+              f"{res['peak_mem_gb']:.3f} GB on the card, {res['host_peak_gb']:.1f} GB of host "
+              f"memory at most, {'survivor' if r < 2 else 'lost pod'}; "
+              + "; ".join(res["lines"][:1]))
+    return total
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -2480,6 +2788,14 @@ def main() -> int:
             free_memory()
         planned_entry, planned_run = train_planned_paths(dev, smi)
         free_memory()
+        # runtime robustness: (a) the guard and the chaos engine at full width,
+        # (b) checkpoint and resume, (c) elastic re-planning on four ranks
+        chaos = train_chaos(dev, smi)
+        free_memory()
+        check_nan_on_int8_wire(dev, rt)
+        resume = train_resume(dev, smi)
+        free_memory()
+        elastic_counts = train_elastic(smi)
         peaks = ", ".join(f"{m} {r['peak_mem_gb']:.3f} GB" for m, r in train.items())
         print(f"[train] [{smi}] peak memory by gradient sync: {peaks}")
         n_segment = packing.aligned_size(train["hier"]["params"],
@@ -2512,6 +2828,8 @@ def main() -> int:
              **{f"train_{mode}": res["counts"] for mode, res in train.items()},
              "train_planned_entry": planned_entry["counts"],
              "train_planned": planned_run["counts"], "conformance": conformance_counts,
+             "train_chaos": chaos["counts"], "train_resume": resume["counts"],
+             "train_elastic": elastic_counts,
              **tp_counts}
     for name, row in rows.items():
         row["paths"] = {path: counts[name] for path, counts in paths.items()}
@@ -2573,6 +2891,11 @@ def main() -> int:
                           | {"losses": [r["loss"] for r in res["records"]],
                              "grad_norms": [r["gnorm"] for r in res["records"]]}
                           for arch, res in ssm_train.items()}},
+        "runtime": {"chaos": {"guard": chaos["guard"], "guard_split_ms": chaos["guard_split_ms"],
+                              "guard_ms": [r["guard_ms"] for r in chaos["records"]],
+                              "step_ms": chaos["step_ms"],
+                              "losses": [r["loss"] for r in chaos["records"]]},
+                    "checkpoint": {"ops": resume["ops"], "losses": resume["losses"]}},
         "card": smi}))
     print(f"[time] chip_smoke: {time.perf_counter() - t_start:.1f} s from start to result")
     print(smi)

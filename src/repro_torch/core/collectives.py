@@ -272,6 +272,11 @@ def hier_psum(x: torch.Tensor, cfg: CommConfig) -> torch.Tensor:
         sched = schedule_ir.with_cluster_scale(sched)
     if any(isinstance(s, schedule_ir.Flat) for s in sched.steps):
         return _flat_psum(x, cfg)
+    if cfg.pod_group is None and sched.pipelined:
+        # a pipeline of one cluster has no C2C phase to hide: one intra
+        # all-reduce, its payload through the "flat" seam, as in the reference
+        x = primitives.apply_inject(_apply_cluster_weight(x, cfg), "flat")
+        return primitives.hom_psum(x, cfg.intra_group)
     shape, n = x.shape, x.numel()
     payload = [_pad_to(x, primitives.axis_size(cfg.intra_group))]
     del x

@@ -19,7 +19,9 @@ its slot holds layer after layer, as the reference's stacked leaf does.
 ``plan_bucket_layout`` is the overlap scheduler's layout (every bucket
 cast to f32 and aligned on its own), and ``pack_bucketed`` writes one
 bucket of it into a buffer of its own, so that each bucket is freed once
-synced.  The elastic shard remap is not ported yet.
+synced.  ``remap_shard_ops`` and ``apply_remap_ops``, the ZeRO-1
+master's slice remap onto another intra world (the elastic path), are
+verbatim copies of the reference's.
 """
 
 from __future__ import annotations
@@ -338,3 +340,104 @@ def pack_bucketed(layout: PackedLayout, pieces, bucket: int) -> torch.Tensor:
             parts.append((off, part))
             off += part.numel()
     return _qk.pack_slots_call(parts, end - start, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Elastic shard remap (DESIGN.md §15)
+# ---------------------------------------------------------------------------
+#
+# A ZeRO-1 rank's master shard is the per-segment concatenation of its
+# slices: shard(r) = concat over segments of seg_buffer[r*per : (r+1)*per]
+# with per = seg.padded // world (collectives.zero1_local_shard).  When
+# the intra world changes (host loss / recovery), the new shards are a
+# pure *slice remap* of the old ones through the slot map — every payload
+# element keeps its (segment, in-segment offset) identity, only its
+# (rank, in-shard offset) home moves.  No re-flatten, no repacking of
+# leaves; the tail padding of each segment is zeros on both sides, so
+# copying min(old.padded, new.padded) elements per segment is exact.
+
+@dataclasses.dataclass(frozen=True)
+class ShardRemapOp:
+    """One contiguous host copy realizing part of the remap:
+    ``new_shards[dst_rank][dst_offset:dst_offset+length] =
+    old_shards[src_rank][src_offset:src_offset+length]``.  Offsets are
+    in per-rank master-shard coordinates (per-segment bases included)."""
+
+    dtype: str
+    src_rank: int
+    src_offset: int
+    dst_rank: int
+    dst_offset: int
+    length: int
+
+
+def remap_shard_ops(old: PackedLayout, new: PackedLayout, *,
+                    old_world: int, new_world: int
+                    ) -> tuple[tuple[ShardRemapOp, ...], ...]:
+    """Copy ops mapping per-rank ZeRO-1 master shards from ``old``
+    (sharded ``old_world``-way) to ``new`` (``new_world``-way), grouped
+    per destination rank.  Raises ``ValueError`` when the layouts are
+    not remappable — different leaf contents (the segments' (dtype,
+    used) sequences differ, e.g. a TP resize changed the local leaves)
+    or a world that does not divide a segment (the mesh shrank below
+    the layout's divisibility) — the caller's cue to fall back to
+    ``CheckpointManager.restore`` with new shardings."""
+    old_world, new_world = int(old_world), int(new_world)
+    if old_world < 1 or new_world < 1:
+        raise ValueError(
+            f"remap_shard_ops: worlds must be >= 1, got "
+            f"{old_world} -> {new_world}")
+    sig_old = [(s.dtype, s.used) for s in old.segments]
+    sig_new = [(s.dtype, s.used) for s in new.segments]
+    if sig_old != sig_new:
+        raise ValueError(
+            "remap_shard_ops: layouts describe different leaf contents "
+            f"(old segments {sig_old} != new segments {sig_new}) — "
+            "a slice remap cannot relate them; restore from checkpoint")
+    for tag, lay, world in (("old", old, old_world), ("new", new, new_world)):
+        for s in lay.segments:
+            if s.padded % world != 0:
+                raise ValueError(
+                    f"remap_shard_ops: {tag} segment {s.dtype} padded "
+                    f"{s.padded} is not divisible by world {world} — "
+                    "mesh shrank below the layout's divisibility; "
+                    "restore from checkpoint")
+    per_old = [s.padded // old_world for s in old.segments]
+    per_new = [s.padded // new_world for s in new.segments]
+    ops: list[list[ShardRemapOp]] = [[] for _ in range(new_world)]
+    base_old = 0
+    base_new = 0
+    for si, (seg_o, seg_n) in enumerate(zip(old.segments, new.segments)):
+        po, pn = per_old[si], per_new[si]
+        extent = min(seg_o.padded, seg_n.padded)
+        p = 0
+        while p < extent and po and pn:
+            src_rank, src_in_seg = divmod(p, po)
+            dst_rank, dst_in_seg = divmod(p, pn)
+            length = min(extent - p, po - src_in_seg, pn - dst_in_seg)
+            ops[dst_rank].append(ShardRemapOp(
+                seg_o.dtype, src_rank, base_old + src_in_seg,
+                dst_rank, base_new + dst_in_seg, length))
+            p += length
+        base_old += po
+        base_new += pn
+    return tuple(tuple(rank_ops) for rank_ops in ops)
+
+
+def apply_remap_ops(ops, old_shards, new_shard_size: int):
+    """Execute :func:`remap_shard_ops` on host arrays: ``old_shards``
+    is the list of old per-rank 1-D buffers; returns the zero-initialized
+    new per-rank buffers with every op applied.  numpy is imported
+    lazily like the JAX executors below, keeping the layout core
+    importable by the no-jax CI gate."""
+    import numpy as np
+    if not old_shards:
+        return []
+    dtype = np.asarray(old_shards[0]).dtype
+    out = [np.zeros(int(new_shard_size), dtype) for _ in range(len(ops))]
+    for rank_ops in ops:
+        for op in rank_ops:
+            src = np.asarray(old_shards[op.src_rank])
+            out[op.dst_rank][op.dst_offset:op.dst_offset + op.length] = \
+                src[op.src_offset:op.src_offset + op.length]
+    return out

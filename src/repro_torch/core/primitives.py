@@ -24,16 +24,56 @@ never copied.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.distributed as dist
 
 from repro_torch.parallel.sharding import group_size
 
 
-def apply_inject(buf: torch.Tensor, phase: str) -> torch.Tensor:
-    """The chaos engine's payload seam (identity: its hook is not ported
-    yet).  ``phase`` names the transfer point, as in the reference."""
-    return buf
+# ---------------------------------------------------------------------------
+# Fault-injection hook (the chaos engine's seam)
+# ---------------------------------------------------------------------------
+#
+# The executors (core/collectives.py, core/pipelined.py) pass every payload
+# about to enter a transport phase through ``apply_inject(buf, phase)``,
+# the identity when no hook is installed.  The chaos engine
+# (runtime/faults.py) installs a hook that corrupts payloads (NaN
+# gradients, bit-flipped int8 blocks).  The reference corrupts at trace
+# time, inside the step it builds under the hook; the port runs eagerly,
+# so the hook acts on the calls made while it is installed, in execution
+# order.
+#
+# Phases: "flat" (the flat psum's input), "intra_rs" (before the intra
+# ReduceScatter), "c2c" (before a C2C reduce or copy), "chunk_c2c" (the
+# encoded chunk entering the pipelined C2C transfer: for int8 the
+# (q, scale) pair, which is how a bit flip lands in a real int8 block).
+
+_INJECT_HOOK = None
+
+
+@contextlib.contextmanager
+def inject_hook(fn):
+    """Install ``fn(buf, phase) -> buf`` as the payload hook for the
+    duration of the context; contexts nest, and the one outside is back
+    on exit."""
+    global _INJECT_HOOK
+    prev = _INJECT_HOOK
+    _INJECT_HOOK = fn
+    try:
+        yield
+    finally:
+        _INJECT_HOOK = prev
+
+
+def apply_inject(buf, phase: str):
+    """Pass a payload through the installed hook (identity when none is
+    installed).  ``phase`` names the transfer point, as in the
+    reference."""
+    if _INJECT_HOOK is None:
+        return buf
+    return _INJECT_HOOK(buf, phase)
 
 
 def axis_size(group) -> int:
@@ -159,16 +199,22 @@ def shift(tensors: list[torch.Tensor], group, by: int = 1) -> list[torch.Tensor]
     shapes from (r - by) % n, in one ``batch_isend_irecv`` (the
     reference's ring ``ppermute``).  With a group of one, or a shift that
     is a multiple of n, the permutation is the identity and the tensors
-    come back as they are."""
+    come back as they are.  gloo sends and receives host memory only (its
+    collectives stage a CUDA tensor themselves, its send and receive do
+    not), so under a gloo group a CUDA tensor crosses through a host copy:
+    the ranks that share one card over gloo."""
     n = group_size(group)
     if by % n == 0:
         return tensors
     r = dist.get_rank(group)
     dst = dist.get_global_rank(group, (r + by) % n)
     src = dist.get_global_rank(group, (r - by) % n)
-    received = [torch.empty_like(t) for t in tensors]
-    ops = ([dist.P2POp(dist.isend, t.contiguous(), dst, group) for t in tensors]
+    device = tensors[0].device
+    staged = device.type == "cuda" and dist.get_backend(group) == "gloo"
+    wire = [t.contiguous().cpu() if staged else t.contiguous() for t in tensors]
+    received = [torch.empty_like(t) for t in wire]
+    ops = ([dist.P2POp(dist.isend, t, dst, group) for t in wire]
            + [dist.P2POp(dist.irecv, t, src, group) for t in received])
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    return received
+    return [t.to(device) for t in received] if staged else received

@@ -119,3 +119,46 @@ def runtime_for_groups(*, pod_group=None, tp_group=None, pods: int | None = None
           cut(((m,) for m in T), lambda m: [rank(p, d, m) for p in P for d in D], (m0,)))
     return Runtime(tp_group=tp_group, pod_group=pod, data_group=data, dp_group=dp,
                    fsdp_group=data if fsdp else None, sp=sp, **moe)
+
+
+def survivor_mesh(pods: int, data_per_pod: int, tp: int, lost_pod: int, *,
+                  fsdp: bool = False, sp: bool = False, moe_capacity_factor: float = 1.25,
+                  moe_a2a_mode: str = "flat", moe_cluster_weights=None
+                  ) -> tuple[Runtime | None, int]:
+    """The survivor cut of a (pods, data, model) world that lost pod
+    ``lost_pod``: the reference's ``survivor_mesh(mesh, "pod", lost_pod)``.
+    Every rank, those of the lost pod too, takes part in each
+    ``new_group`` in the same order (``new_group`` is collective); a
+    survivor gets the Runtime of its place in the (pods - 1, data, model)
+    world of the surviving ranks (pod indices closed up), and a rank of
+    the lost pod gets ``None``.  A pod axis that shrinks to 1 becomes
+    ``pod_group=None``, as the reference squeezes it away.  Returns (the
+    Runtime or None, the survivors' pod count)."""
+    if not 0 <= lost_pod < pods or pods < 2:
+        raise ValueError(f"cannot lose pod {lost_pod} of {pods}")
+    moe = dict(moe_capacity_factor=moe_capacity_factor, moe_a2a_mode=moe_a2a_mode,
+               moe_cluster_weights=(tuple(moe_cluster_weights) if moe_cluster_weights
+                                    else None))
+    P = [p for p in range(pods) if p != lost_pod]
+    D, T = range(data_per_pod), range(tp)
+
+    def rank(p, d, m):
+        return (p * data_per_pod + d) * tp + m
+
+    me = dist.get_rank()
+    p0, d0, m0 = mesh_coords(me, data_per_pod, tp)
+
+    def cut(keys, members, own):
+        groups = {k: dist.new_group(members(*k)) for k in keys}
+        return groups.get(own)
+
+    tp_group = (cut(itertools.product(P, D), lambda p, d: [rank(p, d, m) for m in T],
+                    (p0, d0)) if tp > 1 else None)
+    data = cut(itertools.product(P, T), lambda p, m: [rank(p, d, m) for d in D], (p0, m0))
+    pod = (cut(itertools.product(D, T), lambda d, m: [rank(p, d, m) for p in P], (d0, m0))
+           if len(P) > 1 else None)
+    dp = cut(((m,) for m in T), lambda m: [rank(p, d, m) for p in P for d in D], (m0,))
+    if p0 == lost_pod:
+        return None, len(P)
+    return Runtime(tp_group=tp_group, pod_group=pod, data_group=data, dp_group=dp,
+                   fsdp_group=data if fsdp else None, sp=sp, **moe), len(P)

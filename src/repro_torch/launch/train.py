@@ -14,6 +14,11 @@
     python -m repro_torch.launch.train --arch hymba-1.5b --seq 2048 --compression int8
     RANK=r WORLD_SIZE=8 MASTER_ADDR=localhost MASTER_PORT=29500 \
         python -m repro_torch.launch.train --smoke --device cpu --pods 2 --tp 2
+    python -m repro_torch.launch.train --steps 12 --guard --chaos 8 --compression int8
+    python -m repro_torch.launch.train --ckpt-dir ckpt --ckpt-every 50 --resume
+    RANK=r WORLD_SIZE=8 MASTER_ADDR=localhost MASTER_PORT=29500 \
+        python -m repro_torch.launch.train --smoke --device cpu --pods 2 --global-batch 8 \
+        --mode hier_zero1 --compression int8 --elastic --inject-pod-failure 3
 
 Each process trains one replica (or its TP shard of one) on its slice of
 the global batch; the gradients meet through ``flat``, ``hier``,
@@ -47,8 +52,24 @@ sequence parallelism.  Each data-parallel index takes its slice of the
 batch, and the TP ranks of one index share it.  ``--dist-backend gloo``
 sends CUDA tensors through gloo, so that ranks can share one card.
 
+The runtime flags are the reference launcher's, with its defaults and
+its loop (``runtime/``): ``--ckpt-dir``/``--ckpt-every``/``--resume``
+(the state gathered to rank 0, which writes; every rank restores its
+slices), the NaN watchdog's rollback and skip, the straggler monitor,
+``--guard`` (the deadline and heartbeats, the schedule digests gathered
+over the world, the payload's CRC32 and finiteness, the bounded retry,
+the link-health feed with more than one pod), ``--chaos SEED`` (the
+seeded fault plan; implies ``--guard``) and ``--elastic`` with
+``--inject-pod-failure STEP`` (the last pod lost before STEP: the
+survivors re-plan, cut new groups and carry the state across, the ZeRO-1
+master through the slot map; the lost pod's ranks wait at the end).  A
+step that builds kernels or the step after a rebuild is no hang signal.
+The ``[run]``, ``[guard]``, ``[chaos]``, ``[elastic]`` and ``[health]``
+lines precede the JSON lines.
+
 Weights are random, drawn from ``--seed``; the data is the synthetic
-zipf-ish stream of ``data/pipeline.py``.  Every ``--log-every`` steps a
+zipf-ish stream of ``data/pipeline.py``, read ahead by its
+``Prefetcher``.  Every ``--log-every`` steps a
 JSON line gives the reference's per-step log (step, loss, grad norm,
 ms per step) and the kernel launches of the step.  It runs on the GPU
 unless ``--device cpu`` is given.
@@ -61,22 +82,36 @@ import dataclasses
 import json
 import statistics
 import time
+from typing import Any
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs import get_config
-from repro_torch.core import cost_model, overlap, planner, topology
+from repro_torch.core import collectives, cost_model, overlap, planner, primitives, topology
 from repro_torch.core import skew as skew_lib
-from repro_torch.data.pipeline import DataConfig, batches
+from repro_torch.core.collectives import CommConfig
+from repro_torch.data.pipeline import DataConfig, Prefetcher
 from repro_torch.kernels import ops
-from repro_torch.launch.mesh import BACKENDS, init_world, mesh_coords, runtime_for_groups
+from repro_torch.launch.mesh import (BACKENDS, init_world, mesh_coords, runtime_for_groups,
+                                     survivor_mesh)
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.model import Model, resolve_device
 from repro_torch.parallel.sharding import Runtime, group_size
+from repro_torch.runtime import elastic as elastic_lib
+from repro_torch.runtime import faults as faults_lib
+from repro_torch.runtime import guard as guard_lib
+from repro_torch.runtime import tree as tree_lib
+from repro_torch.runtime.checkpoint import CheckpointManager
+from repro_torch.runtime.guard import GuardConfig
+from repro_torch.runtime.health import NaNWatchdog, StragglerMonitor, WatchdogConfig
+from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.optimizer import OptConfig
-from repro_torch.train.train_step import TrainConfig, make_train_step
+from repro_torch.train.train_step import (TrainConfig, load_state, make_train_step, state_like,
+                                          state_shardings, state_tree, zero_bootstrap,
+                                          zero_global)
 
 MODES = ("flat", "hier", "hier_pipelined", "hier_border_rs", "hier_overlap",
          "hier_zero1", "fsdp")
@@ -247,20 +282,52 @@ def make_plan(cfg, pods: int, world: int, mode: str, compression: str | None,
                    moe_a2a_mode, moe_weights)
 
 
+@dataclasses.dataclass
+class _Live:
+    """What a pod failure rebuilds: the groups, the model, the step and
+    the optimizer state, and this rank's place in the world."""
+    rt: Runtime
+    model: Model
+    tcfg: TrainConfig
+    step_fn: Any
+    opt: Any
+    pods: int
+    rows: slice
+    group: Any = None       # the ranks still training (None: the world)
+
+
 def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, steps: int = 4,
         mode: str = "hier", compression: str | None = None,
         global_batch: int = 4, seq: int = 1024, lr: float = 3e-3,
         log_every: int = 1, seed: int = 0, pods: int = 1, device="cuda",
         plan: str = "manual", skew: str = "none", plan_cache: str | None = None,
         packed: bool = True, plan_world: tuple[int, int] | None = None,
-        tp: int = 1, sp: bool = False, layers: int | None = None, log=print) -> dict:
+        tp: int = 1, sp: bool = False, layers: int | None = None,
+        ckpt_dir: str | None = None, ckpt_every: int = 50, resume: bool = False,
+        watchdog_max_bad_steps: int = 3, watchdog_spike_factor: float = 10.0,
+        watchdog_window: int = 64, straggler_factor: float = 3.0,
+        straggler_window: int = 32, guard: bool = False, chaos: int | None = None,
+        elastic: bool = False, inject_pod_failure: int | None = None,
+        guard_config: GuardConfig | None = None, log=print) -> dict:
     """Train ``steps`` steps in the running process group and return what
     was measured.  Step times are host wall-clock around work that ends
     in a device synchronize.  ``plan``, ``skew``, ``plan_cache`` and
     ``packed`` are the flags of ``make_plan``; ``plan_world`` (pods, ranks
     per pod) prices the plan for that cluster in place of the running
     world, so that a small world runs the plan a larger one would get.
-    ``layers`` cuts the depth."""
+    ``layers`` cuts the depth.
+
+    The runtime knobs are the reference launcher's flags, with its
+    meaning: ``ckpt_dir``/``ckpt_every``/``resume`` (the state gathered
+    to rank 0, which writes; every rank restores its slices), the NaN
+    watchdog's and the straggler monitor's knobs, ``guard`` (the
+    collective guard; ``guard_config`` replaces its defaults), ``chaos``
+    (the seed of a fault plan, one fault per class; implies ``guard``),
+    ``elastic`` (the re-planning controller) and ``inject_pod_failure``
+    (with ``elastic`` and more than one pod: the last pod is reported
+    lost just before that step, and its ranks leave the loop).  The
+    result adds the guard's report, the injector's log, the elastic
+    reports, the watchdog's verdicts and the checkpointed steps."""
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -277,43 +344,315 @@ def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, steps: int = 4,
                         skew=skew, plan_cache=plan_cache, packed=packed,
                         global_batch=global_batch, seq=seq, tp=tp, log=log)
     # the Runtime takes the planned MoE All2All knobs before the model is built
-    rt = runtime_for_groups(pods=pods, data_per_pod=data_per_pod, tp=tp,
-                            fsdp=mode == "fsdp", sp=sp, moe_a2a_mode=planned.moe_a2a_mode,
-                            moe_cluster_weights=planned.moe_cluster_weights)
+    rt_kw = dict(tp=tp, fsdp=mode == "fsdp", sp=sp, moe_a2a_mode=planned.moe_a2a_mode,
+                 moe_cluster_weights=planned.moe_cluster_weights)
+    rt = runtime_for_groups(pods=pods, data_per_pod=data_per_pod, **rt_kw)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    model = Model(cfg, rt, device)
-    if mode == "fsdp":
-        model.with_fsdp(group_size(rt.data_group))
+
+    def build(rt: Runtime, tcfg: TrainConfig) -> tuple[Model, Any, Any]:
+        model = Model(cfg, rt, device)
+        if mode == "fsdp":
+            model.with_fsdp(group_size(rt.data_group))
+        step_fn, init_fn = make_train_step(model, tcfg)
+        return model, step_fn, init_fn
+
     tcfg = TrainConfig(comm_mode=planned.mode, dcn_compression=compression,
                        plan=planned.plan, cluster_weights=planned.cluster_weights,
                        packed=planned.packed, opt=OptConfig(lr=lr, warmup_steps=20))
-    step_fn, init_fn = make_train_step(model, tcfg)
-    opt = init_fn(seed)
+    model, step_fn, init_fn = build(rt, tcfg)
+    live = _Live(rt, model, tcfg, step_fn, init_fn(seed), pods,
+                 dp_rows(rank, global_batch, pods, data_per_pod, tp))
     n_params = sum(p.numel() for p in model.parameters())
     dcfg = DataConfig(vocab_size=cfg.vocab_size, global_batch=global_batch,
                       seq_len=seq, seed=seed)
-    rows = dp_rows(rank, global_batch, pods, data_per_pod, tp)
-    records = []
-    for step, batch in batches(dcfg):
-        if step >= steps:
-            break
-        b = {k: torch.from_numpy(v[rows]).long().to(device) for k, v in batch.items()}
-        before = ops.launch_counts()
-        _sync(device)
+
+    ckpt = _checkpoints(ckpt_dir, rank)
+    ckpt_ops: list[dict] = []      # each save and restore: its host ms and the state's GB
+    start = 0
+    if ckpt and resume and ckpt.latest_step() is not None:
+        start, live.opt = _restore(ckpt, live, ckpt_ops)
+        log(f"resumed from step {start}")
+
+    watchdog = NaNWatchdog(WatchdogConfig(max_bad_steps=watchdog_max_bad_steps,
+                                          loss_spike_factor=watchdog_spike_factor,
+                                          window=watchdog_window))
+    straggler = StragglerMonitor(factor=straggler_factor, window=straggler_window)
+    use_guard = guard or chaos is not None
+    log(f"[run] watchdog(max_bad_steps={watchdog_max_bad_steps}, "
+        f"spike_factor={watchdog_spike_factor:g}, window={watchdog_window}) "
+        f"straggler(factor={straggler_factor:g}, window={straggler_window}) "
+        f"guard={'on' if use_guard else 'off'} "
+        f"chaos={chaos if chaos is not None else 'off'}")
+
+    grad_bytes = max(1, cfg.param_count() * 4 // tp)
+    pod_kw = dict(coll="reduce_scatter" if mode == "hier_zero1" else "all_reduce",
+                  pod_axis="pod" if pods > 1 else None, intra_axis="data",
+                  compressions=(None, compression) if compression else (None, "bf16"),
+                  flat_mechanism="native", try_balanced=False)
+    elastic_ctl = None
+    if elastic:
+        e_topo = topology.tpu_multipod(max(1, pods), world // max(1, pods))
+        e_cache = (planner.PlanCache(path=plan_cache) if plan_cache
+                   else planner.default_plan_cache())
+        # the running topology's cache line: the line a pod failure invalidates
+        planner.plan(e_topo, [grad_bytes], cache=e_cache, **pod_kw)
+        elastic_ctl = elastic_lib.ElasticController(e_topo, [grad_bytes], plan_cache=e_cache,
+                                                    straggler=straggler, plan_kw=pod_kw)
+
+    the_guard = injector = None
+    g_topo = topology.tpu_multipod(max(1, pods), max(1, world // max(1, pods)))
+    if use_guard:
+        the_guard = guard_lib.CollectiveGuard(
+            guard_config or guard_lib.GuardConfig(),
+            predicted_step_s=planned.plan.predicted_step_s if planned.plan else None,
+            nominal_Bps={i: c.nic_Bps for i, c in enumerate(g_topo.clusters)},
+            expected_ranks=range(world), elastic=elastic_ctl)
+        # pre-launch desync check: every rank digests the schedule it is about
+        # to run, and the digests are gathered over the world
+        dsrc = planned.plan if planned.plan is not None else CommConfig(
+            mode=planned.mode, pod_group=rt.pod_group if pods > 1 else None,
+            intra_group=rt.data_group, n_chunks=tcfg.n_chunks, compression=compression,
+            cluster_weights=planned.cluster_weights)
+        digests: list = [None] * world
+        dist.all_gather_object(digests, guard_lib.schedule_digest(dsrc))
+        ev = the_guard.check_agreement(start, dict(enumerate(digests)))
+        log(f"[guard] schedule digest {digests[rank]} "
+            + (f"DESYNC: {ev.detail}" if ev is not None else f"({world} rank(s) agree)"))
+        if chaos is not None:
+            fplan = faults_lib.FaultPlan.generate(chaos, steps, n_clusters=g_topo.n_clusters,
+                                                  n_ranks=world)
+            injector = faults_lib.FaultInjector(fplan)
+            log("\n".join(
+                f"[chaos] seed {chaos}: {e.kind} @ step {e.step} x{e.duration}"
+                + (f" cluster={e.cluster}" if e.cluster is not None else "")
+                + (f" rank={e.rank}" if e.rank is not None else "")
+                for e in fplan.events))
+
+    def pod_failover(at_step: int) -> tuple[_Live | None, str]:
+        """Lose the last pod: re-plan against the survivors, cut the
+        survivor groups, rebuild the step on them, and carry the
+        parameters and the optimizer state across (the ZeRO-1 master
+        through the packed slot-map remap; a checkpoint restore, then a
+        re-bootstrap, when the layouts are not remappable).  A rank of the
+        lost pod gets None."""
         t0 = time.perf_counter()
-        m = step_fn(opt, b)
-        _sync(device)
-        ms = (time.perf_counter() - t0) * 1e3
-        after = ops.launch_counts()
-        rec = {"step": step, "loss": m["loss"], "gnorm": m["grad_norm"], "aux": m["aux"],
-               "ms_per_step": ms, "gated": m["gated"],
-               "launches": {k: after[k] - before[k] for k in after}}
-        records.append(rec)
-        if step % log_every == 0:
-            log(json.dumps(rec))
-    timed = [r["ms_per_step"] for r in records[1:]] or [records[0]["ms_per_step"]]
-    step_ms = statistics.median(timed)
+        rep = elastic_ctl.report_pod_failure(at_step, elastic_ctl.topo.n_clusters - 1)
+        log(f"[elastic] {rep.trigger}: {rep.detail}; re-planned "
+            f"{rep.old_fingerprint} -> {rep.new_fingerprint} in "
+            f"{rep.replan_latency_s * 1e3:.1f} ms "
+            f"({rep.invalidated_entries} cache line(s) invalidated)")
+        failover["replan_ms"] = rep.replan_latency_s * 1e3
+        # the parameters on the host, gathered within each pod (the lost
+        # pod's ranks, gathering only among themselves, skip it)
+        t1 = time.perf_counter()
+        lost = mesh_coords(rank, data_per_pod, tp)[0] == live.pods - 1
+        params = None if lost else state_tree(live.model, None, live.tcfg)[0]
+        old_intra = group_size(live.rt.data_group)
+        old_leaves = live.model.train_leaves()
+        t2 = time.perf_counter()
+        new_rt, new_pods = survivor_mesh(live.pods, data_per_pod, lost_pod=live.pods - 1,
+                                         **rt_kw)
+        survivors = [r for r in range(world)
+                     if mesh_coords(r, data_per_pod, tp)[0] != live.pods - 1]
+        group = dist.new_group(survivors)
+        failover.update(gather_ms=(t2 - t1) * 1e3, cut_ms=(time.perf_counter() - t2) * 1e3)
+        if new_rt is None:
+            return None, "lost"
+        new_tcfg = dataclasses.replace(
+            live.tcfg, plan=elastic_ctl.plan if live.tcfg.plan is not None else None)
+        new_model, new_step, _ = build(new_rt, new_tcfg)
+        t3 = time.perf_counter()
+        remap_path = "slot_map"
+        if isinstance(live.opt, opt_lib.ZeroState):
+            load_state(new_model, (params, None), new_tcfg)
+            new_intra = group_size(new_rt.data_group)
+            old_layout = elastic_lib.zero1_master_layout(old_leaves, old_intra)
+            new_layout = elastic_lib.zero1_master_layout(new_model.train_leaves(), new_intra)
+            place = state_shardings(new_model, live.opt, new_tcfg)[1].flat_param
+            try:
+                # remap_zero_state's slot-map remap, one buffer at a time: each
+                # gathered on the host, remapped, placed and dropped
+                shards = [place(torch.from_numpy(elastic_lib.remap_flat(
+                    zero_global(live.model, live.tcfg, getattr(live.opt, name)), old_layout,
+                    new_layout, old_world=old_intra, new_world=new_intra, n_columns=tp)))
+                    for name in ("flat_param", "mu", "nu")]
+                new_opt = opt_lib.ZeroState(*shards, step=live.opt.step)
+            except ValueError as e:
+                # the world shrank below the layout's divisibility (or the
+                # leaf contents changed): restore onto the survivors
+                remap_path = "restore_fallback"
+                log(f"[elastic] slot-map remap not applicable ({e}); "
+                    "falling back to checkpoint restore")
+                new_opt = None
+                if ckpt is not None and ckpt.latest_step() is not None:
+                    try:
+                        new_opt = _restore(ckpt, _Live(new_rt, new_model, new_tcfg, new_step,
+                                                       _zero_like(new_model, new_tcfg), new_pods,
+                                                       live.rows, group), ckpt_ops)[1]
+                    except Exception as e2:  # noqa: BLE001
+                        # the checkpointed master rode the old world's layout
+                        log(f"[elastic] restore not layout-compatible either ({e2})")
+                        new_opt = None
+                if new_opt is None:
+                    log("[elastic] re-bootstrapping the optimizer from the resharded "
+                        "params (moments reset)")
+                    new_opt = zero_bootstrap(new_model, new_tcfg)
+        else:
+            new_opt = load_state(new_model, state_tree(live.model, live.opt, live.tcfg),
+                                 new_tcfg)
+        failover.update(remap_ms=(time.perf_counter() - t3) * 1e3,
+                        total_ms=(time.perf_counter() - t0) * 1e3, remap_path=remap_path)
+        me = survivors.index(rank)
+        rows = dp_rows(me, global_batch, new_pods, data_per_pod, tp)
+        return _Live(new_rt, new_model, new_tcfg, new_step, new_opt, new_pods, rows,
+                     group), remap_path
+
+    pre = Prefetcher(dcfg, start_step=start)
+    records, losses, verdicts, saved = [], [], [], []
+    failover: dict = {}
+    injected_failure, alive = False, True
+    elastic_remap_path = "slot_map"
+    fresh_trace = True     # step 0 builds the kernels: its wall time is not a hang
+    try:
+        step = start
+        while step < steps:
+            if (elastic_ctl is not None and not injected_failure
+                    and inject_pod_failure is not None and step >= inject_pod_failure
+                    and elastic_ctl.topo.n_clusters > 1):
+                injected_failure = True
+                new_live, elastic_remap_path = pod_failover(step)
+                if new_live is None:
+                    alive = False        # this rank's pod is lost: wait at the end
+                    break
+                live = new_live
+                fresh_trace = True
+            _, batch = pre.get(timeout=30.0)
+            b = {k: torch.from_numpy(v[live.rows]).long().to(device) for k, v in batch.items()}
+            retraced, fresh_trace = fresh_trace, False
+            chaos_hook = None
+            stalled_s = 0.0
+            if injector is not None:
+                # a hung rank stalls past the guard's deadline (the in-band
+                # emulation of a silent rank)
+                stalled_s = injector.stall(
+                    step, the_guard.deadline_s or the_guard.cfg.min_deadline_s)
+                chaos_hook = injector.corruption_hook(step, rank=rank)
+            straggler.start()
+            timing: dict = {}
+            before = ops.launch_counts()
+
+            def _run(b=b, hook=chaos_hook):
+                _sync(device)
+                t0 = time.perf_counter()
+                if hook is not None:
+                    with primitives.inject_hook(hook):
+                        out = live.step_fn(live.opt, b)
+                else:
+                    out = live.step_fn(live.opt, b)
+                _sync(device)
+                timing["dt"] = time.perf_counter() - t0
+                return out
+
+            if the_guard is not None:
+                thunk = _run if injector is None else injector.wrap_transfer(step, _run)
+                m = the_guard.retry(step, thunk)
+            else:
+                m = _run()
+            after = ops.launch_counts()
+            loss = m["loss"]
+            slow = straggler.stop()
+            guard_ms = None
+            if the_guard is not None:
+                t_guard = time.perf_counter()
+                hung = injector.hung_ranks(step) if injector is not None else ()
+                for r in range(world):
+                    if r not in hung:
+                        the_guard.heartbeat(step, r)
+                if chaos_hook is None and not retraced:
+                    # a step that builds kernels is not a hang signal
+                    gev = the_guard.observe_step_time(step, timing.get("dt", 0.0) + stalled_s)
+                    if gev is not None:
+                        log(f"[guard] {gev.kind} @ step {step}: {gev.detail} "
+                            f"({gev.attribution})")
+                # with the finite gate a NaN payload never reaches the
+                # parameters: the synced grad norm is where it surfaces
+                gev = the_guard.check_payload(step, {
+                    "grad_norm": np.float32(m["grad_norm"]), "loss": np.float32(loss),
+                    "params": live.model.param_tree()})
+                if gev is not None:
+                    log(f"[guard] {gev.kind} @ step {step}: {gev.detail}")
+                if g_topo.n_clusters > 1:
+                    # the emulated link-health feed: the nominal C2C time of
+                    # this step's gradient payload (its size varied so that
+                    # the alpha-beta fit is well-posed), inflated by any
+                    # active degradation
+                    nbytes = int(grad_bytes * (1.0 + 0.25 * (step % 4))) + 1
+                    for ci, cl in enumerate(g_topo.clusters):
+                        t_obs = nbytes / cl.nic_Bps
+                        if injector is not None:
+                            t_obs = injector.perturb_transfer_time(step, ci, t_obs)
+                        gev = the_guard.observe_transfer(step, ci, nbytes, t_obs)
+                        if gev is None:
+                            continue
+                        log(f"[guard] {gev.kind} @ step {step}: {gev.detail} "
+                            f"({gev.attribution})")
+                        if gev.replan is not None:
+                            # re-planned against the derated fabric: rebuild
+                            # the step with the new plan on the same groups
+                            if live.tcfg.plan is not None:
+                                live.tcfg = dataclasses.replace(live.tcfg,
+                                                                plan=elastic_ctl.plan)
+                                live.step_fn, _ = make_train_step(live.model, live.tcfg)
+                                fresh_trace = True
+                            elastic_remap_path = "none (same mesh)"
+                guard_ms = (time.perf_counter() - t_guard) * 1e3
+            if elastic_ctl is not None:
+                # confirmed persistent stragglers are surfaced: host eviction
+                # is the scheduler's call
+                elastic_ctl.observe_step(step, slow=slow)
+            verdict = watchdog.observe(loss)
+            verdicts.append((step, verdict))
+            rec = {"step": step, "loss": loss, "gnorm": m["grad_norm"], "aux": m["aux"],
+                   "ms_per_step": timing["dt"] * 1e3, "gated": m["gated"],
+                   "launches": {k: after[k] - before[k] for k in after},
+                   "verdict": verdict, "guard_ms": guard_ms}
+            records.append(rec)
+            if step % log_every == 0:
+                log(json.dumps(rec))
+            if verdict == "rollback" and ckpt and _latest(ckpt, live) is not None:
+                step, live.opt = _restore(ckpt, live, ckpt_ops)
+                log(f"[health] non-finite/spiking loss -> rolled back to {step}")
+                continue
+            if verdict == "skip":
+                # the finite gate left the state as it was: that is the skip
+                log(f"[health] step {step}: loss {loss} skipped")
+                step += 1
+                continue
+            if elastic_ctl is not None and elastic_ctl.state == "replanned":
+                log(elastic_ctl.resumed(step, remap_path=elastic_remap_path).describe())
+            losses.append(loss)
+            if ckpt is not None and step and step % ckpt_every == 0:
+                _save(ckpt, live, step, ckpt_ops, asynchronous=True)
+                saved.append(step)
+            step += 1
+        if ckpt is not None and alive:
+            _save(ckpt, live, step, ckpt_ops, asynchronous=False)
+            saved.append(step)
+    finally:
+        pre.close()
+    if injected_failure:
+        dist.barrier()         # the lost pod's ranks wait here for the survivors
+    report = the_guard.report() if the_guard is not None else None
+    if report is not None:
+        dl = report["deadline_s"]
+        log(f"[guard] deadline {'unarmed' if dl is None else f'{dl:.3f}s'}; "
+            f"events: {report['counts'] or 'none'}")
+    if injector is not None:
+        log(f"[chaos] {len(injector.injected)} injected action(s): "
+            + (", ".join(sorted({i['kind'] for i in injector.injected})) or "none"))
+    timed = [r["ms_per_step"] for r in records[1:]] or [r["ms_per_step"] for r in records[:1]]
+    step_ms = statistics.median(timed) if timed else float("nan")
     return {
         "arch": cfg.name, "device": str(device), "world": world, "pods": pods, "tp": tp,
         "sp": sp, "rank": rank,
@@ -326,7 +665,79 @@ def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, steps: int = 4,
         "tokens_per_s": global_batch * seq / (step_ms / 1e3),
         "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 1e9
                         if device.type == "cuda" else None),
+        "resumed_from": start if start else None, "alive": alive,
+        "guard": report,
+        "chaos": injector.summary() if injector is not None else None,
+        "elastic": ([r.summary() for r in elastic_ctl.reports]
+                    if elastic_ctl is not None else None),
+        "losses": losses, "watchdog": verdicts, "checkpoints": saved,
+        "checkpoint_ops": ckpt_ops, "failover": failover or None,
     }
+
+
+def _checkpoints(ckpt_dir: str | None, rank: int) -> CheckpointManager | None:
+    """Every rank's manager of ``ckpt_dir``: rank 0 makes the directory and
+    finishes any interrupted publish first."""
+    if not ckpt_dir:
+        return None
+    if rank == 0:
+        mgr = CheckpointManager(ckpt_dir)
+    dist.barrier()
+    return mgr if rank == 0 else CheckpointManager(ckpt_dir)
+
+
+def _latest(ckpt: CheckpointManager, live: _Live) -> int | None:
+    """The newest checkpoint once rank 0's writes are done."""
+    if dist.get_rank() == 0:
+        ckpt.wait()
+    dist.barrier(group=live.group)
+    return ckpt.latest_step()
+
+
+def _gb(state) -> float:
+    return sum(t.numel() * t.element_size() for t in tree_lib.leaves(state)
+               if isinstance(t, torch.Tensor)) / 1e9
+
+
+def _save(ckpt: CheckpointManager, live: _Live, step: int, ops_log: list,
+          asynchronous: bool) -> None:
+    """Gather the state (every rank) and write it (rank 0): in a thread
+    with ``asynchronous``, else before every rank goes on.  ``ops_log``
+    gets the host milliseconds this rank spent and the state's size."""
+    t0 = time.perf_counter()
+    state = state_tree(live.model, live.opt, live.tcfg, keep=dist.get_rank() == 0)
+    if dist.get_rank() == 0:
+        if asynchronous:
+            ckpt.save_async(step, state)
+        else:
+            ckpt.save(step, state)
+            ckpt.wait()
+    if not asynchronous:
+        dist.barrier(group=live.group)
+    ops_log.append({"op": "save_async" if asynchronous else "save", "step": step,
+                    "ms": (time.perf_counter() - t0) * 1e3,
+                    "gb": _gb(state_like(live.model, live.opt, live.tcfg))})
+
+
+def _restore(ckpt: CheckpointManager, live: _Live, ops_log: list) -> tuple[int, Any]:
+    """Every rank reads the newest checkpoint and adopts its slices, one
+    leaf at a time: (the step, the optimizer state)."""
+    t0 = time.perf_counter()
+    like = state_like(live.model, live.opt, live.tcfg)
+    step, state, _ = ckpt.restore(like, _latest(ckpt, live),
+                                  shardings=state_shardings(live.model, live.opt, live.tcfg))
+    opt = load_state(live.model, state, live.tcfg, sliced=True)
+    ops_log.append({"op": "restore", "step": step, "ms": (time.perf_counter() - t0) * 1e3,
+                    "gb": _gb(like)})
+    return step, opt
+
+
+def _zero_like(model: Model, tcfg: TrainConfig) -> opt_lib.ZeroState:
+    """A ZeroState of meta tensors shaped as this rank's master shard."""
+    isize = group_size(tcfg.comm_config(model.rt).intra_group)
+    n = collectives._zero1_layout(model.train_leaves(), isize).padded_total // isize
+    flat = torch.empty((n,), dtype=torch.float32, device="meta")
+    return opt_lib.ZeroState(flat, flat, flat)
 
 
 def main(argv=None) -> None:
@@ -359,6 +770,41 @@ def main(argv=None) -> None:
                          "topology and knobs reuses the plan")
     ap.add_argument("--no-packed", action="store_true",
                     help="the per-leaf data path in place of the packed layout")
+    ap.add_argument("--elastic", action="store_true",
+                    help="the elastic re-planning controller (runtime/elastic.py): on a "
+                         "pod failure the old topology's plan-cache lines are "
+                         "invalidated, the planner re-runs against the survivors, the "
+                         "ZeRO-1 master is remapped through the packed slot map, and "
+                         "training resumes on the survivor groups; straggler verdicts "
+                         "are fed to it too (surfaced, not acted on)")
+    ap.add_argument("--inject-pod-failure", type=int, default=None, metavar="STEP",
+                    help="with --elastic and more than one pod: report the last pod "
+                         "as failed just before STEP executes (its ranks leave the loop)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--guard", action="store_true",
+                    help="arm the collective guard (runtime/guard.py): per-step comm "
+                         "deadline, pre-launch schedule-digest agreement, payload "
+                         "checksums, bounded retry on transient transfer failures, and "
+                         "per-link bandwidth EWMAs whose degraded verdicts escalate to "
+                         "the elastic controller (re-plan needs --elastic)")
+    ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
+                    help="seeded chaos engine (runtime/faults.py): one fault per class "
+                         "(degraded link, transient transfer failure, rank hang, NaN "
+                         "payload, bit flip) at deterministic steps; implies --guard")
+    ap.add_argument("--watchdog-max-bad-steps", type=int, default=3,
+                    help="NaN watchdog: consecutive non-finite/spiking losses before "
+                         "rollback")
+    ap.add_argument("--watchdog-spike-factor", type=float, default=10.0,
+                    help="NaN watchdog: loss vs trailing median ratio flagged as a spike")
+    ap.add_argument("--watchdog-window", type=int, default=64,
+                    help="NaN watchdog: trailing median window (steps)")
+    ap.add_argument("--straggler-factor", type=float, default=3.0,
+                    help="straggler monitor: step slower than factor x trailing median "
+                         "is flagged")
+    ap.add_argument("--straggler-window", type=int, default=32,
+                    help="straggler monitor: trailing median window (steps)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     started = init_world(device, args.dist_backend)
@@ -369,7 +815,14 @@ def main(argv=None) -> None:
                   log_every=args.log_every, seed=args.seed, pods=args.pods,
                   device=device, plan=args.plan, skew=args.skew,
                   plan_cache=args.plan_cache, packed=not args.no_packed, tp=args.tp,
-                  sp=args.sp)
+                  sp=args.sp, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                  resume=args.resume, watchdog_max_bad_steps=args.watchdog_max_bad_steps,
+                  watchdog_spike_factor=args.watchdog_spike_factor,
+                  watchdog_window=args.watchdog_window,
+                  straggler_factor=args.straggler_factor,
+                  straggler_window=args.straggler_window, guard=args.guard,
+                  chaos=args.chaos, elastic=args.elastic,
+                  inject_pod_failure=args.inject_pod_failure)
     finally:
         if started:
             dist.destroy_process_group()

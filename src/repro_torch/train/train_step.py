@@ -54,6 +54,7 @@ import dataclasses
 import math
 from typing import Any
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -66,6 +67,7 @@ from repro_torch.core.schedule import STRUCTURAL_MODES, build_schedule
 from repro_torch.kernels import quant as _qk
 from repro_torch.models.model import Model
 from repro_torch.parallel.sharding import Runtime, group_size
+from repro_torch.runtime import tree as tree_lib
 from . import loss as loss_lib
 from . import optimizer as opt_lib
 
@@ -336,3 +338,225 @@ def make_train_step(model: Model, tcfg: TrainConfig):
         return out
 
     return step_fn, init_fn
+
+
+# ---------------------------------------------------------------------------
+# The training state, global and on the host (checkpoints, elastic resharding)
+# ---------------------------------------------------------------------------
+
+def _shard_groups(model: Model) -> dict[str, Any]:
+    """The group each sharded mesh axis of a parameter spec names."""
+    return {"model": model.rt.tp_group, "data": model.rt.fsdp_group if model.fsdp > 1 else None}
+
+
+def _zero_groups(model: Model, tcfg: TrainConfig) -> list:
+    """The groups the ZeRO-1 master is sharded over, minor first: TP, then
+    the intra group (the reference's ``P(("data", "model"))``)."""
+    return [model.rt.tp_group, tcfg.comm_config(model.rt).intra_group]
+
+
+def _gathered(model: Model, spec: tuple, t: torch.Tensor, keep: bool) -> torch.Tensor | None:
+    """This rank's slice of a parameter-shaped leaf (a list leaf as its
+    (L, ...) stack) gathered over the groups its spec shards it on, on the
+    host (None where not ``keep``)."""
+    t = t.detach()
+    for axis, group in _shard_groups(model).items():
+        if axis in spec and group is not None:
+            t = primitives.hom_all_gather(t.contiguous(), group, spec.index(axis))
+    return t.cpu() if keep else None
+
+
+def _local_leaf(model: Model, spec: tuple, t: torch.Tensor) -> torch.Tensor:
+    """The slice of a global parameter-shaped leaf this rank holds, as
+    ``Model.set_params`` cuts it."""
+    for axis, group in _shard_groups(model).items():
+        if axis in spec and group is not None:
+            t = t.chunk(group_size(group), spec.index(axis))[dist.get_rank(group)]
+    return t
+
+
+def _zero_shard(model: Model, tcfg: TrainConfig) -> tuple[int, int, int]:
+    """(this rank's index, the shard count, the shard length) of the
+    ZeRO-1 master over the (data, model) ranks, the data rank major."""
+    groups = _zero_groups(model, tcfg)
+    index = 0
+    for g in reversed(groups):
+        index = index * group_size(g) + (0 if g is None else dist.get_rank(g))
+    isize = group_size(groups[1])
+    per = coll._zero1_layout(model.train_leaves(), isize).padded_total // isize
+    return index, math.prod(group_size(g) for g in groups), per
+
+
+def _nest(flat: dict[tuple, Any]) -> dict:
+    out: dict = {}
+    for path, v in flat.items():
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = v
+    return out
+
+
+def _by_path(tree: dict, prefix: tuple = ()) -> dict[tuple, Any]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_by_path(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def _stack(leaf) -> torch.Tensor:
+    return torch.stack(list(leaf)) if isinstance(leaf, (list, tuple)) else leaf
+
+
+def zero_global(model: Model, tcfg: TrainConfig, t: torch.Tensor,
+                keep: bool = True) -> torch.Tensor | None:
+    """One flat buffer of the ZeRO-1 state (the master or a moment) over
+    every (data, model) rank, in that rank order, on the host (None where
+    not ``keep``).  Collective over the TP and intra groups."""
+    for group in _zero_groups(model, tcfg):
+        t = primitives.hom_all_gather(t, group)
+    return t.cpu() if keep else None
+
+
+@torch.no_grad()
+def state_tree(model: Model, opt_state, tcfg: TrainConfig,
+               keep: bool = True) -> tuple[dict, Any] | None:
+    """The global training state on the host, as the reference's ``(params,
+    opt)`` checkpoint tree: the parameters as its param dict (the layer
+    leaves stacked (L, ...)), each TP and FSDP shard gathered over its
+    group; the optimizer state as an ``AdamState`` of parameter-shaped
+    moments, or a ``ZeroState`` whose flat buffers are every rank's shard
+    of the master in (data, model) rank order; the step an int32.
+    Collective: every rank of the model's groups calls it; a rank that
+    does not ``keep`` the state (one that does not write it) takes part in
+    the gathers and gets None (the CPU tensors of bf16 leaves stay bf16).
+    ``opt_state`` None gathers the parameters alone."""
+    specs = list(model.param_specs().items())
+    leaves = model.train_leaves()
+    params = _nest({path: _gathered(model, spec, _stack(leaf), keep)
+                    for (path, spec), leaf in zip(specs, leaves)})
+    if opt_state is None:
+        opt = None
+    elif isinstance(opt_state, opt_lib.ZeroState):
+        opt = opt_lib.ZeroState(*(zero_global(model, tcfg, t, keep) for t in (
+            opt_state.flat_param, opt_state.mu, opt_state.nu)), step=np.int32(opt_state.step))
+    else:
+        moments = []
+        for buf in (opt_state.mu, opt_state.nu):
+            per_leaf = _regroup(list(buf), leaves)
+            moments.append(_nest({path: _gathered(model, spec, _stack(m), keep)
+                                  for (path, spec), m in zip(specs, per_leaf)}))
+        opt = opt_lib.AdamState(moments[0], moments[1], np.int32(opt_state.step))
+    return (params, opt) if keep else None
+
+
+def state_like(model: Model, opt_state, tcfg: TrainConfig) -> tuple[dict, Any]:
+    """``state_tree``'s shapes and dtypes as meta tensors, with no
+    collective: the ``like`` tree of ``CheckpointManager.restore`` for this
+    model's groups."""
+    sizes = {axis: group_size(g) for axis, g in _shard_groups(model).items()}
+
+    def meta(spec: tuple, t: torch.Tensor, dtype=None) -> torch.Tensor:
+        shape = [n * (sizes[spec[d]] if spec[d] in sizes else 1) for d, n in enumerate(t.shape)]
+        return torch.empty(shape, dtype=dtype or t.dtype, device="meta")
+
+    specs = list(model.param_specs().items())
+    leaves = [torch.empty((len(leaf),) + tuple(leaf[0].shape), dtype=leaf[0].dtype,
+                          device="meta") if isinstance(leaf, list) else leaf
+              for leaf in model.train_leaves()]
+    params = _nest({path: meta(spec, t) for (path, spec), t in zip(specs, leaves)})
+    step = np.int32(0)
+    if isinstance(opt_state, opt_lib.ZeroState):
+        _, n_shards, per = _zero_shard(model, tcfg)
+        flat = torch.empty((n_shards * per,), dtype=torch.float32, device="meta")
+        return params, opt_lib.ZeroState(flat, flat, flat, step)
+    mom = _nest({path: meta(spec, t, torch.float32) for (path, spec), t in zip(specs, leaves)})
+    return params, opt_lib.AdamState(mom, mom, step)
+
+
+def state_shardings(model: Model, opt_state, tcfg: TrainConfig) -> tuple[dict, Any]:
+    """For each leaf of ``state_like``: a function from the global host
+    tensor to this rank's slice on the model's device, in the leaf's
+    dtype (the ``shardings`` of ``CheckpointManager.restore``), so that a
+    restore holds one global leaf at a time.  A ZeRO-1 master laid out for
+    another world raises ``ValueError``."""
+    dev = model.init_device
+
+    def param(spec):
+        return lambda t: _local_leaf(model, spec, t).to(dev, copy=True)
+
+    specs = model.param_specs()
+    params = _nest({path: param(spec) for path, spec in specs.items()})
+    if isinstance(opt_state, opt_lib.ZeroState):
+        index, n_shards, per = _zero_shard(model, tcfg)
+
+        def shard(t):
+            if t.numel() != per * n_shards:
+                raise ValueError(f"ZeRO-1 master of {t.numel()} values is not {n_shards} "
+                                 f"shard(s) of {per}: laid out for another world")
+            return t.reshape(-1)[index * per:(index + 1) * per].to(dev, torch.float32,
+                                                                     copy=True)
+        return params, opt_lib.ZeroState(shard, shard, shard, lambda t: t)
+    mom = _nest({path: param(spec) for path, spec in specs.items()})
+    return params, opt_lib.AdamState(mom, mom, lambda t: t)
+
+
+@torch.no_grad()
+def load_state(model: Model, state: tuple[dict, Any], tcfg: TrainConfig,
+               sliced: bool = False):
+    """Adopt a training state (``state_tree``'s form) on this rank: the
+    model's parameters become its slices of the param tree (copied in
+    place where the model already holds parameters of those shapes, else
+    set anew), and the returned optimizer state is this rank's slice of the
+    moments or of the ZeRO-1 master (None for an optimizer state of None:
+    the parameters alone).  ``state`` is global, on the host; with
+    ``sliced`` its leaves are already this rank's slices on the model's
+    device (a restore through ``state_shardings``).  A ZeRO-1 master laid
+    out for another world raises ``ValueError``."""
+    params, opt = state
+    by_path = _by_path(params)
+
+    def local(spec, t):
+        return t if sliced else _local_leaf(model, spec, t)
+
+    specs = model.param_specs() if hasattr(model, "_specs") else {}
+    leaves = model.train_leaves() if specs else []
+    if specs and all(tuple(local(spec, by_path[path]).shape) == tuple(_stack(leaf).shape)
+                     for (path, spec), leaf in zip(specs.items(), leaves)):
+        for (path, spec), leaf in zip(specs.items(), leaves):
+            value = local(spec, by_path[path])
+            parts = list(leaf) if isinstance(leaf, list) else [leaf]
+            for p, v in zip(parts, value.unbind(0) if isinstance(leaf, list) else [value]):
+                p.copy_(v)
+    elif sliced:
+        raise ValueError("load_state: sliced leaves need a model holding parameters of "
+                         "their shapes")
+    else:
+        dev = model.init_device
+        tree = {k: (v.to(dev, copy=True) if isinstance(v, torch.Tensor) else
+                    _nest({q: t.to(dev, copy=True) for q, t in _by_path(v).items()}))
+                for k, v in params.items() if k != "layers"}
+        layers = _by_path(params["layers"])
+        tree["layers"] = [_nest({q: t[i].to(dev, copy=True) for q, t in layers.items()})
+                          for i in range(model.cfg.n_layers)]
+        model.set_params(tree)
+    if opt is None:
+        return None
+    step = int(opt.step)
+    if not sliced:
+        fns = state_shardings(model, opt, tcfg)[1]
+        opt = tree_lib.unflatten(opt, [f(x) for f, x in zip(tree_lib.leaves(fns),
+                                                              tree_lib.leaves(opt))])
+    if isinstance(opt, opt_lib.ZeroState):
+        return opt_lib.ZeroState(opt.flat_param, opt.mu, opt.nu, step=step)
+    moments = []
+    for tree in (opt.mu, opt.nu):
+        flat_m = _by_path(tree)
+        out = []
+        for path, leaf in zip(model.param_specs(), model.train_leaves()):
+            out.extend(flat_m[path].unbind(0) if isinstance(leaf, list) else [flat_m[path]])
+        moments.append(out)
+    return opt_lib.AdamState(moments[0], moments[1], step)

@@ -589,7 +589,8 @@ def _run_ranks(module: str, args: list[str], world: int) -> list[dict]:
         for p in procs:
             out, err = p.communicate(timeout=180)
             assert p.returncode == 0, out + err
-            outs.append([json.loads(line) for line in out.splitlines()])
+            outs.append([json.loads(line) for line in out.splitlines()
+                         if line.startswith("{")])
     finally:
         for p in procs:
             if p.poll() is None:
@@ -619,7 +620,7 @@ def test_train_entry_point_at_tp2_on_cpu(sp):
             one.kill()
             one.wait(timeout=10)
     assert one.returncode == 0, out + err
-    single = [json.loads(line) for line in out.splitlines()]
+    single = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
     for lines in two:
         steps, summary = lines[:-1], lines[-1]
         assert (summary["tp"], summary["sp"], summary["world"]) == (2, sp, 2)

@@ -631,7 +631,8 @@ def test_entry_point_smoke_on_cpu(mode):
                           "--mode", mode, "--compression", "int8"],
                          env=env, capture_output=True, text=True, timeout=180)
     assert res.returncode == 0, res.stdout + res.stderr
-    lines = [json.loads(line) for line in res.stdout.splitlines()]
+    # the JSON lines (the [run] line of the runtime knobs precedes them)
+    lines = [json.loads(line) for line in res.stdout.splitlines() if line.startswith("{")]
     steps, summary = lines[:-1], lines[-1]
     assert [s["step"] for s in steps] == [0, 1]
     assert all(np.isfinite(s["loss"]) and np.isfinite(s["gnorm"]) and not s["gated"]
@@ -666,7 +667,8 @@ def test_entry_point_per_leaf_on_cpu(mode):
                           "--compression", "int8", "--no-packed"],
                          env=env, capture_output=True, text=True, timeout=180)
     assert res.returncode == 0, res.stdout + res.stderr
-    lines = [json.loads(line) for line in res.stdout.splitlines()]
+    # the JSON lines (the [run] line of the runtime knobs precedes them)
+    lines = [json.loads(line) for line in res.stdout.splitlines() if line.startswith("{")]
     steps, summary = lines[:-1], lines[-1]
     assert all(np.isfinite(s["loss"]) and not s["gated"] for s in steps)
     assert (summary["mode"], summary["packed"], summary["plan"]) == (mode, False, None)
