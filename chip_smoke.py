@@ -173,12 +173,14 @@
    state's GB, the resumed losses bit-equal to an uninterrupted run's;
    (c) four ranks as 2 pods x 2 data on the card over gloo, hier_zero1 +
    int8 at ELASTIC_LAYERS layers: pod 1 lost before step ELASTIC_FAIL,
-   the ZeRO-1 master carried through the slot map, each survivor's losses
+   the ZeRO-1 state carried through the slot map (the identity here: the
+   data group keeps its 2 ranks), each survivor's losses
    bit-equal to a survivor run restored from the failure step's
    checkpoint; the re-plan, the failover's parts, the survivors' step, and
    per rank the launches and peak memory printed.  Phases (b) and (c)
    check the free disk first.  Their launches are the kernels line's
-   paths ``train_chaos``, ``train_resume`` and ``train_elastic``.
+   paths ``train_chaos``, ``train_resume`` and ``train_elastic``.  The
+   three phases' seconds are printed.
 
 Any failed check raises, and the script exits non-zero without printing
 its result line.  The last line is the result:
@@ -2434,7 +2436,7 @@ CKPT_LAYERS = 4                   # phase (b)'s depth
 # collective through host buffers, and the files of the sandbox's disk are
 # held in its memory)
 ELASTIC_LAYERS = 2
-ELASTIC_FAIL, ELASTIC_STEPS = 2, 5  # pod 1 is lost before step 2; 3 survivor steps
+ELASTIC_FAIL, ELASTIC_STEPS = 2, 4  # pod 1 is lost before step 2; 2 survivor steps
 
 
 def _median(xs) -> float:
@@ -2648,7 +2650,11 @@ def train_elastic(smi: str) -> dict[str, int]:
     """Phase (c): four ranks as 2 pods x 2 data on the one card over gloo
     (as the TP phases share it).  Each survivor's losses after the pod
     failure are bit-equal to the survivor run restored from the failure
-    step's checkpoint; the ZeRO-1 master crossed through the slot map.
+    step's checkpoint; the ZeRO-1 state crossed through the slot map,
+    which is the identity here (the data group stays at 2 ranks, so the
+    old and new layouts are equal): what runs on the card is its gather
+    and placement through gloo.  A remap that moves slots is held on the
+    CPU only (tests/test_torch_elastic.py, leg B: 4 ranks to 2).
     Prints the re-plan latency, the failover's parts (the state gather,
     the survivor cut, the remap) and the survivors' step ms, and per rank
     the launch counts and the peak memory.  Returns the launches summed
@@ -2696,7 +2702,7 @@ def train_elastic(smi: str) -> dict[str, int]:
           f"gathered, remapped ({fo['remap_path']}) and placed {fo['remap_ms']:.1f} ms, "
           f"failover total {fo['total_ms']:.1f} ms; survivors' step "
           f"{ranks[0]['survivor_step_ms']:.3f} / {ranks[1]['survivor_step_ms']:.3f} ms (median "
-          f"of steps {ELASTIC_FAIL + 1}-{ELASTIC_STEPS - 1}); "
+          f"of steps {list(range(ELASTIC_FAIL + 1, ELASTIC_STEPS))}); "
           f"losses {ranks[0]['losses']} bit-equal to the restored survivor run")
     for r, res in enumerate(ranks):
         print(f"[elastic] [{smi}] rank {r}: launches {res['path_counts']}, peak memory "
@@ -2790,12 +2796,19 @@ def main() -> int:
         free_memory()
         # runtime robustness: (a) the guard and the chaos engine at full width,
         # (b) checkpoint and resume, (c) elastic re-planning on four ranks
+        t_phase = [time.perf_counter()]
         chaos = train_chaos(dev, smi)
         free_memory()
         check_nan_on_int8_wire(dev, rt)
+        t_phase.append(time.perf_counter())
         resume = train_resume(dev, smi)
         free_memory()
+        t_phase.append(time.perf_counter())
         elastic_counts = train_elastic(smi)
+        t_phase.append(time.perf_counter())
+        took = [b - a for a, b in zip(t_phase, t_phase[1:])]
+        print(f"[time] [{smi}] runtime phases: (a) {took[0]:.1f} s, (b) {took[1]:.1f} s, "
+              f"(c) {took[2]:.1f} s, together {sum(took):.1f} s")
         peaks = ", ".join(f"{m} {r['peak_mem_gb']:.3f} GB" for m, r in train.items())
         print(f"[train] [{smi}] peak memory by gradient sync: {peaks}")
         n_segment = packing.aligned_size(train["hier"]["params"],

@@ -111,10 +111,9 @@ def pipelined_hier_psum(flat: torch.Tensor, cfg, use_ring: bool = False,
         raise ValueError(f"pipelined_hier_psum: a 1-D tensor, got {tuple(flat.shape)}")
     intra, pod = cfg.intra_group, cfg.pod_group
     if pod is None:
-        # no C2C phase to pipeline against: one intra all-reduce
-        if weight is not None:
-            flat = flat * weight.to(device=flat.device, dtype=flat.dtype)
-        return primitives.hom_psum(flat, intra)
+        # hier_psum runs a pipeline of one cluster as one intra all-reduce
+        # through the "flat" seam; nothing else reaches here without pods
+        raise ValueError("pipelined_hier_psum: no pod group to pipeline against")
     k = max(1, int(cfg.n_chunks))
     n = flat.numel()
     pad = (-n) % (k * primitives.axis_size(intra))

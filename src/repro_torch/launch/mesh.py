@@ -66,7 +66,8 @@ def mesh_coords(rank: int, data_per_pod: int, tp: int) -> tuple[int, int, int]:
 def runtime_for_groups(*, pod_group=None, tp_group=None, pods: int | None = None,
                        data_per_pod: int | None = None, tp: int = 1, fsdp: bool = False,
                        sp: bool = False, moe_capacity_factor: float = 1.25,
-                       moe_a2a_mode: str = "flat", moe_cluster_weights=None) -> Runtime:
+                       moe_a2a_mode: str = "flat", moe_cluster_weights=None,
+                       lost_pod: int | None = None) -> Runtime | None:
     """The Runtime for one process.
 
     With ``pods`` and ``data_per_pod`` the current world of ``pods *
@@ -81,7 +82,10 @@ def runtime_for_groups(*, pod_group=None, tp_group=None, pods: int | None = None
     ``fsdp`` the data group is also the FSDP group, as
     ``runtime_for_mesh(fsdp=True)`` makes the data axis the FSDP axis.
     Groups of one member are real groups, so a world of one still runs
-    the pod hop and its codec.  Otherwise the Runtime holds the given
+    the pod hop and its codec.  With ``lost_pod`` the groups are cut over
+    the surviving pods only (``survivor_mesh``): a pod axis left with one
+    pod becomes ``pod_group=None``, and a rank of the lost pod gets
+    ``None``.  Otherwise the Runtime holds the given
     groups as they are (``None`` is a group of one, no collective) and no
     data-parallel group: ``pod_group`` is the ring the disaggregated KV
     transfer runs over.  The MoE knobs go to the Runtime as the
@@ -98,67 +102,43 @@ def runtime_for_groups(*, pod_group=None, tp_group=None, pods: int | None = None
     if pods * data_per_pod * tp != world:
         raise ValueError(f"pods {pods} x data_per_pod {data_per_pod} x tp {tp} "
                          f"!= world {world}")
-    mine = mesh_coords(dist.get_rank(), data_per_pod, tp)
-    P, D, T = range(pods), range(data_per_pod), range(tp)
-
-    def rank(p, d, m):
-        return (p * data_per_pod + d) * tp + m
-
-    def cut(keys, members, own):
-        """One group per key, of the ranks ``members(key)``; returns this
-        rank's, the one of key ``own``."""
-        groups = {k: dist.new_group(members(*k)) for k in keys}
-        return groups[own]
-
-    p0, d0, m0 = mine
-    tp_group = (cut(itertools.product(P, D), lambda p, d: [rank(p, d, m) for m in T],
-                    (p0, d0)) if tp > 1 else None)
-    data = cut(itertools.product(P, T), lambda p, m: [rank(p, d, m) for d in D], (p0, m0))
-    pod = cut(itertools.product(D, T), lambda d, m: [rank(p, d, m) for p in P], (d0, m0))
-    dp = (dist.group.WORLD if tp == 1 else
-          cut(((m,) for m in T), lambda m: [rank(p, d, m) for p in P for d in D], (m0,)))
-    return Runtime(tp_group=tp_group, pod_group=pod, data_group=data, dp_group=dp,
-                   fsdp_group=data if fsdp else None, sp=sp, **moe)
-
-
-def survivor_mesh(pods: int, data_per_pod: int, tp: int, lost_pod: int, *,
-                  fsdp: bool = False, sp: bool = False, moe_capacity_factor: float = 1.25,
-                  moe_a2a_mode: str = "flat", moe_cluster_weights=None
-                  ) -> tuple[Runtime | None, int]:
-    """The survivor cut of a (pods, data, model) world that lost pod
-    ``lost_pod``: the reference's ``survivor_mesh(mesh, "pod", lost_pod)``.
-    Every rank, those of the lost pod too, takes part in each
-    ``new_group`` in the same order (``new_group`` is collective); a
-    survivor gets the Runtime of its place in the (pods - 1, data, model)
-    world of the surviving ranks (pod indices closed up), and a rank of
-    the lost pod gets ``None``.  A pod axis that shrinks to 1 becomes
-    ``pod_group=None``, as the reference squeezes it away.  Returns (the
-    Runtime or None, the survivors' pod count)."""
-    if not 0 <= lost_pod < pods or pods < 2:
+    if lost_pod is not None and not (0 <= lost_pod < pods and pods > 1):
         raise ValueError(f"cannot lose pod {lost_pod} of {pods}")
-    moe = dict(moe_capacity_factor=moe_capacity_factor, moe_a2a_mode=moe_a2a_mode,
-               moe_cluster_weights=(tuple(moe_cluster_weights) if moe_cluster_weights
-                                    else None))
+    mine = mesh_coords(dist.get_rank(), data_per_pod, tp)
     P = [p for p in range(pods) if p != lost_pod]
     D, T = range(data_per_pod), range(tp)
 
     def rank(p, d, m):
         return (p * data_per_pod + d) * tp + m
 
-    me = dist.get_rank()
-    p0, d0, m0 = mesh_coords(me, data_per_pod, tp)
-
     def cut(keys, members, own):
+        """One group per key, of the ranks ``members(key)``; returns this
+        rank's, the one of key ``own`` (None on the lost pod)."""
         groups = {k: dist.new_group(members(*k)) for k in keys}
         return groups.get(own)
 
+    p0, d0, m0 = mine
     tp_group = (cut(itertools.product(P, D), lambda p, d: [rank(p, d, m) for m in T],
                     (p0, d0)) if tp > 1 else None)
     data = cut(itertools.product(P, T), lambda p, m: [rank(p, d, m) for d in D], (p0, m0))
     pod = (cut(itertools.product(D, T), lambda d, m: [rank(p, d, m) for p in P], (d0, m0))
-           if len(P) > 1 else None)
-    dp = cut(((m,) for m in T), lambda m: [rank(p, d, m) for p in P for d in D], (m0,))
+           if lost_pod is None or len(P) > 1 else None)
+    dp = (dist.group.WORLD if tp == 1 and lost_pod is None else
+          cut(((m,) for m in T), lambda m: [rank(p, d, m) for p in P for d in D], (m0,)))
     if p0 == lost_pod:
-        return None, len(P)
+        return None
     return Runtime(tp_group=tp_group, pod_group=pod, data_group=data, dp_group=dp,
-                   fsdp_group=data if fsdp else None, sp=sp, **moe), len(P)
+                   fsdp_group=data if fsdp else None, sp=sp, **moe)
+
+
+def survivor_mesh(pods: int, data_per_pod: int, tp: int, lost_pod: int,
+                  **kw) -> tuple[Runtime | None, int]:
+    """The survivor cut of a (pods, data, model) world that lost pod
+    ``lost_pod``: the reference's ``survivor_mesh(mesh, "pod", lost_pod)``.
+    Every rank, those of the lost pod too, takes part in each
+    ``new_group`` in the same order; a survivor gets the Runtime of its
+    place among the surviving ranks (``runtime_for_groups(lost_pod=...)``,
+    which takes the Runtime knobs ``kw``), a rank of the lost pod gets
+    ``None``.  Returns (the Runtime or None, the survivors' pod count)."""
+    return (runtime_for_groups(pods=pods, data_per_pod=data_per_pod, tp=tp,
+                               lost_pod=lost_pod, **kw), pods - 1)

@@ -105,7 +105,6 @@ from repro_torch.runtime import faults as faults_lib
 from repro_torch.runtime import guard as guard_lib
 from repro_torch.runtime import tree as tree_lib
 from repro_torch.runtime.checkpoint import CheckpointManager
-from repro_torch.runtime.guard import GuardConfig
 from repro_torch.runtime.health import NaNWatchdog, StragglerMonitor, WatchdogConfig
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.optimizer import OptConfig
@@ -308,7 +307,7 @@ def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, steps: int = 4,
         watchdog_window: int = 64, straggler_factor: float = 3.0,
         straggler_window: int = 32, guard: bool = False, chaos: int | None = None,
         elastic: bool = False, inject_pod_failure: int | None = None,
-        guard_config: GuardConfig | None = None, log=print) -> dict:
+        log=print) -> dict:
     """Train ``steps`` steps in the running process group and return what
     was measured.  Step times are host wall-clock around work that ends
     in a device synchronize.  ``plan``, ``skew``, ``plan_cache`` and
@@ -321,7 +320,7 @@ def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, steps: int = 4,
     meaning: ``ckpt_dir``/``ckpt_every``/``resume`` (the state gathered
     to rank 0, which writes; every rank restores its slices), the NaN
     watchdog's and the straggler monitor's knobs, ``guard`` (the
-    collective guard; ``guard_config`` replaces its defaults), ``chaos``
+    collective guard, with its default config), ``chaos``
     (the seed of a fault plan, one fault per class; implies ``guard``),
     ``elastic`` (the re-planning controller) and ``inject_pod_failure``
     (with ``elastic`` and more than one pod: the last pod is reported
@@ -404,7 +403,7 @@ def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, steps: int = 4,
     g_topo = topology.tpu_multipod(max(1, pods), max(1, world // max(1, pods)))
     if use_guard:
         the_guard = guard_lib.CollectiveGuard(
-            guard_config or guard_lib.GuardConfig(),
+            guard_lib.GuardConfig(),
             predicted_step_s=planned.plan.predicted_step_s if planned.plan else None,
             nominal_Bps={i: c.nic_Bps for i, c in enumerate(g_topo.clusters)},
             expected_ranks=range(world), elastic=elastic_ctl)

@@ -29,6 +29,15 @@ parameters drawn by the reference at TP 2 (TP 1 for the data-only leg).
 * ``launch.train.run`` with ``guard``, ``chaos=8``, checkpoints,
   ``elastic`` and ``inject_pod_failure=6`` on 2 pods x 4 data
   (``hier_zero1`` + int8), then ``resume`` from its last checkpoint.
+* ``launch.train.run``'s other recovery paths on 2 pods x 4 data: the
+  watchdog's rollback to the last checkpoint (``hier``, a spike factor
+  of 0.5 that flags every loss past the ninth), its losses after the
+  rollback bit-equal to steps from that checkpoint; and a pod failure of
+  ``hier_zero1`` with ``packing.remap_shard_ops`` raising, which falls
+  back to the checkpoint restore (losses bit-equal to the slot map's,
+  the checkpoint being the state the failure interrupted) and, with no
+  checkpoint, to the optimizer's re-bootstrap (losses bit-equal to a
+  survivor run bootstrapped from the same parameters).
 """
 
 import dataclasses
@@ -160,6 +169,7 @@ def _gloo_rank(rank: int, store_path: str, out_dir: str) -> None:
     from repro_torch.convert import params_from_jax
     from repro_torch.core import packing, planner, topology
     from repro_torch.core.plan_cache import PlanCache
+    from repro_torch.data.pipeline import DataConfig, synth_batch
     from repro_torch.launch import train as train_launch
     from repro_torch.launch.mesh import runtime_for_groups, survivor_mesh
     from repro_torch.models.model import Model
@@ -343,6 +353,80 @@ def _gloo_rank(rank: int, store_path: str, out_dir: str) -> None:
             | {"steps": [r["step"] for r in again["records"]]}))
         out["T/logs"] = np.array(json.dumps([line for line in logs
                                              if not line.startswith("{")]))
+
+        # ---- run(): the watchdog's rollback, the failover's fallbacks ---------
+        run_cfg = get_config("qwen2.5-3b", smoke=True)
+        run_opt = opt_lib.OptConfig(lr=3e-3, warmup_steps=20)      # run()'s defaults
+        run_data = DataConfig(vocab_size=run_cfg.vocab_size, global_batch=8, seq_len=S)
+
+        def run_steps_on(model, tcfg, opt, batches, rows):
+            step_fn, _ = make_train_step(model, tcfg)
+            return [step_fn(opt, {k: torch.from_numpy(v[rows]).long()
+                                  for k, v in synth_batch(run_data, i).items()})["loss"]
+                    for i in batches]
+
+        def trainer(name, **kw):
+            logs: list = []
+            res = train_launch.run(smoke=True, device="cpu", seq=S, global_batch=8, pods=2,
+                                   log=logs.append, **kw)
+            out[f"{name}/run"] = np.array(json.dumps(
+                {k: res[k] for k in ("alive", "losses", "watchdog", "checkpoints",
+                                     "failover")}
+                | {"steps": [r["step"] for r in res["records"]],
+                   "record_losses": [r["loss"] for r in res["records"]],
+                   "restores": [o["step"] for o in res["checkpoint_ops"]
+                                if o["op"] == "restore"]}))
+            out[f"{name}/logs"] = np.array(json.dumps([line for line in logs
+                                                       if not line.startswith("{")]))
+            return res
+
+        # one bad step rolls back, and past the ninth loss every loss is a
+        # spike at factor 0.5: step 8 rolls back to the step-6 checkpoint,
+        # and the loop goes on from there with the stream's batches 9-12
+        trainer("R", mode="hier", steps=10, ckpt_dir=os.path.join(ckdir, "R"), ckpt_every=6,
+                watchdog_max_bad_steps=1, watchdog_spike_factor=0.5)
+        # the same seven steps with no rollback: its step-6 checkpoint is the
+        # state the rollback restores (the rolled-back run writes step 6 again)
+        trainer("R7", mode="hier", steps=7, ckpt_dir=os.path.join(ckdir, "R7"), ckpt_every=6)
+        hier_run = TrainConfig(comm_mode="hier", opt=run_opt)
+        rt8 = runtime_for_groups(pods=2, data_per_pod=4)
+        m8 = Model(run_cfg, rt8, "cpu")
+        _, init8 = make_train_step(m8, hier_run)
+        o8 = init8(0)
+        _, restored, _ = CheckpointManager(os.path.join(ckdir, "R7")).restore(
+            state_like(m8, o8, hier_run), 6)
+        o8 = load_state(m8, restored, hier_run)
+        out["R/expected"] = np.array(run_steps_on(m8, hier_run, o8, range(9, 13),
+                                                  train_launch.dp_rows(rank, 8, 2, 4, 1)))
+
+        # pod 1 lost before step 3 of hier_zero1 on 2 pods x 4 data: the slot
+        # map as it is; with remap_shard_ops raising, the checkpoint restore
+        # (the step-2 checkpoint holds the state the failure interrupted), and
+        # with no checkpoint either, the optimizer re-bootstrapped
+        fail = dict(mode="hier_zero1", steps=5, elastic=True, inject_pod_failure=3)
+        trainer("F/slot_map", **fail)
+
+        def not_remappable(*a, **k):
+            raise ValueError("layouts not remappable")
+
+        real_ops = packing.remap_shard_ops
+        packing.remap_shard_ops = not_remappable
+        try:
+            trainer("F/restore", ckpt_dir=os.path.join(ckdir, "F"), ckpt_every=2, **fail)
+            trainer("F/bootstrap", **fail)
+        finally:
+            packing.remap_shard_ops = real_ops
+        zero_run = TrainConfig(comm_mode="hier_zero1", opt=run_opt)
+        rt_s, _ = survivor_mesh(2, 4, 1, 1)
+        if rt_s is not None:
+            ms = Model(run_cfg, rt_s, "cpu").init(0)
+            _, restored, _ = CheckpointManager(os.path.join(ckdir, "F")).restore(
+                state_like(ms, train_launch._zero_like(ms, zero_run), zero_run), 2)
+            load_state(ms, (restored[0], None), zero_run)
+            out["F/expected_bootstrap"] = np.array(run_steps_on(
+                ms, zero_run, zero_bootstrap(ms, zero_run), (3, 4),
+                train_launch.dp_rows(rank, 8, 1, 4, 1)))
+        dist.barrier()
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()
@@ -470,3 +554,54 @@ def test_trainer_run_with_every_runtime_knob_then_resume(results):
         assert again["resumed_from"] == 8 and again["steps"] == [8, 9]
         assert again["checkpoints"] == [8, 10]
         assert all(np.isfinite(again["losses"]))
+
+
+def test_trainer_watchdog_rolls_back_to_the_last_checkpoint(results):
+    _, ranks = results
+    for got in ranks:
+        run = json.loads(str(got["R/run"]))
+        plain = json.loads(str(got["R7/run"]))
+        logs = json.loads(str(got["R/logs"]))
+        assert run["steps"] == list(range(9)) + list(range(6, 10))
+        assert [tuple(v) for v in run["watchdog"] if v[1] != "ok"] == [(8, "rollback")]
+        assert run["restores"] == [6]
+        assert "[health] non-finite/spiking loss -> rolled back to 6" in logs
+        assert run["checkpoints"] == [6, 6, 10]
+        assert plain["watchdog"] == [[s, "ok"] for s in range(7)]
+        # up to the rollback the run is the plain one, after it the steps
+        # from the restored checkpoint on the stream's next batches
+        assert run["record_losses"][:7] == plain["record_losses"]
+        np.testing.assert_array_equal(run["record_losses"][9:], got["R/expected"])
+        assert run["losses"] == run["record_losses"][:8] + run["record_losses"][9:]
+    assert len({json.loads(str(got["R/run"]))["losses"][-1] for got in ranks}) == 1
+
+
+def test_trainer_failover_falls_back_to_restore_then_rebootstrap(results):
+    _, ranks = results
+    fallback = "[elastic] slot-map remap not applicable (layouts not remappable); " \
+               "falling back to checkpoint restore"
+    bootstrap = "[elastic] re-bootstrapping the optimizer from the resharded params " \
+                "(moments reset)"
+    for r, got in enumerate(ranks):
+        runs = {k: json.loads(str(got[f"F/{k}/run"]))
+                for k in ("slot_map", "restore", "bootstrap")}
+        logs = {k: json.loads(str(got[f"F/{k}/logs"])) for k in runs}
+        for k, run in runs.items():
+            assert run["alive"] == (r < 4), k
+            assert run["steps"] == (list(range(5)) if r < 4 else [0, 1, 2]), k
+            assert any(line.startswith("[elastic] pod_failure") for line in logs[k]), k
+        if r >= 4:
+            continue
+        assert runs["slot_map"]["failover"]["remap_path"] == "slot_map"
+        assert fallback not in logs["slot_map"]
+        assert runs["restore"]["failover"]["remap_path"] == "restore_fallback"
+        assert fallback in logs["restore"] and bootstrap not in logs["restore"]
+        assert runs["restore"]["restores"] == [2]
+        np.testing.assert_array_equal(runs["restore"]["losses"], runs["slot_map"]["losses"])
+        assert runs["bootstrap"]["failover"]["remap_path"] == "restore_fallback"
+        assert fallback in logs["bootstrap"] and bootstrap in logs["bootstrap"]
+        assert runs["bootstrap"]["restores"] == []
+        assert runs["bootstrap"]["losses"][:3] == runs["slot_map"]["losses"][:3]
+        np.testing.assert_array_equal(runs["bootstrap"]["losses"][3:],
+                                      got["F/expected_bootstrap"])
+        assert runs["bootstrap"]["losses"][3:] != runs["slot_map"]["losses"][3:]
