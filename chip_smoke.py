@@ -1,6 +1,10 @@
 """Drive the PyTorch port on one NVIDIA GPU, end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                       # every phase, then the result
+    python3 chip_smoke.py --phases encdec_vlm   # a slice's phases (moe, ssm,
+                                                # runtime, encdec_vlm) or phases
+                                                # by name, in the same order,
+                                                # each timed; no result line
 
 1. Environment: the card's name and power limit, torch and CUDA
    versions, and the time the kernels took to build from csrc/.
@@ -9,7 +13,10 @@
    (amax_block, quant_scaled and dequant_int8 also at ragged sizes and on
    views at every element offset 0-7, which take their scalar variant),
    flash attention within 3e-2 (bf16, on the tensor cores) and 2e-3 (f32,
-   on the CUDA cores) at every head size it takes, the SSD chunk
+   on the CUDA cores) of its plain output's largest magnitude, and no
+   more than that absolute, at every head size it takes (without a mask
+   and with a ragged key tile, the bound must also reject the output over
+   the whole tiles only), the SSD chunk
    within 1e-4 of its plain output's largest magnitude (bf16 on the
    tensor cores, f32 on the CUDA cores; at the JAX suite's SSD shapes, at
    p = 100 / n = 16, also as column slices of one conv output, at the
@@ -87,8 +94,8 @@
    layers, on 4 x 2048 train 4 hier + int8 steps too: two wire segments,
    bf16 and the f32 per-head leaves, so 2 packs and 2 of each codec
    kernel per step, no ssd_chunk and no flash (both train through their
-   plain versions; ``tools/ssm_phases.py`` also profiles a step of each,
-   with the plain SSD's and the conv's ranges)); hier_overlap all four once per bucket of its partition_tree
+   plain versions; ``--phases ssm`` also profiles a step of each, with
+   the plain SSD's and the conv's ranges)); hier_overlap all four once per bucket of its partition_tree
    (38 for qwen2.5-3b under the 64 MiB cap), synced inside the backward;
    fsdp (nothing sharded over a data group of one) the codec once per
    leaf (14) and pack_slots once per per-layer leaf (12), which it syncs
@@ -181,6 +188,26 @@
    check the free disk first.  Their launches are the kernels line's
    paths ``train_chaos``, ``train_resume`` and ``train_elastic``.  The
    three phases' seconds are printed.
+11. The encoder-decoder and VLM families: (a) right after the MoE
+   serving phase, on the emptied card, chameleon-34b served at full width
+   and all 48 layers (34.29 B parameters, 68.59 GB of bf16 weights drawn
+   one leaf at a time; 64 Q / 8 KV heads of 128 with QK-norm), then
+   whisper-tiny (4 encoder and 4 decoder layers, d_model 384, 6 heads):
+   4 x 1024-token prompts (and 4 x 1500 frame embeddings from the stub
+   audio frontend for whisper), 16 greedy steps, disaggregated, the cache
+   raw and int8 on the wire, checked as the other serving paths: flash
+   once per decoder layer per prefill (whisper: also once per encoder
+   layer and once per cross-attention, 12 per prefill, the encoder and
+   the cross-attention without a mask over 1500 keys), the codec twice
+   per int8 transfer (whisper: four times, its cross cache's k and v
+   too), nothing per decode step; the layers served and the peak memory
+   printed; (b) with phase 5, whisper-tiny trained at full width (4 x 1024
+   tokens, 4 x 1500 frames) and chameleon-34b at VLM_TRAIN_LAYERS of its
+   48 layers, 4 hier + int8 steps each, launches per step as qwen's hier
+   row (no flash: training attention is plain).  Phase 2 checks and times
+   flash at the four new shapes (whisper's encoder, cross-attention and
+   decoder, chameleon's prefill) and phase 3 holds both smoke models on the
+   card against the CPU, whisper with 130 frames.
 
 Any failed check raises, and the script exits non-zero without printing
 its result line.  The last line is the result:
@@ -189,6 +216,7 @@ its result line.  The last line is the result:
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import copy
 import dataclasses
@@ -249,18 +277,33 @@ SSM_ARCH = "mamba2-2.7b"
 HYBRID_ARCH = "hymba-1.5b"
 MOE_ARCH = "qwen3-moe-30b-a3b"
 MOE_SMOKE_ARCHS = (MOE_ARCH, "mixtral-8x7b")    # mixtral's smoke: a window of 32
+ENCDEC_ARCH = "whisper-tiny"
+VLM_ARCH = "chameleon-34b"
 # the kernels each serving path launches once per layer per prefill
+# (whisper's flash: once per encoder layer, and twice per decoder layer,
+# self- and cross-attention: prefill_launches)
 PATH_KERNELS = {ARCH: ("flash_attention_bhsd",), SSM_ARCH: ("ssd_chunk",),
                 HYBRID_ARCH: ("flash_attention_bhsd", "ssd_chunk"),
-                MOE_ARCH: ("flash_attention_bhsd",), "mixtral-8x7b": ("flash_attention_bhsd",)}
+                MOE_ARCH: ("flash_attention_bhsd",), "mixtral-8x7b": ("flash_attention_bhsd",),
+                ENCDEC_ARCH: ("flash_attention_bhsd",), VLM_ARCH: ("flash_attention_bhsd",)}
 BATCH, PROMPT, GEN = 4, 1024, 16
+ENC_FRAMES = 1500       # whisper-tiny's encoder frames per request (its enc_seq)
 # hymba serves and trains 4 x 2048 tokens, so that its 1024-token window is
 # shorter than the prompt (flash's window branch, the ring cache)
 HYBRID_SEQ = 2048
 # the parameters of the full-width models (the reference's tree; for the SSM
 # families ModelConfig.param_count() plus the norms, conv biases and per-head
 # leaves)
-FULL_PARAMS = {ARCH: 3_085_938_688, SSM_ARCH: 2_702_640_640, HYBRID_ARCH: 1_588_950_592}
+FULL_PARAMS = {ARCH: 3_085_938_688, SSM_ARCH: 2_702_640_640, HYBRID_ARCH: 1_588_950_592,
+               ENCDEC_ARCH: 49_085_952, VLM_ARCH: 34_293_424_128}
+# the smoke configs held on the card against the CPU, with what they change:
+# chameleon's smoke heads of 8 are below the flash kernel's smallest head
+# size (16), so its check runs them at 16 (8 Q / 2 KV heads of 16 over
+# d_model 64)
+SMALL_OVERRIDES = {VLM_ARCH: {"d_head": 16}}
+# chameleon-34b trains at this depth (about 2.46 B parameters, below
+# qwen2.5-3b's 3.09 B, which trains on one card); it serves at all 48
+VLM_TRAIN_LAYERS = 2
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 4
 # (gradient sync, pod-hop codec) of the training paths
 TRAIN_RUNS = [("hier", "int8"), ("hier_pipelined", "int8"), ("hier_border_rs", "bf16"),
@@ -640,14 +683,39 @@ FLASH_CASES = [
     # hymba-1.5b's prefill: 25 Q / 5 KV heads of 64, the 1024-token window
     # shorter than the 2048-token prompt
     (BATCH, 25, 5, HYBRID_SEQ, HYBRID_SEQ, 64, True, 1024, 0, None, torch.bfloat16),
+    # whisper-tiny's prefill, 6 heads of 64: the encoder over 1500 frames and
+    # the cross-attention of 1024 tokens over them (no mask; 1500 keys are
+    # 23 x 64 + 28), the decoder's causal self-attention; chameleon-34b's
+    # prefill, 64 Q / 8 KV heads of 128
+    (BATCH, 6, 6, ENC_FRAMES, ENC_FRAMES, 64, False, None, 0, None, torch.bfloat16),
+    (BATCH, 6, 6, PROMPT, ENC_FRAMES, 64, False, None, 0, None, torch.bfloat16),
+    (BATCH, 6, 6, PROMPT, PROMPT, 64, True, None, 0, None, torch.bfloat16),
+    (BATCH, 64, 8, PROMPT, PROMPT, 128, True, None, 0, None, torch.bfloat16),
 ]
-# the timed flash cases: (H, K, dh, dtype, Sq, window) -> the row's key for
-# its numbers (the first two are the row's own, bf16, and its "f32" entry)
-FLASH_TIMED = {(16, 2, 128, torch.bfloat16, PROMPT, None): None,
-               (16, 2, 128, torch.float32, PROMPT, None): "f32",
-               (32, 4, 64, torch.bfloat16, PROMPT, None): "qwen3_moe_tp1",
-               (16, 2, 64, torch.bfloat16, PROMPT, None): "qwen3_moe_tp2",
-               (25, 5, 64, torch.bfloat16, HYBRID_SEQ, 1024): "hymba"}
+# the timed flash cases: (H, K, dh, dtype, Sq, Skv, causal, window) -> the
+# row's key for its numbers (the first two are the row's own, bf16, and its
+# "f32" entry) and the shape's name
+FLASH_TIMED = {
+    (16, 2, 128, torch.bfloat16, PROMPT, PROMPT, True, None): (None, "qwen2.5-3b prefill shape"),
+    (16, 2, 128, torch.float32, PROMPT, PROMPT, True, None): ("f32", "qwen2.5-3b prefill shape"),
+    (32, 4, 64, torch.bfloat16, PROMPT, PROMPT, True, None): (
+        "qwen3_moe_tp1", "qwen3-moe-30b-a3b prefill shape at TP 1 (32 Q / 4 KV, dh 64)"),
+    (16, 2, 64, torch.bfloat16, PROMPT, PROMPT, True, None): (
+        "qwen3_moe_tp2", "qwen3-moe-30b-a3b prefill shape at TP 2 (16 Q / 2 KV, dh 64)"),
+    (25, 5, 64, torch.bfloat16, HYBRID_SEQ, HYBRID_SEQ, True, 1024): (
+        "hymba", f"hymba-1.5b prefill shape (25 Q / 5 KV, dh 64, {HYBRID_SEQ} tokens, "
+                 f"window 1024)"),
+    (6, 6, 64, torch.bfloat16, ENC_FRAMES, ENC_FRAMES, False, None): (
+        "whisper_encoder", f"whisper-tiny encoder shape (6 heads, dh 64, {ENC_FRAMES} frames, "
+                           f"no mask)"),
+    (6, 6, 64, torch.bfloat16, PROMPT, ENC_FRAMES, False, None): (
+        "whisper_cross", f"whisper-tiny cross-attention shape ({PROMPT} x {ENC_FRAMES}, "
+                         f"6 heads, dh 64, no mask)"),
+    (6, 6, 64, torch.bfloat16, PROMPT, PROMPT, True, None): (
+        "whisper_decoder", f"whisper-tiny decoder self-attention shape ({PROMPT} tokens, "
+                           f"6 heads, dh 64, causal)"),
+    (64, 8, 128, torch.bfloat16, PROMPT, PROMPT, True, None): (
+        "chameleon", "chameleon-34b prefill shape (64 Q / 8 KV, dh 128, causal)")}
 
 
 def flash_bound_ms(B, H, K, Sq, dh, q_offset, valid_kv, causal,
@@ -679,18 +747,32 @@ def check_flash(dev, gen, smi: str) -> dict:
         got = fa.flash_attention_bhsd(q, k, v, **kw)
         want = fa.flash_attention_bhsd_plain(q, k, v, **kw)
         err = (got.float() - want.float()).abs().max().item()
-        check(err <= TOL[dt], f"flash {B, H, K, Sq, Skv, dh, kw, dt}: err {err}")
+        # TOL of the output's largest magnitude, at most TOL: without a mask
+        # over many keys each output is a mean of many values, small
+        tol = TOL[dt] * min(1.0, want.float().abs().max().item())
+        check(err <= tol, f"flash {B, H, K, Sq, Skv, dh, kw, dt}: err {err}, tol {tol}")
+        tail = ""
+        if Skv % 64 and not causal and valid is None:
+            # the bound must see a kernel that drops the keys past the last
+            # whole 64-key tile
+            cut = Skv // 64 * 64
+            lost = fa.flash_attention_bhsd(q, k[:, :, :cut], v[:, :, :cut], **kw)
+            lost_err = (lost.float() - want.float()).abs().max().item()
+            check(lost_err > tol, f"flash {B, H, K, Sq, Skv, dh, kw, dt}: the output over "
+                                  f"{cut} keys errs by {lost_err}, within tol {tol}")
+            tail = f"; over the first {cut} keys only it would err by {lost_err:.3g}"
         print(f"[check] flash B={B} H={H} K={K} Sq={Sq} Skv={Skv} dh={dh} "
-              f"{kw} {dt}: max abs err {err:.3g} (tol {TOL[dt]})")
-        if B == BATCH and off == 0 and (H, K, dh, dt, Sq, window) in FLASH_TIMED:
-            main[(H, K, dh, dt, Sq, window)] = err, (q, k, v)
+              f"{kw} {dt}: max abs err {err:.3g} (tol {tol:.3g}){tail}")
+        timed = (H, K, dh, dt, Sq, Skv, causal, window)
+        if B == BATCH and off == 0 and timed in FLASH_TIMED:
+            main[timed] = err, (q, k, v)
     timing = {}
-    for (H, K, dh, dt, Sq, window), (err, (q, k, v)) in main.items():
-        bound, by = flash_bound_ms(BATCH, H, K, Sq, dh, 0, Sq, True, dt, window)
-        key = FLASH_TIMED[(H, K, dh, dt, Sq, window)]
+    for (H, K, dh, dt, Sq, Skv, causal, window), (err, (q, k, v)) in main.items():
+        bound, by = flash_bound_ms(BATCH, H, K, Sq, dh, 0, Skv, causal, dt, window)
+        key, shape = FLASH_TIMED[(H, K, dh, dt, Sq, Skv, causal, window)]
         if window is None:
             library = lambda: F.scaled_dot_product_attention(   # noqa: E731
-                q, k, v, is_causal=True, enable_gqa=True)
+                q, k, v, is_causal=causal, enable_gqa=True)
         else:       # the causal window as a boolean mask
             pos = torch.arange(Sq, device=q.device)
             mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
@@ -698,20 +780,17 @@ def check_flash(dev, gen, smi: str) -> dict:
                 q, k, v, attn_mask=mask, enable_gqa=True)
         timing[key] = {
             "max_abs_err": err,
-            "ms": time_ms(lambda: fa.flash_attention_bhsd(q, k, v, causal=True,
+            "ms": time_ms(lambda: fa.flash_attention_bhsd(q, k, v, causal=causal,
                                                           window=window), 20),
-            "plain_ms": time_ms(lambda: fa.flash_attention_bhsd_plain(q, k, v, causal=True,
+            "plain_ms": time_ms(lambda: fa.flash_attention_bhsd_plain(q, k, v, causal=causal,
                                                                       window=window), 5),
             "bound_ms": bound, "bound_by": by, "library_ms": time_ms(library, 20)}
         t = timing[key]
-        shape = ("qwen2.5-3b prefill shape" if dh == 128 else
-                 f"hymba-1.5b prefill shape ({H} Q / {K} KV, dh 64, {Sq} tokens, window "
-                 f"{window})" if window else
-                 f"qwen3-moe-30b-a3b prefill shape at TP {32 // H} ({H} Q / {K} KV, dh 64)")
         print(f"[time] [{smi}] flash_attention_bhsd {shape}, {dt}: "
               f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({by}), plain "
               f"{t['plain_ms']:.4f} ms, F.scaled_dot_product_attention"
-              f"{' with the window mask' if window else ''} {t['library_ms']:.4f} ms")
+              f"{' with the window mask' if window else f' (is_causal={causal})'} "
+              f"{t['library_ms']:.4f} ms")
     own = timing.pop(None)
     return {"flash_attention_bhsd": {
         "name": "flash_attention_bhsd", "route": "cuda",
@@ -826,23 +905,40 @@ def check_ssd(dev, gen, smi: str) -> dict:
 # 3. a small model on the card against the CPU
 # ---------------------------------------------------------------------------
 
+def prefill_launches(cfg, kernel: str) -> int:
+    """Launches of ``kernel`` per prefill of a path in PATH_KERNELS (prompt
+    and frames of at least FLASH_MIN_Q): once per layer; an
+    encoder-decoder model's flash also once per encoder layer and once per
+    cross-attention."""
+    if kernel == "flash_attention_bhsd" and cfg.n_enc_layers:
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
 def check_small_model(dev, arch: str) -> None:
     """Prefill + 4 decode steps of the f32 smoke model; the path's kernels
-    launch once per layer each in the prefill and never in decode."""
-    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32)
+    launch once per layer each in the prefill (whisper's flash also per
+    encoder layer and cross-attention, over 130 frames) and never in
+    decode."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32,
+                              **SMALL_OVERRIDES.get(arch, {}))
     cpu = Model(cfg, device="cpu").init(0)
     gpu = copy.deepcopy(cpu).to(dev)
-    toks = torch.randint(0, cfg.vocab_size, (2, 130),
-                         generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 130), generator=gen)
+    frames = (torch.randn(2, max(cfg.enc_seq, 130), cfg.d_model, generator=gen)
+              if cfg.n_enc_layers else None)
     kernels = PATH_KERNELS[arch]
+    per = [prefill_launches(cfg, k) for k in kernels]
 
     def launched():
         return [ops.launch_counts()[k] for k in kernels]
 
     before = launched()
-    lc, cc = cpu.apply_prefill(toks, max_len=136)
-    lg, cg = gpu.apply_prefill(toks.to(dev), max_len=136)
-    check(launched() == [n + cfg.n_layers for n in before], f"small {kernels} launches")
+    lc, cc = cpu.apply_prefill(toks, frames, max_len=136)
+    lg, cg = gpu.apply_prefill(toks.to(dev), None if frames is None else frames.to(dev),
+                               max_len=136)
+    check(launched() == [n + m for n, m in zip(before, per)], f"small {kernels} launches")
     err = (lg.cpu() - lc).abs().max().item()
     check(err < 1e-3, f"small prefill logits differ by {err}")
     tok = lc.argmax(-1)
@@ -854,10 +950,11 @@ def check_small_model(dev, arch: str) -> None:
         check(torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1)), "small decode tokens")
         tok = lc.argmax(-1)
     check(err < 1e-3, f"small decode logits differ by {err}")
-    check(launched() == [n + cfg.n_layers for n in before], f"decode launched {kernels}")
-    print(f"[check] {cfg.name} f32 on the card vs the CPU: prefill + 4 decode "
+    check(launched() == [n + m for n, m in zip(before, per)], f"decode launched {kernels}")
+    note = f" {SMALL_OVERRIDES[arch]}" if arch in SMALL_OVERRIDES else ""
+    print(f"[check] {cfg.name} f32{note} on the card vs the CPU: prefill + 4 decode "
           f"steps, max logit diff {err:.3g}, greedy tokens equal, {' and '.join(kernels)} "
-          f"launched {cfg.n_layers} times each (prefill only)")
+          f"launched {per} times (prefill only)")
 
 
 def check_small_training(dev, rt, mode: str, codec: str | None, planned=None,
@@ -1476,9 +1573,11 @@ def serve_full_width(dev, smi: str, arch: str, prompt_len: int = PROMPT) -> tupl
     cfg = get_config(arch)
     phases = res["launches"]
     # the leaves of at least 1024 values cross as int8 (k and v, conv and
-    # ssm, or all four for hymba); the lengths travel raw
-    leaves = 4 if cfg.family == "hybrid" else 2
-    expect = {"prefill": {k: cfg.n_layers * res["prefills"] for k in PATH_KERNELS[arch]},
+    # ssm, all four for hymba, self and cross k and v for whisper); the
+    # lengths travel raw
+    leaves = 4 if cfg.family in ("hybrid", "encdec") else 2
+    expect = {"prefill": {k: prefill_launches(cfg, k) * res["prefills"]
+                          for k in PATH_KERNELS[arch]},
               "int8_transfer": {"quant_int8": leaves * res["int8_transfers"],
                                 "dequant_int8": leaves * res["int8_transfers"]},
               "raw_transfer": {}, "decode": {}}
@@ -1496,9 +1595,13 @@ def serve_full_width(dev, smi: str, arch: str, prompt_len: int = PROMPT) -> tupl
     window = min(prompt_len, cfg.sliding_window or prompt_len)
     leaf = [cfg.n_layers, BATCH, window, cfg.n_kv_heads, cfg.head_dim]
     kv_shapes = {"k": leaf, "v": leaf, "length": [cfg.n_layers]}
+    cross = [cfg.n_layers, BATCH, cfg.enc_seq, cfg.n_kv_heads, cfg.head_dim]
+    cross_shapes = {"k": cross, "v": cross, "length": [cfg.n_layers]}
     want_shapes = {"ssm": ssm_shapes,
                    "hybrid": {**{f"kv.{k}": v for k, v in kv_shapes.items()},
-                              **{f"ssm.{k}": v for k, v in ssm_shapes.items()}}
+                              **{f"ssm.{k}": v for k, v in ssm_shapes.items()}},
+                   "encdec": {**{f"kv.{k}": v for k, v in kv_shapes.items()},
+                              **{f"cross.{k}": v for k, v in cross_shapes.items()}},
                    }.get(cfg.family, kv_shapes)
     check(shapes == want_shapes, f"{arch} cache {shapes}, expected {want_shapes}")
     check(res["cache_finite"], f"{arch}: non-finite cache")
@@ -1509,11 +1612,13 @@ def serve_full_width(dev, smi: str, arch: str, prompt_len: int = PROMPT) -> tupl
     check(bool(torch.isfinite(res["prefill_logits"]).all()), f"{arch}: non-finite logits")
     check(arch == MOE_ARCH or res["params"] == FULL_PARAMS[arch],
           f"{arch} params {res['params']}")
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family in ("ssm", "hybrid", "encdec", "vlm"):
         total_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
         check(res["peak_mem_gb"] < total_gb, f"{arch} peak {res['peak_mem_gb']} GB")
+    frames = f" and {cfg.enc_seq} frames" if cfg.n_enc_layers else ""
     print(f"[serve] [{smi}] {res['arch']} ({res['params'] / 1e9:.3f} B params, bf16, "
-          f"{cfg.n_layers} layers), {BATCH} x {prompt_len}-token prompts: TTFT "
+          f"{res['layers']} of {cfg.n_layers} layers), {BATCH} x {prompt_len}-token prompts"
+          f"{frames}: TTFT "
           f"{res['ttft_ms']:.2f} ms, decode {res['decode_ms_per_step']:.2f} ms/step, int8 "
           f"transfer of {res['cache_bytes']} cache bytes {res['int8_transfer_ms']:.2f} ms, "
           f"peak memory {res['peak_mem_gb']:.2f} GB, int8 token agreement "
@@ -1526,20 +1631,22 @@ def serve_full_width(dev, smi: str, arch: str, prompt_len: int = PROMPT) -> tupl
 
 def profile_serving(dev, smi: str, arch: str, prompt_len: int = PROMPT) -> dict:
     """One prefill and four decode steps under torch.profiler (after a
-    warm-up) on one full-width model."""
+    warm-up) on one full-width model (whisper's prefill with its frames)."""
     cfg = get_config(arch)
     model = Model(cfg, device=dev).init(0)
     prefill, decode = make_serve_steps(model)
-    prompt = torch.randint(0, cfg.vocab_size, (BATCH, prompt_len),
-                           generator=torch.Generator().manual_seed(1)).to(dev)
-    tok, caches = prefill(prompt)                         # warm-up
+    gen = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, prompt_len), generator=gen).to(dev)
+    frames = (torch.randn(BATCH, cfg.enc_seq, cfg.d_model, generator=gen).to(dev)
+              if cfg.n_enc_layers else None)
+    tok, caches = prefill(prompt, frames)                 # warm-up
     decode(tok, caches)
     out = {}
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tok, caches = prefill(prompt)
+        tok, caches = prefill(prompt, frames)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     out["prefill"] = _report(prof, wall, f"{cfg.name} prefill {BATCH}x{prompt_len}", smi,
@@ -1946,16 +2053,21 @@ def optimizer_ms(model, opt, ocfg) -> dict[str, float]:
 
 
 def train_full_width(dev, smi: str, mode: str, codec: str | None, arch: str = ARCH,
-                     seq: int = TRAIN_SEQ) -> dict:
+                     seq: int = TRAIN_SEQ, layers: int | None = None) -> dict:
     """A training main path; the launch counts are set to 0 just before
     it and read just after.  mamba2-2.7b and hymba-1.5b have two wire
     segments (bf16, and f32 for dt_bias, A_log and D_skip), and train
     their SSD and attention through the plain versions: no ssd_chunk and
-    no flash launch."""
+    no flash launch; whisper-tiny's encoder and cross-attention train
+    through the plain attention too.  ``layers`` cuts the depth (its
+    parameters then ``param_count()`` plus the 2 L + 1 RMS norm scales, a
+    rule for the dense and VLM families)."""
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     ops.reset_launch_counts()
     res = train_launch.run(arch, steps=TRAIN_STEPS, mode=mode, compression=codec,
-                           global_batch=TRAIN_BATCH, seq=seq, device=dev,
+                           global_batch=TRAIN_BATCH, seq=seq, device=dev, layers=layers,
                            log=lambda line: print(f"[train] {line}"))
     counts = ops.launch_counts()
     want = train_kernels(mode, codec, cfg)
@@ -1969,13 +2081,16 @@ def train_full_width(dev, smi: str, mode: str, codec: str | None, arch: str = AR
         check(math.isfinite(rec["loss"]) and math.isfinite(rec["gnorm"]),
               f"step {rec['step']}: loss {rec['loss']}, grad norm {rec['gnorm']}")
         check(not rec["gated"], f"step {rec['step']}: the finite gate tripped")
-    check(res["params"] == FULL_PARAMS[arch], f"params {res['params']}")
+    want_params = (FULL_PARAMS[arch] if layers is None
+                   else cfg.param_count() + (2 * cfg.n_layers + 1) * cfg.d_model)
+    check(res["params"] == want_params, f"params {res['params']}, expected {want_params}")
     total_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
     check(res["peak_mem_gb"] < total_gb, f"peak {res['peak_mem_gb']} GB of {total_gb} GB")
     losses = [r["loss"] for r in res["records"]]
+    frames = f" and {TRAIN_BATCH} x {cfg.enc_seq} frames" if cfg.n_enc_layers else ""
     print(f"[train] [{smi}] {res['arch']} ({res['params']} params, bf16, {cfg.n_layers} "
           f"layers), {mode} + {codec} over a pod and a data group of one, {TRAIN_BATCH} x "
-          f"{seq} tokens: "
+          f"{seq} tokens{frames}: "
           f"step {res['step_ms']:.3f} ms (median of steps 1-{TRAIN_STEPS - 1}), "
           f"{res['tokens_per_s']:.1f} tokens/s, peak memory {res['peak_mem_gb']:.3f} GB of "
           f"the card's {total_gb:.3f} GB, losses {losses}; launches per step {want}, "
@@ -2714,11 +2829,228 @@ def train_elastic(smi: str) -> dict[str, int]:
 
 # ---------------------------------------------------------------------------
 
-def main() -> int:
+class Run:
+    """What the phases of one run share: the card, the generator, the
+    kernels line's rows, each phase's result and seconds, and the
+    runtimes of the world of one (built by the first phase that needs
+    them)."""
+
+    def __init__(self, dev, smi: str):
+        self.dev, self.smi = dev, smi
+        self.gen = torch.Generator(device=dev).manual_seed(0)
+        self.rows: dict = {}
+        self.out: dict = {}
+        self.seconds: dict[str, float] = {}
+        self.rt = self.rt_fsdp = None
+        self._agree = self._planned = None
+
+    def __getitem__(self, name: str):
+        if name not in self.out:
+            raise RuntimeError(f"phase {name!r} must run first")
+        return self.out[name]
+
+    def agree(self) -> dict[str, bool]:
+        if self._agree is None:
+            self._agree = check_library_nan(self.dev)
+        return self._agree
+
+    def planned(self):
+        """The plan the launcher makes for PLAN_WORLD."""
+        if self._planned is None:
+            pods, per_pod = PLAN_WORLD
+            self._planned = train_launch.make_plan(
+                get_config(ARCH), pods, pods * per_pod, "hier", "int8", plan="auto",
+                global_batch=TRAIN_BATCH, seq=TRAIN_SEQ, log=lambda line: None)
+        return self._planned
+
+    def rt_for(self, mode: str):
+        return self.rt_fsdp if mode == "fsdp" else self.rt
+
+
+def _rows(run: Run, rows: dict) -> None:
+    run.rows.update(rows)
+
+
+def _codec(run: Run) -> None:
+    _rows(run, check_codec(run.dev, run.gen, run.agree()))
+    check_codec_views(run.dev, run.gen)
+
+
+def _shared_codec(run: Run) -> None:
+    n = _segment(run)
+    codec_rows, run.out["shared_codec_int32"] = check_shared_codec(run.dev, run.gen, n,
+                                                                  run.agree())
+    _rows(run, codec_rows)
+
+
+def _segment(run: Run) -> int:
+    """hier's one bf16 gradient segment, aligned as the codec takes it."""
+    return packing.aligned_size(run["train:hier"]["params"], packing.comm_alignment(1, 4, 1024))
+
+
+def _pack(run: Run) -> dict:
+    pack_rows, counts = check_pack(run.dev, run.gen, run.rt, run.smi)
+    _rows(run, pack_rows)
+    return counts
+
+
+SERVED = ((ARCH, PROMPT), (SSM_ARCH, PROMPT), (HYBRID_ARCH, HYBRID_SEQ))
+SSM_TRAINED = ((SSM_ARCH, TRAIN_SEQ), (HYBRID_ARCH, HYBRID_SEQ))
+EV_TRAINED = ((ENCDEC_ARCH, None), (VLM_ARCH, VLM_TRAIN_LAYERS))
+
+
+def phase_table() -> list[tuple]:
+    """Every phase of the full run, in its order: (name, needs the world of
+    one, frees the card after, only when named, fn(run)).  The full run
+    (no ``--phases``) runs all but the last kind."""
+    t = [("codec", False, False, False, _codec),
+         ("flash", False, False, False,
+          lambda r: _rows(r, check_flash(r.dev, r.gen, r.smi))),
+         ("ssd", False, True, False, lambda r: _rows(r, check_ssd(r.dev, r.gen, r.smi))),
+         # MoE phase (a) on the emptied card: 60.16 GB of weights
+         ("serve_moe", False, True, False, lambda r: serve_moe(r.dev, r.smi)),
+         ("profile_moe", False, True, False, lambda r: profile_moe(r.dev, r.smi))]
+    # phase 11 (a): chameleon-34b on the emptied card (68.59 GB of
+    # weights), then whisper-tiny
+    for arch in (VLM_ARCH, ENCDEC_ARCH):
+        t += [(f"serve:{arch}", False, True, False,
+               lambda r, a=arch: serve_full_width(r.dev, r.smi, a)),
+              (f"profile_serving:{arch}", False, True, False,
+               lambda r, a=arch: profile_serving(r.dev, r.smi, a))]
+    t += [(f"small_model:{arch}", False, False, False,
+           lambda r, a=arch: check_small_model(r.dev, a))
+          for arch in (ARCH, SSM_ARCH, HYBRID_ARCH) + MOE_SMOKE_ARCHS + (ENCDEC_ARCH, VLM_ARCH)]
+    # the world of one from here on: gloo for the CPU, NCCL for the card
+    t += [(f"small_training:{mode}", True, False, False,
+           lambda r, m=mode, c=codec: check_small_training(r.dev, r.rt_for(m), m, c))
+          for mode, codec in TRAIN_RUNS]
+    t += [(f"small_training:{arch}", True, False, False,       # and MoE phase (b)
+           lambda r, a=arch: check_small_training(r.dev, r.rt, "hier", "int8", arch=a))
+          for arch in MOE_SMOKE_ARCHS + (SSM_ARCH, HYBRID_ARCH)]
+    t.append(("small_training:planned", True, False, False,
+              lambda r: check_small_training(r.dev, r.rt, r.planned().mode, "int8",
+                                             r.planned())))
+    for arch, prompt in SERVED:
+        t += [(f"serve:{arch}", True, True, False,
+               lambda r, a=arch, p=prompt: serve_full_width(r.dev, r.smi, a, p)),
+              (f"profile_serving:{arch}", True, True, False,
+               lambda r, a=arch, p=prompt: profile_serving(r.dev, r.smi, a, p))]
+    # tensor parallelism: (a) TP 2 at full depth against the TP-1 run
+    # above, (b) TP 4 against TP 1 at TP_DEPTH layers, (c) TP 2 training;
+    # then mamba2-2.7b served at TP 2 against its TP-1 run, the smoke
+    # mamba2 and hymba trained at TP 2, and MoE phase (d): expert
+    # parallelism, two ranks on the one card
+    t += [("serve_depth", True, True, False,
+           lambda r: disaggregated.run(ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN,
+                                       device=r.dev, layers=TP_DEPTH)),
+          ("serve_tp2", True, False, False, lambda r: serve_tp(r.smi, 2, r[f"serve:{ARCH}"][0])),
+          ("serve_tp4", True, False, False, lambda r: serve_tp(r.smi, 4, r["serve_depth"])),
+          (f"train_tp:{ARCH}", True, False, False, lambda r: train_tp(r.smi)),
+          ("serve_ssm_tp", True, False, False, lambda r: serve_ssm_tp(r.dev, r.smi))]
+    t += [(f"train_tp:{arch}", True, False, False, lambda r, a=arch: train_tp(r.smi, a))
+          for arch in (SSM_ARCH, HYBRID_ARCH)]
+    t += [("serve_moe_tp", True, True, False, lambda r: serve_moe_tp(r.dev, r.smi)),
+          (f"train_tp:{MOE_ARCH}", True, False, False, lambda r: train_tp(r.smi, MOE_ARCH))]
+    t += [(f"train:{mode}", True, True, False,
+           lambda r, m=mode, c=codec: train_full_width(r.dev, r.smi, m, c))
+          for mode, codec in TRAIN_RUNS]
+    t.append(("train_moe", True, True, False, lambda r: train_moe(r.dev, r.smi)))   # MoE (c)
+    t += [(f"train:{arch}", True, True, False,
+           lambda r, a=arch, q=seq: train_full_width(r.dev, r.smi, "hier", "int8", a, q))
+          for arch, seq in SSM_TRAINED]
+    t += [(f"train:{arch}", True, True, False,                  # phase 11 (b)
+           lambda r, a=arch, n=layers: train_full_width(r.dev, r.smi, "hier", "int8", a,
+                                                        layers=n))
+          for arch, layers in EV_TRAINED]
+    # runtime robustness: (a) the guard and the chaos engine at full
+    # width, (b) checkpoint and resume, (c) elastic re-planning on four
+    # ranks
+    t += [("planned_paths", True, True, False, lambda r: train_planned_paths(r.dev, r.smi)),
+          ("chaos", True, True, False, lambda r: train_chaos(r.dev, r.smi)),
+          ("nan_on_int8_wire", True, False, False,
+           lambda r: check_nan_on_int8_wire(r.dev, r.rt)),
+          ("resume", True, True, False, lambda r: train_resume(r.dev, r.smi)),
+          ("elastic", True, False, False, lambda r: train_elastic(r.smi)),
+          ("shared_codec", True, True, False, _shared_codec),
+          ("shared_codec_f32", True, True, False,
+           lambda r: check_shared_codec_f32(r.dev, r.gen, _segment(r), r.agree())),
+          ("pack", True, True, False, _pack)]
+    t += [(f"profile_training:{mode}", True, False, False,
+           lambda r, m=mode, c=codec: profile_training(r.dev, r.rt_for(m), r.smi, m, c,
+                                                       with_attention=m == "hier"))
+          for mode, codec in TRAIN_RUNS]
+    t.append(("profile_training:planned", True, False, False,
+              lambda r: profile_training(r.dev, r.rt, r.smi, r.planned().mode, "int8",
+                                         with_attention=False, planned=r.planned())))
+    # only when named: a profiled training step of each SSM family, with
+    # the plain SSD's and the conv's ranges
+    t += [(f"profile_training:{arch}", True, True, True,
+           lambda r, a=arch, q=seq: profile_training(r.dev, r.rt, r.smi, "hier", "int8",
+                                                     with_attention=False, arch=a, seq=q))
+          for arch, seq in SSM_TRAINED]
+    return t
+
+
+# the phases of one slice, for ``--phases NAME``; each runs in the full
+# run's order
+SLICES = {
+    "moe": ("flash", "serve_moe", "profile_moe")
+    + tuple(f"{p}:{a}" for p in ("small_model", "small_training") for a in MOE_SMOKE_ARCHS)
+    + ("serve_moe_tp", f"train_tp:{MOE_ARCH}", "train_moe"),
+    "ssm": ("flash", "ssd") + tuple(
+        f"{p}:{a}" for p in ("small_model", "small_training", "serve", "profile_serving",
+                             "train_tp", "train", "profile_training")
+        for a in (SSM_ARCH, HYBRID_ARCH)) + ("serve_ssm_tp",),
+    "runtime": ("chaos", "nan_on_int8_wire", "resume", "elastic"),
+    "encdec_vlm": ("flash",) + tuple(
+        f"{p}:{a}" for p in ("serve", "profile_serving", "small_model", "train")
+        for a in (ENCDEC_ARCH, VLM_ARCH)),
+}
+
+
+def run_phases(run: Run, names: set[str] | None) -> None:
+    """Run the phases named (all but the named-only ones for ``None``) in
+    the table's order, each timed; the world of one starts before the
+    first phase that needs it and ends after the last.  A failed phase
+    raises."""
+    world = False
+    try:
+        for name, needs_world, frees, named_only, fn in phase_table():
+            if (names is None and named_only) or (names is not None and name not in names):
+                continue
+            if needs_world and not world:
+                train_launch.init_world(run.dev)
+                world = True
+                run.rt = runtime_for_groups(pods=1, data_per_pod=1)
+                # fsdp's runtime: the data group of one is also the FSDP group
+                run.rt_fsdp = runtime_for_groups(pods=1, data_per_pod=1, fsdp=True)
+            t0 = time.perf_counter()
+            run.out[name] = fn(run)
+            if frees:
+                free_memory()
+            run.seconds[name] = time.perf_counter() - t0
+            print(f"[phase] {name}: {run.seconds[name]:.1f} s", flush=True)
+    finally:
+        if world:
+            dist.destroy_process_group()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", nargs="+", metavar="NAME",
+                    help="run only these phases or slices (" + ", ".join(SLICES)
+                    + "), in the full run's order, and print no result")
+    args = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    names = None
+    if args.phases:
+        known = {row[0] for row in phase_table()}
+        names = {n for a in args.phases for n in SLICES.get(a, (a,))}
+        if names - known:
+            ap.error(f"unknown phases {sorted(names - known)}; known: {sorted(known)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -2730,104 +3062,59 @@ def main() -> int:
     lib = _build.library()
     print(f"[build] [{smi}] {len(_build.sources())} sources -> {lib.path.name} in "
           f"{lib.build_seconds:.1f} s (one nvcc per source, in parallel, sm_90a)")
+    run = Run(dev, smi)
+    run_phases(run, names)
+    if names is not None:
+        print(f"[time] chip_smoke --phases {' '.join(args.phases)}: "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    report(run)
+    print(f"[time] chip_smoke: {time.perf_counter() - t_start:.1f} s from start to result")
+    print(smi)
+    print(json.dumps({"kernels": list(run.rows.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
-    gen = torch.Generator(device=dev).manual_seed(0)
-    agree = check_library_nan(dev)
-    rows = check_codec(dev, gen, agree)
-    check_codec_views(dev, gen)
-    rows.update(check_flash(dev, gen, smi))
-    rows.update(check_ssd(dev, gen, smi))
-    free_memory()
-    # MoE phase (a) on the emptied card: 60.16 GB of weights
-    moe_serve, moe_counts = serve_moe(dev, smi)
-    free_memory()
-    moe_profile = profile_moe(dev, smi)
-    free_memory()
-    for arch in (ARCH, SSM_ARCH, HYBRID_ARCH) + MOE_SMOKE_ARCHS:
-        check_small_model(dev, arch)
-    train_launch.init_world(dev)        # a world of one: gloo for CPU, NCCL for CUDA
-    try:
-        rt = runtime_for_groups(pods=1, data_per_pod=1)
-        # fsdp's runtime: the data group of one is also the FSDP group
-        rt_fsdp = runtime_for_groups(pods=1, data_per_pod=1, fsdp=True)
-        for mode, codec in TRAIN_RUNS:
-            check_small_training(dev, rt_fsdp if mode == "fsdp" else rt, mode, codec)
-        for arch in MOE_SMOKE_ARCHS + (SSM_ARCH, HYBRID_ARCH):     # and MoE phase (b)
-            check_small_training(dev, rt, "hier", "int8", arch=arch)
-        pods, per_pod = PLAN_WORLD
-        planned = train_launch.make_plan(get_config(ARCH), pods, pods * per_pod, "hier", "int8",
-                                         plan="auto", global_batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                                         log=lambda line: None)
-        check_small_training(dev, rt, planned.mode, "int8", planned)
-        serve, serve_counts, serve_profile = {}, {}, {}
-        for arch, prompt in ((ARCH, PROMPT), (SSM_ARCH, PROMPT), (HYBRID_ARCH, HYBRID_SEQ)):
-            serve[arch], serve_counts[arch] = serve_full_width(dev, smi, arch, prompt)
-            free_memory()
-            serve_profile[arch] = profile_serving(dev, smi, arch, prompt)
-            free_memory()
-        # tensor parallelism: (a) TP 2 at full depth against the TP-1 run
-        # above, (b) TP 4 against TP 1 at TP_DEPTH layers, (c) TP 2 training
-        ref_depth = disaggregated.run(ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN, device=dev,
-                                      layers=TP_DEPTH)
-        free_memory()
-        tp_counts, tp_serve = {}, {}
-        for tp, ref in ((2, serve[ARCH]), (4, ref_depth)):
-            tp_counts[f"serve_tp{tp}"], tp_serve[f"tp{tp}"] = serve_tp(smi, tp, ref)
-        tp_counts["train_tp2"] = train_tp(smi)
-        # the SSM families: mamba2-2.7b served at TP 2 against its TP-1 run
-        # above, the smoke mamba2 and hymba trained at TP 2
-        tp_counts["serve_mamba2_tp2"], ssm_tp = serve_ssm_tp(dev, smi)
-        tp_counts["train_mamba2_tp2"] = train_tp(smi, SSM_ARCH)
-        tp_counts["train_hymba_tp2"] = train_tp(smi, HYBRID_ARCH)
-        # MoE phase (d): expert parallelism, two ranks on the one card
-        tp_counts["serve_moe_tp2"], moe_tp = serve_moe_tp(dev, smi)
-        tp_counts["train_moe_tp2"] = train_tp(smi, MOE_ARCH)
-        train = {}
-        for mode, codec in TRAIN_RUNS:
-            train[mode] = train_full_width(dev, smi, mode, codec)
-            free_memory()
-        moe_train = train_moe(dev, smi)     # MoE phase (c)
-        free_memory()
-        ssm_train = {}         # (their profiled steps: tools/ssm_phases.py)
-        for arch, seq in ((SSM_ARCH, TRAIN_SEQ), (HYBRID_ARCH, HYBRID_SEQ)):
-            ssm_train[arch] = train_full_width(dev, smi, "hier", "int8", arch, seq)
-            free_memory()
-        planned_entry, planned_run = train_planned_paths(dev, smi)
-        free_memory()
-        # runtime robustness: (a) the guard and the chaos engine at full width,
-        # (b) checkpoint and resume, (c) elastic re-planning on four ranks
-        t_phase = [time.perf_counter()]
-        chaos = train_chaos(dev, smi)
-        free_memory()
-        check_nan_on_int8_wire(dev, rt)
-        t_phase.append(time.perf_counter())
-        resume = train_resume(dev, smi)
-        free_memory()
-        t_phase.append(time.perf_counter())
-        elastic_counts = train_elastic(smi)
-        t_phase.append(time.perf_counter())
-        took = [b - a for a, b in zip(t_phase, t_phase[1:])]
-        print(f"[time] [{smi}] runtime phases: (a) {took[0]:.1f} s, (b) {took[1]:.1f} s, "
-              f"(c) {took[2]:.1f} s, together {sum(took):.1f} s")
-        peaks = ", ".join(f"{m} {r['peak_mem_gb']:.3f} GB" for m, r in train.items())
-        print(f"[train] [{smi}] peak memory by gradient sync: {peaks}")
-        n_segment = packing.aligned_size(train["hier"]["params"],
-                                         packing.comm_alignment(1, 4, 1024))
-        codec_rows, deq = check_shared_codec(dev, gen, n_segment, agree)
-        rows.update(codec_rows)
-        free_memory()
-        f32 = check_shared_codec_f32(dev, gen, n_segment, agree)
-        free_memory()
-        pack_rows, conformance_counts = check_pack(dev, gen, rt, smi)
-        rows.update(pack_rows)
-        free_memory()
-        train_profile = {mode: profile_training(dev, rt_fsdp if mode == "fsdp" else rt, smi,
-                                                mode, codec, with_attention=mode == "hier")
-                         for mode, codec in TRAIN_RUNS}
-        train_profile["planned"] = profile_training(dev, rt, smi, planned.mode, "int8",
-                                                    with_attention=False, planned=planned)
-    finally:
-        dist.destroy_process_group()
+
+def report(run: Run) -> None:
+    """The full run's lines: the runtime phases' seconds, peak memory by
+    gradient sync, each kernel's times and launches by path, and one JSON
+    object of the paths' numbers."""
+    smi, rows, out = run.smi, run.rows, run.out
+    took = (run.seconds["chaos"] + run.seconds["nan_on_int8_wire"], run.seconds["resume"],
+            run.seconds["elastic"])
+    print(f"[time] [{smi}] runtime phases: (a) {took[0]:.1f} s, (b) {took[1]:.1f} s, "
+          f"(c) {took[2]:.1f} s, together {sum(took):.1f} s")
+    train = {mode: out[f"train:{mode}"] for mode, _ in TRAIN_RUNS}
+    peaks = ", ".join(f"{m} {r['peak_mem_gb']:.3f} GB" for m, r in train.items())
+    print(f"[train] [{smi}] peak memory by gradient sync: {peaks}")
+    n_segment = _segment(run)
+    deq, f32 = out["shared_codec_int32"], out["shared_codec_f32"]
+    serve = {arch: out[f"serve:{arch}"][0] for arch, _ in SERVED}
+    serve_counts = {arch: out[f"serve:{arch}"][1] for arch, _ in SERVED}
+    serve_profile = {arch: out[f"profile_serving:{arch}"] for arch, _ in SERVED}
+    moe_serve, moe_counts = out["serve_moe"]
+    moe_profile, moe_train = out["profile_moe"], out["train_moe"]
+    ev_serve = {arch: out[f"serve:{arch}"][0] for arch in (VLM_ARCH, ENCDEC_ARCH)}
+    ev_counts = {arch: out[f"serve:{arch}"][1] for arch in (VLM_ARCH, ENCDEC_ARCH)}
+    ev_profile = {arch: out[f"profile_serving:{arch}"] for arch in (VLM_ARCH, ENCDEC_ARCH)}
+    ev_train = {arch: out[f"train:{arch}"] for arch, _ in EV_TRAINED}
+    ssm_train = {arch: out[f"train:{arch}"] for arch, _ in SSM_TRAINED}
+    planned_entry, planned_run = out["planned_paths"]
+    chaos, resume = out["chaos"], out["resume"]
+    tp_counts, tp_serve = {}, {}
+    for tp in (2, 4):
+        tp_counts[f"serve_tp{tp}"], tp_serve[f"tp{tp}"] = out[f"serve_tp{tp}"]
+    tp_counts["train_tp2"] = out[f"train_tp:{ARCH}"]
+    tp_counts["serve_mamba2_tp2"], ssm_tp = out["serve_ssm_tp"]
+    tp_counts["train_mamba2_tp2"] = out[f"train_tp:{SSM_ARCH}"]
+    tp_counts["train_hymba_tp2"] = out[f"train_tp:{HYBRID_ARCH}"]
+    tp_counts["serve_moe_tp2"], moe_tp = out["serve_moe_tp"]
+    tp_counts["train_moe_tp2"] = out[f"train_tp:{MOE_ARCH}"]
+    train_profile = {mode: out[f"profile_training:{mode}"] for mode, _ in TRAIN_RUNS}
+    train_profile["planned"] = out["profile_training:planned"]
 
     rows["dequant_int8"]["int32_grad_segment"] = deq
     rows["amax_block"]["f32_grad_segment"] = f32["amax_block"]
@@ -2838,11 +3125,14 @@ def main() -> int:
              "train_mamba2": ssm_train[SSM_ARCH]["counts"],
              "train_hymba": ssm_train[HYBRID_ARCH]["counts"],
              "serve_moe": moe_counts, "train_moe": moe_train["counts"],
+             "serve_whisper": ev_counts[ENCDEC_ARCH], "serve_chameleon": ev_counts[VLM_ARCH],
+             "train_whisper": ev_train[ENCDEC_ARCH]["counts"],
+             "train_chameleon": ev_train[VLM_ARCH]["counts"],
              **{f"train_{mode}": res["counts"] for mode, res in train.items()},
              "train_planned_entry": planned_entry["counts"],
-             "train_planned": planned_run["counts"], "conformance": conformance_counts,
+             "train_planned": planned_run["counts"], "conformance": out["pack"],
              "train_chaos": chaos["counts"], "train_resume": resume["counts"],
-             "train_elastic": elastic_counts,
+             "train_elastic": out["elastic"],
              **tp_counts}
     for name, row in rows.items():
         row["paths"] = {path: counts[name] for path, counts in paths.items()}
@@ -2904,19 +3194,24 @@ def main() -> int:
                           | {"losses": [r["loss"] for r in res["records"]],
                              "grad_norms": [r["gnorm"] for r in res["records"]]}
                           for arch, res in ssm_train.items()}},
+        "encdec_vlm": {
+            "serve": {arch: {k: res[k] for k in (
+                "ttft_ms", "decode_ms_per_step", "int8_transfer_ms", "peak_mem_gb",
+                "int8_token_agreement", "cache_bytes", "params", "layers")}
+                for arch, res in ev_serve.items()},
+            "serve_profile": ev_profile,
+            "train": {arch: {k: res[k] for k in ("step_ms", "tokens_per_s", "peak_mem_gb",
+                                                 "params", "seq")}
+                      | {"layers": get_config(arch).n_layers if layers is None else layers,
+                         "losses": [r["loss"] for r in res["records"]],
+                         "grad_norms": [r["gnorm"] for r in res["records"]]}
+                      for (arch, layers), res in zip(EV_TRAINED, ev_train.values())}},
         "runtime": {"chaos": {"guard": chaos["guard"], "guard_split_ms": chaos["guard_split_ms"],
                               "guard_ms": [r["guard_ms"] for r in chaos["records"]],
                               "step_ms": chaos["step_ms"],
                               "losses": [r["loss"] for r in chaos["records"]]},
                     "checkpoint": {"ops": resume["ops"], "losses": resume["losses"]}},
         "card": smi}))
-    print(f"[time] chip_smoke: {time.perf_counter() - t_start:.1f} s from start to result")
-    print(smi)
-    print(json.dumps({"kernels": list(rows.values())}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
 
 
 if __name__ == "__main__":

@@ -3,7 +3,8 @@
 ``params_from_jax`` takes the JAX param pytree as numpy arrays (for
 example ``jax.tree.map(np.asarray, params)``), global as the reference
 draws them for the TP size of ``rt``, with the layer leaves stacked on a
-leading (L, ...) axis, and returns a ``Model`` holding the same values:
+leading (L, ...) axis (an encoder-decoder's ``enc_layers`` too), and
+returns a ``Model`` holding the same values:
 bf16 arrays are reinterpreted bit for bit.  Each rank keeps its slice of
 every global array (``Model.set_params``): its TP shard over
 ``rt.tp_group`` and, with ``fsdp`` > 1, its FSDP shard of that over
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import Model
+from repro_torch.models.model import STACKED, Model
 from repro_torch.parallel.sharding import Runtime
 
 
@@ -43,7 +44,9 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig, rt: Runtime | None = None,
     model = Model(cfg, rt, device).with_fsdp(fsdp)
     dev = model.init_device
     params = {k: _map(v, lambda a: to_tensor(a, dev))
-              for k, v in np_tree.items() if k != "layers"}
-    params["layers"] = [_map(np_tree["layers"], lambda a, i=i: to_tensor(a[i], dev))
-                        for i in range(cfg.n_layers)]
+              for k, v in np_tree.items() if k not in STACKED}
+    for key, n in (("layers", cfg.n_layers), ("enc_layers", cfg.n_enc_layers)):
+        if key in np_tree:
+            params[key] = [_map(np_tree[key], lambda a, i=i: to_tensor(a[i], dev))
+                           for i in range(n)]
     return model.set_params(params)

@@ -34,6 +34,8 @@ class DataConfig:
     seed: int = 0
     n_hosts: int = 1
     host_id: int = 0
+    enc_seq: int = 0          # >0: also emit encoder frame embeddings
+    d_model: int = 0
     prefetch: int = 4
     # uneven per-host sample counts (one entry per host, summing to
     # global_batch); None is the even split
@@ -63,12 +65,18 @@ def shares_for_hosts(global_batch: int, weights) -> tuple[int, ...]:
 def synth_batch(cfg: DataConfig, step: int) -> dict:
     """The batch host ``host_id`` contributes at ``step``: zipf-ish token
     ranks clipped into the vocabulary; labels are the next token of the
-    same stream."""
+    same stream.  With ``enc_seq`` the batch also holds ``enc``, the
+    stub frontend's frame embeddings (host_batch, enc_seq, d_model) f32,
+    drawn after the tokens from the same stream."""
     base = np.random.SeedSequence([cfg.seed, step])
     child = np.random.default_rng(base.spawn(cfg.n_hosts)[cfg.host_id])
     z = child.zipf(1.3, size=(cfg.host_batch, cfg.seq_len + 1))
     toks = np.minimum(z - 1, cfg.vocab_size - 1).astype(np.int32)
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.enc_seq:
+        batch["enc"] = child.normal(
+            size=(cfg.host_batch, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    return batch
 
 
 class Prefetcher:

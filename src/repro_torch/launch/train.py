@@ -12,6 +12,8 @@
     python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b --smoke --device cpu
     python -m repro_torch.launch.train --arch mamba2-2.7b --mode hier --compression int8
     python -m repro_torch.launch.train --arch hymba-1.5b --seq 2048 --compression int8
+    python -m repro_torch.launch.train --arch whisper-tiny --compression int8
+    python -m repro_torch.launch.train --arch chameleon-34b --layers 2 --compression int8
     RANK=r WORLD_SIZE=8 MASTER_ADDR=localhost MASTER_PORT=29500 \
         python -m repro_torch.launch.train --smoke --device cpu --pods 2 --tp 2
     python -m repro_torch.launch.train --steps 12 --guard --chaos 8 --compression int8
@@ -364,7 +366,8 @@ def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, steps: int = 4,
                  dp_rows(rank, global_batch, pods, data_per_pod, tp))
     n_params = sum(p.numel() for p in model.parameters())
     dcfg = DataConfig(vocab_size=cfg.vocab_size, global_batch=global_batch,
-                      seq_len=seq, seed=seed)
+                      seq_len=seq, seed=seed, enc_seq=cfg.enc_seq,
+                      d_model=cfg.d_model if cfg.enc_seq else 0)
 
     ckpt = _checkpoints(ckpt_dir, rank)
     ckpt_ops: list[dict] = []      # each save and restore: its host ms and the state's GB
@@ -527,7 +530,9 @@ def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, steps: int = 4,
                 live = new_live
                 fresh_trace = True
             _, batch = pre.get(timeout=30.0)
-            b = {k: torch.from_numpy(v[live.rows]).long().to(device) for k, v in batch.items()}
+            # token ids as int64, an encoder-decoder's frames as f32
+            b = {k: torch.from_numpy(v[live.rows]).to(device, torch.long if k != "enc" else None)
+                 for k, v in batch.items()}
             retraced, fresh_trace = fresh_trace, False
             chaos_hook = None
             stalled_s = 0.0
@@ -743,6 +748,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="qwen2.5-3b")
     ap.add_argument("--smoke", action="store_true", help="the arch's small config")
+    ap.add_argument("--layers", type=int, default=None, help="cut the depth to this")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--mode", default="hier", choices=list(MODES))
     ap.add_argument("--compression", default=None, choices=["bf16", "int8"])
@@ -814,7 +820,8 @@ def main(argv=None) -> None:
                   log_every=args.log_every, seed=args.seed, pods=args.pods,
                   device=device, plan=args.plan, skew=args.skew,
                   plan_cache=args.plan_cache, packed=not args.no_packed, tp=args.tp,
-                  sp=args.sp, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                  sp=args.sp, layers=args.layers, ckpt_dir=args.ckpt_dir,
+                  ckpt_every=args.ckpt_every,
                   resume=args.resume, watchdog_max_bad_steps=args.watchdog_max_bad_steps,
                   watchdog_spike_factor=args.watchdog_spike_factor,
                   watchdog_window=args.watchdog_window,

@@ -2,13 +2,22 @@
 
 Parameters, as in the JAX package, hold this rank's TP shard:
 ``wq (D, Hl*dh)``, ``wk/wv (D, Kl*dh)``, ``wo (Hl*dh, D)``, optional
-``bq/bk/bv``.  Q heads are padded to a multiple of the TP size; when
+``bq/bk/bv`` (never on a cross-attention block).  Q heads are padded to a
+multiple of the TP size; when
 there are fewer KV heads than TP ranks every rank holds all of them and
 gathers, per local Q head, the one it uses (replicated-KV GQA), and the
-cache keeps that gathered layout.  Prefill attention goes through
-the flash kernel (``kernels/ops.flash_attention``) with a plain integer
-offset; short prompts and decode use plain PyTorch, as the reference
-does.
+cache keeps that gathered layout.  With ``cfg.qk_norm`` (chameleon) q and
+k take the parameter-free per-head RMS norm before that gather.
+
+Masks: causal (the decoders), optional sliding window, or none: the
+whisper encoder's self-attention and every cross-attention, whose K/V
+come from the encoder's output (``x_cross``) and take no RoPE; the
+encoder's self-attention keeps RoPE, as in the reference.  A
+cross-attention cache holds the encoder's K/V, written once by the
+prefill and only read by decode.  Prefill attention (and the serving
+encoder's) goes through the flash kernel (``kernels/ops.flash_attention``)
+with a plain integer offset, causal or not, from ``FLASH_MIN_Q`` queries
+on; short prompts and decode use plain PyTorch, as the reference does.
 
 Training attention is plain PyTorch under autograd: the plain attention
 below ``CHUNKED_ATTN_MIN_KV`` keys, the chunked online softmax (each kv
@@ -57,9 +66,11 @@ class KVCache(NamedTuple):
         return KVCache(self.k[i], self.v[i], self.length[i])
 
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig, tp: int, dtype) -> dict:
+def init_attention(gen: torch.Generator, cfg: ModelConfig, tp: int, dtype,
+                   cross: bool = False) -> dict:
     """Attention params; q heads padded to a multiple of tp with the
-    phantom heads zeroed (as in the reference)."""
+    phantom heads zeroed (as in the reference).  A ``cross`` block has no
+    qkv bias."""
     D, dh = cfg.d_model, cfg.head_dim
     hp, kp = cfg.padded_heads(tp), cfg.padded_kv_heads(tp)
     wq = layers.init_dense(gen, D, hp * dh, dtype)
@@ -74,7 +85,7 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, tp: int, dtype) -> di
         wk[:, cfg.n_kv_heads * dh:] = 0
         wv[:, cfg.n_kv_heads * dh:] = 0
     p = {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         for name, width in (("bq", hp), ("bk", kp), ("bv", kp)):
             p[name] = torch.zeros((width * dh,), dtype=dtype, device=gen.device)
     return p
@@ -102,6 +113,8 @@ def _project_qkv(p, xq, xkv, cfg: ModelConfig, rt: Runtime):
     q = q.reshape(B, Sq, -1, dh)
     k = k.reshape(B, Skv, -1, dh)
     v = v.reshape(B, Skv, -1, dh)
+    if cfg.qk_norm:
+        q, k = layers.rms_norm_head(q), layers.rms_norm_head(k)
     if rt.tp_group is not None and cfg.kv_replicated(rt.tp):
         kv_map = _kv_map_for_local_q(cfg, rt).to(k.device)
         k, v = k.index_select(2, kv_map), v.index_select(2, kv_map)
@@ -173,16 +186,26 @@ def chunked_attention(q, k, v, *, causal: bool, window: int | None,
 
 
 def attention_train(p, x, cfg: ModelConfig, rt: Runtime, *,
-                    causal: bool = True, reduce: bool = True) -> torch.Tensor:
-    """Full-sequence self-attention for training, x: (B, S, D);
-    ``reduce=False`` returns the row-parallel partial sums."""
+                    causal: bool = True, x_cross: torch.Tensor | None = None,
+                    reduce: bool = True) -> torch.Tensor:
+    """Full-sequence attention for training and for the encoder, x: (B,
+    S, D); ``x_cross`` (B, Skv, D) makes it cross-attention over those
+    rows: no RoPE and no mask.  ``reduce=False`` returns the row-parallel
+    partial sums.  Under ``torch.inference_mode`` (the serving encoder)
+    the core is ``_attn_core``'s, the flash kernel's path, as the
+    reference's serving runtime takes its kernel there."""
     x = copy_to_tp(x, tp_entry_group(rt))
-    q, k, v = _project_qkv(p, x, x, cfg, rt)
+    xkv = x if x_cross is None else copy_to_tp(x_cross, tp_entry_group(rt))
+    q, k, v = _project_qkv(p, x, xkv, cfg, rt)
     B, S = x.shape[0], x.shape[1]
-    pos = torch.arange(S, device=x.device)[None, :]
-    q = layers.apply_rope(q, pos, cfg.rope_theta)
-    k = layers.apply_rope(k, pos, cfg.rope_theta)
-    if k.shape[1] >= CHUNKED_ATTN_MIN_KV:
+    if x_cross is None:
+        pos = torch.arange(S, device=x.device)[None, :]
+        q = layers.apply_rope(q, pos, cfg.rope_theta)
+        k = layers.apply_rope(k, pos, cfg.rope_theta)
+    causal = causal and x_cross is None
+    if torch.is_inference_mode_enabled():
+        out = _attn_core(q, k, v, cfg, causal)
+    elif k.shape[1] >= CHUNKED_ATTN_MIN_KV:
         out = chunked_attention(q, k, v, causal=causal, window=cfg.sliding_window)
     else:
         out = sdpa_reference(q, k, v, causal=causal, window=cfg.sliding_window)
@@ -190,20 +213,34 @@ def attention_train(p, x, cfg: ModelConfig, rt: Runtime, *,
     return reduce_from_tp(out, rt.tp_group) if reduce else out
 
 
-def _attn_core(q, k, v, cfg: ModelConfig) -> torch.Tensor:
-    """Causal attention of a prompt over itself (positions from 0)."""
+def _attn_core(q, k, v, cfg: ModelConfig, causal: bool = True) -> torch.Tensor:
+    """Attention of a prompt (positions from 0) over itself (``causal``)
+    or over every key (the serving encoder, cross-attention), without
+    autograd: the flash kernel from ``FLASH_MIN_Q`` queries on."""
     if q.shape[1] >= FLASH_MIN_Q:
-        return kops.flash_attention(q, k, v, causal=True,
+        return kops.flash_attention(q, k, v, causal=causal,
                                     window=cfg.sliding_window, q_offset=0)
-    return sdpa_reference(q, k, v, causal=True, window=cfg.sliding_window)
+    return sdpa_reference(q, k, v, causal=causal, window=cfg.sliding_window)
 
 
-def attention_prefill(p, x, cfg: ModelConfig, rt: Runtime, cache: KVCache):
+def attention_prefill(p, x, cfg: ModelConfig, rt: Runtime, cache: KVCache,
+                      x_cross: torch.Tensor | None = None):
     """Causal attention over the prompt; writes k/v into ``cache`` (a
-    fresh zero cache, written in place) and returns (out, cache)."""
+    fresh zero cache, written in place) and returns (out, cache).  With
+    ``x_cross`` (the encoder's output) it is cross-attention: no RoPE, no
+    mask, and ``cache`` (``make_cache(cross=True)``) takes the encoder's
+    K/V whole, its length the encoder's."""
     x = copy_to_tp(x, rt.tp_group)
-    q, k, v = _project_qkv(p, x, x, cfg, rt)
+    xkv = x if x_cross is None else copy_to_tp(x_cross, rt.tp_group)
+    q, k, v = _project_qkv(p, x, xkv, cfg, rt)
     B, S = x.shape[0], x.shape[1]
+    if x_cross is not None:
+        out = _attn_core(q, k, v, cfg, causal=False)
+        cache.k.copy_(k)
+        cache.v.copy_(v)
+        cache.length.fill_(k.shape[1])
+        out = out.reshape(B, S, -1) @ p["wo"]
+        return reduce_from_tp(out, rt.tp_group), cache
     pos = torch.arange(S, device=x.device)[None, :]
     q = layers.apply_rope(q, pos, cfg.rope_theta)
     k = layers.apply_rope(k, pos, cfg.rope_theta)
@@ -220,12 +257,23 @@ def attention_prefill(p, x, cfg: ModelConfig, rt: Runtime, cache: KVCache):
     return reduce_from_tp(out, rt.tp_group), cache
 
 
-def attention_decode(p, x, cfg: ModelConfig, rt: Runtime, cache: KVCache):
+def attention_decode(p, x, cfg: ModelConfig, rt: Runtime, cache: KVCache,
+                     cross: bool = False):
     """One-token decode step, x: (B, 1, D).  Writes slot length % W of
     ``cache`` (a ring for sliding-window caches) and advances its length,
-    in place; the position stays on the device (no host sync)."""
+    in place; the position stays on the device (no host sync).  A
+    ``cross`` cache is read only: attention over all of the encoder's K/V,
+    no RoPE, no mask."""
     x = copy_to_tp(x, rt.tp_group)
     q, k, v = _project_qkv(p, x, x, cfg, rt)
+    B = x.shape[0]
+    if cross:
+        # the reference masks keys from cache.length on; a cross cache is
+        # always full (its length is its window), so nothing is masked
+        out = sdpa_reference(q, cache.k.to(q.dtype), cache.v.to(q.dtype), causal=False,
+                             window=None)
+        out = out.reshape(B, 1, -1) @ p["wo"]
+        return reduce_from_tp(out, rt.tp_group), cache
     pos = cache.length.long()                 # () global position
     q = layers.apply_rope(q, pos.view(1, 1), cfg.rope_theta)
     k = layers.apply_rope(k, pos.view(1, 1), cfg.rope_theta)
@@ -250,22 +298,26 @@ def attention_decode(p, x, cfg: ModelConfig, rt: Runtime, cache: KVCache):
     out = torch.einsum("bhqk,bkhd->bqhd", probs, _repeat_kv(cache.v, rep).float())
     out = out.to(x.dtype)
     cache.length.add_(1)
-    B = x.shape[0]
     out = out.reshape(B, 1, -1) @ p["wo"]
     return reduce_from_tp(out, rt.tp_group), cache
 
 
 def make_cache(cfg: ModelConfig, n_layers: int, batch: int, tp: int,
-               seq_len: int, dtype, device) -> KVCache:
+               seq_len: int, dtype, device, cross: bool = False,
+               enc_seq: int = 0) -> KVCache:
     """An empty KV cache, stacked over layers: (L, B, W, kl, dh) for k and
     v and (L,) for the length, the layout the transfer moves.  kl is the
     local KV shard, or with replicated KV the local Q heads (the gathered
-    layout)."""
+    layout).  W is ``seq_len`` (at most the window), or ``enc_seq`` for a
+    ``cross`` cache."""
     if cfg.kv_replicated(tp):
         kl = cfg.local_q_heads(tp)
     else:
         kl = max(1, cfg.padded_kv_heads(tp) // max(1, tp))
-    W = seq_len if cfg.sliding_window is None else min(cfg.sliding_window, seq_len)
+    if cross:
+        W = enc_seq
+    else:
+        W = seq_len if cfg.sliding_window is None else min(cfg.sliding_window, seq_len)
     shape = (n_layers, batch, W, kl, cfg.head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device),

@@ -1,4 +1,5 @@
-"""Shared neural building blocks: norms, RoPE, embedding, LM head, SwiGLU.
+"""Shared neural building blocks: norms, QK-norm, RoPE, embedding, LM
+head, SwiGLU.
 
 Parameters are plain dicts of tensors at init (the JAX package's param
 pytree, leaf for leaf) and ``nn.ParameterDict``s once a ``Model`` holds
@@ -51,6 +52,14 @@ def apply_norm(p, x: torch.Tensor, kind: str, eps: float = 1e-5) -> torch.Tensor
         if kind == "ln":
             out = out * p["scale"].float() + p["bias"].float()
     return out.to(x.dtype)
+
+
+def rms_norm_head(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Parameter-free RMS norm over the last axis (chameleon's QK-norm, per
+    head), in f32 and cast back."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

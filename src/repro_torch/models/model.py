@@ -3,14 +3,18 @@
 ``Model`` is an ``nn.Module`` whose parameters mirror the JAX package's
 param pytree: ``embed``, ``layers`` (one ``ModuleDict`` per layer where
 the reference stacks a leading (L, ...) axis), ``final_norm`` and, when
-embeddings are not tied, ``lm_head``.  ``init(seed)`` draws them from a
+embeddings are not tied, ``lm_head``; an encoder-decoder model adds
+``enc_layers`` (stacked as ``layers`` are), ``enc_norm`` and the learned
+decoder positions ``pos_emb`` (max_seq, d_model).  ``init(seed)`` draws them from a
 ``torch.Generator`` on the model's device; ``convert.params_from_jax``
 loads the reference's arrays instead.  Caches are stacked per leaf, as
 in the reference, so the transfer cuts the same int8 blocks: a
 ``KVCache`` of (L, B, W, kl, dh) k and v for the dense and MoE families, an
 ``SSMState`` of (L, B, W-1, ch) conv and (L, B, h, p, n) ssm leaves for
-the SSM family, each with an (L,) length, and for the hybrid family a
-``HybridCache`` of both (the reference's (kv, ssm) pair).
+the SSM family, each with an (L,) length, for the hybrid family a
+``HybridCache`` of both (the reference's (kv, ssm) pair), and for the
+encoder-decoder family an ``EncDecCache`` of the decoder's self-attention
+``KVCache`` and its cross-attention ``KVCache`` of the encoder's K/V.
 
 Tensor parallelism (``rt.tp_group``): each rank keeps its slice of every
 global parameter along the dim the reference's rules (``param_specs``)
@@ -45,6 +49,22 @@ class HybridCache(NamedTuple):
     def layer(self, i: int) -> "HybridCache":
         """Views of layer ``i`` of both parts."""
         return HybridCache(self.kv.layer(i), self.ssm.layer(i))
+
+
+class EncDecCache(NamedTuple):
+    """An encoder-decoder model's cache: the self-attention ``KVCache``
+    and the cross-attention ``KVCache`` (the encoder's K/V, window and
+    length ``enc_seq``), each stacked over the decoder layers."""
+    kv: attention.KVCache
+    cross: attention.KVCache
+
+    def layer(self, i: int) -> "EncDecCache":
+        """Views of layer ``i`` of both parts."""
+        return EncDecCache(self.kv.layer(i), self.cross.layer(i))
+
+
+# the stacked per-layer subtrees of the param tree
+STACKED = ("enc_layers", "layers")
 
 
 def resolve_device(device) -> torch.device:
@@ -134,9 +154,9 @@ def param_specs(params: dict, cfg: ModelConfig, tp: int = 1, fsdp: int = 1) -> d
     replicated."""
     specs = {}
     for key in sorted(params):
-        if key == "layers":
-            n = len(params["layers"])
-            for path, t in _paths(params["layers"][0], ("layers",)):
+        if key in STACKED:
+            n = len(params[key])
+            for path, t in _paths(params[key][0], (key,)):
                 specs[path] = _spec_for(path, (n,) + tuple(t.shape), cfg, tp, fsdp, True)
         elif isinstance(params[key], torch.Tensor):
             specs[(key,)] = _spec_for((key,), tuple(params[key].shape), cfg, tp, 1, False)
@@ -213,16 +233,27 @@ class Model(nn.Module):
         shards.  The vocabulary is drawn at its TP-1 padding and padded
         with zero rows to this TP size's (``pad_vocab``), so a seed gives
         the same function at every TP size; a TP size whose heads need
-        padding raises."""
+        padding raises.  Each leaf is drawn on the model's device in f32
+        and cast at once, so the tree is held once, in ``cfg.dtype``, plus
+        one leaf's f32 draw (chameleon-34b: 68.59 GB of bf16 leaves)."""
         cfg, tp, dtype = self.cfg, self.tp, self.cfg.dtype
         gen = torch.Generator(device=self.init_device)
         gen.manual_seed(seed)
+        cross = cfg.n_enc_layers > 0
         params = {"embed": layers.init_embedding(gen, cfg.padded_vocab(1),
                                                  cfg.d_model, dtype),
-                  "layers": [transformer.init_layer(gen, cfg, tp, dtype)
+                  "layers": [transformer.init_layer(gen, cfg, tp, dtype, cross=cross)
                              for _ in range(cfg.n_layers)],
                   "final_norm": layers.init_norm(cfg.norm, cfg.d_model, dtype,
                                                  self.init_device)}
+        if cross:
+            params["enc_layers"] = [transformer.init_encoder_layer(gen, cfg, tp, dtype)
+                                    for _ in range(cfg.n_enc_layers)]
+            params["enc_norm"] = layers.init_norm(cfg.norm, cfg.d_model, dtype,
+                                                  self.init_device)
+            params["pos_emb"] = (torch.randn((cfg.max_seq, cfg.d_model), generator=gen,
+                                             dtype=torch.float32, device=self.init_device)
+                                 * 0.01).to(dtype)
         if not cfg.tie_embeddings:
             params["lm_head"] = layers.init_embedding(
                 gen, cfg.padded_vocab(1), cfg.d_model, dtype)
@@ -234,10 +265,11 @@ class Model(nn.Module):
         parameters: each rank keeps its TP slice and, with FSDP, its FSDP
         slice of that."""
         self._specs = param_specs(params, self.cfg, self.tp, self.fsdp)
-        # the local gather dim of each layer leaf (its leading L consumed)
-        dims = {path[1:]: spec.index("data") - 1 if "data" in spec else -1
-                for path, spec in self._specs.items() if path[0] == "layers"}
-        self._fdims = _nested(dims)
+        # the local gather dim of each layer leaf (its leading L consumed),
+        # per stacked subtree
+        self._fdims = {key: _nested({path[1:]: spec.index("data") - 1 if "data" in spec else -1
+                                     for path, spec in self._specs.items() if path[0] == key})
+                       for key in STACKED if key in params}
         ranks = {"model": (self.tp, self.rt.tp_rank),
                  "data": (self.fsdp, dist.get_rank(self.rt.fsdp_group) if self.fsdp > 1 else 0)}
 
@@ -253,14 +285,15 @@ class Model(nn.Module):
                 return local(self._specs[prefix], node, stacked)
             return {k: tree(v, prefix + (k,), stacked) for k, v in node.items()}
 
-        self.embed = nn.Parameter(tree(params["embed"], ("embed",), False),
-                                  requires_grad=False)
-        self.layers = nn.ModuleList(_to_module(tree(lp, ("layers",), True))
-                                    for lp in params["layers"])
-        self.final_norm = _to_module(tree(params["final_norm"], ("final_norm",), False))
-        if "lm_head" in params:
-            self.lm_head = nn.Parameter(tree(params["lm_head"], ("lm_head",), False),
-                                        requires_grad=False)
+        for key, value in params.items():
+            if key in STACKED:
+                setattr(self, key, nn.ModuleList(_to_module(tree(lp, (key,), True))
+                                                 for lp in value))
+            elif isinstance(value, torch.Tensor):
+                setattr(self, key, nn.Parameter(tree(value, (key,), False),
+                                                requires_grad=False))
+            else:
+                setattr(self, key, _to_module(tree(value, (key,), False)))
         return self
 
     @property
@@ -270,30 +303,40 @@ class Model(nn.Module):
     def _head(self) -> torch.Tensor:
         return self.embed if self.cfg.tie_embeddings else self.lm_head
 
+    def _top(self) -> dict:
+        """The top-level parameters by the reference's keys, sorted: a
+        tensor, a module of tensors, or (a stacked subtree) the list of
+        per-layer modules."""
+        top = {"embed": self.embed, "final_norm": self.final_norm, "layers": self.layers}
+        if not self.cfg.tie_embeddings:
+            top["lm_head"] = self.lm_head
+        if self.cfg.n_enc_layers > 0:
+            top.update(enc_layers=self.enc_layers, enc_norm=self.enc_norm,
+                       pos_emb=self.pos_emb)
+        return dict(sorted(top.items()))
+
     def param_tree(self) -> dict:
         """The parameters as the reference's param dict, keys sorted:
-        ``layers`` is the list of per-layer dicts (this rank's shards
-        under FSDP)."""
+        ``layers`` (and ``enc_layers``) the list of per-layer dicts (this
+        rank's shards under FSDP)."""
         def tree(m):
             return {k: v if isinstance(v, torch.Tensor) else tree(v) for k, v in m.items()}
 
-        top = {"embed": self.embed, "final_norm": tree(self.final_norm),
-               "layers": [tree(lp) for lp in self.layers]}
-        if not self.cfg.tie_embeddings:
-            top["lm_head"] = self.lm_head
-        return dict(sorted(top.items()))
+        return {k: v if isinstance(v, torch.Tensor) else
+                [tree(lp) for lp in v] if k in STACKED else tree(v)
+                for k, v in self._top().items()}
 
     def param_specs(self) -> dict[tuple, tuple]:
         """``param_specs`` of the global parameters this model was given."""
         return self._specs
 
-    def fsdp_dims(self) -> dict:
-        """Each layer leaf's local gather dim (-1: replicated), nested as
-        one layer's param dict."""
-        return self._fdims
+    def fsdp_dims(self, key: str = "layers") -> dict:
+        """Each leaf's local gather dim (-1: replicated) of the stacked
+        subtree ``key``, nested as one layer's param dict."""
+        return self._fdims[key]
 
     def _gathered(self, lp):
-        """One layer's parameters, FSDP shards gathered."""
+        """One decoder layer's parameters, FSDP shards gathered."""
         return fsdp_gather(lp, self.fsdp_dims(), self.rt.fsdp_group) if self.fsdp > 1 else lp
 
     # -------------------------------------------------------- training --
@@ -311,13 +354,11 @@ class Model(nn.Module):
                 else:
                     yield from walk(v)
 
-        top = {"embed": self.embed, "final_norm": self.final_norm, "layers": None}
-        if not self.cfg.tie_embeddings:
-            top["lm_head"] = self.lm_head
+        top = self._top()
         leaves: list = []
-        for key in sorted(top):
-            if key == "layers":
-                per_layer = [list(walk(lp)) for lp in self.layers]
+        for key in top:
+            if key in STACKED:
+                per_layer = [list(walk(lp)) for lp in top[key]]
                 leaves.extend(list(ts) for ts in zip(*per_layer))
             elif isinstance(top[key], torch.Tensor):
                 leaves.append(top[key])
@@ -325,17 +366,51 @@ class Model(nn.Module):
                 leaves.extend(walk(top[key]))
         return leaves
 
-    def apply_train(self, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def _embed_in(self, tokens: torch.Tensor, pos: torch.Tensor | None = None) -> torch.Tensor:
+        """The token embedding; an encoder-decoder model adds its learned
+        position rows (from 0, or at ``pos``, a (1,) device tensor, for one
+        decode token)."""
+        x = layers.embed_lookup(self.embed, tokens, self.rt)
+        if self.cfg.n_enc_layers > 0:
+            rows = (self.pos_emb[:tokens.shape[1]] if pos is None
+                    else self.pos_emb.index_select(0, pos))
+            x = x + rows[None].to(x.dtype)
+        return x
+
+    def _encode(self, enc_input: torch.Tensor) -> torch.Tensor:
+        """The encoder over the stub frontend's frame embeddings (B,
+        S_enc, D): sinusoidal positions added in ``cfg.dtype``, the
+        encoder stack, its final norm.  Every rank holds the whole
+        sequence, under sequence parallelism too (ROADMAP R22)."""
+        cfg = self.cfg
+        posf = _sinusoidal(enc_input.shape[1], cfg.d_model, enc_input.device)
+        x = enc_input.to(cfg.dtype) + posf.to(cfg.dtype)[None]
+        x = transformer.encoder_stack(self.enc_layers, x, cfg, self.rt,
+                                      self.fsdp_dims("enc_layers") if self.fsdp > 1 else None)
+        return layers.apply_norm(self.enc_norm, x, cfg.norm)
+
+    def _check_enc(self, enc_input) -> None:
+        if (enc_input is not None) != (self.cfg.n_enc_layers > 0):
+            raise ValueError(f"{self.cfg.name}: encoder input "
+                             f"{'missing' if enc_input is None else 'given'}")
+
+    def apply_train(self, tokens: torch.Tensor, enc_input: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
         """tokens (B, S) -> (vocab-sharded logits (B, S, Vl) f32, the MoE
         aux loss summed over the layers, f32), differentiable in the
-        parameters, for every ported family (an SSM by its plain path)."""
+        parameters, for every ported family (an SSM by its plain path);
+        an encoder-decoder model takes the frame embeddings ``enc_input``
+        (B, S_enc, D)."""
         cfg, rt = self.cfg, self.rt
+        self._check_enc(enc_input)
         sp = rt.sp and rt.tp_group is not None
-        x = layers.embed_lookup(self.embed, tokens, rt)
+        x = self._embed_in(tokens)
+        enc_out = None if enc_input is None else self._encode(enc_input)
         if sp:
             x = transformer.scatter_from_full(x, rt)
         x, aux = transformer.decoder_stack(self.layers, x, cfg, rt,
-                                           self.fsdp_dims() if self.fsdp > 1 else None)
+                                           self.fsdp_dims() if self.fsdp > 1 else None,
+                                           enc_out=enc_out)
         x = layers.apply_norm(self.final_norm, x, cfg.norm)
         if sp:
             x = gather_sp(x, rt.tp_group)
@@ -343,11 +418,12 @@ class Model(nn.Module):
 
     # --------------------------------------------------------- serving --
 
-    def make_caches(self, batch: int, seq_len: int):
+    def make_caches(self, batch: int, seq_len: int, enc_seq: int = 0):
         """Empty caches stacked over layers: a ``KVCache`` of ``seq_len``
         slots (at most the sliding window), for the SSM family an
         ``SSMState`` (no length to size), for the hybrid family a
-        ``HybridCache`` of both."""
+        ``HybridCache`` of both, for the encoder-decoder family an
+        ``EncDecCache`` whose cross cache has ``enc_seq`` slots."""
         cfg = self.cfg
         if cfg.family == "ssm":
             return ssm.make_ssm_state(cfg, cfg.n_layers, batch, self.tp, self.device)
@@ -356,10 +432,17 @@ class Model(nn.Module):
         if cfg.parallel_ssm:
             return HybridCache(kv, ssm.make_ssm_state(cfg, cfg.n_layers, batch, self.tp,
                                                       self.device))
+        if cfg.n_enc_layers > 0:
+            return EncDecCache(kv, attention.make_cache(
+                cfg, cfg.n_layers, batch, self.tp, seq_len, cfg.dtype, self.device,
+                cross=True, enc_seq=enc_seq))
         return kv
 
-    def _layer_prefill(self, lp, x: torch.Tensor, cache) -> torch.Tensor:
-        """One layer over the prompt; writes the layer's cache views."""
+    def _layer_prefill(self, lp, x: torch.Tensor, cache,
+                       enc_out: torch.Tensor | None = None) -> torch.Tensor:
+        """One layer over the prompt; writes the layer's cache views.  With
+        ``enc_out`` the cross-attention sublayer follows the self-attention
+        and writes the cross cache."""
         cfg, rt = self.cfg, self.rt
         lp = self._gathered(lp)
         if cfg.family == "ssm":
@@ -369,6 +452,13 @@ class Model(nn.Module):
         if cfg.parallel_ssm:      # one norm feeds attention and the SSM heads
             a, _ = attention.attention_prefill(lp["attn"], h, cfg, rt, cache.kv)
             x = x + (a + _ssm_prefill(lp, h, cfg, rt, cache.ssm)) * 0.5
+        elif enc_out is not None:
+            a, _ = attention.attention_prefill(lp["attn"], h, cfg, rt, cache.kv)
+            x = x + a
+            h = layers.apply_norm(lp["norm_cross"], x, cfg.norm)
+            c, _ = attention.attention_prefill(lp["cross"], h, cfg, rt, cache.cross,
+                                               x_cross=enc_out)
+            x = x + c
         else:
             a, _ = attention.attention_prefill(lp["attn"], h, cfg, rt, cache)
             x = x + a
@@ -387,6 +477,13 @@ class Model(nn.Module):
             a, _ = attention.attention_decode(lp["attn"], h, cfg, rt, cache.kv)
             s, _ = ssm.apply_ssm_decode(lp["ssm"], h, cfg, rt, cache.ssm)
             x = x + (a + s) * 0.5
+        elif isinstance(cache, EncDecCache):
+            a, _ = attention.attention_decode(lp["attn"], h, cfg, rt, cache.kv)
+            x = x + a
+            h = layers.apply_norm(lp["norm_cross"], x, cfg.norm)
+            c, _ = attention.attention_decode(lp["cross"], h, cfg, rt, cache.cross,
+                                              cross=True)
+            x = x + c
         else:
             a, _ = attention.attention_decode(lp["attn"], h, cfg, rt, cache)
             x = x + a
@@ -394,22 +491,31 @@ class Model(nn.Module):
 
     def _ffn(self, lp, h: torch.Tensor) -> torch.Tensor:
         """The feed-forward sublayer of serving: the MoE layer (its aux loss
-        dropped) or the MLP."""
+        dropped) or the MLP (GELU for the encoder-decoder family)."""
         if self.cfg.family == "moe":
             return moe.apply_moe(lp["moe"], h, self.cfg, self.rt)[0]
+        if transformer._mlp_kind(self.cfg) == "gelu":
+            return transformer.apply_gelu_mlp(lp["mlp"], h, self.rt)
         return layers.apply_mlp(lp["mlp"], h, self.rt)
 
     @torch.inference_mode()
-    def apply_prefill(self, tokens: torch.Tensor, max_len: int | None = None):
+    def apply_prefill(self, tokens: torch.Tensor, enc_input: torch.Tensor | None = None,
+                      max_len: int | None = None):
         """tokens (B, S) -> (last-token vocab-sharded logits (B, 1, Vl) f32,
-        caches).
+        caches); an encoder-decoder model takes the frame embeddings
+        ``enc_input`` (B, S_enc, D) and runs its encoder first.
         ``max_len`` sizes the KV cache (>= S) to leave decode headroom."""
         cfg, rt = self.cfg, self.rt
+        self._check_enc(enc_input)
         B, S = tokens.shape
-        caches = self.make_caches(B, max_len or S)
-        x = layers.embed_lookup(self.embed, tokens, rt)
+        x = self._embed_in(tokens)
+        enc_out = None
+        if enc_input is not None:
+            enc_out = self._encode(enc_input)
+        caches = self.make_caches(B, max_len or S,
+                                  0 if enc_out is None else enc_out.shape[1])
         for i, lp in enumerate(self.layers):
-            x = self._layer_prefill(lp, x, caches.layer(i))
+            x = self._layer_prefill(lp, x, caches.layer(i), enc_out)
         x = layers.apply_norm(self.final_norm, x[:, -1:], cfg.norm)
         return layers.lm_head_logits(x, self._head(), rt), caches
 
@@ -418,11 +524,23 @@ class Model(nn.Module):
         """One decode step, token (B, 1) -> (logits (B, 1, Vl) f32, caches);
         ``caches`` is updated in place and returned."""
         cfg, rt = self.cfg, self.rt
-        x = layers.embed_lookup(self.embed, token, rt)
+        # an encoder-decoder model's position: its self-attention cache's
+        # length, read on the device
+        x = self._embed_in(token, caches.kv.length[:1].long()
+                           if isinstance(caches, EncDecCache) else None)
         for i, lp in enumerate(self.layers):
             x = self._layer_decode(lp, x, caches.layer(i))
         x = layers.apply_norm(self.final_norm, x, cfg.norm)
         return layers.lm_head_logits(x, self._head(), rt), caches
+
+
+def _sinusoidal(S: int, d: int, device) -> torch.Tensor:
+    """The encoder's sinusoidal positions (S, d) f32: [sin | cos] of
+    pos / 10000^(2i/d), computed in f64 as the reference's numpy does."""
+    pos = torch.arange(S, dtype=torch.float64)[:, None]
+    i = torch.arange(d // 2, dtype=torch.float64)[None, :]
+    ang = pos / torch.pow(10000.0, 2 * i / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(device, torch.float32)
 
 
 def _ssm_prefill(lp, h: torch.Tensor, cfg: ModelConfig, rt: Runtime, state) -> torch.Tensor:

@@ -3,8 +3,11 @@
 Prefill a batch of prompts, move the cache to the decode side through
 ``kv_transfer_body`` (raw, and int8 on the wire), then decode greedily
 from the moved caches and from the original one.  The cache is the KV
-cache of a dense or MoE model, the conv and SSM state of a Mamba2
-model, or both for a Hymba model.  The
+cache of a dense, MoE or VLM model, the conv and SSM state of a Mamba2
+model, both for a Hymba model, or the self- and cross-attention KV
+caches of a whisper model, whose encoder first reads the stub audio
+frontend's frame embeddings (``enc_seq`` frames per request, drawn from
+the seed).  The
 raw transfer must reproduce same-side generation token for token; the
 int8 transfer reports its token agreement.  Weights are random, drawn
 from ``--seed``.
@@ -20,6 +23,8 @@ moves and decodes its own shard of the cache, and prints its own line.
     python -m repro_torch.serve.disaggregated --arch mamba2-2.7b
     python -m repro_torch.serve.disaggregated --arch hymba-1.5b --prompt-len 2048
     python -m repro_torch.serve.disaggregated --arch qwen3-moe-30b-a3b
+    python -m repro_torch.serve.disaggregated --arch whisper-tiny
+    python -m repro_torch.serve.disaggregated --arch chameleon-34b     # on an empty card
     python -m repro_torch.serve.disaggregated --smoke --device cpu
     RANK=r WORLD_SIZE=2 MASTER_ADDR=localhost MASTER_PORT=29500 \
         python -m repro_torch.serve.disaggregated --tp 2      # or --arch mamba2-2.7b --tp 2
@@ -103,20 +108,23 @@ def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, batch: int = 4,
     gen_tok = torch.Generator(device="cpu").manual_seed(seed + 1)
     prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                            generator=gen_tok).to(device)
+    # the stub audio frontend's frame embeddings (B, enc_seq, d_model)
+    frames = (torch.randn((batch, cfg.enc_seq, cfg.d_model), generator=gen_tok).to(device)
+              if cfg.n_enc_layers else None)
     prefill, decode = make_serve_steps(model)
     transfer = make_kv_transfer(model)
     transfer_q = make_kv_transfer(model, compress="int8")
 
     phase = _PhaseLaunches()
     # warm-up: ``prefill`` in its two halves, to keep the logits
-    logits, caches = phase("prefill", model.apply_prefill, prompt)
+    logits, caches = phase("prefill", model.apply_prefill, prompt, frames)
     phase("prefill", sharded_argmax, logits, model.rt, cfg.vocab_size)
     phase("int8_transfer", transfer_q, caches)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     _sync(device)
     t0 = time.perf_counter()
-    tok, caches = phase("prefill", prefill, prompt)
+    tok, caches = phase("prefill", prefill, prompt, frames)
     _sync(device)
     ttft_s = time.perf_counter() - t0
 

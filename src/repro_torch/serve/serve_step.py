@@ -4,9 +4,10 @@ The paper's §6.2.2 scenario: prefill on one cluster, decode on another,
 with the cache crossing between them through the HetCCL SendRecv
 (``kv_transfer_body``: a shift over the pod group, optionally with int8
 on the wire) instead of forwarding through the hosts.  The cache is a
-``KVCache`` (dense family), an ``SSMState`` (Mamba2) or a
-``HybridCache`` of both (Hymba); the transfer moves every leaf of any of
-them.  Under tensor parallelism each rank holds its shard of the cache,
+``KVCache`` (dense, MoE and VLM families), an ``SSMState`` (Mamba2), a
+``HybridCache`` of both (Hymba) or an ``EncDecCache`` of the self- and
+cross-attention caches (whisper); the transfer moves every leaf of any of
+them, the cross cache's k and v as int8 like the others.  Under tensor parallelism each rank holds its shard of the cache,
 the reference's ``cache_specs`` shard: its local KV heads, its conv
 state's [local x channels, replicated B/C channels] and its local SSM
 heads; it moves that shard over its own pod group.  The next token is
@@ -27,7 +28,8 @@ from repro_torch.train.loss import sharded_argmax
 
 def make_serve_steps(model: Model):
     """Returns (prefill, decode):
-    ``prefill(tokens (B, S)) -> (next token (B, 1), caches)`` and
+    ``prefill(tokens (B, S), enc=None) -> (next token (B, 1), caches)``
+    (``enc``: an encoder-decoder model's frame embeddings) and
     ``decode(token (B, 1), caches) -> (next token (B, 1), caches)``,
     decode updating ``caches`` in place.
 
@@ -37,8 +39,8 @@ def make_serve_steps(model: Model):
     ``pos % S`` over the oldest prompt token."""
     rt, vocab = model.rt, model.cfg.vocab_size
 
-    def prefill(tokens):
-        logits, caches = model.apply_prefill(tokens)
+    def prefill(tokens, enc=None):
+        logits, caches = model.apply_prefill(tokens, enc)
         return sharded_argmax(logits, rt, vocab), caches
 
     def decode(token, caches):

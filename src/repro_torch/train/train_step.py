@@ -65,7 +65,7 @@ from repro_torch.core.collectives import CommConfig
 from repro_torch.core.planner import BoundPlan
 from repro_torch.core.schedule import STRUCTURAL_MODES, build_schedule
 from repro_torch.kernels import quant as _qk
-from repro_torch.models.model import Model
+from repro_torch.models.model import STACKED, Model
 from repro_torch.parallel.sharding import Runtime, group_size
 from repro_torch.runtime import tree as tree_lib
 from . import loss as loss_lib
@@ -218,7 +218,8 @@ def make_train_step(model: Model, tcfg: TrainConfig):
     data-parallel group the ``ZeroState`` of ``zero_bootstrap``.
     ``step_fn(opt_state, batch)`` takes
     this rank's ``{"tokens", "labels"}`` (B, S) tensors on the model's
-    device, runs forward, backward, gradient sync and the update in
+    device (and an encoder-decoder model's ``enc`` frames, (B, S_enc,
+    D)), runs forward, backward, gradient sync and the update in
     place, and returns the metrics synced over the data-parallel group
     as Python numbers: loss (the cross-entropy plus ``aux_weight`` times the
     MoE aux loss), grad_norm, aux, mean_logp and ``gated`` (the
@@ -233,6 +234,13 @@ def make_train_step(model: Model, tcfg: TrainConfig):
     # hier_overlap syncs each bucket inside the backward; without a
     # data-parallel group it is the plain step too
     overlapped = tcfg.comm_mode == "hier_overlap" and rt.dp_group is not None
+    if overlapped and rt.sp and rt.tp > 1 and model.cfg.family == "encdec":
+        # the GELU MLP's b2 is no input of the loss under sequence parallelism
+        # (R22): its gradient never arrives, so its bucket would never sync
+        raise NotImplementedError(
+            f"{model.cfg.name} with sequence parallelism under hier_overlap: a parameter "
+            f"the loss does not read never fills its bucket; the encoder-decoder family "
+            f"trains with sequence parallelism under the modes that sync after the backward")
     fsdp = tcfg.comm_mode == "fsdp"
     hop = tcfg.manual_config(rt) if fsdp else None
 
@@ -254,7 +262,7 @@ def make_train_step(model: Model, tcfg: TrainConfig):
                    if overlapped else None)
         specs = list(model.param_specs().values())
         with torch.enable_grad():
-            logits, aux = model.apply_train(batch["tokens"])
+            logits, aux = model.apply_train(batch["tokens"], batch.get("enc"))
             lval, metrics = loss_lib.sharded_xent(logits, batch["labels"], rt,
                                                   model.cfg.vocab_size, tcfg.z_loss)
             del logits
@@ -264,7 +272,11 @@ def make_train_step(model: Model, tcfg: TrainConfig):
                 with overlap.attached():
                     grads = list(torch.autograd.grad(lval, params))
             else:
-                grads = _regroup(torch.autograd.grad(lval, params), leaves)
+                # a parameter the loss does not read (the GELU MLP's b2 under
+                # sequence parallelism, R22) takes a zero gradient, as jax.grad
+                # gives it
+                grads = _regroup(torch.autograd.grad(lval, params, materialize_grads=True),
+                                 leaves)
 
         # ---- gradient synchronization: the paper's technique -------------
         # (the record_function ranges name the phases in a profile)
@@ -538,10 +550,13 @@ def load_state(model: Model, state: tuple[dict, Any], tcfg: TrainConfig,
         dev = model.init_device
         tree = {k: (v.to(dev, copy=True) if isinstance(v, torch.Tensor) else
                     _nest({q: t.to(dev, copy=True) for q, t in _by_path(v).items()}))
-                for k, v in params.items() if k != "layers"}
-        layers = _by_path(params["layers"])
-        tree["layers"] = [_nest({q: t[i].to(dev, copy=True) for q, t in layers.items()})
-                          for i in range(model.cfg.n_layers)]
+                for k, v in params.items() if k not in STACKED}
+        for key in STACKED:
+            if key in params:
+                stacked = _by_path(params[key])
+                n = next(iter(stacked.values())).shape[0]
+                tree[key] = [_nest({q: t[i].to(dev, copy=True) for q, t in stacked.items()})
+                             for i in range(n)]
         model.set_params(tree)
     if opt is None:
         return None

@@ -394,6 +394,33 @@ def test_flash_attention_vs_plain(cuda, case):
         assert (got.float() - want.float()).abs().max().item() < tol, kw
 
 
+@pytest.mark.parametrize("Sq, causal", [(1500, False), (1024, False), (1024, True)])
+def test_flash_attention_at_the_whisper_shapes(cuda, Sq, causal):
+    """whisper-tiny's serving shapes: the encoder (1500 x 1500, no mask),
+    the cross-attention prefill (1024 queries over 1500 encoder keys, no
+    mask; 1500 = 23 x 64 + 28 keys, ragged) and the decoder's causal 1024;
+    4 requests, 6 heads of 64, through the (B, S, H, dh) views that
+    ``ops.flash_attention`` passes."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    Skv = 1500 if Sq == 1500 or not causal else Sq
+    q = torch.randn(4, Sq, 6, 64, device=cuda, generator=g).bfloat16()
+    k = torch.randn(4, Skv, 6, 64, device=cuda, generator=g).bfloat16()
+    v = torch.randn(4, Skv, 6, 64, device=cuda, generator=g).bfloat16()
+    before = tfa.flash_attention_bhsd.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = tfa.flash_attention_bhsd_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                          v.transpose(1, 2), causal=causal).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bhsd.launches == before + 1
+    # each output is a mean over ~Skv / e keys, about 0.04 across: the
+    # bound is 3e-2 of the output's largest magnitude
+    tol = 3e-2 * min(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() < tol
+    if not causal:      # the bound sees a kernel that drops the 28-key tail
+        lost = ops.flash_attention(q, k[:, :1472], v[:, :1472], causal=False)
+        assert (lost.float() - want.float()).abs().max().item() > tol
+
+
 def test_flash_attention_strided_views(cuda):
     """(B, S, H, dh) tensors through head-major views, as ops passes them."""
     q = torch.randn(2, 200, 8, 64, device=cuda)
@@ -579,6 +606,26 @@ def test_smoke_model_on_card_matches_cpu(cuda):
     lc, cc = cpu.apply_prefill(toks)
     lg, cg = gpu.apply_prefill(toks.to(cuda))
     assert ops.launch_counts()["flash_attention_bhsd"] == before + cfg.n_layers
+    assert (lg.cpu() - lc).abs().max().item() < 1e-3
+    assert torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1))
+
+
+def test_smoke_encdec_model_on_card_matches_cpu(cuda):
+    """The f32 smoke whisper with 130 frames: the encoder's self-attention,
+    the decoder's and its cross-attention each launch flash once per layer
+    in the prefill; logits within 1e-3 of the CPU's, tokens equal."""
+    cfg = get_config("whisper-tiny", smoke=True)
+    cfg = type(cfg)(**{**cfg.__dict__, "dtype": torch.float32})
+    cpu = Model(cfg, device="cpu").init(0)
+    gpu = copy.deepcopy(cpu).to(cuda)
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 130), generator=gen)
+    frames = torch.randn(2, 130, cfg.d_model, generator=gen)
+    before = ops.launch_counts()["flash_attention_bhsd"]
+    lc, _ = cpu.apply_prefill(toks, frames)
+    lg, _ = gpu.apply_prefill(toks.to(cuda), frames.to(cuda))
+    assert (ops.launch_counts()["flash_attention_bhsd"]
+            == before + cfg.n_enc_layers + 2 * cfg.n_layers)
     assert (lg.cpu() - lc).abs().max().item() < 1e-3
     assert torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1))
 

@@ -103,14 +103,3 @@ def test_init_is_seeded_and_shaped():
     bias = cfg.n_layers * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
     norms = (2 * cfg.n_layers + 1) * cfg.d_model
     assert n == cfg.param_count() + bias + norms
-
-
-@pytest.mark.parametrize("what, build", [
-    ("whisper-tiny (encdec)", lambda: Model(get_config("whisper-tiny", smoke=True),
-                                            device="cpu")),
-    ("chameleon-34b (vlm)", lambda: Model(get_config("chameleon-34b", smoke=True),
-                                          device="cpu")),
-])
-def test_families_not_ported_raise(what, build):
-    with pytest.raises(NotImplementedError):
-        build()
