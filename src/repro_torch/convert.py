@@ -11,9 +11,10 @@ every global array (``Model.set_params``): its TP shard over
 ``rt.fsdp_group``, the reference's addressable shard of the array under
 ``NamedSharding(mesh, model.param_specs(...))``; an MoE layer's expert banks
 split on the expert dim under ``ep`` and on d_ff under ``etp``, and its f32
-router stays whole.  ``models.model.pad_vocab``
-turns a tree drawn at TP 1 into the tree of a larger TP size that
-computes the same function.
+router stays whole.  Where the heads pad at the TP size, the tree
+holds them at the padded shapes (the reference's ``init`` at that TP
+size); elsewhere ``models.model.pad_vocab`` turns a tree drawn at TP 1
+into the tree of a larger TP size that computes the same function.
 """
 
 from __future__ import annotations

@@ -167,14 +167,11 @@ def param_specs(params: dict, cfg: ModelConfig, tp: int = 1, fsdp: int = 1) -> d
 
 
 def pad_vocab(params: dict, cfg: ModelConfig, tp: int) -> dict:
-    """A global param tree with the TP-1 vocabulary as the tree of TP
-    ``tp`` that computes the same function: the embedding (and the LM
-    head) gain zero rows up to ``padded_vocab(tp)``, which every logit
-    masks and no id looks up.  Heads padded for ``tp`` would change the
-    GQA grouping, so a configuration whose heads need padding raises."""
-    if (cfg.padded_heads(tp), cfg.padded_kv_heads(tp)) != (cfg.n_heads, cfg.n_kv_heads):
-        raise ValueError(f"{cfg.name}: {cfg.n_heads} Q / {cfg.n_kv_heads} KV heads need "
-                         f"padding at TP {tp}, which changes the function")
+    """A global param tree with the TP-1 vocabulary padded to TP ``tp``'s:
+    the embedding (and the LM head) gain zero rows up to
+    ``padded_vocab(tp)``, which every logit masks and no id looks up.  The
+    layer leaves are left as they are: a tree whose heads pad at ``tp``
+    must already hold them at ``tp``'s padded shapes."""
     rows = cfg.padded_vocab(tp)
     return {k: torch.nn.functional.pad(v, (0, 0, 0, rows - v.shape[0]))
             if k in _VOCAB and v.shape[0] < rows else v for k, v in params.items()}
@@ -229,13 +226,23 @@ class Model(nn.Module):
     # ------------------------------------------------------------- init --
 
     def init(self, seed: int = 0) -> "Model":
-        """Draw the global parameters from ``seed`` and keep this rank's
-        shards.  The vocabulary is drawn at its TP-1 padding and padded
-        with zero rows to this TP size's (``pad_vocab``), so a seed gives
-        the same function at every TP size; a TP size whose heads need
-        padding raises.  Each leaf is drawn on the model's device in f32
-        and cast at once, so the tree is held once, in ``cfg.dtype``, plus
-        one leaf's f32 draw (chameleon-34b: 68.59 GB of bf16 leaves)."""
+        """Draw the global parameters from ``seed`` (``draw``) and keep
+        this rank's shards."""
+        return self.set_params(self.draw(seed))
+
+    def draw(self, seed: int = 0) -> dict:
+        """The global param tree of ``seed`` at this TP size.  The
+        vocabulary is drawn at its TP-1 padding and padded with zero rows
+        to this TP size's (``pad_vocab``), so where the heads do not pad a
+        seed gives the same function at every TP size.  Where they pad
+        (``cfg.padded_heads(tp)``), the layers are drawn at the padded
+        shapes, as the reference draws them: the phantom columns of ``wq``
+        and rows of ``wo`` are zero, phantom KV heads (sharded KV) are
+        zero, and replicated KV is drawn at its true count; the draws
+        after the first padded leaf then differ from the TP-1 tree's.
+        Each leaf is drawn on the model's device in f32 and cast at once,
+        so the tree is held once, in ``cfg.dtype``, plus one leaf's f32
+        draw (chameleon-34b: 68.59 GB of bf16 leaves)."""
         cfg, tp, dtype = self.cfg, self.tp, self.cfg.dtype
         gen = torch.Generator(device=self.init_device)
         gen.manual_seed(seed)
@@ -257,7 +264,7 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             params["lm_head"] = layers.init_embedding(
                 gen, cfg.padded_vocab(1), cfg.d_model, dtype)
-        return self.set_params(pad_vocab(params, cfg, tp))
+        return pad_vocab(params, cfg, tp)
 
     def set_params(self, params: dict) -> "Model":
         """Take a global param tree (dicts of tensors, ``layers`` a list of

@@ -6,7 +6,8 @@ encoder-decoder (whisper: a non-causal encoder stack of attention and
 GELU MLP, and decoder layers with cross-attention over its output) and
 the VLM (chameleon: a dense decoder with QK-norm, its image tokens in
 the shared vocabulary).  Each serves and trains at any tensor-parallel
-size its heads split into, with sequence parallelism."""
+size, its heads padded to it as the reference pads them (but R17), with
+sequence parallelism."""
 
 from __future__ import annotations
 
@@ -25,26 +26,17 @@ PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def check_ported(cfg: ModelConfig, tp: int) -> None:
-    """Raise for a family the port lacks; for an encoder-decoder model
-    whose heads need padding at ``tp`` (whisper-tiny's 6 heads pad to 8 at
-    TP 4, and the padded heads would join the function the TP-1 draw
-    computes); and for a hybrid model whose local Q heads are no multiple
-    of its local KV heads at ``tp``: the reference's GQA repeat
-    (``_repeat_kv(k, H // K)``) would give fewer KV rows than Q heads
-    there (ROADMAP R17; hymba-1.5b's 25 Q / 5 KV are 13 / 3 per rank at
-    TP 2 and 7 / 2 at TP 4; at TP 8 the KV heads are replicated and
-    gathered per Q head, which pairs)."""
+    """Raise for a family the port lacks, and for a hybrid model whose
+    local Q heads are no multiple of its local KV heads at ``tp``: the
+    reference's GQA repeat (``_repeat_kv(k, H // K)``) would give fewer KV
+    rows than Q heads there (ROADMAP R17; hymba-1.5b's 25 Q / 5 KV are
+    13 / 3 per rank at TP 2 and 7 / 2 at TP 4; at TP 8 the KV heads are
+    replicated and gathered per Q head, which pairs).  Every other
+    configuration whose heads pad at ``tp`` runs at the padded shapes."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported; "
             f"{PORTED_FAMILIES} are")
-    if cfg.family == "encdec" and (cfg.padded_heads(tp), cfg.padded_kv_heads(tp)) != (
-            cfg.n_heads, cfg.n_kv_heads):
-        raise ValueError(
-            f"{cfg.name} at a tensor-parallel size of {tp}: its {cfg.n_heads} Q / "
-            f"{cfg.n_kv_heads} KV heads do not split {tp} ways (padded to "
-            f"{cfg.padded_heads(tp)} / {cfg.padded_kv_heads(tp)}); the encoder-decoder "
-            f"family runs at a TP size that divides its heads")
     if cfg.family != "hybrid":
         return
     # replicated KV is gathered per local Q head: one KV row per Q head

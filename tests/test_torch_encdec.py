@@ -28,7 +28,8 @@ package, f32 smoke whisper-tiny (2 encoder and 2 decoder layers, d_model
   (the encoder has FSDP dims of its own): every rank's losses and grad
   norms within 1e-3 of its own device's, its parameters within 2 lr, all
   but 0.1% within 1e-4.
-* whisper-tiny at TP 4 (6 heads padded to 8) raises by name.
+* whisper-tiny at TP 4 builds its 6 heads padded to 8 (2 Q / 2 KV a
+  rank); ``tests/test_torch_padding.py`` serves it.
 """
 
 import dataclasses
@@ -645,10 +646,28 @@ def test_full_width_shapes_and_specs_are_the_references(tp):
 
 
 def test_tp4_is_refused_by_name():
-    """whisper-tiny's 6 heads pad to 8 at TP 4; TP 2 splits them 3 / 3."""
-    with pytest.raises(ValueError, match="whisper-tiny at a tensor-parallel size of 4"):
-        Model(get_config(ARCH), _RankRt(tp_group="tp", size=4), device="cpu")
-    Model(get_config(ARCH), _RankRt(tp_group="tp", size=2), device="cpu")
+    """whisper-tiny's 6 heads pad to 8 at TP 4, which is no longer refused:
+    each rank builds 2 Q / 2 KV heads (the KV heads sharded, the phantom
+    ones zero) in its self- and cross-attention and its caches; TP 2
+    splits them 3 / 3."""
+    cfg = get_config(ARCH)
+    dh = cfg.head_dim
+    for r in (0, 3):
+        with FakeTensorMode():
+            model = Model(cfg, _RankRt(tp_group="tp", size=4, rank=r), device="cpu").init(0)
+            for blocks in (model.layers, model.enc_layers):
+                for lp in blocks:
+                    for name in ("attn", "cross") if blocks is model.layers else ("attn",):
+                        a = lp[name]
+                        assert a["wq"].shape == a["wk"].shape == (cfg.d_model, 2 * dh)
+                        assert a["wo"].shape == (2 * dh, cfg.d_model)
+            caches = model.make_caches(1, 8, enc_seq=cfg.enc_seq)
+        assert caches.kv.k.shape[3] == caches.cross.k.shape[3] == 2
+    last = Model(cfg, _RankRt(tp_group="tp", size=4, rank=3), device="cpu").draw(0)
+    wq = last["layers"][0]["attn"]["wq"]
+    assert wq.shape == (cfg.d_model, 8 * dh) and not wq[:, 6 * dh:].any()
+    assert not last["layers"][0]["cross"]["wk"][:, 6 * dh:].any()
+    Model(cfg, _RankRt(tp_group="tp", size=2), device="cpu")
 
 
 def test_entry_points_on_cpu(capsys, world_of_one):

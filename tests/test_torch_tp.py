@@ -536,8 +536,11 @@ def test_vocab_sharded_loss_matches_jax(results, what):
 
 def test_pad_to_tp_keeps_the_function_and_refuses_head_padding():
     """``pad_vocab``, the padding ``Model.init`` draws through, pads a TP-1
-    tree to TP 4 with zero vocabulary rows and refuses heads that would
-    need padding, on its own and inside ``Model.init``."""
+    tree to TP 4 with zero vocabulary rows.  Heads that pad are no longer
+    refused: ``Model.init`` at TP 4 with 6 Q / 2 KV heads draws the
+    reference's padded tree (8 Q heads, the 2 KV heads replicated), the
+    phantom columns of ``wq`` and rows of ``wo`` zero, and the last rank
+    keeps the two phantom heads."""
     cfg = dataclasses.replace(get_config("qwen2.5-3b", smoke=True), vocab_size=200,
                               dtype=torch.float32)
     model = Model(cfg, device="cpu").init(0)
@@ -547,11 +550,21 @@ def test_pad_to_tp_keeps_the_function_and_refuses_head_padding():
     assert padded["embed"].shape[0] == cfg.padded_vocab(4) == 512
     assert torch.equal(padded["embed"][:256], tree["embed"])
     assert not padded["embed"][256:].any()
-    padded_heads = dataclasses.replace(cfg, n_heads=6, n_kv_heads=2)
-    with pytest.raises(ValueError, match="padding"):
-        pad_vocab(tree, padded_heads, 4)
-    with pytest.raises(ValueError, match="padding"):
-        Model(padded_heads, _RankRt(tp_group="tp", size=4), device="cpu").init(0)
+    padded_heads = dataclasses.replace(cfg, n_heads=6, n_kv_heads=2, d_head=16)
+    assert pad_vocab(tree, padded_heads, 4)["embed"].shape[0] == 512
+    D, dh = cfg.d_model, 16
+    drawn = Model(padded_heads, _RankRt(tp_group="tp", size=4, rank=3), device="cpu").draw(0)
+    for lp in drawn["layers"]:
+        a = lp["attn"]
+        assert a["wq"].shape == (D, 8 * dh) and a["wo"].shape == (8 * dh, D)
+        assert a["wk"].shape == a["wv"].shape == (D, 2 * dh)    # replicated: true count
+        assert not a["wq"][:, 6 * dh:].any() and not a["wo"][6 * dh:].any()
+        assert a["wq"][:, :6 * dh].any() and a["wo"][:6 * dh].any()
+    last = Model(padded_heads, _RankRt(tp_group="tp", size=4, rank=3), device="cpu").init(0)
+    for lp in last.layers:
+        assert lp["attn"]["wq"].shape == (D, 2 * dh) and not lp["attn"]["wq"].any()
+        assert lp["attn"]["wo"].shape == (2 * dh, D) and not lp["attn"]["wo"].any()
+        assert lp["attn"]["wk"].shape == (D, 2 * dh) and lp["attn"]["wk"].any()
 
 
 def test_nccl_refuses_ranks_sharing_a_card(monkeypatch):
