@@ -3,7 +3,7 @@
     python3 chip_smoke.py                       # every phase, then the result
     python3 chip_smoke.py --phases encdec_vlm   # a slice's phases (moe, ssm,
                                                 # runtime, encdec_vlm, padding,
-                                                # pp) or phases
+                                                # pp, dryrun) or phases
                                                 # by name, in the same order,
                                                 # each timed; no result line
 
@@ -137,7 +137,8 @@
    against torch.cat in PACK_ROUNDS interleaved rounds, each sample
    printed, the medians compared.
 8. Where the time goes: one training step per gradient sync under
-   torch.profiler, device time by kernel group and the device's idle
+   torch.profiler, qwen2.5-3b at full width and PROFILE_LAYERS of its 36
+   layers, device time by kernel group and the device's idle
    share of the wall time (the serving profiles are part of phase 4);
    hier_zero1's bootstrap runs before the profiled window; the planned
    path (b) is profiled too, for its codec's device time.  For
@@ -235,6 +236,23 @@
    the SSD chunk at a hymba TP-8 rank's 4 heads, and the codec at those
    ranks' KV leaves.
 
+13. The dry run (``--phases dryrun``, which runs the hier + int8 training
+   phase first), each cell a subprocess of its own (one fake world per
+   process), the three started together after phase 2's kernel timings
+   (they trace on host cores, so they run beside the phases on the card)
+   and held right after the training phases: (a) the cell
+   function under ``lower_cell`` in a fake world of one, qwen2.5-3b at 4 x
+   1024 with hier + int8 traced on the card's path, shapes only: its
+   predicted peak within DRYRUN_PEAK_TOL of the hier + int8 phase's
+   measured peak, its shape-only kernel calls equal to that phase's
+   launches per step, nothing launched; (b) ``python -m
+   repro_torch.launch.dryrun`` for qwen2.5-3b ``train_4k`` on the 512-rank
+   multi-pod mesh with ``--plan auto``; (c) the same for qwen3-moe-30b-a3b
+   ``prefill_32k``, one shape-only flash call a layer.  Each cell's
+   seconds, peak, FLOPs and collective bytes are printed; its roofline
+   prices the H100 with assumed link rates, an estimate, not a
+   measurement.
+
 Any failed check raises, and the script exits non-zero without printing
 its result line.  The last line is the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -259,6 +277,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import torch
@@ -2071,14 +2090,17 @@ SSM_TRAIN_RANGES = TRAIN_RANGES + ("ssd_plain", "causal_conv1d")
 
 def profile_training(dev, rt, smi: str, mode: str, codec: str | None,
                      with_attention: bool, planned=None, arch: str = ARCH,
-                     seq: int = TRAIN_SEQ) -> dict:
-    """One full-width training step of ``arch`` under torch.profiler, after
-    one warm-up step: device time by kernel group (the codec kernels, the
-    pack, matmul, the rest of the gradient sync, the gradient norm, the
-    optimizer, an SSM's plain SSD and conv, everything else) and the
-    device's idle share; then one optimizer update timed apart
-    (``optimizer_ms``).  With ``planned`` the plan's path."""
+                     seq: int = TRAIN_SEQ, layers: int | None = None) -> dict:
+    """One full-width training step of ``arch`` (``layers`` cuts the depth)
+    under torch.profiler, after one warm-up step: device time by kernel
+    group (the codec kernels, the pack, matmul, the rest of the gradient
+    sync, the gradient norm, the optimizer, an SSM's plain SSD and conv,
+    everything else) and the device's idle share; then one optimizer
+    update timed apart (``optimizer_ms``).  With ``planned`` the plan's
+    path."""
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     ranges = SSM_TRAIN_RANGES if cfg.family in ("ssm", "hybrid") else TRAIN_RANGES
     model = Model(cfg, rt, dev)
     ocfg = opt_lib.OptConfig(warmup_steps=20)
@@ -2906,6 +2928,9 @@ CHAOS_SEED, CHAOS_STEPS = 8, 12   # seed 8 in 12 steps: the hang at step 9, afte
 # CRC of every parameter took 8.1 s a step and the phase 122 s, and the
 # script grew past 1070 s of its 1200 with the padded TP phases
 CHAOS_LAYERS = 8
+# phase 8's depth: its seven profiled steps took 13.9-34.2 s each at 36
+# layers, and the whole script 1199.3 s of its 1200 on a slow host (PR 31)
+PROFILE_LAYERS = 12
 CKPT_LAYERS = 4                   # phase (b)'s depth
 # phase (c)'s depth: 2 of the issue's 4 layers.  At 4 the four ranks ran
 # the machine's 96 GiB of host memory out (gloo stages every CUDA
@@ -3192,6 +3217,147 @@ def train_elastic(smi: str) -> dict[str, int]:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# 13. The dry run, shapes only
+# ---------------------------------------------------------------------------
+
+DRYRUN_PEAK_TOL = 0.10      # the predicted peak against the measured one
+# the first phases, whose kernel times the kernels line reports: the dry
+# run's cells start after them (a cell's fake CUDA tensors open a CUDA
+# context on the card, and the SSD chunk's time read 0.1569 ms instead of
+# 0.1278 when they started beside it; PR 31)
+KERNEL_TIMING_PHASES = ("codec", "flash", "ssd")
+DRYRUN_TIMEOUT = 300        # seconds from their start within which the cells end
+# (a): the cell function under lower_cell, in a fake world of one
+DRYRUN_WORLD_OF_ONE = """
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.kernels import ops
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_fake_world
+arch, seq, batch, out = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+one = {"pod": 1, "data": 1, "model": 1}
+cell = dryrun.trace_cell(get_config(arch), ShapeConfig("world_of_one", "train", seq, batch),
+                         make_fake_world(one), one, comm_mode="hier", compression="int8",
+                         device="cuda")
+cell.update(status="ok", fake_launches=ops.fake_launch_counts(), launches=ops.launch_counts())
+json.dump(cell, open(out, "w"))
+"""
+
+
+class DryrunCells:
+    """The dry run's three cells, each in a subprocess of its own (one fake
+    world per process), started together early in the run: they trace on
+    host cores (each opens a CUDA context and allocates nothing more), so
+    they run beside the phases on the card, and the dryrun phase reads
+    them (``dryrun_cells``).  (a) qwen2.5-3b in a world
+    of one at the training phase's 4 x 1024 with hier + int8, traced on
+    the card's path; (b) qwen2.5-3b ``train_4k`` on the 512-rank multi-pod
+    mesh with ``--plan auto``; (c) qwen3-moe-30b-a3b ``prefill_32k``
+    there."""
+
+    def __init__(self):
+        root = pathlib.Path(__file__).resolve().parent
+        env = dict(os.environ, PYTHONPATH=str(root / "src"))
+        cli = [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh", "multi"]
+        cells = {"world_of_one": [sys.executable, "-c", DRYRUN_WORLD_OF_ONE, ARCH,
+                                  str(TRAIN_SEQ), str(TRAIN_BATCH)],
+                 "train_4k_multi": cli + ["--arch", ARCH, "--shape", "train_4k", "--plan",
+                                          "auto", "--out"],
+                 "moe_prefill_32k_multi": cli + ["--arch", MOE_ARCH, "--shape", "prefill_32k",
+                                                 "--out"]}
+        self.tmp = tempfile.TemporaryDirectory()
+        self.procs, self.logs, self.took, self.waiters = {}, {}, {}, {}
+        self.t0 = time.perf_counter()
+        for name, cmd in cells.items():
+            self.logs[name] = open(os.path.join(self.tmp.name, f"{name}.log"), "w")
+            self.procs[name] = subprocess.Popen(
+                cmd + [os.path.join(self.tmp.name, f"{name}.json")], env=env,
+                stdout=self.logs[name], stderr=subprocess.STDOUT)
+            self.waiters[name] = threading.Thread(target=self._wait, args=(name,), daemon=True)
+            self.waiters[name].start()
+
+    def _wait(self, name: str) -> None:
+        self.procs[name].wait()
+        self.took[name] = time.perf_counter() - self.t0
+
+    def results(self) -> tuple[dict, dict]:
+        """Each cell's JSON and its seconds from the start, once every cell
+        has ended (within DRYRUN_TIMEOUT of the start)."""
+        for name, waiter in self.waiters.items():
+            waiter.join(timeout=max(0.0, DRYRUN_TIMEOUT - (time.perf_counter() - self.t0)))
+            check(not waiter.is_alive(), f"dry-run cell {name} past {DRYRUN_TIMEOUT} s")
+        res = {}
+        for name, proc in self.procs.items():
+            self.logs[name].flush()
+            log = pathlib.Path(self.tmp.name, f"{name}.log").read_text()
+            check(proc.returncode == 0, f"dry run {name} exited {proc.returncode}: {log[-3000:]}")
+            res[name] = json.loads(pathlib.Path(self.tmp.name, f"{name}.json").read_text())
+            check(res[name]["status"] == "ok", f"dry run {name}: {res[name]}")
+        return res, dict(self.took)
+
+    def close(self) -> None:
+        """Stop every cell still running and remove their files."""
+        for name, proc in self.procs.items():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            self.logs[name].close()
+        self.tmp.cleanup()
+
+
+def dryrun_cells(smi: str, train_hier: dict, cells: DryrunCells) -> dict:
+    """The dry run's three cells (``DryrunCells``), held: (a)'s predicted
+    peak within DRYRUN_PEAK_TOL of ``train_hier``'s measured
+    ``max_memory_allocated``, its shape-only calls equal to that phase's
+    launches per step, nothing launched; (b) ``status: ok`` with its plan;
+    (c) one shape-only flash call a layer.  Each cell's seconds, peak,
+    FLOPs and collective bytes are printed."""
+    res, took = cells.results()
+    one, multi, moe_cell = res["world_of_one"], res["train_4k_multi"], res["moe_prefill_32k_multi"]
+    # (a) against the training phase it mirrors
+    want = train_kernels("hier", "int8", get_config(ARCH))
+    check(one["fake_launches"] == want, f"dry run shape-only calls {one['fake_launches']}, "
+                                        f"the card's launches per step {want}")
+    check(all(rec["launches"] == want for rec in train_hier["records"]),
+          f"training launches per step {[rec['launches'] for rec in train_hier['records']]}")
+    check(set(one["launches"].values()) == {0}, f"the dry run launched {one['launches']}")
+    predicted, measured = one["memory"]["peak_bytes"] / 1e9, train_hier["peak_mem_gb"]
+    gap = predicted / measured - 1
+    check(abs(gap) <= DRYRUN_PEAK_TOL, f"dry run peak {predicted:.3f} GB against the measured "
+                                       f"{measured:.3f} GB ({gap:+.1%})")
+    check(multi["n_chips"] == 512 and "plan" in multi, f"train_4k multi: {multi.keys()}")
+    layers = get_config(MOE_ARCH).n_layers
+    calls = moe_cell["kernels"].get("flash_attention", {}).get("calls")
+    check(calls == layers, f"{MOE_ARCH} prefill_32k: {calls} shape-only flash calls, "
+                           f"{layers} layers")
+    out = {}
+    for name, cell in res.items():
+        coll = cell["collectives"]
+        out[name] = {"seconds": took[name], "trace_s": cell["trace_s"],
+                     "peak_gb": cell["memory"]["peak_bytes"] / 1e9, "flops": cell["flops"],
+                     "bytes": cell["bytes"],
+                     "wire_bytes": sum(v["wire_bytes"] for v in coll.values()),
+                     "ici_bytes": cell["roofline"]["ici_bytes"],
+                     "dcn_bytes": cell["roofline"]["dcn_bytes"],
+                     "kernels": {k: v["calls"] for k, v in cell["kernels"].items()},
+                     "step_s": cell["roofline"]["step_s"],
+                     "bottleneck": cell["roofline"]["bottleneck"]}
+        print(f"[dryrun] [{smi}] {name}: ended {took[name]:.1f} s after its start "
+              f"({cell['trace_s']} s traced), peak "
+              f"{out[name]['peak_gb']:.3f} GB a rank, {cell['flops']:.4e} FLOP a rank, "
+              f"collectives {out[name]['wire_bytes']:.4e} B on the wire ({out[name]['ici_bytes']:.4e} "
+              f"in a cluster, {out[name]['dcn_bytes']:.4e} across), shape-only calls "
+              f"{out[name]['kernels']}; roofline {out[name]['bottleneck']}-bound, "
+              f"{out[name]['step_s'] * 1e3:.3f} ms a step (H100 peaks, assumed links)")
+    print(f"[dryrun] [{smi}] world of one, hier + int8, {TRAIN_BATCH} x {TRAIN_SEQ}: predicted "
+          f"peak {predicted:.3f} GB against the training phase's measured {measured:.3f} GB "
+          f"({gap:+.2%}); shape-only calls {one['fake_launches']} equal its launches per step")
+    out["peak_gap"] = gap
+    return out
+
+
 class Run:
     """What the phases of one run share: the card, the generator, the
     kernels line's rows, each phase's result and seconds, and the
@@ -3205,6 +3371,7 @@ class Run:
         self.out: dict = {}
         self.seconds: dict[str, float] = {}
         self.rt = self.rt_fsdp = None
+        self.dryrun: DryrunCells | None = None
         self._agree = self._planned = None
 
     def __getitem__(self, name: str):
@@ -3325,6 +3492,9 @@ def phase_table() -> list[tuple]:
     t += [(f"train:{mode}", True, True, False,
            lambda r, m=mode, c=codec: train_full_width(r.dev, r.smi, m, c))
           for mode, codec in TRAIN_RUNS]
+    # phase 13: the dry run, held against the hier + int8 run just above
+    t.append(("dryrun", False, True, False,
+              lambda r: dryrun_cells(r.smi, r["train:hier"], r.dryrun)))
     t.append(("train_moe", True, True, False, lambda r: train_moe(r.dev, r.smi)))   # MoE (c)
     t += [(f"train:{arch}", True, True, False,
            lambda r, a=arch, q=seq: train_full_width(r.dev, r.smi, "hier", "int8", a, q))
@@ -3348,10 +3518,12 @@ def phase_table() -> list[tuple]:
           ("pack", True, True, False, _pack)]
     t += [(f"profile_training:{mode}", True, False, False,
            lambda r, m=mode, c=codec: profile_training(r.dev, r.rt_for(m), r.smi, m, c,
+                                                       layers=PROFILE_LAYERS,
                                                        with_attention=m == "hier"))
           for mode, codec in TRAIN_RUNS]
     t.append(("profile_training:planned", True, False, False,
               lambda r: profile_training(r.dev, r.rt, r.smi, r.planned().mode, "int8",
+                                         layers=PROFILE_LAYERS,
                                          with_attention=False, planned=r.planned())))
     # only when named: a profiled training step of each SSM family, with
     # the plain SSD's and the conv's ranges
@@ -3376,6 +3548,7 @@ SLICES = {
     "padding": ("codec", "flash", "ssd") + tuple(f"serve_tp{tp}:{a}" for a, tp in PAD_SERVE.items())
     + (f"train_tp8:{HYBRID_ARCH}",),
     "pp": ("pp",),
+    "dryrun": ("train:hier", "dryrun"),
     "encdec_vlm": ("flash",) + tuple(
         f"{p}:{a}" for p in ("serve", "profile_serving", "small_model", "train")
         for a in (ENCDEC_ARCH, VLM_ARCH)),
@@ -3385,13 +3558,17 @@ SLICES = {
 def run_phases(run: Run, names: set[str] | None) -> None:
     """Run the phases named (all but the named-only ones for ``None``) in
     the table's order, each timed; the world of one starts before the
-    first phase that needs it and ends after the last.  A failed phase
-    raises."""
+    first phase that needs it and ends after the last, and the dry run's
+    cells, when its phase is among them, start before the first phase
+    past KERNEL_TIMING_PHASES.  A failed phase raises."""
     world = False
+    rows = [row for row in phase_table()
+            if not ((names is None and row[3]) or (names is not None and row[0] not in names))]
+    dryrun = any(row[0] == "dryrun" for row in rows)
     try:
-        for name, needs_world, frees, named_only, fn in phase_table():
-            if (names is None and named_only) or (names is not None and name not in names):
-                continue
+        for name, needs_world, frees, named_only, fn in rows:
+            if dryrun and run.dryrun is None and name not in KERNEL_TIMING_PHASES:
+                run.dryrun = DryrunCells()
             if needs_world and not world:
                 train_launch.init_world(run.dev)
                 world = True
@@ -3405,6 +3582,8 @@ def run_phases(run: Run, names: set[str] | None) -> None:
             run.seconds[name] = time.perf_counter() - t0
             print(f"[phase] {name}: {run.seconds[name]:.1f} s", flush=True)
     finally:
+        if run.dryrun is not None:
+            run.dryrun.close()
         if world:
             dist.destroy_process_group()
 
@@ -3584,7 +3763,7 @@ def report(run: Run) -> None:
                          "losses": [r["loss"] for r in res["records"]],
                          "grad_norms": [r["gnorm"] for r in res["records"]]}
                       for (arch, layers), res in zip(EV_TRAINED, ev_train.values())}},
-        "padding": pad, "pp": out["pp"],
+        "padding": pad, "pp": out["pp"], "dryrun": out["dryrun"],
         "runtime": {"chaos": {"guard": chaos["guard"], "guard_split_ms": chaos["guard_split_ms"],
                               "guard_ms": [r["guard_ms"] for r in chaos["records"]],
                               "step_ms": chaos["step_ms"],

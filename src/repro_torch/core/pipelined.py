@@ -96,8 +96,12 @@ def _codec_stages(cfg, dtype: torch.dtype, chunk_n: int, use_ring: bool,
 
 
 def _write(dst: torch.Tensor, value: torch.Tensor) -> None:
-    """dst[:] = value, unless the pod reduction already ran in place."""
-    if value.data_ptr() != dst.data_ptr():
+    """dst[:] = value, unless the pod reduction already ran in place (the
+    same storage at the same offset: a test that reads no address, so a
+    traced step's tensors with no data take it too)."""
+    same = (value.untyped_storage()._cdata == dst.untyped_storage()._cdata
+            and value.storage_offset() == dst.storage_offset())
+    if not same:
         dst.copy_(value)
 
 

@@ -10,10 +10,18 @@ changed source is rebuilt and an unchanged one is loaded as it is.
 Each C entry point launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()`` after the launch (or -1 for
 arguments it refuses); ``check`` raises on anything but 0.
+
+A wrapper given a tensor with no data (``shape_only``: a fake tensor of
+``FakeTensorMode``, or a meta tensor) returns outputs of the shapes,
+dtypes and strides its launch would write, loads no library, reads no
+address, and counts the call in ``.fake_launches`` (``count_shape_only``)
+beside its ``.launches``.  That is how the dry run traces the card's path
+without a card; a tensor with data never takes that branch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -25,6 +33,7 @@ import tempfile
 import time
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -165,3 +174,33 @@ def refuse_autograd(what: str, *tensors) -> None:
 
 def stream_handle(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def shape_only(t: torch.Tensor) -> bool:
+    """Whether ``t`` holds no data to launch on: a fake tensor
+    (``FakeTensorMode``) or a meta tensor."""
+    return t.device.type == "meta" or is_fake(t)
+
+
+# callbacks of the dry run's recorder: each shape-only call is reported
+_SHAPE_ONLY_LISTENERS: list = []
+
+
+def count_shape_only(wrapper, name: str, **info) -> None:
+    """Count a shape-only call of ``wrapper`` (its ``.fake_launches``) and
+    report it, with ``info`` (its tensors and arguments), to every
+    listener of ``shape_only_calls``."""
+    wrapper.fake_launches += 1
+    for listener in _SHAPE_ONLY_LISTENERS:
+        listener(name, info)
+
+
+@contextlib.contextmanager
+def shape_only_calls(listener):
+    """Call ``listener(name, info)`` for every shape-only kernel call
+    inside the block."""
+    _SHAPE_ONLY_LISTENERS.append(listener)
+    try:
+        yield
+    finally:
+        _SHAPE_ONLY_LISTENERS.remove(listener)

@@ -33,7 +33,7 @@ def flash_attention_bhsd_plain(q, k, v, *, causal: bool = True,
     return out.transpose(1, 2)
 
 
-def _check(q, k, v, out, valid_kv):
+def _check(q, k, v, out, valid_kv, with_data: bool = True):
     B, H, Sq, dh = q.shape
     if k.ndim != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != dh:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, "
@@ -54,7 +54,7 @@ def _check(q, k, v, out, valid_kv):
         if t.stride(3) != 1:
             raise ValueError(f"flash_attention: {name} head axis not contiguous")
         # an axis of extent 1 is never stepped, so its stride is free
-        if t.dtype == torch.bfloat16 and (t.data_ptr() % 16 or any(
+        if t.dtype == torch.bfloat16 and ((with_data and t.data_ptr() % 16) or any(
                 st % 8 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)):
             raise ValueError(f"flash_attention: bf16 {name} not 16-byte aligned "
                              f"(base or strides {t.stride()})")
@@ -85,6 +85,12 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True,
     if out is None:
         out = torch.empty_like(q, memory_format=torch.contiguous_format)
     valid_kv = Skv if valid_kv is None else valid_kv
+    if _build.shape_only(q):
+        _check(q, k, v, out, valid_kv, with_data=False)
+        _build.count_shape_only(flash_attention_bhsd, "flash_attention", q=q, k=k, v=v, out=out,
+                                causal=causal, window=window, q_offset=q_offset,
+                                valid_kv=valid_kv)
+        return out
     _check(q, k, v, out, valid_kv)
     scale = 1.0 / math.sqrt(dh)
     lib = _build.library()
@@ -100,3 +106,4 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True,
 
 
 flash_attention_bhsd.launches = 0
+flash_attention_bhsd.fake_launches = 0

@@ -29,6 +29,11 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def fake_launch_counts() -> dict[str, int]:
+    """Shape-only calls (``_build.shape_only``): the dry run's launches."""
+    return {name: fn.fake_launches for name, fn in KERNELS.items()}
+
+
 def vector_launch_counts() -> dict[str, int]:
     """Launches of the vector variant, for the kernels that have one."""
     return {name: fn.vector_launches for name, fn in KERNELS.items()
@@ -37,7 +42,7 @@ def vector_launch_counts() -> dict[str, int]:
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
-        fn.launches = 0
+        fn.launches = fn.fake_launches = 0
         if hasattr(fn, "vector_launches"):
             fn.vector_launches = 0
 

@@ -17,7 +17,9 @@ payload's base is 16-byte aligned and a scalar one otherwise; each counts
 its vector launches in ``.vector_launches`` beside ``.launches``.
 ``pack_slots_call`` writes leaves at their slot offsets into one padded
 buffer, zeros elsewhere; ``fused_pack_quant_call`` is that packing into
-f32 followed by ``quant_int8_call``, in one pass.
+f32 followed by ``quant_int8_call``, in one pass.  A tensor with no data
+(``_build.shape_only``) gets the outputs' shapes alone, counted in
+``.fake_launches``.
 """
 
 from __future__ import annotations
@@ -87,6 +89,9 @@ def quant_int8_call(x: torch.Tensor):
     size = x.numel()
     q = torch.empty((nb, BLOCK), dtype=torch.int8, device=x.device)
     s = torch.empty((nb,), dtype=torch.float32, device=x.device)
+    if _build.shape_only(x):
+        _build.count_shape_only(quant_int8_call, "quant_int8", x=x, q=q, s=s)
+        return q, s
     lib = _build.library()
     err = lib.quant_int8_launch(x.data_ptr(), _CODES[x.dtype], size,
                                 q.data_ptr(), s.data_ptr(), nb,
@@ -97,6 +102,7 @@ def quant_int8_call(x: torch.Tensor):
 
 
 quant_int8_call.launches = 0
+quant_int8_call.fake_launches = 0
 
 
 def amax_block_call(x: torch.Tensor) -> torch.Tensor:
@@ -107,6 +113,9 @@ def amax_block_call(x: torch.Tensor) -> torch.Tensor:
         return amax_block_plain(x)
     nb = _codec_input(x, "amax_block")
     a = torch.empty((nb,), dtype=torch.float32, device=x.device)
+    if _build.shape_only(x):
+        _build.count_shape_only(amax_block_call, "amax_block", x=x, amax=a)
+        return a
     vector = x.data_ptr() % VECTOR_ALIGN == 0
     err = _build.library().amax_block_launch(
         x.data_ptr(), _CODES[x.dtype], x.numel(), a.data_ptr(), nb, vector,
@@ -118,6 +127,7 @@ def amax_block_call(x: torch.Tensor) -> torch.Tensor:
 
 
 amax_block_call.launches = 0
+amax_block_call.fake_launches = 0
 amax_block_call.vector_launches = 0
 
 
@@ -135,6 +145,9 @@ def quant_scaled_call(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
         raise ValueError("quant_scaled: x and scale on different devices")
     scale = scale.contiguous()
     q = torch.empty((nb, BLOCK), dtype=torch.int8, device=x.device)
+    if _build.shape_only(x):
+        _build.count_shape_only(quant_scaled_call, "quant_scaled", x=x, scale=scale, q=q)
+        return q
     vector = x.data_ptr() % VECTOR_ALIGN == 0
     err = _build.library().quant_scaled_launch(
         x.data_ptr(), _CODES[x.dtype], x.numel(), scale.data_ptr(), q.data_ptr(),
@@ -146,6 +159,7 @@ def quant_scaled_call(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 quant_scaled_call.launches = 0
+quant_scaled_call.fake_launches = 0
 quant_scaled_call.vector_launches = 0
 
 
@@ -171,6 +185,9 @@ def dequant_int8_call(q: torch.Tensor, s: torch.Tensor, size: int,
     q = q.contiguous()
     s = (s * gain if gain is not None else s).contiguous()
     out = torch.empty((size,), dtype=dtype, device=q.device)
+    if _build.shape_only(q):
+        _build.count_shape_only(dequant_int8_call, "dequant_int8", q=q, s=s, out=out)
+        return out
     vector = q.data_ptr() % VECTOR_ALIGN == 0
     lib = _build.library()
     err = lib.dequant_int8_launch(q.data_ptr(), _CODES[q.dtype], s.data_ptr(),
@@ -183,6 +200,7 @@ def dequant_int8_call(q: torch.Tensor, s: torch.Tensor, size: int,
 
 
 dequant_int8_call.launches = 0
+dequant_int8_call.fake_launches = 0
 dequant_int8_call.vector_launches = 0
 
 
@@ -206,12 +224,11 @@ def fused_pack_quant_plain(pieces, padded: int):
     return quant_int8_plain(pack_slots_plain(pieces, padded, torch.float32))
 
 
-def _span_table(pieces, padded: int, what: str) -> tuple[torch.Tensor, int]:
-    """The kernels' table of spans covering [0, padded) once, in order:
-    (source address or 0, offset, length, first tile, source dtype code)
-    per row, int64, on the card; and the number of tiles.  The gaps and
-    the tail become null spans, written as zeros.  Copied through pinned
-    memory on the current stream, so the host does not wait."""
+def _spans(pieces, padded: int, what: str) -> tuple[list, int]:
+    """The spans covering [0, padded) once, in order: (source tensor or
+    None, offset, length, first tile, source dtype code) per row, and the
+    number of tiles.  The gaps and the tail become null spans, written as
+    zeros.  Raises for pieces the kernels refuse."""
     device = pieces[0][1].device
     rows, pos, tiles = [], 0, 0
 
@@ -231,16 +248,26 @@ def _span_table(pieces, padded: int, what: str) -> tuple[torch.Tensor, int]:
         if off < pos:
             raise ValueError(f"{what}: the piece at {off} overlaps the one before")
         if off > pos:
-            span(0, pos, off - pos, _CODES[torch.float32])
+            span(None, pos, off - pos, _CODES[torch.float32])
         if t.numel():
-            span(t.data_ptr(), off, t.numel(), _CODES[t.dtype])
+            span(t, off, t.numel(), _CODES[t.dtype])
         pos = off + t.numel()
     if pos > padded:
         raise ValueError(f"{what}: pieces end at {pos}, past the buffer's {padded}")
     if pos < padded:
-        span(0, pos, padded - pos, _CODES[torch.float32])
-    table = torch.tensor(rows, dtype=torch.int64).pin_memory()
-    return table.to(device, non_blocking=True), tiles
+        span(None, pos, padded - pos, _CODES[torch.float32])
+    return rows, tiles
+
+
+def _span_table(pieces, padded: int, what: str) -> tuple[torch.Tensor, int]:
+    """The kernels' table of ``_spans``: (source address or 0, offset,
+    length, first tile, source dtype code) per row, int64, on the card;
+    and the number of tiles.  Copied through pinned memory on the current
+    stream, so the host does not wait."""
+    rows, tiles = _spans(pieces, padded, what)
+    table = torch.tensor([(0 if src is None else src.data_ptr(), *rest) for src, *rest in rows],
+                         dtype=torch.int64).pin_memory()
+    return table.to(pieces[0][1].device, non_blocking=True), tiles
 
 
 def pack_slots_call(pieces, padded: int, dtype=torch.float32) -> torch.Tensor:
@@ -255,6 +282,11 @@ def pack_slots_call(pieces, padded: int, dtype=torch.float32) -> torch.Tensor:
         return pack_slots_plain(pieces, padded, dtype)
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"pack_slots: bf16 or f32 buffer, got {dtype}")
+    if _build.shape_only(pieces[0][1]):
+        _spans(pieces, padded, "pack_slots")
+        buf = torch.empty((padded,), dtype=dtype, device=device)
+        _build.count_shape_only(pack_slots_call, "pack_slots", pieces=pieces, buf=buf)
+        return buf
     table, tiles = _span_table(pieces, padded, "pack_slots")
     buf = torch.empty((padded,), dtype=dtype, device=device)
     err = _build.library().pack_slots_launch(
@@ -266,6 +298,7 @@ def pack_slots_call(pieces, padded: int, dtype=torch.float32) -> torch.Tensor:
 
 
 pack_slots_call.launches = 0
+pack_slots_call.fake_launches = 0
 
 
 def fused_pack_quant_call(pieces, padded: int):
@@ -281,8 +314,15 @@ def fused_pack_quant_call(pieces, padded: int):
     device = pieces[0][1].device
     if device.type == "cpu":
         return fused_pack_quant_plain(pieces, padded)
-    table, _ = _span_table(pieces, padded, "fused_pack_quant")
     nb = padded // BLOCK
+    if _build.shape_only(pieces[0][1]):
+        _spans(pieces, padded, "fused_pack_quant")
+        q = torch.empty((nb, BLOCK), dtype=torch.int8, device=device)
+        s = torch.empty((nb,), dtype=torch.float32, device=device)
+        _build.count_shape_only(fused_pack_quant_call, "fused_pack_quant", pieces=pieces,
+                                q=q, s=s)
+        return q, s
+    table, _ = _span_table(pieces, padded, "fused_pack_quant")
     q = torch.empty((nb, BLOCK), dtype=torch.int8, device=device)
     s = torch.empty((nb,), dtype=torch.float32, device=device)
     err = _build.library().fused_pack_quant_launch(
@@ -294,3 +334,4 @@ def fused_pack_quant_call(pieces, padded: int):
 
 
 fused_pack_quant_call.launches = 0
+fused_pack_quant_call.fake_launches = 0

@@ -49,7 +49,7 @@ def ssd_chunk_plain(x, dt, A, B, C, chunk: int):
     return y, states
 
 
-def _check(x, dt, A, B, C, chunk):
+def _check(x, dt, A, B, C, chunk, with_data: bool = True):
     b, s, h, p = x.shape
     if B.ndim != 4 or B.shape != C.shape or B.shape[:2] != (b, s):
         raise ValueError(f"ssd_chunk: x {tuple(x.shape)}, B {tuple(B.shape)}, "
@@ -74,7 +74,8 @@ def _check(x, dt, A, B, C, chunk):
         if t.stride(-1) != 1:
             raise ValueError(f"ssd_chunk: {name}'s last axis is not contiguous")
     for name, t in (("x", x), ("B", B), ("C", C)):    # read 4 elements at a time
-        if any(st % 4 for st in t.stride()[:3]) or t.data_ptr() % (4 * t.element_size()):
+        if any(st % 4 for st in t.stride()[:3]) or (
+                with_data and t.data_ptr() % (4 * t.element_size())):
             raise ValueError(f"ssd_chunk: {name} is not 4-element aligned")
 
 
@@ -92,12 +93,17 @@ def ssd_chunk_call(x, dt, A, B, C, chunk: int, *, heads_per_block: int = 0):
     if x.device.type == "cpu":
         return ssd_chunk_plain(x, dt, A, B, C, chunk)
     _build.refuse_autograd("ssd_chunk", x, dt, A, B, C)
-    _check(x, dt, A, B, C, chunk)
+    fake = _build.shape_only(x)
+    _check(x, dt, A, B, C, chunk, with_data=not fake)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     nc = s // chunk
     y = torch.empty((b, nc, chunk, h, p), dtype=torch.float32, device=x.device)
     states = torch.empty((b, nc, h, p, n), dtype=torch.float32, device=x.device)
+    if fake:
+        _build.count_shape_only(ssd_chunk_call, "ssd_chunk", x=x, dt=dt, A=A, B=B, C=C,
+                                y=y, states=states, chunk=chunk)
+        return y, states
     lib = _build.library()
     err = lib.ssd_chunk_launch(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
@@ -115,3 +121,4 @@ def ssd_chunk_call(x, dt, A, B, C, chunk: int, *, heads_per_block: int = 0):
 
 
 ssd_chunk_call.launches = 0
+ssd_chunk_call.fake_launches = 0

@@ -6,6 +6,8 @@ of the mesh axes are ``torch.distributed`` groups.  The caller starts
 the process group (``init_process_group`` with an explicit store or
 address, world size and rank); ``runtime_for_groups`` either takes
 groups it is given or cuts the world into (pod, data, model) groups.
+``make_production_world`` starts the reference's production mesh as a
+world of ``fake`` ranks, which move nothing: the dry run's world.
 """
 
 from __future__ import annotations
@@ -23,6 +25,11 @@ from repro_torch.parallel.sharding import Runtime
 # through NCCL; "gloo" sends both through gloo (staging CUDA tensors
 # through the host), which lets ranks share one card
 BACKENDS = {"nccl": "cpu:gloo,cuda:nccl", "gloo": "gloo"}
+
+# the reference's production mesh geometry, shared with the planners that
+# price the production topology (dryrun.auto_plan)
+PRODUCTION_MULTI_SHAPE = (2, 16, 16)     # (pod, data, model)
+PRODUCTION_SINGLE_SHAPE = (16, 16)       # (data, model)
 
 
 def init_world(device: torch.device, backend: str | None = None) -> bool:
@@ -65,7 +72,8 @@ def mesh_coords(rank: int, data_per_pod: int, tp: int) -> tuple[int, int, int]:
 
 def runtime_for_groups(*, pod_group=None, tp_group=None, pods: int | None = None,
                        data_per_pod: int | None = None, tp: int = 1, fsdp: bool = False,
-                       sp: bool = False, moe_capacity_factor: float = 1.25,
+                       sp: bool = False, remat_policy: str = "none",
+                       moe_capacity_factor: float = 1.25,
                        moe_a2a_mode: str = "flat", moe_cluster_weights=None,
                        lost_pod: int | None = None) -> Runtime | None:
     """The Runtime for one process.
@@ -89,13 +97,15 @@ def runtime_for_groups(*, pod_group=None, tp_group=None, pods: int | None = None
     groups as they are (``None`` is a group of one, no collective) and no
     data-parallel group: ``pod_group`` is the ring the disaggregated KV
     transfer runs over.  The MoE knobs go to the Runtime as the
-    reference's ``runtime_for_mesh`` passes them; the ep exchange's cluster
-    group stays ``None`` (experts never shard over pods)."""
-    moe = dict(moe_capacity_factor=moe_capacity_factor, moe_a2a_mode=moe_a2a_mode,
-               moe_cluster_weights=(tuple(moe_cluster_weights) if moe_cluster_weights
-                                    else None))
+    reference's ``runtime_for_mesh`` passes them, and so does
+    ``remat_policy``; the ep exchange's cluster group stays ``None``
+    (experts never shard over pods)."""
+    knobs = dict(remat_policy=remat_policy,
+                 moe_capacity_factor=moe_capacity_factor, moe_a2a_mode=moe_a2a_mode,
+                 moe_cluster_weights=(tuple(moe_cluster_weights) if moe_cluster_weights
+                                      else None))
     if pods is None and data_per_pod is None:
-        return Runtime(tp_group=tp_group, pod_group=pod_group, sp=sp, **moe)
+        return Runtime(tp_group=tp_group, pod_group=pod_group, sp=sp, **knobs)
     if pods is None or data_per_pod is None or min(pods, data_per_pod, tp) < 1:
         raise ValueError(f"pods {pods} x data_per_pod {data_per_pod} x tp {tp}")
     world = dist.get_world_size()
@@ -128,7 +138,7 @@ def runtime_for_groups(*, pod_group=None, tp_group=None, pods: int | None = None
     if p0 == lost_pod:
         return None
     return Runtime(tp_group=tp_group, pod_group=pod, data_group=data, dp_group=dp,
-                   fsdp_group=data if fsdp else None, sp=sp, **moe)
+                   fsdp_group=data if fsdp else None, sp=sp, **knobs)
 
 
 def survivor_mesh(pods: int, data_per_pod: int, tp: int, lost_pod: int,
@@ -142,3 +152,40 @@ def survivor_mesh(pods: int, data_per_pod: int, tp: int, lost_pod: int,
     ``None``.  Returns (the Runtime or None, the survivors' pod count)."""
     return (runtime_for_groups(pods=pods, data_per_pod=data_per_pod, tp=tp,
                                lost_pod=lost_pod, **kw), pods - 1)
+
+
+def production_axes(multi_pod: bool) -> dict[str, int]:
+    """The production mesh's axis sizes by the reference's axis names:
+    (pod, data, model) multi-pod, (data, model) single-pod."""
+    if multi_pod:
+        return dict(zip(("pod", "data", "model"), PRODUCTION_MULTI_SHAPE))
+    return dict(zip(("data", "model"), PRODUCTION_SINGLE_SHAPE))
+
+
+def make_fake_world(axes: dict[str, int], **kw) -> Runtime:
+    """Start a world of ``fake`` ranks, ``axes``' product of them, and
+    return rank 0's Runtime of that (pod, data, model) cut
+    (``runtime_for_groups`` with the knobs ``kw``).  A fake rank issues
+    every collective and moves nothing, so one process traces rank 0 of
+    a world of any size; its tensors must be fake too (``FakeTensorMode``).
+    One world per process: a running fake world of the same size is cut
+    again (each cut makes new groups), any other process group raises."""
+    # the fake backend lives with the test utilities; importing it here,
+    # never at module import, keeps them out of every other entry point
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    pods, data, tp = axes.get("pod", 1), axes.get("data", 1), axes.get("model", 1)
+    world = pods * data * tp
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    elif dist.get_backend() != "fake" or dist.get_world_size() != world:
+        raise RuntimeError(f"a {dist.get_backend()} world of {dist.get_world_size()} rank(s) "
+                           f"is running: the fake world of {world} is one per process")
+    return runtime_for_groups(pods=pods, data_per_pod=data, tp=tp, **kw)
+
+
+def make_production_world(*, multi_pod: bool = False, **kw) -> Runtime:
+    """The production mesh (``PRODUCTION_MULTI_SHAPE`` or
+    ``PRODUCTION_SINGLE_SHAPE``) as a fake world of 512 or 256 ranks:
+    rank 0's Runtime (the counterpart of ``make_production_mesh``)."""
+    return make_fake_world(production_axes(multi_pod), **kw)

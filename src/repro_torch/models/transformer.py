@@ -19,7 +19,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.parallel.sharding import (Runtime, copy_to_tp, fsdp_gather, gather_sp,
-                                           reduce_from_tp, scatter_sp, tp_entry_group)
+                                           reduce_from_tp, remat_policy_for, scatter_sp,
+                                           tp_entry_group)
 from . import attention, layers, moe, ssm
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
@@ -206,7 +207,9 @@ def _gathered_encoder_layer(lp, fsdp_dims, x: torch.Tensor, *, cfg: ModelConfig,
 def encoder_stack(stack, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
                   fsdp_dims=None) -> torch.Tensor:
     """The encoder layers in order; in training each is checkpointed, as
-    ``decoder_stack``'s are, with its FSDP gather (``fsdp_dims``) inside."""
+    ``decoder_stack``'s are, with its FSDP gather (``fsdp_dims``) inside,
+    and recomputed whole whatever ``rt.remat_policy`` says, as the
+    reference's encoder scan is."""
     for lp in stack:
         fn = functools.partial(_gathered_encoder_layer, lp, fsdp_dims, cfg=cfg, rt=rt)
         x = checkpoint(fn, x, use_reentrant=False) if torch.is_grad_enabled() else fn(x)
@@ -224,11 +227,14 @@ def decoder_stack(stack, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
     With ``fsdp_dims`` each layer first gathers its FSDP shards over
     ``rt.fsdp_group``, inside the checkpoint, so the gather runs again in
     the recompute and its reduce-scatter in the backward.  ``enc_out``
-    feeds every layer's cross-attention."""
+    feeds every layer's cross-attention.  ``rt.remat_policy`` picks what
+    the checkpoint keeps (``remat_policy_for``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    policy = remat_policy_for(rt)
+    kw = {} if policy is None else {"context_fn": policy}
     for lp in stack:
         fn = functools.partial(_gathered_layer, lp, fsdp_dims, cfg=cfg, rt=rt,
                                causal=causal)
-        x, a = checkpoint(fn, x, enc_out, use_reentrant=False)
+        x, a = checkpoint(fn, x, enc_out, use_reentrant=False, **kw)
         aux = aux + a
     return x, aux

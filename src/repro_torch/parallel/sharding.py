@@ -7,7 +7,11 @@ the JAX package's mesh axis names.
 of every data-parallel rank that shares this rank's model index (the
 reference's ``dp_axes``, pod x data), and the group the FSDP shards of
 the layer parameters live on (``fsdp_group``, the data group when FSDP
-is on); ``sp`` turns on Megatron sequence parallelism.  The MoE knobs
+is on); ``sp`` turns on Megatron sequence parallelism; ``remat_policy``
+is what the decoder stack's checkpoint keeps (``remat_policy_for``):
+``"none"`` recomputes the whole layer in the backward, and
+``"save_collectives"`` keeps the output of each ``reduce_from_tp``, so
+the recompute does not run its all-reduce again.  The MoE knobs
 are the reference's: the expert capacity factor, the All2All schedule
 mode of the expert-parallel dispatch and combine, the cluster group of
 that exchange (``None`` on every mesh the launchers build: experts shard
@@ -30,10 +34,12 @@ same collectives the reference's transposes do.  With a group of
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
 import torch.distributed as dist
+from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +52,7 @@ class Runtime:
     dp_group: Any = None            # every data-parallel rank (pod x data)
     fsdp_group: Any = None          # FSDP shard group ("data"), or None: no FSDP
     sp: bool = False                # Megatron sequence parallelism
+    remat_policy: str = "none"      # none | save_collectives
     moe_capacity_factor: float = 1.25
     # MoE expert-parallel dispatch/combine (models/moe.py's ep path): the
     # planner-chosen All2All schedule mode, the cluster group of the ep
@@ -70,10 +77,40 @@ def group_size(group) -> int:
 
 
 def _summed(x: torch.Tensor, group) -> torch.Tensor:
-    """A new tensor: ``x`` summed over ``group``."""
-    out = x.contiguous().clone()
-    dist.all_reduce(out, group=group)
-    return out
+    """A new tensor: ``x`` summed over ``group``, by the out-of-place
+    functional all-reduce: an op whose output selective checkpointing can
+    keep (``remat_policy_for``), where the in-place ``dist.all_reduce``
+    writes into a clone."""
+    out = torch.ops._c10d_functional.all_reduce(x.contiguous(), "sum", group.group_name)
+    return torch.ops._c10d_functional.wait_tensor(out)
+
+
+# the ops of ``_summed``: inside a checkpointed layer only ``reduce_from_tp``
+# issues them (``copy_to_tp``'s sum runs in the backward)
+_TP_COLLECTIVE_OPS = frozenset({torch.ops._c10d_functional.all_reduce.default,
+                                torch.ops._c10d_functional.wait_tensor.default})
+REMAT_POLICIES = ("none", "save_collectives")
+
+
+def _save_tp_collective(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _TP_COLLECTIVE_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_policy_for(rt: Runtime):
+    """The ``context_fn`` of ``torch.utils.checkpoint.checkpoint`` for
+    ``rt.remat_policy``, or None (recompute everything).
+    ``"save_collectives"`` keeps the TP all-reduce's output and recomputes
+    everything else, as the reference's ``save_only_these_names
+    ("tp_collective")`` keeps the tagged output of its ``reduce_from_tp``.
+    With no TP group ``reduce_from_tp`` is the identity and there is
+    nothing to keep, where the reference keeps the tagged row-parallel
+    output all the same."""
+    if rt.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat policy {rt.remat_policy!r}: one of {REMAT_POLICIES}")
+    if rt.remat_policy == "save_collectives":
+        return functools.partial(create_selective_checkpoint_contexts, _save_tp_collective)
+    return None
 
 
 class _CopyToTp(torch.autograd.Function):

@@ -65,6 +65,7 @@ from repro_torch.core.collectives import CommConfig
 from repro_torch.core.planner import BoundPlan
 from repro_torch.core.schedule import STRUCTURAL_MODES, build_schedule
 from repro_torch.kernels import quant as _qk
+from repro_torch.kernels._build import shape_only
 from repro_torch.models.model import STACKED, Model
 from repro_torch.parallel.sharding import Runtime, group_size
 from repro_torch.runtime import tree as tree_lib
@@ -329,10 +330,16 @@ def make_train_step(model: Model, tcfg: TrainConfig):
                          metrics["mean_logp"].detach().float()])
         if n_dp > 1:
             dist.all_reduce(m, group=rt.dp_group)
-        m = (m / n_dp).tolist()
-        out = dict(zip(("loss", "grad_norm", "aux", "mean_logp"), m))
-        ok = math.isfinite(out["loss"]) and math.isfinite(out["grad_norm"])
-        out["gated"] = tcfg.finite_gate and not ok
+        m = m / n_dp
+        if shape_only(m):
+            # a step traced on tensors with no data (the dry run) has no
+            # values to read: nothing is gated, and the update is traced too
+            out = dict.fromkeys(("loss", "grad_norm", "aux", "mean_logp"), math.nan)
+            out["gated"] = False
+        else:
+            out = dict(zip(("loss", "grad_norm", "aux", "mean_logp"), m.tolist()))
+            ok = math.isfinite(out["loss"]) and math.isfinite(out["grad_norm"])
+            out["gated"] = tcfg.finite_gate and not ok
         if out["gated"]:
             return out
         if zero1:

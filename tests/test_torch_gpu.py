@@ -24,7 +24,11 @@ training steps with ``hier_overlap`` (its buckets synced inside the
 backward) and with ``fsdp``, int8 on the pod hop, in a world of one
 (NCCL for the card, gloo for the CPU): losses and parameters within 1e-4
 of the same steps on the CPU, and the codec launched once per bucket or
-per leaf.
+per leaf.  Each wrapper's shape-only branch (the dry run's, for fake
+tensors) gives the outputs' shapes, dtypes and strides its launch
+writes, counted in ``.fake_launches`` and never in ``.launches``; and
+the dry run's trace of qwen2.5-3b with ``device="cuda"`` calls each
+kernel as often as the card's path launches it.
 """
 
 import copy
@@ -799,3 +803,120 @@ def test_moe_smoke_on_card_matches_cpu(cuda, arch):
                 logits.square().mean() + aux, params)])
     for g, c in zip(grads[1], grads[0]):
         assert (g - c).abs().max().item() <= 1e-4 * max(1.0, c.abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# The shape-only branches (the dry run's trace of the card's path)
+# ---------------------------------------------------------------------------
+
+def _shape_only_cases(dev):
+    """name -> (wrapper, a function of the inputs, the inputs on ``dev``)
+    at shapes the main path gives each kernel."""
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape, dt=torch.bfloat16):
+        return torch.randn(*shape, device=dev, generator=g).to(dt)
+
+    x = rnd(5 * 1024 + 7)
+    q, s = tquant.quant_int8_call(x)
+    pieces = [(0, rnd(3, 1000)), (4096, rnd(2000, dt=torch.float32))]
+    return {
+        "quant_int8": (tquant.quant_int8_call, lambda a: tquant.quant_int8_call(a["x"]),
+                       {"x": x}),
+        "dequant_int8": (tquant.dequant_int8_call,
+                         lambda a: tquant.dequant_int8_call(a["q"], a["s"], x.numel(),
+                                                            torch.bfloat16),
+                         {"q": q, "s": s}),
+        "amax_block": (tquant.amax_block_call, lambda a: tquant.amax_block_call(a["x"]),
+                       {"x": x}),
+        "quant_scaled": (tquant.quant_scaled_call,
+                         lambda a: tquant.quant_scaled_call(a["x"], a["s"]), {"x": x, "s": s}),
+        "pack_slots": (tquant.pack_slots_call,
+                       lambda a: tquant.pack_slots_call([(0, a["p0"]), (4096, a["p1"])], 8192,
+                                                        torch.bfloat16),
+                       {"p0": pieces[0][1], "p1": pieces[1][1]}),
+        "fused_pack_quant": (tquant.fused_pack_quant_call,
+                             lambda a: tquant.fused_pack_quant_call(
+                                 [(0, a["p0"]), (4096, a["p1"])], 8192),
+                             {"p0": pieces[0][1], "p1": pieces[1][1]}),
+        "flash_attention": (tfa.flash_attention_bhsd,
+                            lambda a: ops.flash_attention(a["q"], a["k"], a["v"]),
+                            {"q": rnd(2, 256, 16, 128), "k": rnd(2, 256, 2, 128),
+                             "v": rnd(2, 256, 2, 128)}),
+        "ssd_chunk": (tssd.ssd_chunk_call,
+                      lambda a: tssd.ssd_chunk_call(a["x"], a["dt"], a["A"], a["B"], a["C"], 128),
+                      {"x": rnd(1, 512, 8, 64), "dt": rnd(1, 512, 8, dt=torch.float32).abs(),
+                       "A": -rnd(8, dt=torch.float32).abs(), "B": rnd(1, 512, 1, 128),
+                       "C": rnd(1, 512, 1, 128)}),
+    }
+
+
+@pytest.mark.parametrize("name", ["quant_int8", "dequant_int8", "amax_block", "quant_scaled",
+                                  "pack_slots", "fused_pack_quant", "flash_attention",
+                                  "ssd_chunk"])
+def test_shape_only_branch_writes_the_launchs_layout(cuda, name):
+    """The same call on the card's tensors and on their fakes: outputs of
+    equal shapes, dtypes and strides; the real call counts a launch and
+    no shape-only call, the fake one the other way round."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._pytree import tree_leaves
+
+    wrapper, call, inputs = _shape_only_cases(cuda)[name]
+    launches, fakes = wrapper.launches, wrapper.fake_launches
+    with torch.no_grad():
+        real = tree_leaves(call(inputs))
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.fake_launches) == (launches + 1, fakes)
+    with FakeTensorMode() as mode, torch.no_grad():
+        fake = tree_leaves(call({k: mode.from_tensor(v) for k, v in inputs.items()}))
+    assert (wrapper.launches, wrapper.fake_launches) == (launches + 1, fakes + 1)
+    assert [(tuple(t.shape), t.dtype, t.stride(), t.device) for t in fake] == [
+        (tuple(t.shape), t.dtype, t.stride(), t.device) for t in real]
+
+
+DRYRUN_COUNTS = """
+import json
+import torch.distributed as dist
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.kernels import ops
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_fake_world
+one = {"pod": 1, "data": 1, "model": 1}
+out = {}
+for kind, mode in (("prefill", "hier"), ("decode", "hier"), ("train", "hier"),
+                   ("train", "hier_overlap")):
+    rt = make_fake_world(one)
+    ops.reset_launch_counts()
+    cell = dryrun.trace_cell(get_config("qwen2.5-3b"), ShapeConfig("c", kind, 1024, 4), rt, one,
+                             comm_mode=mode, compression="int8", device="cuda")
+    dist.destroy_process_group()
+    out[f"{kind}/{mode}"] = [ops.fake_launch_counts(), ops.launch_counts(),
+                             cell["memory"]["peak_bytes"]]
+print(json.dumps(out))
+"""
+
+
+def test_dryrun_counts_the_cards_launches(cuda):
+    """qwen2.5-3b's world of one traced with ``device="cuda"`` (a
+    subprocess: the fake world is one per process): the shape-only calls
+    equal the launches chip_smoke.py asserts on the card, and nothing
+    launches."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    proc = subprocess.run([sys.executable, "-c", DRYRUN_COUNTS], capture_output=True, text=True,
+                          timeout=900, env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    codec = {"pack_slots": 1, "amax_block": 1, "quant_scaled": 1, "dequant_int8": 1}
+    want = {"prefill/hier": {"flash_attention_bhsd": 36}, "decode/hier": {},
+            "train/hier": codec, "train/hier_overlap": {k: 38 for k in codec}}
+    for key, counts in want.items():
+        fake, real, _ = got[key]
+        assert fake == {k: counts.get(k, 0) for k in fake}, key
+        assert set(real.values()) == {0}, key
