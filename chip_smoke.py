@@ -3,7 +3,7 @@
     python3 chip_smoke.py                       # every phase, then the result
     python3 chip_smoke.py --phases encdec_vlm   # a slice's phases (moe, ssm,
                                                 # runtime, encdec_vlm, padding,
-                                                # pp, dryrun) or phases
+                                                # pp, dryrun, examples) or phases
                                                 # by name, in the same order,
                                                 # each timed; no result line
 
@@ -252,6 +252,25 @@
    seconds, peak, FLOPs and collective bytes are printed; its roofline
    prices the H100 with assumed link rates, an estimate, not a
    measurement.
+14. The examples (``--phases examples``), their processes one after
+   another in a thread of their own, started with EXAMPLES_FROM and run
+   beside the host-bound TP phases that follow it, their phases held
+   before the 8-rank TP phases (alone, nothing runs beside them):
+   ``examples/torch_quickstart.py`` on 8 spawned ranks as 2 pods x 2
+   data x 2 model over gloo on the card, then on the CPU (every synced
+   buffer, the int8 sync's included, bit-equal to the CPU's, every line
+   equal, the flat sum within 1e-5 of the host's, the int8 sync launches
+   amax_block, quant_scaled and dequant_int8 once a rank);
+   ``examples/torch_train_lm.py --hundred-m --steps 300`` as a process
+   of its own, first (one pack_slots a step, the loss falls; step ms,
+   tokens/s and peak printed), then at its phase one step of its model
+   profiled with nothing beside it (idle share);
+   ``examples/torch_serve_disaggregated.py`` on the 8 ranks in bf16 at
+   EXAMPLE_PROMPT tokens, then in f32 on the card and on the CPU in one
+   world: per rank flash once per layer per prefill, the codec once per
+   int8 leaf per int8 transfer, nothing in decode, and the card's tokens
+   equal to the CPU's on every path (the bf16 rank's flash and codec
+   shapes are among phase 2's cases).
 
 Any failed check raises, and the script exits non-zero without printing
 its result line.  The last line is the result:
@@ -261,18 +280,18 @@ its result line.  The last line is the result:
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import copy
 import dataclasses
 import gc
+import importlib
 import json
 import math
-import multiprocessing
 import os
 import pathlib
 import resource
 import shutil
-import socket
 import statistics
 import subprocess
 import sys
@@ -280,6 +299,7 @@ import tempfile
 import threading
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch._subclasses.fake_tensor import FakeTensorMode
@@ -296,7 +316,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import quant  # noqa: E402
 from repro_torch.kernels import ssd  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
-from repro_torch.launch.mesh import runtime_for_groups, survivor_mesh  # noqa: E402
+from repro_torch.launch.mesh import runtime_for_groups, spawn_world, survivor_mesh  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import attention, moe  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
@@ -379,6 +399,14 @@ PLAN_WORLD = (2, 4)
 # the syncs whose small-model check holds the sync itself bit-equal to the
 # CPU's on the same gradients (check_sync_parity) in place of parameters
 SYNC_PARITY_MODES = ("hier_overlap", "fsdp")
+# the serve example's prompt on the card: from FLASH_MIN_Q (128) tokens
+# the prefill takes the flash kernel, and each rank's k and v leaf holds
+# 2 x 1 x 128 x 1 x 16 = 4096 values, over the codec's 1024-value block;
+# at the reference's 16 tokens neither runs (the CPU tests run that size)
+EXAMPLE_PROMPT = 128
+# a serve example rank's k or v leaf (the smoke qwen2.5-3b at TP 2):
+# (layers, batch, tokens, KV heads, head size)
+EXAMPLE_KV_LEAF = (2, 1, EXAMPLE_PROMPT, 1, 16)
 
 
 def grad_layout(cfg) -> dict[str, int]:
@@ -579,8 +607,11 @@ def check_codec(dev, gen, agree: dict[str, bool]) -> dict:
     x = torch.randn(leaf, device=dev, generator=gen).to(torch.bfloat16)
     ragged = torch.randn(37 * 1024 + 5, device=dev, generator=gen) * 50
     ragged[1024:2048] = 0                                   # an all-zero block
+    example = torch.randn(EXAMPLE_KV_LEAF, device=dev, generator=gen)
     cases = [("kv leaf bf16", x), ("ragged f32 with a zero block", ragged),
-             ("ragged bf16", ragged.to(torch.bfloat16))]
+             ("ragged bf16", ragged.to(torch.bfloat16)),
+             ("serve example rank's kv leaf bf16", example.to(torch.bfloat16)),
+             ("serve example rank's kv leaf f32", example)]
     for name, t in cases:
         q, s = quant.quant_int8_call(t)
         pq, ps = quant.quant_int8_plain(t)
@@ -804,6 +835,10 @@ FLASH_CASES = [
     (BATCH, 2, 2, ENC_FRAMES, ENC_FRAMES, 64, False, None, 0, None, torch.bfloat16),
     (BATCH, 2, 2, PROMPT, ENC_FRAMES, 64, False, None, 0, None, torch.bfloat16),
     (BATCH, 2, 2, PROMPT, PROMPT, 64, True, None, 0, None, torch.bfloat16),
+    # a serve example rank (the smoke qwen2.5-3b at TP 2: 2 Q / 1 KV heads
+    # of 16, one request of EXAMPLE_PROMPT tokens), bf16 and f32
+    (1, 2, 1, EXAMPLE_PROMPT, EXAMPLE_PROMPT, 16, True, None, 0, None, torch.bfloat16),
+    (1, 2, 1, EXAMPLE_PROMPT, EXAMPLE_PROMPT, 16, True, None, 0, None, torch.float32),
 ]
 # the timed flash cases: (H, K, dh, dtype, Sq, Skv, causal, window) -> the
 # row's key for its numbers (the first two are the row's own, bf16, and its
@@ -2090,9 +2125,10 @@ SSM_TRAIN_RANGES = TRAIN_RANGES + ("ssd_plain", "causal_conv1d")
 
 def profile_training(dev, rt, smi: str, mode: str, codec: str | None,
                      with_attention: bool, planned=None, arch: str = ARCH,
-                     seq: int = TRAIN_SEQ, layers: int | None = None) -> dict:
+                     seq: int = TRAIN_SEQ, layers: int | None = None,
+                     batch: int = TRAIN_BATCH) -> dict:
     """One full-width training step of ``arch`` (``layers`` cuts the depth)
-    under torch.profiler, after one warm-up step: device time by kernel
+    at ``batch`` x ``seq`` tokens under torch.profiler, after one warm-up step: device time by kernel
     group (the codec kernels, the pack, matmul, the rest of the gradient
     sync, the gradient norm, the optimizer, an SSM's plain SSD and conv,
     everything else) and the device's idle share; then one optimizer
@@ -2110,7 +2146,7 @@ def profile_training(dev, rt, smi: str, mode: str, codec: str | None,
                              opt=ocfg))
     step_fn, init_fn = make_train_step(model, tcfg)
     opt = init_fn(0)
-    dcfg = DataConfig(vocab_size=cfg.vocab_size, global_batch=TRAIN_BATCH, seq_len=seq)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, global_batch=batch, seq_len=seq)
     b = {k: torch.from_numpy(v).long().to(dev) for k, v in synth_batch(dcfg, 0).items()}
     step_fn(opt, b)                                       # warm-up
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -2121,7 +2157,7 @@ def profile_training(dev, rt, smi: str, mode: str, codec: str | None,
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     what = f"{mode} + {codec}" + ("" if planned is None else " as planned, per leaf")
-    out = _report(prof, wall, f"{cfg.name} training step {TRAIN_BATCH}x{seq}, {what}",
+    out = _report(prof, wall, f"{cfg.name} training step {batch}x{seq}, {what}",
                   smi, TRAIN_GROUPS, ranges)
     if mode == "hier_overlap" and planned is None:
         out["overlap"] = ov = overlap_timeline(prof)
@@ -2387,12 +2423,10 @@ def ssm_f32_logits(dev, rt) -> torch.Tensor:
     return logits
 
 
-def _tp_rank(rank: int, world: int, port: int, job: str, out_dir: str,
-             device: str = "cuda") -> None:
-    """One TP rank (a process of its own, on the one card, gloo): runs
-    ``job`` and saves what it measured as rank{rank}.pt in ``out_dir``."""
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), MASTER_ADDR="localhost",
-                      MASTER_PORT=str(port), GLOO_SOCKET_IFNAME="lo")
+def _tp_rank(rank: int, world: int, job: str, out_dir: str, device: str = "cuda") -> dict:
+    """One TP rank (a process of its own, on the one card, gloo; started
+    by ``spawn_world``): runs ``job`` and returns what it measured;
+    ``out_dir`` is a directory the ranks share."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(device)
@@ -2429,7 +2463,7 @@ def _tp_rank(rank: int, world: int, port: int, job: str, out_dir: str,
         if job == HYBRID_ARCH:      # after the main path's counts: card against CPU
             free_memory()
             out["f32"] = padded_f32_serve(dev, world)
-        torch.save(out, pathlib.Path(out_dir) / f"rank{rank}.pt")
+        return out
     finally:
         dist.destroy_process_group()
 
@@ -2468,27 +2502,8 @@ def _tp_train(dev, tp: int, arch: str) -> dict:
 def _spawn_tp(job: str, world: int) -> list[dict]:
     """``world`` TP ranks of ``job`` as processes on the one card; each
     rank's results.  Every process is joined or killed before it returns."""
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
-        procs = [ctx.Process(target=_tp_rank, args=(r, world, port, job, tmp))
-                 for r in range(world)]
-        try:
-            for p in procs:
-                p.start()
-            for p in procs:
-                p.join(timeout=600)
-        finally:
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join(timeout=30)
-        check([p.exitcode for p in procs] == [0] * world,
-              f"TP {job}: exit codes {[p.exitcode for p in procs]}")
-        return [torch.load(pathlib.Path(tmp) / f"rank{r}.pt", weights_only=False)
-                for r in range(world)]
+        return spawn_world(_tp_rank, world, world, job, tmp, timeout=600)
 
 
 def serve_tp(smi: str, tp: int, ref: dict) -> tuple[dict[str, int], dict]:
@@ -3358,6 +3373,230 @@ def dryrun_cells(smi: str, train_hier: dict, cells: DryrunCells) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 14. The examples
+# ---------------------------------------------------------------------------
+
+EXAMPLES = pathlib.Path(__file__).resolve().parent / "examples"
+TRAIN_LM_STEPS = 300        # the reference's full-size deliverable: --hundred-m --steps 300
+TRAIN_LM_TIMEOUT = 600      # seconds within which its process ends
+# the examples' processes start with this phase: the TP phases from here
+# on wait on gloo and the host and leave the card mostly idle
+EXAMPLES_FROM = "serve_tp2"
+
+
+def _example(name: str):
+    """The example module ``examples/<name>.py``, imported by name so that
+    the ranks it spawns import it too (a spawned process takes sys.path)."""
+    if str(EXAMPLES) not in sys.path:
+        sys.path.insert(0, str(EXAMPLES))
+    return importlib.import_module(name)
+
+
+def _summed(per_rank) -> dict[str, int]:
+    """Every kernel's launches summed over the ranks' dicts."""
+    out = dict.fromkeys(ops.KERNELS, 0)
+    for launches in per_rank:
+        for k, n in launches.items():
+            out[k] += n
+    return out
+
+
+def _timed(fn, *args, **kwargs):
+    """fn(*args, **kwargs) and its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    return out, time.perf_counter() - t0
+
+
+def _serve_f32_rank(rank: int, prompt_len: int) -> dict:
+    """One rank of the serve example's world in f32: the smoke model drawn
+    on the CPU from the example's seed and copied to the card, then the
+    example's steps (``disaggregate``) on the card and on the CPU."""
+    ex = _example("torch_serve_disaggregated")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    train_launch.init_world(dev, "gloo")
+    try:
+        cfg = ex.smoke_config(f32=True)
+        rt = ex.world_runtime()
+        cpu = Model(cfg, rt, device="cpu").init(0)
+        gpu = copy.deepcopy(cpu, {id(rt): rt}).to(dev)
+        prompt = ex.prompt_tokens(cfg, prompt_len)[ex.my_rows(rank)]
+        return {"gpu": ex.disaggregate(gpu, prompt), "cpu": ex.disaggregate(cpu, prompt)}
+    finally:
+        dist.destroy_process_group()
+
+
+def _train_lm_process() -> tuple:
+    """``examples/torch_train_lm.py --hundred-m --steps 300`` as a process
+    of its own (its world of one on the card): the finished process and
+    its seconds."""
+    cfg = _example("torch_train_lm").make_config(True)
+    with tempfile.TemporaryDirectory() as tmp:
+        _disk_check(tmp, 3 * cfg.param_count() * 10 / 1e9, "train_lm")
+        return _timed(
+            subprocess.run,
+            [sys.executable, str(EXAMPLES / "torch_train_lm.py"), "--hundred-m", "--steps",
+             str(TRAIN_LM_STEPS), "--device", "cuda", "--ckpt-dir", tmp],
+            env=dict(os.environ, PYTHONPATH=str(EXAMPLES.parent / "src")),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            timeout=TRAIN_LM_TIMEOUT)
+
+
+def _quickstart_worlds() -> tuple:
+    """The quickstart's 8 ranks on the card (``run("cuda")``), then on the
+    CPU, each with its seconds."""
+    ex = _example("torch_quickstart")
+    return _timed(ex.run, "cuda"), _timed(ex.run, "cpu")
+
+
+def _serve_worlds() -> tuple:
+    """The serve example's 8 ranks on the card at EXAMPLE_PROMPT tokens
+    (bf16; ``run("cuda")``), then its steps in f32 on the card and on the
+    CPU in one world (``_serve_f32_rank``), each with its seconds."""
+    ex = _example("torch_serve_disaggregated")
+    return (_timed(ex.run, "cuda", EXAMPLE_PROMPT),
+            _timed(spawn_world, _serve_f32_rank, ex.PODS * ex.DATA * ex.TP, EXAMPLE_PROMPT))
+
+
+class ExampleRuns:
+    """The examples' processes, started with the phase EXAMPLES_FROM and
+    run one after another in a thread of their own: train_lm first, then
+    the quickstart's worlds, then the serve example's.  In the full run
+    they run beside the TP phases that follow EXAMPLES_FROM (gloo on the
+    host, the card mostly idle), and the example phases, placed after
+    those and before the 8-rank TP phases and every timed or profiled
+    phase after them, wait for them; alone (``--phases examples``) nothing
+    runs beside them."""
+
+    def __init__(self):
+        self.pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+        self.jobs = {name: self.pool.submit(fn) for name, fn in (
+            ("train_lm", _train_lm_process), ("quickstart", _quickstart_worlds),
+            ("serve", _serve_worlds))}
+
+    def result(self, name: str):
+        """The job's result once it has ended (each bounds its own time)."""
+        return self.jobs[name].result()
+
+    def close(self) -> None:
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+def example_quickstart(run: "Run") -> dict[str, int]:
+    """``examples/torch_quickstart.py`` on 8 spawned gloo ranks on the
+    card (``run("cuda")``), its lines printed, and the same world on the
+    CPU (``run("cpu")``): every synced buffer on the card bit-equal to the
+    CPU's (the int8 sync's too: the codec kernels against their plain
+    versions), every line equal to the CPU's, flat and hier agree, the
+    flat sum within 1e-5 of the host's largest, and the int8 sync
+    launches amax_block, quant_scaled and dequant_int8 once a rank and no
+    sync anything else."""
+    ex = _example("torch_quickstart")
+    (res, took), (cpu, took_cpu) = run.examples.result("quickstart")
+    for line in res["lines"]:
+        print(line)
+    for name in ex.SYNCS:
+        got, want = res["synced"][name], cpu["synced"][name]
+        check(torch.equal(got, want), f"quickstart {name}: the card's buffer "
+              f"{(got - want).abs().max().item():.3e} off the CPU's")
+    check(res["lines"] == cpu["lines"], f"quickstart lines {res['lines'][:3]} against the "
+                                        f"CPU's {cpu['lines'][:3]}")
+    check(res["lines"][:2] == ["flat == hier: True", "flat == hier_pipelined: True"],
+          f"quickstart: {res['lines'][:2]}")
+    codec = {"amax_block": 1, "quant_scaled": 1, "dequant_int8": 1}
+    want = {"flat": {}, "hier": {}, "hier_pipelined": {}, "int8": codec}
+    for rank, launches in enumerate(res["launches"]):
+        check(launches == want, f"quickstart rank {rank} launches {launches}, expected {want}")
+    g = ex.gradients().astype(np.float64)
+    host = sum(np.split(g, ex.PODS * ex.DATA))
+    err = float(np.abs(res["synced"]["flat"].double().numpy() - host).max() / np.abs(host).max())
+    check(err <= 1e-5, f"quickstart flat sum {err:.3e} off the host's")
+    print(f"[example] [{run.smi}] quickstart, 8 gloo ranks on the card: {took:.1f} s (on the "
+          f"CPU {took_cpu:.1f} s); the four synced buffers bit-equal to the CPU world's, int8 "
+          f"included; the flat sum {err:.3e} of its largest off the host's; launches a rank "
+          f"{res['launches'][0]}")
+    return _summed(r["int8"] for r in res["launches"])
+
+
+def example_train_lm(run: "Run") -> dict:
+    """``examples/torch_train_lm.py --hundred-m --steps 300`` (a process
+    of its own, its world of one on the card): every step launches one
+    pack_slots (the one bf16 gradient segment of a hier step; no codec)
+    and nothing else, and the loss falls; the step ms, tokens/s and peak
+    from its summary line.  Then, with nothing beside it, one step of the
+    same model and batch profiled in this process: its device time and
+    idle share."""
+    ex = _example("torch_train_lm")
+    proc, took = run.examples.result("train_lm")
+    check(proc.returncode == 0, f"train_lm exited {proc.returncode}: {proc.stdout[-3000:]}")
+    lines = proc.stdout.splitlines()
+    print("\n".join(line for line in lines if not line.startswith("{")))
+    records = [json.loads(line) for line in lines if line.startswith("{")]
+    steps, summary = [rec for rec in records if "step" in rec], records[-1]
+    losses = summary["losses"]
+    want = dict.fromkeys(ops.KERNELS, 0) | {"pack_slots": 1}
+    check(len(steps) == len(losses) == TRAIN_LM_STEPS, f"train_lm: {len(steps)} steps")
+    check(all(rec["launches"] == want for rec in steps),
+          f"train_lm launches per step {[rec['launches'] for rec in steps[:3]]}, expected {want}")
+    check(losses[-1] < losses[0] and all(math.isfinite(x) for x in losses),
+          f"train_lm losses {losses[0]} -> {losses[-1]}")
+    ms = sorted(rec["ms_per_step"] for rec in steps[1:])
+    print(f"[example] [{run.smi}] train_lm {summary['arch']} ({summary['params']} params, "
+          f"bf16), {summary['global_batch']} x {summary['seq']} tokens, {TRAIN_LM_STEPS} hier "
+          f"steps in a world of one: {took:.1f} s, step {summary['step_ms']:.2f} ms (median "
+          f"of steps 1-{TRAIN_LM_STEPS - 1}; from {ms[0]:.2f} to {ms[-1]:.2f}, quartiles "
+          f"{ms[len(ms) // 4]:.2f} and {ms[3 * len(ms) // 4]:.2f}), "
+          f"{summary['tokens_per_s']:.1f} tokens/s, peak {summary['peak_mem_gb']:.3f} GB, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches per step {want}")
+    cfg = ex.make_config(True)
+    ex.register(cfg)
+    profile = profile_training(run.dev, run.rt, run.smi, "hier", None, with_attention=False,
+                               arch=cfg.name, seq=summary["seq"],
+                               batch=summary["global_batch"])
+    return {"counts": {k: n * TRAIN_LM_STEPS for k, n in want.items()}, "seconds": took,
+            "losses": [losses[0], losses[-1]], "profile": profile,
+            **{k: summary[k] for k in ("step_ms", "tokens_per_s", "peak_mem_gb", "params")}}
+
+
+def example_serve(run: "Run") -> dict[str, int]:
+    """``examples/torch_serve_disaggregated.py`` on 8 spawned gloo ranks
+    on the card at EXAMPLE_PROMPT tokens (bf16; ``run("cuda")``), its
+    lines printed, and its steps in f32 on the card and on the CPU in one
+    world: per rank flash once per layer per prefill, quant_int8 and
+    dequant_int8 once per int8 leaf (k, v) per int8 transfer, nothing in
+    decode or the raw transfer; the card's f32 tokens equal the CPU's on
+    every path.  (The bf16 world's flash and codec shapes are held against
+    their plain versions in the codec and flash phases.)"""
+    ex = _example("torch_serve_disaggregated")
+    (res, took), (ranks, took_f32) = run.examples.result("serve")
+    ex.report(res)
+    check(res["same"], "serve example: the disaggregated generation left same-pod's")
+    layers = ex.smoke_config().n_layers
+    codec = {"quant_int8": 2, "dequant_int8": 2}
+    want = {"prefill": {"flash_attention_bhsd": layers}, "transfer": {},
+            "transfer_int8": codec, "decode": {}}
+    for name, per_rank in (("bf16", res["launches"]),
+                           ("f32", [r["gpu"]["launches"] for r in ranks])):
+        for rank, launches in enumerate(per_rank):
+            check(launches == want, f"serve example {name} rank {rank}: {launches}, "
+                                    f"expected {want}")
+    check(res["int8_leaves"] == ["k", "v"], f"int8 leaves {res['int8_leaves']}")
+    gpu, cpu = ex.gather([r["gpu"] for r in ranks]), ex.gather([r["cpu"] for r in ranks])
+    for path, tokens in gpu.items():
+        check(np.array_equal(tokens, cpu[path]),
+              f"serve example {path}: the card's f32 tokens {tokens.tolist()} against the "
+              f"CPU's {cpu[path].tolist()}")
+    agree = float(np.mean(ex.swap_halves(gpu["same_pod"]) == gpu["int8"]))
+    print(f"[example] [{run.smi}] serve_disaggregated, 8 gloo ranks on the card, "
+          f"{EXAMPLE_PROMPT}-token prompts: bf16 {took:.1f} s (int8 agreement "
+          f"{res['int8_agreement']:.4f}); f32 on the card and the CPU {took_f32:.1f} s, tokens "
+          f"equal on every path (int8 agreement {agree:.4f}); launches a rank "
+          f"{res['launches'][0]}")
+    return _summed(p for r in res["launches"] for p in r.values())
+
+
 class Run:
     """What the phases of one run share: the card, the generator, the
     kernels line's rows, each phase's result and seconds, and the
@@ -3372,6 +3611,7 @@ class Run:
         self.seconds: dict[str, float] = {}
         self.rt = self.rt_fsdp = None
         self.dryrun: DryrunCells | None = None
+        self.examples: ExampleRuns | None = None
         self._agree = self._planned = None
 
     def __getitem__(self, name: str):
@@ -3479,6 +3719,13 @@ def phase_table() -> list[tuple]:
           ("serve_ssm_tp", True, False, False, lambda r: serve_ssm_tp(r.dev, r.smi))]
     t += [(f"train_tp:{arch}", True, False, False, lambda r, a=arch: train_tp(r.smi, a))
           for arch in (SSM_ARCH, HYBRID_ARCH)]
+    # phase 14: the examples (examples/torch_*.py), whose processes ran
+    # since EXAMPLES_FROM (ExampleRuns): the quickstart and the serve
+    # example on 8 spawned gloo ranks sharing the card, train_lm in a
+    # process of its own; held here, before the 8-rank TP phases
+    t += [("example:quickstart", False, False, False, example_quickstart),
+          ("example:serve_disaggregated", False, False, False, example_serve),
+          ("example:train_lm", True, True, False, example_train_lm)]
     # head padding under TP: hymba-1.5b served at TP 8 (and in f32, card
     # against CPU), whisper-tiny at TP 4, the smoke hymba trained at TP 8;
     # then GPipe over a pod group of 2
@@ -3549,6 +3796,7 @@ SLICES = {
     + (f"train_tp8:{HYBRID_ARCH}",),
     "pp": ("pp",),
     "dryrun": ("train:hier", "dryrun"),
+    "examples": ("example:quickstart", "example:train_lm", "example:serve_disaggregated"),
     "encdec_vlm": ("flash",) + tuple(
         f"{p}:{a}" for p in ("serve", "profile_serving", "small_model", "train")
         for a in (ENCDEC_ARCH, VLM_ARCH)),
@@ -3558,17 +3806,24 @@ SLICES = {
 def run_phases(run: Run, names: set[str] | None) -> None:
     """Run the phases named (all but the named-only ones for ``None``) in
     the table's order, each timed; the world of one starts before the
-    first phase that needs it and ends after the last, and the dry run's
+    first phase that needs it and ends after the last, the dry run's
     cells, when its phase is among them, start before the first phase
-    past KERNEL_TIMING_PHASES.  A failed phase raises."""
+    past KERNEL_TIMING_PHASES, and the examples' processes, when theirs
+    are, before the first phase from EXAMPLES_FROM on.  A failed phase
+    raises."""
     world = False
-    rows = [row for row in phase_table()
+    table = phase_table()
+    order = {row[0]: i for i, row in enumerate(table)}
+    rows = [row for row in table
             if not ((names is None and row[3]) or (names is not None and row[0] not in names))]
     dryrun = any(row[0] == "dryrun" for row in rows)
+    examples = any(row[0].startswith("example:") for row in rows)
     try:
         for name, needs_world, frees, named_only, fn in rows:
             if dryrun and run.dryrun is None and name not in KERNEL_TIMING_PHASES:
                 run.dryrun = DryrunCells()
+            if examples and run.examples is None and order[name] >= order[EXAMPLES_FROM]:
+                run.examples = ExampleRuns()
             if needs_world and not world:
                 train_launch.init_world(run.dev)
                 world = True
@@ -3584,6 +3839,8 @@ def run_phases(run: Run, names: set[str] | None) -> None:
     finally:
         if run.dryrun is not None:
             run.dryrun.close()
+        if run.examples is not None:
+            run.examples.close()
         if world:
             dist.destroy_process_group()
 
@@ -3690,6 +3947,9 @@ def report(run: Run) -> None:
              "train_planned": planned_run["counts"], "conformance": out["pack"],
              "train_chaos": chaos["counts"], "train_resume": resume["counts"],
              "train_elastic": out["elastic"],
+             "example_quickstart": out["example:quickstart"],
+             "example_train_lm": out["example:train_lm"]["counts"],
+             "example_serve": out["example:serve_disaggregated"],
              **tp_counts}
     for name, row in rows.items():
         row["paths"] = {path: counts[name] for path, counts in paths.items()}
@@ -3764,6 +4024,8 @@ def report(run: Run) -> None:
                          "grad_norms": [r["gnorm"] for r in res["records"]]}
                       for (arch, layers), res in zip(EV_TRAINED, ev_train.values())}},
         "padding": pad, "pp": out["pp"], "dryrun": out["dryrun"],
+        "examples": {"train_lm": {k: v for k, v in out["example:train_lm"].items()
+                                  if k != "counts"}},
         "runtime": {"chaos": {"guard": chaos["guard"], "guard_split_ms": chaos["guard_split_ms"],
                               "guard_ms": [r["guard_ms"] for r in chaos["records"]],
                               "step_ms": chaos["step_ms"],

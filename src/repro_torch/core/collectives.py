@@ -512,6 +512,17 @@ def tree_hier_psum(leaves: list, cfg, packed: bool = True) -> list[torch.Tensor]
     return packing.unpack(layout, out)
 
 
+def tree_hier_psum_mean(leaves: list, cfg) -> list[torch.Tensor]:
+    """``tree_hier_psum`` of ``leaves``, then each leaf divided by the
+    number of data-parallel ranks (the pod group's size times the intra
+    group's, a group of ``None`` counting as one) and cast back to its
+    dtype, as the reference's ``(g / n).astype(g.dtype)``.  ``cfg`` is a
+    ``CommConfig`` or a bound plan; ``leaves`` is emptied as
+    ``tree_hier_psum`` empties it."""
+    n = primitives.axis_size(cfg.pod_group) * primitives.axis_size(cfg.intra_group)
+    return [(g / n).to(g.dtype) for g in tree_hier_psum(leaves, cfg)]
+
+
 # ---------------------------------------------------------------------------
 # ZeRO-1 flat-shard view
 # ---------------------------------------------------------------------------

@@ -11,6 +11,9 @@ reference names a mesh axis inside ``shard_map``, these take a
   * ``c2cRed``  -> the combining step over the pod group: the native
                    all-reduce (``c2c_red``), or the mechanism-faithful
                    reduce ring (``c2c_red_ring``).
+  * ``SendRecv`` -> one hop around the pod ring (``c2c_send_recv``, the
+                   PP handoff); ``BcastH`` -> the root's value forwarded
+                   around it (``c2c_bcast``).
 
   * ``hom_all_to_all`` -> the native exchange (``all_to_all_single``),
                    the reference's tiled ``lax.all_to_all``, differentiable.
@@ -218,3 +221,32 @@ def shift(tensors: list[torch.Tensor], group, by: int = 1) -> list[torch.Tensor]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return [t.to(device) for t in received] if staged else received
+
+
+def c2c_send_recv(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """Heterogeneous SendRecv between adjacent clusters (the PP handoff):
+    ``x`` to pod group rank (r + shift) % n, and the tensor of rank
+    (r - shift) % n back, as the reference's ring ``ppermute``.  A group
+    of one returns ``x``."""
+    (out,) = _ring_shift([x], group, shift)
+    return out
+
+
+def c2c_bcast(x: torch.Tensor, group, root: int = 0) -> torch.Tensor:
+    """Broadcast the root cluster's ``x`` to every cluster of ``group``
+    (``root`` a rank of the group): n - 1 hops around the ring, in each of
+    which every rank passes on what it holds and every rank but the root
+    takes what it received, hop for hop as the reference does (Table 7's
+    BcastH).  A group of one returns ``x``."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    is_root = dist.get_rank(group) == root
+    cur = x
+    for _ in range(n - 1):
+        nxt = c2c_send_recv(cur, group)
+        cur = x if is_root else nxt
+    return cur
+
+
+_ring_shift = shift     # ``c2c_send_recv``'s parameter shadows the name

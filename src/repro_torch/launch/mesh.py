@@ -8,12 +8,19 @@ address, world size and rank); ``runtime_for_groups`` either takes
 groups it is given or cuts the world into (pod, data, model) groups.
 ``make_production_world`` starts the reference's production mesh as a
 world of ``fake`` ranks, which move nothing: the dry run's world.
+``spawn_world`` starts a world of processes on this host, each of which
+starts its process group with ``init_world``: the examples' 2 pods x 2
+data x 2 model (``TEST_SHAPE``, the reference's ``make_test_mesh``).
 """
 
 from __future__ import annotations
 
 import itertools
+import multiprocessing
 import os
+import pathlib
+import socket
+import tempfile
 
 import torch
 import torch.distributed as dist
@@ -30,6 +37,7 @@ BACKENDS = {"nccl": "cpu:gloo,cuda:nccl", "gloo": "gloo"}
 # price the production topology (dryrun.auto_plan)
 PRODUCTION_MULTI_SHAPE = (2, 16, 16)     # (pod, data, model)
 PRODUCTION_SINGLE_SHAPE = (16, 16)       # (data, model)
+TEST_SHAPE = (2, 2, 2)                   # (pod, data, model): make_test_mesh's
 
 
 def init_world(device: torch.device, backend: str | None = None) -> bool:
@@ -189,3 +197,43 @@ def make_production_world(*, multi_pod: bool = False, **kw) -> Runtime:
     ``PRODUCTION_SINGLE_SHAPE``) as a fake world of 512 or 256 ranks:
     rank 0's Runtime (the counterpart of ``make_production_mesh``)."""
     return make_fake_world(production_axes(multi_pod), **kw)
+
+
+def _spawned(fn, rank: int, world: int, port: int, out_dir: str, args: tuple) -> None:
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      GLOO_SOCKET_IFNAME="lo")
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    torch.save(fn(rank, *args), pathlib.Path(out_dir) / f"rank{rank}.pt")
+
+
+def spawn_world(fn, world: int, *args, timeout: float = 600) -> list:
+    """Run ``fn(rank, *args)`` in ``world`` spawned processes, each with
+    the environment of one rank of a world on this host (``RANK``,
+    ``LOCAL_RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` localhost, a free
+    ``MASTER_PORT``), so that ``init_world`` starts its process group, and
+    with its share of the host's threads.  ``fn`` is a module-level
+    function.  Returns each rank's return value in rank order; raises if
+    a rank failed.  Every process is joined, or killed at ``timeout``."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=_spawned, args=(fn, r, world, port, tmp, args))
+                 for r in range(world)]
+        try:
+            for p in procs:
+                p.start()
+            for p in procs:
+                p.join(timeout=timeout)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=30)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * world:
+            raise RuntimeError(f"{fn.__name__} on {world} ranks: exit codes {codes}")
+        return [torch.load(pathlib.Path(tmp) / f"rank{r}.pt", weights_only=False)
+                for r in range(world)]

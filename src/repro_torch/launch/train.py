@@ -744,7 +744,9 @@ def _zero_like(model: Model, tcfg: TrainConfig) -> opt_lib.ZeroState:
     return opt_lib.ZeroState(flat, flat, flat)
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> list[float]:
+    """Parse ``argv``, train, print the summary JSON and return the
+    losses, one per step taken (the reference's ``main`` returns them)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="qwen2.5-3b")
     ap.add_argument("--smoke", action="store_true", help="the arch's small config")
@@ -834,6 +836,7 @@ def main(argv=None) -> None:
             dist.destroy_process_group()
     res.pop("records")
     print(json.dumps(res))
+    return res["losses"]
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Model code for the dense decoder family (serving and training) and the
-SSM family (Mamba2, serving)."""
+"""Model code for all six families of the reference (dense, MoE, SSM,
+hybrid, encoder-decoder and VLM), serving and training."""
 
 from .model import Model  # noqa: F401

@@ -125,10 +125,12 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, dtype) -> dict:
             "w_down": init_dense(gen, d_ff, d, dtype)}
 
 
-def apply_mlp(p, x: torch.Tensor, rt: Runtime, reduce: bool = True) -> torch.Tensor:
+def apply_mlp(p, x: torch.Tensor, rt: Runtime, reduce: bool = True,
+              last: bool = False) -> torch.Tensor:
     """Column-parallel gate and up, row-parallel down; ``reduce=False``
-    returns the partial sums (sequence parallelism reduce-scatters them)."""
+    returns the partial sums (sequence parallelism reduce-scatters them).
+    ``last``: the layer's last sum (``reduce_from_tp``)."""
     x = copy_to_tp(x, tp_entry_group(rt))
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     out = h @ p["w_down"]
-    return reduce_from_tp(out, rt.tp_group) if reduce else out
+    return reduce_from_tp(out, rt.tp_group, last) if reduce else out

@@ -130,8 +130,9 @@ def _combine(out_buf: torch.Tensor, route, T: int, k: int, dtype) -> torch.Tenso
         return out.to(dtype)
 
 
-def apply_moe(p, x: torch.Tensor, cfg: ModelConfig, rt: Runtime):
-    """x (B, S, D) -> (out (B, S, D), aux loss f32 scalar)."""
+def apply_moe(p, x: torch.Tensor, cfg: ModelConfig, rt: Runtime, last: bool = False):
+    """x (B, S, D) -> (out (B, S, D), aux loss f32 scalar).  ``last``: the
+    output is the layer's last sum (``reduce_from_tp``)."""
     B, S, D = x.shape
     x = copy_to_tp(x, tp_entry_group(rt))
     x2d = x.reshape(-1, D)
@@ -149,7 +150,7 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig, rt: Runtime):
         buf, route = _pack(x2d, ids, w, E, C)
         out_buf = _expert_ffn(p["w_gate"], p["w_up"], p["w_down"], buf)
         out = _combine(out_buf, route, T, k, x.dtype)
-        out = reduce_from_tp(out, rt.tp_group)               # sum 1/tp FFN slices
+        out = reduce_from_tp(out, rt.tp_group, last)         # sum 1/tp FFN slices
         return out.reshape(B, S, D), aux
 
     # --- ep: All2All dispatch over the TP group --------------------------

@@ -96,22 +96,29 @@ def _conv_params(p):
     return w, b
 
 
-def _gated_out(p, y: torch.Tensor, z: torch.Tensor, x_dtype, rt: Runtime):
-    """norm(y * silu(z)) in f32 (Mamba2's gated RMSNorm), then out_proj."""
+def _gated_proj(p, y: torch.Tensor, z: torch.Tensor, x_dtype) -> torch.Tensor:
+    """norm(y * silu(z)) in f32 (Mamba2's gated RMSNorm), then out_proj:
+    this rank's partial sum."""
     y = y.float() * F.silu(z.float())
     y = layers.apply_norm({"scale": p["norm_scale"]}, y, "rmsnorm").to(x_dtype)
-    return reduce_from_tp(y @ p["w_out"], rt.tp_group)
+    return y @ p["w_out"]
+
+
+def _gated_out(p, y: torch.Tensor, z: torch.Tensor, x_dtype, rt: Runtime):
+    """``_gated_proj`` summed over the TP group."""
+    return reduce_from_tp(_gated_proj(p, y, z, x_dtype), rt.tp_group)
 
 
 def apply_ssm(p, x: torch.Tensor, cfg: ModelConfig, rt: Runtime, *,
-              chunk: int = 128, train: bool = False):
+              chunk: int = 128, train: bool = False, last: bool = False):
     """x: (B, S, D) -> ((B, S, D), the state after the S tokens).  The
     state starts at zero, as every caller of the reference starts it.
     S % chunk != 0 pads x, dt, B and C with zeros to the chunk.  The
     input enters the TP region through ``tp_entry_group`` (none under
     sequence parallelism, whose gather carries the reduction).
     ``train`` takes the plain SSD, differentiable; otherwise the SSD goes
-    through the kernel, which refuses autograd."""
+    through the kernel, which refuses autograd.  ``last``: the output is
+    the layer's last sum (``reduce_from_tp``)."""
     Bsz, S, _ = x.shape
     x = copy_to_tp(x, tp_entry_group(rt))
     di, gn, h, hd, ns, g = _dims(cfg, rt.tp)
@@ -146,7 +153,9 @@ def apply_ssm(p, x: torch.Tensor, cfg: ModelConfig, rt: Runtime, *,
     else:
         y, h_last = ops.ssd_chunked(xs_p, dt_p, A, B_p, C_p, chunk)
     y = y[:, :S] + xs * p["D_skip"][None, None, :, None].to(y.dtype)
-    out = _gated_out(p, y.reshape(Bsz, S, di), z, x.dtype, rt)
+    y = y.reshape(Bsz, S, di)
+    out = (reduce_from_tp(_gated_proj(p, y, z, x.dtype), rt.tp_group, last=True) if last
+           else _gated_out(p, y, z, x.dtype, rt))
     W = cfg.conv_width
     state = SSMState(conv=conv_in[:, -(W - 1):].to(torch.bfloat16), ssm=h_last,
                      length=torch.tensor(S, dtype=torch.int32, device=x.device))

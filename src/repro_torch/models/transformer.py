@@ -61,16 +61,17 @@ def init_gelu_mlp(gen: torch.Generator, d: int, d_ff: int, dtype) -> dict:
             "b2": torch.zeros((d,), dtype=dtype, device=gen.device)}
 
 
-def apply_gelu_mlp(p, x: torch.Tensor, rt: Runtime, reduce: bool = True) -> torch.Tensor:
+def apply_gelu_mlp(p, x: torch.Tensor, rt: Runtime, reduce: bool = True,
+                   last: bool = False) -> torch.Tensor:
     """Whisper's MLP: column-parallel ``w1``/``b1``, GELU in its tanh form
     (``jax.nn.gelu``'s default), row-parallel ``w2``.  The replicated
     ``b2`` is added after the reduce, once; the partial sums of
     ``reduce=False`` (sequence parallelism) leave it out, as the
-    reference's do."""
+    reference's do.  ``last``: the layer's last sum (``reduce_from_tp``)."""
     x = copy_to_tp(x, tp_entry_group(rt))
     h = F.gelu(x @ p["w1"] + p["b1"], approximate="tanh")
     out = h @ p["w2"]
-    return reduce_from_tp(out, rt.tp_group) + p["b2"] if reduce else out
+    return reduce_from_tp(out, rt.tp_group, last) + p["b2"] if reduce else out
 
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, tp: int, dtype,
@@ -140,12 +141,13 @@ def apply_layer(p, x: torch.Tensor, cfg: ModelConfig, rt: Runtime, *,
     load-balance loss (0 for any other layer).  The SSM runs its plain,
     differentiable path (``apply_ssm(train=True)``).  ``enc_out`` (the
     encoder's whole output on every rank) adds the cross-attention
-    sublayer."""
+    sublayer.  The last sublayer (the MLP, the MoE block or the SSM) sums
+    with ``last=True``: the remat policy keeps none of its TP sums."""
     aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         h = layers.apply_norm(p["norm_ssm"], x, cfg.norm)
-        return x + _sub_reduced(h, lambda xg: ssm.apply_ssm(p["ssm"], xg, cfg, rt,
-                                                            train=True)[0], rt), aux0
+        return x + _sub_reduced(h, lambda xg: ssm.apply_ssm(p["ssm"], xg, cfg, rt, train=True,
+                                                            last=True)[0], rt), aux0
     h = layers.apply_norm(p["norm_attn"], x, cfg.norm)
     if cfg.parallel_ssm:        # hymba: attention and SSM heads on the same input
         def both(xg):
@@ -166,13 +168,13 @@ def apply_layer(p, x: torch.Tensor, cfg: ModelConfig, rt: Runtime, *,
         aux = []
 
         def moe_full(xg):
-            out, a = moe.apply_moe(p["moe"], xg, cfg, rt)
+            out, a = moe.apply_moe(p["moe"], xg, cfg, rt, last=True)
             aux.append(a)
             return out
 
         return x + _sub_reduced(h, moe_full, rt), aux[0]
     mlp = apply_gelu_mlp if _mlp_kind(cfg) == "gelu" else layers.apply_mlp
-    return x + _sub(h, lambda xg, red: mlp(p["mlp"], xg, rt, red), rt), aux0
+    return x + _sub(h, lambda xg, red: mlp(p["mlp"], xg, rt, red, last=True), rt), aux0
 
 
 def apply_encoder_layer(p, x: torch.Tensor, cfg: ModelConfig, rt: Runtime) -> torch.Tensor:

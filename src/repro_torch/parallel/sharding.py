@@ -10,8 +10,9 @@ the layer parameters live on (``fsdp_group``, the data group when FSDP
 is on); ``sp`` turns on Megatron sequence parallelism; ``remat_policy``
 is what the decoder stack's checkpoint keeps (``remat_policy_for``):
 ``"none"`` recomputes the whole layer in the backward, and
-``"save_collectives"`` keeps the output of each ``reduce_from_tp``, so
-the recompute does not run its all-reduce again.  The MoE knobs
+``"save_collectives"`` keeps the output of each ``reduce_from_tp`` but
+a layer's last (``reduce_from_tp(..., last=True)``), so the recompute
+does not run its all-reduce again.  The MoE knobs
 are the reference's: the expert capacity factor, the All2All schedule
 mode of the expert-parallel dispatch and combine, the cluster group of
 that exchange (``None`` on every mesh the launchers build: experts shard
@@ -76,11 +77,15 @@ def group_size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
-def _summed(x: torch.Tensor, group) -> torch.Tensor:
-    """A new tensor: ``x`` summed over ``group``, by the out-of-place
-    functional all-reduce: an op whose output selective checkpointing can
-    keep (``remat_policy_for``), where the in-place ``dist.all_reduce``
-    writes into a clone."""
+def _summed(x: torch.Tensor, group, kept: bool = True) -> torch.Tensor:
+    """A new tensor: ``x`` summed over ``group``.  ``kept``: by the
+    out-of-place functional all-reduce, an op whose output selective
+    checkpointing can keep (``remat_policy_for``); otherwise by the
+    in-place ``dist.all_reduce`` into a clone, an op it does not keep."""
+    if not kept:
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
     out = torch.ops._c10d_functional.all_reduce(x.contiguous(), "sum", group.group_name)
     return torch.ops._c10d_functional.wait_tensor(out)
 
@@ -102,10 +107,12 @@ def remat_policy_for(rt: Runtime):
     ``rt.remat_policy``, or None (recompute everything).
     ``"save_collectives"`` keeps the TP all-reduce's output and recomputes
     everything else, as the reference's ``save_only_these_names
-    ("tp_collective")`` keeps the tagged output of its ``reduce_from_tp``.
-    With no TP group ``reduce_from_tp`` is the identity and there is
-    nothing to keep, where the reference keeps the tagged row-parallel
-    output all the same."""
+    ("tp_collective")`` keeps the tagged output of its ``reduce_from_tp``,
+    but for a layer's last (``reduce_from_tp(..., last=True)``), whose
+    output XLA drops as unread: one kept a dense layer (the attention's),
+    none an SSM layer.  With no TP group ``reduce_from_tp`` is the identity
+    and there is nothing to keep, where the reference keeps the tagged
+    row-parallel output all the same."""
     if rt.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat policy {rt.remat_policy!r}: one of {REMAT_POLICIES}")
     if rt.remat_policy == "save_collectives":
@@ -126,12 +133,12 @@ class _CopyToTp(torch.autograd.Function):
 
 class _ReduceFromTp(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
-        return _summed(x, group)
+    def forward(ctx, x: torch.Tensor, group, last: bool) -> torch.Tensor:
+        return _summed(x, group, kept=not last)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        return g, None
+        return g, None, None
 
 
 def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
@@ -140,10 +147,13 @@ def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _CopyToTp.apply(x, group)
 
 
-def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
+def reduce_from_tp(x: torch.Tensor, group, last: bool = False) -> torch.Tensor:
     """Exit of a row-parallel product: forward sum over ``group``,
-    backward identity."""
-    return x if group is None else _ReduceFromTp.apply(x, group)
+    backward identity.  ``last`` marks a layer's last sum (its MLP, MoE
+    block or SSM): its output feeds only the residual add, which no
+    backward reads, so it goes through an op ``"save_collectives"`` does
+    not keep, and the recompute stops before it (its early stop)."""
+    return x if group is None else _ReduceFromTp.apply(x, group, last)
 
 
 def psum(x: torch.Tensor, group) -> torch.Tensor:

@@ -64,7 +64,8 @@ def cache_leaves(caches, prefix: str = ""):
 def kv_transfer_body(caches, rt: Runtime, compress: str | None = None,
                      shift: int = 1):
     """Move every leaf of ``caches`` (a NamedTuple of tensors, or of such
-    NamedTuples) from pod i to pod (i + shift), leaf by leaf, returned as
+    NamedTuples, or one tensor: the sampled token that travels with its
+    request) from pod i to pod (i + shift), leaf by leaf, returned as
     the same structure.  With
     ``compress="int8"`` a bf16 or f32 leaf of at least 1024 elements
     crosses as int8 blocks plus f32 scales (the codec kernels run even
@@ -86,7 +87,7 @@ def kv_transfer_body(caches, rt: Runtime, compress: str | None = None,
 
     if compress not in (None, "int8"):
         raise ValueError(f"unknown KV codec {compress!r}")
-    return tree(caches)
+    return move(caches) if isinstance(caches, torch.Tensor) else tree(caches)
 
 
 def make_kv_transfer(model: Model, compress: str | None = None, shift: int = 1):

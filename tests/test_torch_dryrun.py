@@ -47,7 +47,12 @@ package's.
   attention's ``reduce_from_tp``.  The MLP's is not recomputed by either
   package (the backward needs nothing past its input), so one a layer
   is what the policy saves: the reference's lowered steps show the same
-  difference, counted here from its HLO (ROADMAP R26).
+  difference, counted here from its HLO (ROADMAP R26).  The policy keeps
+  the output of one TP all-reduce a dense layer, the attention's, and
+  none of an SSM layer (the mamba2 smoke model at TP 2 in the same
+  world): the last sublayer's output feeds only the residual add, which
+  no backward reads (ROADMAP C2).  Its ``MUST_SAVE`` decisions on the
+  all-reduce op are counted in the forward, not in the recompute.
 """
 
 import dataclasses
@@ -262,6 +267,8 @@ def _gloo_rank(rank: int, store_path: str, out_dir: str) -> None:
     from repro_torch.convert import params_from_jax
     from repro_torch.launch.mesh import runtime_for_groups
     from repro_torch.launch.train import dp_rows
+    from repro_torch.models import Model
+    from repro_torch.parallel import sharding
     from repro_torch.train import loss as tloss
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train.train_step import TrainConfig, make_train_step
@@ -269,6 +276,39 @@ def _gloo_rank(rank: int, store_path: str, out_dir: str) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store_path, REMAT_WORLD), rank=rank,
                             world_size=REMAT_WORLD, timeout=datetime.timedelta(seconds=120))
+
+    def _tp_all_reduces(rt):
+        """A dispatch mode counting the all-reduces over ``rt``'s TP group:
+        the functional one and the in-place one of a layer's last sum."""
+        tp_ranks = dist.get_process_group_ranks(rt.tp_group)
+
+        class TpAllReduces(TorchDispatchMode):
+            n = 0
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if func is torch.ops._c10d_functional.all_reduce.default:
+                    group = _resolve_process_group(args[2])
+                elif func is torch.ops.c10d.allreduce_.default:
+                    group = dist.ProcessGroup.unbox(args[1])
+                else:
+                    group = None
+                if group is not None and dist.get_process_group_ranks(group) == tp_ranks:
+                    TpAllReduces.n += 1
+                return func(*args, **(kwargs or {}))
+
+        return TpAllReduces
+
+    saved = {"n": 0}
+    policy = sharding._save_tp_collective
+
+    def counted(ctx, op, *args, **kwargs):
+        decision = policy(ctx, op, *args, **kwargs)
+        if (not ctx.is_recompute and op is torch.ops._c10d_functional.all_reduce.default
+                and decision == sharding.CheckpointPolicy.MUST_SAVE):
+            saved["n"] += 1
+        return decision
+
+    sharding._save_tp_collective = counted
     out = {}
     try:
         cfg = dataclasses.replace(get_config("qwen2.5-3b", smoke=True), dtype=torch.float32)
@@ -277,17 +317,8 @@ def _gloo_rank(rank: int, store_path: str, out_dir: str) -> None:
         grads = {}
         for pol in POLICIES:
             rt = runtime_for_groups(pods=2, data_per_pod=1, tp=2, remat_policy=pol)
-            tp_ranks = dist.get_process_group_ranks(rt.tp_group)
 
-            class TpAllReduces(TorchDispatchMode):
-                n = 0
-
-                def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-                    if (func is torch.ops._c10d_functional.all_reduce.default
-                            and dist.get_process_group_ranks(
-                                _resolve_process_group(args[2])) == tp_ranks):
-                        TpAllReduces.n += 1
-                    return func(*args, **(kwargs or {}))
+            TpAllReduces = _tp_all_reduces(rt)
 
             model = params_from_jax(tree, cfg, rt, device="cpu")
             params = [p.requires_grad_(True) for p in
@@ -295,6 +326,8 @@ def _gloo_rank(rank: int, store_path: str, out_dir: str) -> None:
             b = {k: torch.from_numpy(v[rows]).long() for k, v in batch(0, cfg.vocab_size).items()}
             logits, _ = model.apply_train(b["tokens"])
             loss, _ = tloss.sharded_xent(logits, b["labels"], rt, cfg.vocab_size)
+            out[f"fwd_saved_all_reduces/{pol}"] = np.asarray(saved.pop("n"))
+            saved["n"] = 0
             with TpAllReduces():
                 grads[pol] = torch.autograd.grad(loss, params)
             out[f"bwd_tp_all_reduces/{pol}"] = np.asarray(TpAllReduces.n)
@@ -313,6 +346,30 @@ def _gloo_rank(rank: int, store_path: str, out_dir: str) -> None:
             out[f"remat/{pol}"] = np.asarray(metrics)
         out["grads_equal"] = np.asarray(all(torch.equal(a, b) for a, b in
                                             zip(grads["none"], grads["save_collectives"])))
+        # the SSM family: one sublayer a layer, its TP sum the last
+        ssm_cfg = dataclasses.replace(get_config("mamba2-2.7b", smoke=True), dtype=torch.float32)
+        ssm_grads, ssm_losses = {}, {}
+        for pol in POLICIES:
+            rt = runtime_for_groups(pods=2, data_per_pod=1, tp=2, remat_policy=pol)
+            model = Model(ssm_cfg, rt, device="cpu").init(0)
+            params = [p.requires_grad_(True) for p in
+                      opt_lib.flat_params(model.train_leaves())[0]]
+            b = {k: torch.from_numpy(v[rows]).long()
+                 for k, v in batch(0, ssm_cfg.vocab_size).items()}
+            saved["n"] = 0
+            logits, _ = model.apply_train(b["tokens"])
+            ssm_losses[pol], _ = tloss.sharded_xent(logits, b["labels"], rt,
+                                                    ssm_cfg.vocab_size)
+            out[f"ssm_fwd_saved_all_reduces/{pol}"] = np.asarray(saved["n"])
+            TpAllReduces = _tp_all_reduces(rt)
+            with TpAllReduces():
+                ssm_grads[pol] = torch.autograd.grad(ssm_losses[pol], params)
+            out[f"ssm_bwd_tp_all_reduces/{pol}"] = np.asarray(TpAllReduces.n)
+        out["ssm_n_layers"] = np.asarray(ssm_cfg.n_layers)
+        out["ssm_equal"] = np.asarray(
+            torch.equal(ssm_losses["none"], ssm_losses["save_collectives"])
+            and all(torch.equal(a, b) for a, b in zip(ssm_grads["none"],
+                                                      ssm_grads["save_collectives"])))
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()
@@ -583,6 +640,16 @@ def test_remat_policy_saves_the_tp_collective(results):
         # attention's reduce_from_tp
         assert int(got["bwd_tp_all_reduces/none"]) == 3 + 3 * L
         assert int(got["bwd_tp_all_reduces/save_collectives"]) == 3 + 2 * L
+        # ROADMAP C2: the attention's output kept, the MLP's not; none of
+        # an SSM layer, whose values and gradients stay bit-equal too
+        assert int(got["fwd_saved_all_reduces/none"]) == 0
+        assert int(got["fwd_saved_all_reduces/save_collectives"]) == L
+        assert int(got["ssm_fwd_saved_all_reduces/none"]) == 0
+        assert int(got["ssm_fwd_saved_all_reduces/save_collectives"]) == 0
+        assert int(got["ssm_n_layers"]) > 0 and bool(got["ssm_equal"])
+        # an SSM layer's recompute stops before its one TP sum under both
+        assert (int(got["ssm_bwd_tp_all_reduces/none"])
+                == int(got["ssm_bwd_tp_all_reduces/save_collectives"]))
     # the reference's whole step saves as many TP all-reduces
     assert (ref["remat_tp_all_reduces/none"] - ref["remat_tp_all_reduces/save_collectives"]
             == L)

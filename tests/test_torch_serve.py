@@ -226,11 +226,13 @@ def test_int8_sensitivity_reads_only_the_real_vocab(monkeypatch):
 
 
 _IMPORT_CHECK = """
-import importlib, pkgutil, sys
+import importlib, pathlib, pkgutil, sys
 import repro_torch
 for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(mod.name)
 import chip_smoke
+sys.path.insert(0, str(pathlib.Path(chip_smoke.__file__).parent / "examples"))
+import torch_quickstart, torch_serve_disaggregated, torch_train_lm
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(bad)
