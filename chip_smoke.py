@@ -13,11 +13,14 @@
    version on the card, at the serving shapes: the int8 codec bit-equal
    (amax_block, quant_scaled and dequant_int8 also at ragged sizes and on
    views at every element offset 0-7, which take their scalar variant),
-   flash attention within 3e-2 (bf16, on the tensor cores) and 2e-3 (f32,
-   on the CUDA cores) of its plain output's largest magnitude, and no
-   more than that absolute, at every head size it takes (without a mask
-   and with a ragged key tile, the bound must also reject the output over
-   the whole tiles only), the SSD chunk
+   flash attention within 3e-2 (bf16, on the tensor cores: wgmma at dh 64
+   and 128, mma.sync at 16, 32 and 80) and 2e-3 (f32, on the CUDA cores)
+   of its plain output's largest magnitude, and no more than that
+   absolute, at every head size it takes, each case counted on the route
+   fa.route names (without a mask and with a ragged key tile of its
+   route, the bound must also reject the output over the whole tiles
+   only), the wgmma kernel's HGMMA, UTMALDG and UTMASTG instructions
+   counted in the library's SASS, the SSD chunk
    within 1e-4 of its plain output's largest magnitude (bf16 on the
    tensor cores, f32 on the CUDA cores; at the JAX suite's SSD shapes, at
    p = 100 / n = 16, also as column slices of one conv output, at the
@@ -33,7 +36,8 @@
    the kernel, NaN in the same places); flash attention and the SSD chunk
    in bf16 and f32 inputs; quant_int8 and dequant_int8 at the KV leaf
    also by their device time from torch.profiler, and dequant_int8 from
-   int8 to f32 at mamba2-2.7b's SSM state.
+   int8 to f32 at mamba2-2.7b's SSM state (flash's small shapes, timed
+   back to back through the wrapper, wait on the host).
 3. Smoke-size models on the card against the same models on the CPU:
    qwen2.5-3b, mamba2-2.7b and hymba-1.5b prefill and decode (f32, logits
    within 1e-3, equal tokens; hymba launches flash and the SSD chunk once
@@ -57,7 +61,8 @@
    shorter than the prompt), move the cache (KV, conv + SSM state, or
    both) raw and int8 on the wire, and decode 16 tokens greedily from
    each.  The launch counters, per phase, must show every kernel on each
-   path: flash attention and/or ssd_chunk once per layer per prefill,
+   path: flash attention (every launch on the wgmma route: bf16 at dh
+   64 and 128) and/or ssd_chunk once per layer per prefill,
    quant/dequant once per codec leaf per int8 transfer (2, or 4 for
    hymba), nothing per decode step, and every dequant_int8 launch in its
    vector variant.  Then, per model, a profile of one prefill and four
@@ -897,14 +902,44 @@ def flash_bound_ms(B, H, K, Sq, dh, q_offset, valid_kv, causal,
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def wgmma_sass_counts() -> dict[str, dict[str, int]]:
+    """Per instantiation of flash_attention_wgmma_kernel in the built
+    library's SASS (``cuobjdump -sass``): its wgmma (HGMMA) and TMA
+    (UTMALDG, UTMASTG) instructions."""
+    tool = pathlib.Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(_build.library().path)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            fn = fn if "flash_attention_wgmma_kernel" in fn else None
+            if fn is not None:
+                counts[fn] = dict.fromkeys(("HGMMA", "UTMALDG", "UTMASTG"), 0)
+        elif fn is not None:
+            for op in counts[fn]:
+                counts[fn][op] += f" {op}" in line
+    return counts
+
+
 def check_flash(dev, gen, smi: str) -> dict:
+    sass = wgmma_sass_counts()
+    check(len(sass) == len(fa.WGMMA_HEAD_DIMS)
+          and all(c["HGMMA"] and c["UTMALDG"] and c["UTMASTG"] for c in sass.values()),
+          f"flash_attention_wgmma_kernel's SASS: {sass}")
+    print(f"[check] flash_attention_wgmma_kernel in the library's SASS: "
+          + "; ".join(f"{', '.join(f'{n} {op}' for op, n in c.items())}" for c in sass.values()))
     main = {}
     for B, H, K, Sq, Skv, dh, causal, window, off, valid, dt in FLASH_CASES:
         q = torch.randn(B, H, Sq, dh, device=dev, generator=gen).to(dt)
         k = torch.randn(B, K, Skv, dh, device=dev, generator=gen).to(dt)
         v = torch.randn(B, K, Skv, dh, device=dev, generator=gen).to(dt)
         kw = dict(causal=causal, window=window, q_offset=off, valid_kv=valid)
+        route = fa.route(dt, dh)
+        before = fa.flash_attention_bhsd.route_launches[route]
         got = fa.flash_attention_bhsd(q, k, v, **kw)
+        check(fa.flash_attention_bhsd.route_launches[route] == before + 1,
+              f"flash {B, H, K, Sq, Skv, dh, kw, dt}: not launched on the {route} route")
         want = fa.flash_attention_bhsd_plain(q, k, v, **kw)
         err = (got.float() - want.float()).abs().max().item()
         # TOL of the output's largest magnitude, at most TOL: without a mask
@@ -912,17 +947,18 @@ def check_flash(dev, gen, smi: str) -> dict:
         tol = TOL[dt] * min(1.0, want.float().abs().max().item())
         check(err <= tol, f"flash {B, H, K, Sq, Skv, dh, kw, dt}: err {err}, tol {tol}")
         tail = ""
-        if Skv % 64 and not causal and valid is None:
+        tile = fa.KEY_TILE[route]
+        if Skv % tile and not causal and valid is None:
             # the bound must see a kernel that drops the keys past the last
-            # whole 64-key tile
-            cut = Skv // 64 * 64
+            # whole key tile of its route
+            cut = Skv // tile * tile
             lost = fa.flash_attention_bhsd(q, k[:, :, :cut], v[:, :, :cut], **kw)
             lost_err = (lost.float() - want.float()).abs().max().item()
             check(lost_err > tol, f"flash {B, H, K, Sq, Skv, dh, kw, dt}: the output over "
                                   f"{cut} keys errs by {lost_err}, within tol {tol}")
             tail = f"; over the first {cut} keys only it would err by {lost_err:.3g}"
         print(f"[check] flash B={B} H={H} K={K} Sq={Sq} Skv={Skv} dh={dh} "
-              f"{kw} {dt}: max abs err {err:.3g} (tol {tol:.3g}){tail}")
+              f"{kw} {dt}, route {route}: max abs err {err:.3g} (tol {tol:.3g}){tail}")
         timed = (H, K, dh, dt, Sq, Skv, causal, window)
         if B == BATCH and off == 0 and timed in FLASH_TIMED:
             main[timed] = err, (q, k, v)
@@ -938,15 +974,18 @@ def check_flash(dev, gen, smi: str) -> dict:
             mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
             library = lambda: F.scaled_dot_product_attention(   # noqa: E731
                 q, k, v, attn_mask=mask, enable_gqa=True)
+        call = lambda: fa.flash_attention_bhsd(q, k, v, causal=causal,   # noqa: E731
+                                               window=window)
         timing[key] = {
             "max_abs_err": err,
-            "ms": time_ms(lambda: fa.flash_attention_bhsd(q, k, v, causal=causal,
-                                                          window=window), 20),
+            # back to back through the wrapper, whose host time bounds the
+            # small shapes (tools/flash_report.py times the C entry point)
+            "ms": time_ms(call, 20),
             "plain_ms": time_ms(lambda: fa.flash_attention_bhsd_plain(q, k, v, causal=causal,
                                                                       window=window), 5),
             "bound_ms": bound, "bound_by": by, "library_ms": time_ms(library, 20)}
         t = timing[key]
-        print(f"[time] [{smi}] flash_attention_bhsd {shape}, {dt}: "
+        print(f"[time] [{smi}] flash_attention_bhsd {shape}, {dt}, route {fa.route(dt, dh)}: "
               f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({by}), plain "
               f"{t['plain_ms']:.4f} ms, F.scaled_dot_product_attention"
               f"{' with the window mask' if window else f' (is_causal={causal})'} "
@@ -955,7 +994,13 @@ def check_flash(dev, gen, smi: str) -> dict:
     return {"flash_attention_bhsd": {
         "name": "flash_attention_bhsd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:85", **own, **timing}}
+        "replaces": "src/repro/kernels/flash_attention.py:85",
+        "bf16_routes": {"wgmma": {"kernel": "flash_attention_wgmma_kernel",
+                                  "head_dims": list(fa.WGMMA_HEAD_DIMS)},
+                        "mma": {"kernel": "flash_attention_mma_kernel",
+                                "head_dims": [d for d in fa.HEAD_DIMS
+                                              if d not in fa.WGMMA_HEAD_DIMS]}},
+        **own, **timing}}
 
 
 SSD_CASES = [
@@ -1753,6 +1798,12 @@ def serve_full_width(dev, smi: str, arch: str, prompt_len: int = PROMPT) -> tupl
     check(counts == {k: sum(p[k] for p in phases.values()) for k in counts},
           f"{arch} launches {counts} against the phases {phases}")
     check_vector_launches(counts, arch)
+    # every prefill's flash launch (bf16, dh 64 or 128) ran the wgmma kernel
+    routes = ops.route_launch_counts()["flash_attention_bhsd"]
+    flash = counts["flash_attention_bhsd"]
+    check(routes == {**dict.fromkeys(fa.ROUTES, 0), **({"wgmma": flash} if flash else {})},
+          f"{arch} flash launches by route {routes}, {flash} in all")
+    res["flash_routes"] = routes
     shapes = res["cache_shapes"]
     ch = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
     ssm_shapes = {"conv": [cfg.n_layers, BATCH, cfg.conv_width - 1, ch],
@@ -1791,7 +1842,8 @@ def serve_full_width(dev, smi: str, arch: str, prompt_len: int = PROMPT) -> tupl
           f"{res['int8_token_agreement']:.4f}, raw transfer exact")
     print(f"[serve] {res['arch']} kernel launches {counts}: by phase {phases} "
           f"({res['prefills']} prefills, {res['int8_transfers']} int8 transfers, "
-          f"{res['decode_steps']} decode steps)")
+          f"{res['decode_steps']} decode steps); flash by route {routes}, "
+          f"{flash // res['prefills']} a prefill")
     return res, counts
 
 
@@ -3951,6 +4003,10 @@ def report(run: Run) -> None:
              "example_train_lm": out["example:train_lm"]["counts"],
              "example_serve": out["example:serve_disaggregated"],
              **tp_counts}
+    # the in-process full-width prefills' flash launches, by route
+    rows["flash_attention_bhsd"]["route_launches"] = {
+        arch: res["flash_routes"] for arch, res in {**serve, **ev_serve, MOE_ARCH: moe_serve}.items()
+        if res["flash_routes"]["wgmma"]}
     for name, row in rows.items():
         row["paths"] = {path: counts[name] for path, counts in paths.items()}
         row["launches"] = sum(row["paths"].values())

@@ -1,4 +1,4 @@
-// FlashAttention-2 forward (causal / sliding-window GQA) for Hopper.
+// FlashAttention forward (causal / sliding-window GQA) for Hopper.
 //
 // Replaces the Pallas kernel flash_attention_bhsd (_attn_kernel) of
 // src/repro/kernels/flash_attention.py.  Same function: q (B,H,Sq,dh),
@@ -9,12 +9,61 @@
 // divides by 1 (:81).  q_offset and valid_kv are plain integers.  dh in
 // {16, 32, 64, 80, 128} (a multiple of 16); other head sizes are refused.
 //
+// Three kernels, chosen by dtype and dh alone (the wrapper's route()):
+//   bf16, dh 64 and 128   flash_attention_wgmma_kernel  (route "wgmma")
+//   bf16, dh 16, 32, 80   flash_attention_mma_kernel    (route "mma")
+//   f32, every dh         flash_attention_kernel        (route "cuda_cores")
+// dh 64 and 128 cover every full-width configuration; 16, 32 and 80 only
+// smoke models and small ranks.
+//
 // Bound on this card: operations.  At the serving shape (B=4, H=16, K=2,
 // S=1024, dh=128, causal) one call does 17.2 GFLOP over the unmasked
 // pairs against 38 MB of q, k, v and o: 0.0174 ms at 989 TFLOP/s bf16,
 // far above the 295 operations per byte where an H100 turns
-// compute-bound.  So the bf16 kernel keeps the tensor cores fed and
-// every other cost out of their way:
+// compute-bound.  So the bf16 kernels keep the tensor cores fed and every
+// other cost out of their way.
+//
+// wgmma (Hopper's own design).  Only wgmma reaches the full tensor-core
+// rate, and it wants its operands in shared memory in the 128-byte
+// swizzle, fed without costing the math warps instructions:
+//   * TMA.  Four tensor maps (q, k, v, o), built on the host per call,
+//     each 4-D over (dh, S, heads, B) with the caller's strides, so rows
+//     past Sq or Skv inside one (b, head) read as zeros (never the next
+//     sequence's rows) and rows past Sq are never written.  Boxes are 64
+//     columns (128 bytes) wide in the 128-byte swizzle: dh 128 takes two
+//     boxes a tile.
+//   * Warp specialisation.  A block is three warpgroups: warpgroup 0
+//     gives up its registers (setmaxnreg.dec to 24) and one thread of it
+//     issues every load: the 128-row Q tile once, then 128-key K and V
+//     tiles into a ring of 2 stages, each with a full and an empty
+//     mbarrier.  Warpgroups 1 and 2 (setmaxnreg.inc to 240) own 64 query
+//     rows each and walk the same key tiles.  At dh 128 the ring and Q
+//     are 160 KB of shared memory: one block per SM.
+//   * S = Q K^T is wgmma m64n128k16 with both operands K-major in shared
+//     memory; O += P V is wgmma m64n64k16 (one per 64 columns of dh) with
+//     P in registers, and V read MN-major (key-major rows, the transpose
+//     bit).  A warp's 16 rows of the accumulator have the mma.sync
+//     layout, so P is S rounded to bf16 and re-packed in registers.
+//   * 128-key tiles in 2 stages at both head sizes: 64-key tiles with 2
+//     or 4 stages, 3 stages, and 2 blocks per SM at dh 64 measured no
+//     faster (tools/flash_report.py --variants).
+//   * Softmax in registers, quad shuffles for the row max, one
+//     ex2.approx per score with log2(e) folded into the scale (with
+//     exp2f the exponentials took a third of the time); element masks
+//     only on tiles that cross an edge of the band, valid_kv or Skv; tiles
+//     outside the band are never loaded (hymba's 1024-token window).
+//   * Epilogue: O / l as bf16, staged in the warpgroup's own rows of the
+//     Q tile (the boxes' swizzle), written by TMA stores.
+//   * What bounds it (ablations on an H100 with tools/flash_report.py
+//     --variants): at the qwen2.5-3b shape the loads alone, with the
+//     consumers idle, take ~45% of its time (block starts and every Q
+//     head's block re-reading its KV head's tiles from L2); the products
+//     and the softmax of one warpgroup do not overlap.  Left for later, in
+//     that order: a tile's softmax overlapping the next tile's Q K^T,
+//     ping-pong of the two consumers, persistent blocks, GQA head packing,
+//     clusters with multicast.
+//
+// mma (dh 16, 32, 80; the sm_80 instruction set):
 //   * Tensor cores.  S = Q K^T and O += P V are mma.sync m16n8k16 bf16
 //     products with f32 accumulators.  A block owns 64 query rows of one
 //     (batch, head), 16 rows per warp, and walks 64-key tiles; m, l and
@@ -28,24 +77,16 @@
 //     are padded by 16 bytes: dh / 8 + 1 chunks is odd for every dh
 //     taken, so the 8 rows of an ldmatrix hit 8 different bank groups.
 //     K fragments come from ldmatrix, V fragments from ldmatrix.trans.
-//   * P in registers.  The m16n8 accumulator layout of two neighbouring
-//     S tiles is the m16k16 A-layout, so P is rounded to bf16 and fed to
-//     P V without a trip through shared memory (as every tensor-core
-//     flash kernel does; bf16 checks hold it within 3e-2).
-//   * Softmax in registers.  A thread holds 2 rows; the row max meets
-//     over the 4 threads of a quad in 2 shuffles per tile, the row sum
-//     only once at the end.  exp2f with log2(e) folded into the scale.
-//   * Masks only where needed.  Tiles wholly outside a warp's causal or
-//     window band are skipped (about half of a causal prefill); element
-//     masks run only on tiles that cross an edge of the band, valid_kv
-//     or Skv.
-//   * Causal balance.  The flat grid hands out the longest query tiles
-//     (the last ones of a causal prefill) first, over every head.
-//   * Strided in and out.  q, k, v and o are read and written through
-//     their strides (the caller's (B,S,H,dh) tensors, no transposes);
-//     the output tile is staged in the Q tile's shared memory and
-//     written with 16-byte stores.  So the kernel refuses bf16 tensors
-//     whose base or strides are not 16-byte aligned.
+//   * P and the masks as in the wgmma kernel, the softmax too but with
+//     exp2f (bf16 checks hold both kernels within 3e-2).
+//   * Suspected limiters (unmeasured): one ldmatrix for every two HMMAs,
+//     a __syncthreads pair per 64-key tile, mma.sync from every warp.
+//
+// Both bf16 kernels hand out the longest query tiles (the last ones of a
+// causal prefill) first over every head, and read and write q, k, v and
+// o through their strides (the caller's (B,S,H,dh) tensors, no
+// transposes).  So they refuse bf16 tensors whose base or strides are
+// not 16-byte aligned.
 //
 // f32 inputs run the first version's kernel: f32 FMAs on the CUDA cores
 // (67 TFLOP/s peak).  TF32 tensor cores keep about three decimal digits,
@@ -53,11 +94,21 @@
 
 #include <climits>
 
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
+
+// 2^x by the MUFU's ex2.approx, subnormal results flushed to 0: one
+// instruction where exp2f wraps it in range handling.  Its relative
+// error (about 2^-22) is far below the bf16 rounding of P.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 struct Strides {
   long long b, h, s;   // in elements; the dh axis has stride 1
@@ -476,6 +527,346 @@ int launch_mma_dh(const FlashArgs& a, int B, cudaStream_t stream) {
   return launch_status();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at dh 64 and 128: TMA, an mbarrier ring, warp-specialised wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kWgRows = 128;           // query rows per block
+constexpr int kWgConsumerRows = 64;    // of them per consumer warpgroup
+constexpr int kWgKeys = 128;           // keys per tile
+constexpr int kWgStages = 2;           // K/V tiles in the ring
+constexpr int kWgThreads = 384;        // producer warpgroup + 2 consumers
+constexpr int kWgConsumerWarps = 8;
+constexpr int kProducerRegs = 24;      // 128 x 24 + 256 x 240 = 384 x 168, what
+constexpr int kConsumerRegs = 240;     // a block holds at launch
+constexpr int kBox = 64;               // bf16 columns per TMA box
+constexpr int kBoxRowBytes = 128;      // one 128-byte swizzle row
+
+template <int DH>
+struct WgSmem {
+  static constexpr int kBoxes = DH / kBox;                // boxes per tile row
+  static constexpr int kQBox = kWgRows * kBoxRowBytes;    // one 64-column box
+  static constexpr int kKVBox = kWgKeys * kBoxRowBytes;
+  static constexpr int kQ = kBoxes * kQBox;
+  static constexpr int kKV = kBoxes * kKVBox;             // one K or V tile
+  // full[stages], empty[stages], q: 8 bytes each
+  static constexpr int kBars = 8 * (2 * kWgStages + 1);
+  // 1024 of slack puts the tiles on the swizzle's 1024-byte boundary
+  static constexpr int kBytes = 1024 + kQ + 2 * kWgStages * kKV + kBars;
+};
+
+template <int DH>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap to,
+                             const FlashArgs a, int n_qtiles, int B) {
+  using L = WgSmem<DH>;
+  constexpr int kN = kWgKeys / 8;       // 8-key column blocks of S
+  extern __shared__ unsigned char wg_smem[];
+  const uint32_t s_q = (smem_u32(wg_smem) + 1023) & ~1023u;
+  const uint32_t s_k = s_q + L::kQ;                     // kWgStages tiles
+  const uint32_t s_v = s_k + kWgStages * L::kKV;
+  const uint32_t bar_full = s_v + kWgStages * L::kKV;   // kWgStages barriers
+  const uint32_t bar_empty = bar_full + 8 * kWgStages;
+  const uint32_t bar_q = bar_empty + 8 * kWgStages;
+
+  // longest query tiles first over the whole grid; heads vary fastest
+  const int h = blockIdx.x % a.H;
+  const int rest = blockIdx.x / a.H;
+  const int b = rest % B;
+  const int qt = n_qtiles - 1 - rest / B;
+  const int kh = h / (a.H / a.K);
+  const int q0 = qt * kWgRows;
+
+  // kv tiles this query tile can see; the producer loads exactly these
+  // and both consumers walk them, so tiles outside are never loaded
+  const int last_q = min(q0 + kWgRows, a.Sq) - 1 + a.q_offset;
+  int k_end = a.valid_kv;
+  if (a.causal) k_end = min(k_end, last_q + 1);
+  int k_begin = 0;
+  if (a.window > 0) k_begin = max(0, q0 + a.q_offset - a.window + 1);
+  k_begin = (k_begin / kWgKeys) * kWgKeys;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kWgKeys - 1) / kWgKeys : 0;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kWgStages; ++st) {
+      mbar_init(bar_full + 8 * st, 1);                  // the producer, plus bytes
+      mbar_init(bar_empty + 8 * st, kWgConsumerWarps);  // every consumer warp
+    }
+    mbar_init(bar_q, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  const int role = threadIdx.x / 128;   // 0 producer, 1 and 2 consumers
+  if (role == 0) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      tma_prefetch_map(&tq);
+      tma_prefetch_map(&tk);
+      tma_prefetch_map(&tv);
+      mbar_arrive_expect_tx(bar_q, L::kQ);
+      for (int j = 0; j < L::kBoxes; ++j)
+        tma_load_4d(s_q + j * L::kQBox, &tq, bar_q, j * kBox, q0, h, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kWgStages;
+        // the consumers have released this stage's previous tile
+        mbar_wait(bar_empty + 8 * st, ((t / kWgStages) & 1) ^ 1);
+        const uint32_t full = bar_full + 8 * st;
+        mbar_arrive_expect_tx(full, 2 * L::kKV);
+        const int k0 = k_begin + t * kWgKeys;
+        for (int j = 0; j < L::kBoxes; ++j) {
+          tma_load_4d(s_k + st * L::kKV + j * L::kKVBox, &tk, full, j * kBox, k0, kh, b);
+          tma_load_4d(s_v + st * L::kKV + j * L::kKVBox, &tv, full, j * kBox, k0, kh, b);
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+
+  // this consumer's 64 rows and the keys they can see
+  const int c = role - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int wq0 = q0 + kWgConsumerRows * c;
+  const bool wg_rows = wq0 < a.Sq;
+  const int w_first = wq0 + a.q_offset;
+  const int w_last = min(wq0 + kWgConsumerRows, a.Sq) - 1 + a.q_offset;
+  int wk_end = a.valid_kv, wk_begin = 0;
+  if (a.causal) wk_end = min(wk_end, w_last + 1);
+  if (a.window > 0) wk_begin = max(0, w_first - a.window + 1);
+  // a thread's two rows, 16 warp + lane / 4 and 8 below it, see the keys
+  // in [kmin, kmax)
+  int kmin[2], kmax[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = w_first + 16 * warp + lane / 4 + 8 * r;
+    kmax[r] = a.causal ? min(a.valid_kv, qpos + 1) : a.valid_kv;
+    kmin[r] = a.window > 0 ? qpos - a.window + 1 : INT_MIN;
+  }
+  const float scale_log2 = a.scale * 1.4426950408889634f;
+  // this consumer's rows of each Q box (a multiple of 1024 bytes in)
+  const uint32_t q_rows = s_q + kWgConsumerRows * c * kBoxRowBytes;
+
+  float o[L::kBoxes][32];
+#pragma unroll
+  for (int j = 0; j < L::kBoxes; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[j][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  if (n_tiles > 0) mbar_wait(bar_q, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = k_begin + t * kWgKeys;
+    const int st = t % kWgStages;
+    mbar_wait(bar_full + 8 * st, (t / kWgStages) & 1);
+    if (wg_rows && k0 < wk_end && k0 + kWgKeys > wk_begin) {
+      const uint32_t kb = s_k + st * L::kKV, vb = s_v + st * L::kKV;
+
+      // S = Q K^T: 64 x kWgKeys, k16 slices 32 bytes apart inside a box
+      float s[kWgKeys / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        wgmma_ss(
+            s, sw128_desc(q_rows + (kk / 4) * L::kQBox + (kk % 4) * 32, 16, 1024),
+            sw128_desc(kb + (kk / 4) * L::kKVBox + (kk % 4) * 32, 16, 1024), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+
+      // element masks only on a tile that crosses an edge of the band
+      const bool interior = k0 + kWgKeys <= a.valid_kv &&
+                            (!a.causal || k0 + kWgKeys - 1 <= w_first) &&
+                            (a.window <= 0 || k0 > w_last - a.window);
+      if (!interior) {
+#pragma unroll
+        for (int j = 0; j < kN; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = k0 + j * 8 + 2 * (lane & 3) + (e & 1);
+            if (kpos < kmin[e >> 1] || kpos >= kmax[e >> 1]) s[4 * j + e] = kNegInf;
+          }
+        }
+      }
+
+      // online softmax; a row's max meets over its quad
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      float alpha[2], ms[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        // A row with no valid key so far keeps ms = 0, so its scores and old
+        // max (kNegInf) give exp2 of about -1e29, that is 0, where exp(NEG_INF
+        // - NEG_INF) would be 1; no select per element.
+        ms[r] = mx[r] > kNegInf / 2 ? mx[r] * scale_log2 : 0.f;
+        alpha[r] = exp2_approx(fmaf(m[r], scale_log2, -ms[r]));
+        m[r] = mx[r];
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int j = 0; j < L::kBoxes; ++j)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[j][i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+      for (int i = 0; i < kWgKeys / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        s[i] = exp2_approx(fmaf(s[i], scale_log2, -ms[r]));
+        l[r] += s[i];
+      }
+
+      // O += P V: the accumulators of key blocks 2c and 2c + 1 are the
+      // A-fragment of keys 16c .. 16c + 15; V's k16 slice is 16 rows
+      uint32_t pf[kWgKeys / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < kWgKeys / 16; ++kc) {
+        pf[kc][0] = pack_bf16(s[8 * kc], s[8 * kc + 1]);
+        pf[kc][1] = pack_bf16(s[8 * kc + 2], s[8 * kc + 3]);
+        pf[kc][2] = pack_bf16(s[8 * kc + 4], s[8 * kc + 5]);
+        pf[kc][3] = pack_bf16(s[8 * kc + 6], s[8 * kc + 7]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kWgKeys / 16; ++kc)
+#pragma unroll
+        for (int j = 0; j < L::kBoxes; ++j)
+          wgmma_m64n64k16_rs_tb(
+              o[j], pf[kc],
+              sw128_desc(vb + j * L::kKVBox + kc * 16 * kBoxRowBytes, 1024, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < L::kBoxes; ++j) fence_regs(o[j]);
+    }
+    // this warp no longer reads the stage
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * st);
+  }
+  if (!wg_rows) return;
+
+  // O / l as bf16 into this consumer's rows of the Q boxes, in their
+  // swizzle (chunk c of row r at c ^ (r % 8)); one TMA store per box,
+  // which drops the rows past Sq
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / (l[r] == 0.f ? 1.f : l[r]);
+  }
+#pragma unroll
+  for (int j = 0; j < L::kBoxes; ++j) {
+#pragma unroll
+    for (int blk = 0; blk < kBox / 8; ++blk) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = 16 * warp + lane / 4 + 8 * r;
+        st_shared_u32(q_rows + j * L::kQBox + row * kBoxRowBytes + ((blk ^ (row & 7)) << 4)
+                          + (lane & 3) * 4,
+                      pack_bf16(o[j][4 * blk + 2 * r] * inv[r],
+                                o[j][4 * blk + 2 * r + 1] * inv[r]));
+      }
+    }
+  }
+  fence_proxy_async_smem();
+  named_barrier_sync(1 + c, 128);
+  if (threadIdx.x % 128 == 0) {
+    for (int j = 0; j < L::kBoxes; ++j)
+      tma_store_4d(&to, q_rows + j * L::kQBox, j * kBox, wq0, h, b);
+    tma_store_commit();
+    tma_store_wait_read();
+  }
+}
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda)
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A map over a bf16 (B, heads, rows, dh) view: 4-D, innermost first
+// (dh, rows, heads, B) with the view's strides, so a box never runs from
+// one (b, head) into the next; boxes of 64 columns x box_rows rows in the
+// 128-byte swizzle, zeros read past the edges.  An axis of extent 1 is
+// never stepped: its stride (free in the view) is given as one row's.
+int tensor_map(CUtensorMap* map, const void* base, int dh, int rows, int heads, int B,
+               const Strides& st, int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const auto bytes = [dh](long long stride, int extent) {
+    return static_cast<cuuint64_t>(extent == 1 ? dh : stride) * 2;
+  };
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {bytes(st.s, rows), bytes(st.h, heads), bytes(st.b, B)};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kBox), static_cast<cuuint32_t>(box_rows),
+                             1u, 1u};
+  const cuuint32_t unit[4] = {1u, 1u, 1u, 1u};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kRefused;
+}
+
+template <int DH>
+int launch_wgmma_dh(const FlashArgs& a, int B, cudaStream_t stream) {
+  using L = WgSmem<DH>;
+  // Once: ask for the dynamic shared memory, and check that the registers
+  // a block holds at launch cover what setmaxnreg.inc asks for (a
+  // shortfall would leave the consumers waiting for good).
+  static const cudaError_t setup = [] {
+    cudaFuncAttributes f{};
+    cudaError_t e = cudaFuncSetAttribute(flash_attention_wgmma_kernel<DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         L::kBytes);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&f, flash_attention_wgmma_kernel<DH>);
+    if (e == cudaSuccess &&
+        f.numRegs * kWgThreads < 128 * kProducerRegs + 256 * kConsumerRegs)
+      e = cudaErrorLaunchOutOfResources;
+    return e;
+  }();
+  if (setup != cudaSuccess) return static_cast<int>(setup);
+  CUtensorMap tq, tk, tv, to;
+  int err = tensor_map(&tq, a.q, DH, a.Sq, a.H, B, a.qs, kWgRows);
+  if (err == 0) err = tensor_map(&tk, a.k, DH, a.Skv, a.K, B, a.ks, kWgKeys);
+  if (err == 0) err = tensor_map(&tv, a.v, DH, a.Skv, a.K, B, a.vs, kWgKeys);
+  if (err == 0) err = tensor_map(&to, a.o, DH, a.Sq, a.H, B, a.os, kWgConsumerRows);
+  if (err != 0) return err;
+  const int n_qtiles = (a.Sq + kWgRows - 1) / kWgRows;
+  const long long blocks = static_cast<long long>(n_qtiles) * a.H * B;
+  if (blocks > 0x7fffffffLL) return kRefused;
+  flash_attention_wgmma_kernel<DH><<<static_cast<unsigned>(blocks), kWgThreads, L::kBytes,
+                                     stream>>>(tq, tk, tv, to, a, n_qtiles, B);
+  return launch_status();
+}
+
 // 16-byte cp.async and stores: every base and every stride that is used
 // (an axis of extent 1 is never stepped) a multiple of 8 bf16 values
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -493,9 +884,9 @@ int launch_bf16(const FlashArgs& a, int B, int dh, cudaStream_t stream) {
   switch (dh) {
     case 16: return launch_mma_dh<16>(a, B, stream);
     case 32: return launch_mma_dh<32>(a, B, stream);
-    case 64: return launch_mma_dh<64>(a, B, stream);
+    case 64: return launch_wgmma_dh<64>(a, B, stream);
     case 80: return launch_mma_dh<80>(a, B, stream);
-    case 128: return launch_mma_dh<128>(a, B, stream);
+    case 128: return launch_wgmma_dh<128>(a, B, stream);
     default: return kRefused;
   }
 }

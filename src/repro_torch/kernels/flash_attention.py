@@ -1,13 +1,18 @@
 """Flash attention, causal / sliding-window GQA: the wrapper of the CUDA
-kernel in ``csrc/flash_attention.cu`` and its plain version.
+kernels in ``csrc/flash_attention.cu`` and its plain version.
 
 Layout as in the JAX package's ``kernels/flash_attention.py``: q
 (B, H, Sq, dh), k/v (B, K, Skv, dh), query head h reads kv head
-h // (H // K).  The kernel takes strided views (the last axis
-contiguous), masks ragged lengths itself and needs no padding of dh.
-bf16 runs on the tensor cores and copies 16 bytes at a time, so a bf16
-tensor's base and strides must be 16-byte aligned; f32 runs on the CUDA
-cores and takes any strides.
+h // (H // K).  The kernels take strided views (the last axis
+contiguous), mask ragged lengths themselves and need no padding of dh.
+
+On the card the dtype and the head size alone choose the kernel
+(``route``): bf16 at dh 64 and 128 runs the Hopper kernel (TMA loads
+into an mbarrier ring, warp-specialised wgmma), bf16 at 16, 32 and 80
+the mma.sync kernel, f32 the CUDA-core kernel.  Each launch is counted
+in ``.launches`` and, by route, in ``.route_launches``.  bf16 kernels
+copy 16 bytes at a time (TMA or cp.async), so a bf16 tensor's base and
+strides must be 16-byte aligned; f32 takes any strides.
 """
 
 from __future__ import annotations
@@ -19,7 +24,21 @@ import torch
 from . import _build, ref
 
 HEAD_DIMS = (16, 32, 64, 80, 128)
+WGMMA_HEAD_DIMS = (64, 128)
+ROUTES = ("wgmma", "mma", "cuda_cores")
+# keys per tile of each route's kernel (kWgKeys, kBc, kBlockK)
+KEY_TILE = {"wgmma": 128, "mma": 64, "cuda_cores": 32}
 _CODES = {torch.float32: _build.F32, torch.bfloat16: _build.BF16}
+
+
+def route(dtype: torch.dtype, dh: int) -> str:
+    """The kernel a call on the card runs, as ``flash_attention_launch``
+    picks it: "wgmma" (``flash_attention_wgmma_kernel``) for bf16 at dh 64
+    and 128, "mma" (``flash_attention_mma_kernel``) for bf16 at the other
+    head sizes, "cuda_cores" (``flash_attention_kernel``) for f32."""
+    if dtype == torch.float32:
+        return "cuda_cores"
+    return "wgmma" if dh in WGMMA_HEAD_DIMS else "mma"
 
 
 def flash_attention_bhsd_plain(q, k, v, *, causal: bool = True,
@@ -48,16 +67,20 @@ def _check(q, k, v, out, valid_kv, with_data: bool = True):
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if out.shape != q.shape or out.dtype != q.dtype:
         raise ValueError("flash_attention: out must match q")
+    # every call on the card passes here, so the host's work is kept small
+    # (t.stride() once: t.stride(i) costs the host microseconds a call)
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} on {t.device}")
-        if t.stride(3) != 1:
+        st, n = t.stride(), t.shape
+        if st[3] != 1:
             raise ValueError(f"flash_attention: {name} head axis not contiguous")
         # an axis of extent 1 is never stepped, so its stride is free
-        if t.dtype == torch.bfloat16 and ((with_data and t.data_ptr() % 16) or any(
-                st % 8 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)):
+        if t.dtype == torch.bfloat16 and (
+                (with_data and t.data_ptr() % 16) or (n[0] > 1 and st[0] % 8)
+                or (n[1] > 1 and st[1] % 8) or (n[2] > 1 and st[2] % 8)):
             raise ValueError(f"flash_attention: bf16 {name} not 16-byte aligned "
-                             f"(base or strides {t.stride()})")
+                             f"(base or strides {st})")
     if not 0 <= valid_kv <= Skv:
         raise ValueError(f"flash_attention: valid_kv {valid_kv} outside 0..{Skv}")
 
@@ -90,6 +113,7 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True,
         _build.count_shape_only(flash_attention_bhsd, "flash_attention", q=q, k=k, v=v, out=out,
                                 causal=causal, window=window, q_offset=q_offset,
                                 valid_kv=valid_kv)
+        flash_attention_bhsd.route_fake_launches[route(q.dtype, dh)] += 1
         return out
     _check(q, k, v, out, valid_kv)
     scale = 1.0 / math.sqrt(dh)
@@ -102,8 +126,11 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True,
         valid_kv, _build.stream_handle(q.device))
     _build.check(err, "flash_attention")
     flash_attention_bhsd.launches += 1
+    flash_attention_bhsd.route_launches[route(q.dtype, dh)] += 1
     return out
 
 
 flash_attention_bhsd.launches = 0
 flash_attention_bhsd.fake_launches = 0
+flash_attention_bhsd.route_launches = dict.fromkeys(ROUTES, 0)
+flash_attention_bhsd.route_fake_launches = dict.fromkeys(ROUTES, 0)

@@ -40,11 +40,23 @@ def vector_launch_counts() -> dict[str, int]:
             if hasattr(fn, "vector_launches")}
 
 
+def route_launch_counts(fake: bool = False) -> dict[str, dict[str, int]]:
+    """Launches by route (the kernel a call ran, for the wrappers that
+    pick among several: flash attention's "wgmma", "mma", "cuda_cores");
+    ``fake``: the shape-only calls, by the route a real call would take."""
+    attr = "route_fake_launches" if fake else "route_launches"
+    return {name: dict(getattr(fn, attr)) for name, fn in KERNELS.items()
+            if hasattr(fn, attr)}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = fn.fake_launches = 0
         if hasattr(fn, "vector_launches"):
             fn.vector_launches = 0
+        for attr in ("route_launches", "route_fake_launches"):
+            if hasattr(fn, attr):
+                setattr(fn, attr, dict.fromkeys(getattr(fn, attr), 0))
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,

@@ -14,7 +14,9 @@ bit-equal, past 2^31 elements too, and the fused kernel on trees that take
 every branch of its span walk; flash
 attention agrees within
 tests/test_kernels.py's tolerances (f32 2e-3 on the CUDA cores, bf16 3e-2
-on the tensor cores, whose P is rounded to bf16); the SSD chunk
+on the tensor cores, whose P is rounded to bf16), and bf16 at dh 64 and
+128 runs on the "wgmma" route (TMA and wgmma; ``-k flash`` runs these
+alone); the SSD chunk
 within 1e-4 of its plain output's largest magnitude (f32 inputs: f32
 arithmetic in both, summed in another order; bf16 inputs: the tensor
 cores, with the f32 operands split into bf16 hi + lo).  The SSD chunk
@@ -474,10 +476,61 @@ def test_flash_attention_refuses_misaligned_bf16(cuda, what):
         q = flat[1:].view(1, 2, 64, 64)
     else:
         q = torch.randn(1, 2, 64, 68, device=cuda).bfloat16()[..., :64]
-    before = ops.launch_counts()["flash_attention_bhsd"]
+    before = ops.launch_counts()["flash_attention_bhsd"], ops.route_launch_counts()
     with pytest.raises(ValueError, match="16-byte"):
         tfa.flash_attention_bhsd(q, q, q)
-    assert ops.launch_counts()["flash_attention_bhsd"] == before
+    assert (ops.launch_counts()["flash_attention_bhsd"], ops.route_launch_counts()) == before
+
+
+WGMMA_CASES = [
+    # (B, Sq, Skv, H, K, dh, causal, window, q_offset, valid_kv): bf16 at
+    # dh 64 and 128, Sq and Skv off the 128-row and 128-key tiles, causal,
+    # windows of 64 and 1024 and no mask, H / K of 1, 5 and 8
+    (2, 130, 130, 5, 1, 64, True, 64, 0, None),
+    (2, 200, 200, 8, 1, 128, True, None, 0, None),
+    (1, 130, 200, 4, 4, 128, False, None, 0, None),
+    (2, 1500, 1500, 2, 2, 64, False, None, 0, None),
+    (1, 1500, 1500, 5, 1, 128, True, 1024, 0, None),
+    (2, 200, 1500, 8, 1, 64, False, None, 0, None),
+    (1, 1500, 1500, 8, 1, 64, True, 1024, 0, None),
+    # q_offset and valid_kv, and valid_kv = 0
+    (1, 128, 512, 8, 1, 64, True, None, 300, 420),
+    (2, 200, 130, 8, 1, 128, True, 64, 70, 130),
+    (2, 130, 200, 5, 1, 128, False, None, 0, 70),
+    (2, 130, 200, 5, 1, 64, True, None, 0, 0),
+]
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES)
+def test_flash_attention_wgmma_route_vs_plain(cuda, case):
+    """bf16 at dh 64 and 128 runs flash_attention_wgmma_kernel (counted on
+    the "wgmma" route), read through the model's strided (B, S, H, dh)
+    views and written into a strided ``out=`` inside a larger buffer,
+    whose other values it leaves alone (TMA clips its stores to the
+    view); within 3e-2 of the plain output's largest magnitude, at most
+    3e-2, and zeros where no key is valid."""
+    B, Sq, Skv, H, K, dh, causal, window, off, valid = case
+    g = torch.Generator(device=cuda).manual_seed(Sq + Skv + dh)
+    q = torch.randn(B, Sq, H, dh, device=cuda, generator=g).bfloat16().transpose(1, 2)
+    k = torch.randn(B, Skv, K, dh, device=cuda, generator=g).bfloat16().transpose(1, 2)
+    v = torch.randn(B, Skv, K, dh, device=cuda, generator=g).bfloat16().transpose(1, 2)
+    buf = torch.full((B, Sq, H + 2, dh + 64), 7.0, device=cuda, dtype=torch.bfloat16)
+    out = buf[:, :, 1:H + 1, 32:dh + 32].transpose(1, 2)
+    kw = dict(causal=causal, window=window, q_offset=off, valid_kv=valid)
+    before = ops.route_launch_counts()["flash_attention_bhsd"]
+    got = tfa.flash_attention_bhsd(q, k, v, out=out, **kw)
+    want = tfa.flash_attention_bhsd_plain(q, k, v, **kw).float()
+    torch.cuda.synchronize()
+    assert got is out
+    assert ops.route_launch_counts()["flash_attention_bhsd"] == {
+        **before, "wgmma": before["wgmma"] + 1}
+    if valid == 0:
+        assert torch.equal(out, torch.zeros_like(out))
+    tol = 3e-2 * min(1.0, want.abs().max().item()) if valid != 0 else 0.0
+    assert (out.float() - want).abs().max().item() <= tol
+    outside = torch.ones_like(buf, dtype=torch.bool)
+    outside[:, :, 1:H + 1, 32:dh + 32] = False
+    assert bool((buf[outside] == 7.0).all())
 
 
 @pytest.mark.parametrize("kernel", ["ssd_chunk", "flash_attention_bhsd"])

@@ -343,6 +343,48 @@ def test_flash_attention_fully_masked_row_is_zero():
     assert torch.equal(out, torch.zeros_like(out))
 
 
+@pytest.mark.parametrize("dt, dh, want", [
+    ("bf16", 64, "wgmma"), ("bf16", 128, "wgmma"),
+    ("bf16", 16, "mma"), ("bf16", 32, "mma"), ("bf16", 80, "mma"),
+    ("f32", 16, "cuda_cores"), ("f32", 64, "cuda_cores"), ("f32", 128, "cuda_cores")])
+def test_flash_attention_route_by_dtype_and_head_size(dt, dh, want):
+    """The kernel a call on the card runs is a pure function of the dtype
+    and the head size: the Hopper kernel for bf16 at dh 64 and 128 (every
+    full-width configuration), mma.sync for bf16 at 16, 32 and 80, the
+    CUDA cores for f32."""
+    assert tfa.route(TDT[dt], dh) == want
+    assert set(tfa.ROUTES) == {"wgmma", "mma", "cuda_cores"}
+
+
+@pytest.mark.parametrize("dt, dh", [("bf16", 64), ("bf16", 128), ("bf16", 80), ("f32", 64)])
+def test_flash_attention_shape_only_call_counts_on_its_route(dt, dh):
+    """A shape-only call (the dry run's branch, here on the meta device)
+    counts in ``.fake_launches`` and, by the route a real call would
+    take, in ``.route_fake_launches``; ``.launches`` and the real routes'
+    counts stay as they were."""
+    fn = tfa.flash_attention_bhsd
+    q = torch.empty(2, 130, 8, dh, dtype=TDT[dt], device="meta").transpose(1, 2)
+    k = torch.empty(2, 2, 130, dh, dtype=TDT[dt], device="meta")
+    before = (fn.launches, fn.fake_launches, tops.route_launch_counts(),
+              tops.route_launch_counts(fake=True)["flash_attention_bhsd"])
+    out = fn(q, k, k, causal=True)
+    assert out.shape == q.shape and out.device.type == "meta"
+    fakes = before[3] | {tfa.route(TDT[dt], dh): before[3][tfa.route(TDT[dt], dh)] + 1}
+    assert (fn.launches, fn.fake_launches) == (before[0], before[1] + 1)
+    assert tops.route_launch_counts() == before[2]
+    assert tops.route_launch_counts(fake=True)["flash_attention_bhsd"] == fakes
+
+
+def test_reset_launch_counts_clears_the_routes():
+    q = torch.empty(1, 2, 64, 64, dtype=torch.bfloat16, device="meta")
+    tfa.flash_attention_bhsd(q, q, q)
+    assert tops.route_launch_counts(fake=True)["flash_attention_bhsd"]["wgmma"] > 0
+    tops.reset_launch_counts()
+    for fake in (False, True):
+        assert tops.route_launch_counts(fake=fake) == {
+            "flash_attention_bhsd": dict.fromkeys(tfa.ROUTES, 0)}
+
+
 def test_flash_attention_rejects_traced_offset():
     q = torch.randn(1, 2, 4, 64)
     with pytest.raises(TypeError):

@@ -15,14 +15,22 @@ the fused pack+quantize.
    are printed beside them (for the SSD chunk at the mamba2-2.7b prefill
    shape).
 2. Counts, in each kernel's SASS (``cuobjdump -sass`` of the same
-   object), the HMMA (tensor-core) instructions of flash and SSD, or the
-   codec's and the packing's global loads and stores by width (128, 64
-   bits or narrower).
+   object), the tensor-core instructions of flash and SSD (HMMA for
+   mma.sync, HGMMA for wgmma) and the TMA loads and stores (UTMALDG,
+   UTMASTG), or the codec's and the packing's global loads and stores by
+   width (128, 64 bits or narrower).  For the wgmma flash kernel it
+   checks that the registers a block holds at launch cover what its
+   warpgroups ask for after setmaxnreg (a shortfall would stall the
+   consumers for good), and exits 1 if not.
 3. On a card, prints the card's name and power limit and times with CUDA
    events:
-   - flash attention at the qwen2.5-3b prefill shape (B=4, H=16, K=2,
-     S=1024, dh=128, causal) in bf16 and f32, beside
-     ``F.scaled_dot_product_attention`` on the same inputs;
+   - flash attention at every timed prefill shape of chip_smoke.py
+     (FLASH_TIMED, bf16, B=4) and at the qwen2.5-3b shape in f32, each
+     beside its bound and ``F.scaled_dot_product_attention`` on the same
+     inputs, with the route the call takes; with ``--baseline DIR``, the
+     flash kernels of another checkout (e.g. the parent commit unpacked
+     by ``git archive``) built from its csrc/ and timed in turns with
+     this tree's (baseline, this tree, this tree, baseline);
    - the SSD chunk at the mamba2-2.7b prefill shape (b=4, s=1024, h=80,
      p=64, g=1, n=128, q=128) in f32 and in bf16 at the heads per block
      the kernel picks and at 4, 8 and 16, each beside its bound and with
@@ -47,7 +55,8 @@ the fused pack+quantize.
      ablations of CODEC_ABLATIONS on pack.cu (a search once per block,
      2 or 8 CTAs per SM, values only).
 
-Steps 1-2 need the CUDA toolkit, step 3 a card.
+Steps 1-2 need the CUDA toolkit, step 3 a card; ``--inspect-only`` stops
+after step 2.
 """
 
 from __future__ import annotations
@@ -76,6 +85,14 @@ from repro_torch.kernels import ssd  # noqa: E402
 # Tiles<DH>::kBytes of flash_attention.cu: (64 query rows + 2 x 2 x 64 key
 # rows) of dh + 8 bf16 values
 MMA_SMEM = {dh: (64 + 4 * 64) * (dh + 8) * 2 for dh in fa.HEAD_DIMS}
+SASS_OPS = ("HMMA", "HGMMA", "UTMALDG", "UTMASTG")
+# flash_attention_wgmma_kernel's WgSmem<DH>::kBytes: 1024 of alignment
+# slack, the 128-row Q tile, 2 stages of 128-key K and V tiles, 5
+# mbarriers; and the registers its warpgroups ask for after setmaxnreg
+# (the producer 24 a thread, the two consumers 240), which the 384
+# threads must hold at launch
+WGMMA_SMEM = {dh: 1024 + (128 + 2 * 2 * 128) * dh * 2 + 8 * 5 for dh in fa.WGMMA_HEAD_DIMS}
+WGMMA_ASKED = 128 * 24 + 256 * 240
 SSD_SHAPE = (4, 1024, 80, 64, 1, 128, 128)     # b, s, h, p, g, n, q
 SSD_HEADS_PER_BLOCK = (0, 4, 8, 16)             # 0: the kernel's pick
 SEGMENT = 3_085_938_688                         # qwen2.5-3b's bf16 gradient segment
@@ -177,6 +194,9 @@ def smem_note(label: str) -> str:
     if label.startswith("flash_attention_mma"):
         dh = int(re.search(r"(\d+)>", label).group(1))
         return f"; {MMA_SMEM[dh]} bytes of dynamic shared memory per block"
+    if label.startswith("flash_attention_wgmma"):
+        dh = int(re.search(r"(\d+)>", label).group(1))
+        return f"; {WGMMA_SMEM[dh]} bytes of dynamic shared memory per block"
     if label.startswith("ssd_chunk"):
         return f"; dynamic shared memory per block {ssd_smem(label)}"
     return ""
@@ -202,16 +222,22 @@ def short(name: str) -> str:
     return f"{m.group(1)}<{m.group(2).replace('(int)', '')}>" if m.group(2) else m.group(1)
 
 
-def compile_and_inspect(source: pathlib.Path) -> None:
+def compile_and_inspect(source: pathlib.Path) -> bool:
+    """Steps 1-2; False when a wgmma kernel's registers at launch fall
+    short of what setmaxnreg asks for, or it has no HGMMA or UTMALDG."""
     tmp_root = _build.BUILD_DIR.parent / "report"
     tmp_root.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=tmp_root) as tmp:
         obj = pathlib.Path(tmp) / f"{source.stem}.o"
         res = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
                               "-c", "-o", str(obj), str(source)],
-                             capture_output=True, text=True, check=True)
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
         ptxas = collections.defaultdict(list)
         fn = None
+        warnings = [line.strip() for line in (res.stdout + res.stderr).splitlines()
+                    if "warning" in line.lower()]
         for line in (res.stdout + res.stderr).splitlines():
             m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", line)
             if m:
@@ -229,21 +255,35 @@ def compile_and_inspect(source: pathlib.Path) -> None:
         if m:
             fn = m.group(1)
             continue
-        op = re.search(r"\b(HMMA|LDG|STG)(\.\S*)?", line)
+        op = re.search(r"\b(HGMMA|HMMA|UTMALDG|UTMASTG|LDG|STG)(\.\S*)?", line)
         if fn is not None and op is not None:
-            width = next((w for w in ("128", "64") if f".{w}" in (op.group(2) or "")), "narrower")
-            counts[fn][op.group(1) if op.group(1) == "HMMA" else f"{op.group(1)}.{width}"] += 1
+            if op.group(1) in SASS_OPS:
+                counts[fn][op.group(1)] += 1
+            else:
+                width = next((w for w in ("128", "64") if f".{w}" in (op.group(2) or "")),
+                             "narrower")
+                counts[fn][f"{op.group(1)}.{width}"] += 1
     names = demangle(sorted(set(ptxas) | set(counts)))
+    ok = True
     for mangled in sorted(names, key=lambda n: short(names[n])):
         label = short(names[mangled])
         print(f"[ptxas] {label}: {'; '.join(ptxas.get(mangled, []))}{smem_note(label)}")
+        c = counts[mangled]
         if source.stem in ("quant", "pack"):
-            c = counts[mangled]
             print(f"[sass] {label}: global loads by width " + ", ".join(
                 f"{w} {c[f'LDG.{w}']}" for w in ("128", "64", "narrower")) + "; stores " + ", ".join(
                 f"{w} {c[f'STG.{w}']}" for w in ("128", "64", "narrower")))
         else:
-            print(f"[sass] {label}: {counts[mangled]['HMMA']} HMMA instructions")
+            print(f"[sass] {label}: " + ", ".join(f"{c[op]} {op}" for op in SASS_OPS))
+        if label.startswith("flash_attention_wgmma"):
+            used = re.search(r"Used (\d+) registers", " ".join(ptxas.get(mangled, [])))
+            held = 384 * int(used.group(1)) if used else 0
+            print(f"[ptxas] {label}: {held} registers held at launch, {WGMMA_ASKED} asked "
+                  f"for after setmaxnreg")
+            ok = ok and held >= WGMMA_ASKED and c["HGMMA"] > 0 and c["UTMALDG"] > 0
+    for line in warnings:
+        print(f"[ptxas] {line}")
+    return ok
 
 
 def time_ms(fn, iters: int = 50) -> float:
@@ -266,21 +306,125 @@ def card() -> str:
                           check=True).stdout.strip().splitlines()[0]
 
 
-def time_serving_shape(smi: str) -> None:
+def flash_launcher(lib, q, k, v, out, causal: bool, window):
+    """A call of ``lib``'s flash_attention_launch as the wrapper makes it."""
+    B, H, Sq, dh = q.shape
+    K, Skv = k.shape[1], k.shape[2]
+    stream = _build.stream_handle(q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), fa._CODES[q.dtype],
+            B, H, K, Sq, Skv, dh, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], 1.0 / dh ** 0.5, int(causal), window or 0, 0, Skv, stream)
+    return lambda: _build.check(lib.flash_attention_launch(*args), "flash_attention")
+
+
+def time_flash_shapes(smi: str, baseline: pathlib.Path | None) -> None:
+    from chip_smoke import BATCH, FLASH_TIMED, flash_bound_ms
+
+    base = build_baseline(baseline, "flash_attention.cu") if baseline is not None else None
     gen = torch.Generator(device="cuda").manual_seed(0)
-    B, H, K, S, dh = 4, 16, 2, 1024, 128
-    for dt in (torch.bfloat16, torch.float32):
-        q = torch.randn(B, H, S, dh, device="cuda", generator=gen).to(dt)
-        k = torch.randn(B, K, S, dh, device="cuda", generator=gen).to(dt)
-        v = torch.randn(B, K, S, dh, device="cuda", generator=gen).to(dt)
-        err = (fa.flash_attention_bhsd(q, k, v).float()
-               - fa.flash_attention_bhsd_plain(q, k, v).float()).abs().max().item()
-        ms = time_ms(lambda: fa.flash_attention_bhsd(q, k, v, causal=True))
-        lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                             enable_gqa=True))
-        print(f"[time] [{smi}] flash_attention_bhsd {B}x{H}x{S}x{dh}, K={K}, causal, "
-              f"{dt}: {ms:.4f} ms (max abs err {err:.3g} against the plain version), "
-              f"F.scaled_dot_product_attention {lib:.4f} ms")
+    for (H, K, dh, dt, Sq, Skv, causal, window), (_, shape) in FLASH_TIMED.items():
+        if dt == torch.float32 and (H, K, dh) != (16, 2, 128):
+            continue
+        q = torch.randn(BATCH, H, Sq, dh, device="cuda", generator=gen).to(dt)
+        k = torch.randn(BATCH, K, Skv, dh, device="cuda", generator=gen).to(dt)
+        v = torch.randn(BATCH, K, Skv, dh, device="cuda", generator=gen).to(dt)
+        kw = dict(causal=causal, window=window)
+        want = fa.flash_attention_bhsd_plain(q, k, v, **kw).float()
+        err = (fa.flash_attention_bhsd(q, k, v, **kw).float() - want).abs().max().item()
+        bound, by = flash_bound_ms(BATCH, H, K, Sq, dh, 0, Skv, causal, dt, window)
+        line = [f"[time] [{smi}] flash_attention_bhsd {shape}, {dt}, route "
+                f"{fa.route(dt, dh)}: max abs err {err:.3g}; bound {bound:.4f} ms ({by})"]
+        # both trees through the C entry point straight, then through the
+        # wrapper (whose Python adds host time to every call)
+        out = torch.empty_like(q)
+        shipped = flash_launcher(_build.library(), q, k, v, out, causal, window)
+        wrapper = lambda: fa.flash_attention_bhsd(q, k, v, **kw)   # noqa: E731
+        if base is None:
+            line.append(f"this tree {time_ms(shipped):.4f} ms")
+        else:
+            before = flash_launcher(base, q, k, v, out, causal, window)
+            before()
+            base_err = (out.float() - want).abs().max().item()
+            times = [time_ms(fn) for fn in (before, shipped, shipped, before)]
+            line.append(f"baseline {times[0]:.4f} / {times[3]:.4f} ms (max abs err "
+                        f"{base_err:.3g}), this tree {times[1]:.4f} / {times[2]:.4f} ms")
+        line.append(f"through the wrapper {time_ms(wrapper):.4f} ms")
+        if window is None:
+            lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
+                q, k, v, is_causal=causal, enable_gqa=True)
+        else:
+            pos = torch.arange(Sq, device="cuda")
+            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+            lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
+                q, k, v, attn_mask=mask, enable_gqa=True)
+        line.append(f"F.scaled_dot_product_attention {time_ms(lib):.4f} ms")
+        print("; ".join(line))
+
+
+def _constant(name: str, old: int, new: int) -> tuple:
+    return ("flash_attention.cu", f"constexpr int {name} = {old};", f"constexpr int {name} = {new};")
+
+
+# name: (the head size it is timed at, or None for both; edits).  The
+# wgmma kernel's design space (key tile, ring stages, blocks per SM), and
+# ablations that drop one part of a tile's work, timed only (their
+# outputs are wrong by design).
+FLASH_VARIANTS = {
+    "64-key tiles, 2 stages": (None, [_constant("kWgKeys", 128, 64)]),
+    "64-key tiles, 4 stages": (None, [_constant("kWgKeys", 128, 64),
+                                      _constant("kWgStages", 2, 4)]),
+    "128-key tiles, 3 stages": (None, [_constant("kWgStages", 2, 3)]),
+    # at 2 blocks a SM a block holds 80 registers a thread at launch, so a
+    # consumer gets 104 of them: only dh 64 at 64-key tiles fits
+    "64-key tiles, 2 blocks per SM": (64, [
+        _constant("kWgKeys", 128, 64), _constant("kConsumerRegs", 240, 104),
+        ("flash_attention.cu", "__launch_bounds__(kWgThreads, 1)",
+         "__launch_bounds__(kWgThreads, 2)")]),
+    "ablation: no exp2 (timing only)": (None, [
+        ("flash_attention.cu", "exp2_approx(fmaf(s[i], scale_log2, -ms[r]))",
+         "fmaf(s[i], scale_log2, -ms[r])")]),
+    "ablation: no Q K^T, S = 0 (timing only)": (None, [
+        ("flash_attention.cu", "      float s[kWgKeys / 2];", "      float s[kWgKeys / 2] = {};"),
+        ("flash_attention.cu", "        wgmma_ss(\n", "        if (kk < 0) wgmma_ss(\n")]),
+    "ablation: no P V (timing only)": (None, [
+        ("flash_attention.cu", "          wgmma_m64n64k16_rs_tb(\n",
+         "          if (kc < 0) wgmma_m64n64k16_rs_tb(\n")]),
+    "ablation: consumers skip every tile, loads only (timing only)": (None, [
+        ("flash_attention.cu", "    if (wg_rows && k0 < wk_end && k0 + kWgKeys > wk_begin) {",
+         "    if (false) {")]),
+}
+# the shapes the variants are timed at: FLASH_TIMED's keys
+FLASH_VARIANT_SHAPES = (None, "chameleon", "qwen3_moe_tp1", "whisper_encoder", "hymba")
+
+
+def time_flash_variants(smi: str) -> None:
+    from chip_smoke import BATCH, FLASH_TIMED, device_ms, flash_bound_ms
+
+    libs = build_edited("flash_attention.cu", "flash",
+                        {name: edits for name, (_, edits) in FLASH_VARIANTS.items()})
+    shipped = _build.library()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for (H, K, dh, dt, Sq, Skv, causal, window), (key, shape) in FLASH_TIMED.items():
+        if key not in FLASH_VARIANT_SHAPES or dt != torch.bfloat16:
+            continue
+        q = torch.randn(BATCH, H, Sq, dh, device="cuda", generator=gen).to(dt)
+        k = torch.randn(BATCH, K, Skv, dh, device="cuda", generator=gen).to(dt)
+        v = torch.randn(BATCH, K, Skv, dh, device="cuda", generator=gen).to(dt)
+        want = fa.flash_attention_bhsd_plain(q, k, v, causal=causal, window=window).float()
+        out = torch.empty_like(q)
+        bound, by = flash_bound_ms(BATCH, H, K, Sq, dh, 0, Skv, causal, dt, window)
+        base = flash_launcher(shipped, q, k, v, out, causal, window)
+        print(f"[ablation] [{smi}] flash {shape}: bound {bound:.4f} ms ({by}); this tree "
+              f"{time_ms(base):.4f} ms, device time {device_ms(base):.4f} ms")
+        for name, (only, _) in FLASH_VARIANTS.items():
+            if only not in (None, dh):
+                continue
+            fn = flash_launcher(libs[name], q, k, v, out, causal, window)
+            fn()
+            err = (out.float() - want).abs().max().item()
+            print(f"[ablation] [{smi}] flash {shape}: {name}: {time_ms(fn):.4f} ms, device time "
+                  f"{device_ms(fn):.4f} ms, max abs err {err:.3g}")
+        print(f"[ablation] [{smi}] flash {shape}: this tree again {time_ms(base):.4f} ms")
 
 
 def time_ssd_prefill_shape(smi: str) -> None:
@@ -320,12 +464,20 @@ def build_variants(source: str) -> dict[str, ctypes.CDLL]:
     """``source`` (quant.cu or pack.cu) built from an edited copy of csrc/
     per entry of CODEC_ABLATIONS on its kernels (under
     build/report/codec/), one nvcc each, all started together."""
-    root = _build.BUILD_DIR.parent / "report" / "codec"
+    return build_edited(source, "codec", {
+        name: edits for name, (kernels, edits) in CODEC_ABLATIONS.items()
+        if KERNEL_SOURCE[kernels[0]] == source})
+
+
+def build_edited(source: str, tag: str, variants: dict[str, list]) -> dict[str, ctypes.CDLL]:
+    """``source`` built from an edited copy of csrc/ per entry of
+    ``variants`` (name: [(file under csrc/, text, replacement)], each text
+    present in the copy) under build/report/``tag``/, one nvcc each, all
+    started together."""
+    root = _build.BUILD_DIR.parent / "report" / tag
     shutil.rmtree(root, ignore_errors=True)
     cmds, paths = [], {}
-    for i, (name, (kernels, edits)) in enumerate(CODEC_ABLATIONS.items()):
-        if KERNEL_SOURCE[kernels[0]] != source:
-            continue
+    for i, (name, edits) in enumerate(variants.items()):
         copy = root / f"variant{i}"
         shutil.copytree(_build.CSRC, copy)
         for fname, old, new in edits:
@@ -441,11 +593,11 @@ def time_codec_shapes(smi: str) -> None:
             print(f"[ablation] [{smi}] {what}, {name}: {rate(nbytes, time_ms(fn, iters))}")
 
 
-def build_baseline(checkout: pathlib.Path) -> ctypes.CDLL:
-    """csrc/pack.cu of another checkout of the repository, built with this
-    tree's flags into build/report/baseline/."""
-    src = checkout / "src" / "repro_torch" / "csrc" / "pack.cu"
-    out = _build.BUILD_DIR.parent / "report" / "baseline" / "libpack.so"
+def build_baseline(checkout: pathlib.Path, source: str = "pack.cu") -> ctypes.CDLL:
+    """csrc/``source`` of another checkout of the repository, built with
+    this tree's flags into build/report/baseline/."""
+    src = checkout / "src" / "repro_torch" / "csrc" / source
+    out = _build.BUILD_DIR.parent / "report" / "baseline" / f"lib{src.stem}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     _build._run_all([[_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-o", str(out),
                       str(src)]])
@@ -500,12 +652,19 @@ def main() -> int:
                     choices=("flash_attention.cu", "ssd.cu", "quant.cu", "pack.cu"),
                     help="the source under src/repro_torch/csrc/ to inspect and time")
     ap.add_argument("--baseline", type=pathlib.Path, default=None,
-                    help="with --source pack.cu: another checkout of the repository whose "
-                         "fused_pack_quant is timed beside this tree's")
+                    help="with --source pack.cu or flash_attention.cu: another checkout of "
+                         "the repository whose kernel is timed beside this tree's")
+    ap.add_argument("--inspect-only", action="store_true",
+                    help="compile and inspect (steps 1-2), time nothing")
+    ap.add_argument("--variants", action="store_true",
+                    help="with flash_attention.cu: also build and time FLASH_VARIANTS")
     args = ap.parse_args()
     source = _build.CSRC / args.source
-    compile_and_inspect(source)
-    if torch.cuda.is_available():
+    if not compile_and_inspect(source):
+        print("flash_report: a wgmma kernel would not get the registers setmaxnreg asks "
+              "for, or has no HGMMA or UTMALDG instruction", file=sys.stderr)
+        return 1
+    if torch.cuda.is_available() and not args.inspect_only:
         smi = card()
         if source.stem == "ssd":
             time_ssd_prefill_shape(smi)
@@ -514,7 +673,9 @@ def main() -> int:
         elif source.stem == "pack":
             time_pack_layout(smi, args.baseline)
         else:
-            time_serving_shape(smi)
+            time_flash_shapes(smi, args.baseline)
+            if args.variants:
+                time_flash_variants(smi)
     return 0
 
 
