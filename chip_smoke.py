@@ -14,12 +14,13 @@
    (amax_block, quant_scaled and dequant_int8 also at ragged sizes and on
    views at every element offset 0-7, which take their scalar variant),
    flash attention within 3e-2 (bf16, on the tensor cores: wgmma at dh 64
-   and 128, mma.sync at 16, 32 and 80) and 2e-3 (f32, on the CUDA cores)
-   of its plain output's largest magnitude, and no more than that
-   absolute, at every head size it takes, each case counted on the route
-   fa.route names (without a mask and with a ragged key tile of its
-   route, the bound must also reject the output over the whole tiles
-   only), the wgmma kernel's HGMMA, UTMALDG and UTMASTG instructions
+   and 128, mma.sync at 16, 32 and 80) and 2e-3 (f32, on the tensor cores
+   at f32 accuracy: 3xTF32 mma.sync) of its plain output's largest
+   magnitude, and no more than that absolute, at every head size it
+   takes, each case counted on the route fa.route names (without a mask
+   and with a ragged key tile of its route, the bound must also reject the
+   output over the whole tiles only), the wgmma kernel's HGMMA, UTMALDG
+   and UTMASTG instructions and the f32 kernel's TF32 HMMA instructions
    counted in the library's SASS, the SSD chunk
    within 1e-4 of its plain output's largest magnitude (bf16 on the
    tensor cores, f32 on the CUDA cores; at the JAX suite's SSD shapes, at
@@ -341,6 +342,10 @@ from repro_torch.train.train_step import (  # noqa: E402
 # NVIDIA H100 SXM data sheet, dense rates without sparsity
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# f32 flash runs on the tensor cores at f32 accuracy: three TF32 products
+# (hi/lo splits) for each f32 product, at TF32's 495 TFLOP/s.  The f32
+# SSD chunk still runs on the CUDA cores, at PEAK_FLOPS[torch.float32].
+FLASH_PEAK_FLOPS = {torch.bfloat16: PEAK_FLOPS[torch.bfloat16], torch.float32: 495e12 / 3}
 TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-3}
 
 ARCH = "qwen2.5-3b"
@@ -844,41 +849,53 @@ FLASH_CASES = [
     # of 16, one request of EXAMPLE_PROMPT tokens), bf16 and f32
     (1, 2, 1, EXAMPLE_PROMPT, EXAMPLE_PROMPT, 16, True, None, 0, None, torch.bfloat16),
     (1, 2, 1, EXAMPLE_PROMPT, EXAMPLE_PROMPT, 16, True, None, 0, None, torch.float32),
+    # f32 at the remaining head size, ragged, with q_offset and valid_kv
+    (2, 8, 1, 130, 200, 32, True, None, 70, 190, torch.float32),
 ]
-# the timed flash cases: (H, K, dh, dtype, Sq, Skv, causal, window) -> the
-# row's key for its numbers (the first two are the row's own, bf16, and its
-# "f32" entry) and the shape's name
+# the timed flash cases: (B, H, K, dh, dtype, Sq, Skv, causal, window) ->
+# the row's key for its numbers (the first two are the row's own, bf16,
+# and its "f32" entry) and the shape's name
 FLASH_TIMED = {
-    (16, 2, 128, torch.bfloat16, PROMPT, PROMPT, True, None): (None, "qwen2.5-3b prefill shape"),
-    (16, 2, 128, torch.float32, PROMPT, PROMPT, True, None): ("f32", "qwen2.5-3b prefill shape"),
-    (32, 4, 64, torch.bfloat16, PROMPT, PROMPT, True, None): (
+    (BATCH, 16, 2, 128, torch.bfloat16, PROMPT, PROMPT, True, None): (
+        None, "qwen2.5-3b prefill shape"),
+    (BATCH, 16, 2, 128, torch.float32, PROMPT, PROMPT, True, None): (
+        "f32", "qwen2.5-3b prefill shape"),
+    # the serve example's rank (the mma route's and the f32 route's only
+    # path shape at dh 16)
+    (1, 2, 1, 16, torch.bfloat16, EXAMPLE_PROMPT, EXAMPLE_PROMPT, True, None): (
+        "serve_example_rank", f"serve example rank's prefill shape (1 x {EXAMPLE_PROMPT} "
+                              f"tokens, 2 Q / 1 KV, dh 16, causal)"),
+    (1, 2, 1, 16, torch.float32, EXAMPLE_PROMPT, EXAMPLE_PROMPT, True, None): (
+        "serve_example_rank_f32", f"serve example rank's prefill shape (1 x {EXAMPLE_PROMPT} "
+                                  f"tokens, 2 Q / 1 KV, dh 16, causal)"),
+    (BATCH, 32, 4, 64, torch.bfloat16, PROMPT, PROMPT, True, None): (
         "qwen3_moe_tp1", "qwen3-moe-30b-a3b prefill shape at TP 1 (32 Q / 4 KV, dh 64)"),
-    (16, 2, 64, torch.bfloat16, PROMPT, PROMPT, True, None): (
+    (BATCH, 16, 2, 64, torch.bfloat16, PROMPT, PROMPT, True, None): (
         "qwen3_moe_tp2", "qwen3-moe-30b-a3b prefill shape at TP 2 (16 Q / 2 KV, dh 64)"),
-    (25, 5, 64, torch.bfloat16, HYBRID_SEQ, HYBRID_SEQ, True, 1024): (
+    (BATCH, 25, 5, 64, torch.bfloat16, HYBRID_SEQ, HYBRID_SEQ, True, 1024): (
         "hymba", f"hymba-1.5b prefill shape (25 Q / 5 KV, dh 64, {HYBRID_SEQ} tokens, "
                  f"window 1024)"),
-    (6, 6, 64, torch.bfloat16, ENC_FRAMES, ENC_FRAMES, False, None): (
+    (BATCH, 6, 6, 64, torch.bfloat16, ENC_FRAMES, ENC_FRAMES, False, None): (
         "whisper_encoder", f"whisper-tiny encoder shape (6 heads, dh 64, {ENC_FRAMES} frames, "
                            f"no mask)"),
-    (6, 6, 64, torch.bfloat16, PROMPT, ENC_FRAMES, False, None): (
+    (BATCH, 6, 6, 64, torch.bfloat16, PROMPT, ENC_FRAMES, False, None): (
         "whisper_cross", f"whisper-tiny cross-attention shape ({PROMPT} x {ENC_FRAMES}, "
                          f"6 heads, dh 64, no mask)"),
-    (6, 6, 64, torch.bfloat16, PROMPT, PROMPT, True, None): (
+    (BATCH, 6, 6, 64, torch.bfloat16, PROMPT, PROMPT, True, None): (
         "whisper_decoder", f"whisper-tiny decoder self-attention shape ({PROMPT} tokens, "
                            f"6 heads, dh 64, causal)"),
-    (64, 8, 128, torch.bfloat16, PROMPT, PROMPT, True, None): (
+    (BATCH, 64, 8, 128, torch.bfloat16, PROMPT, PROMPT, True, None): (
         "chameleon", "chameleon-34b prefill shape (64 Q / 8 KV, dh 128, causal)"),
-    (4, 4, 64, torch.bfloat16, HYBRID_SEQ, HYBRID_SEQ, True, 1024): (
+    (BATCH, 4, 4, 64, torch.bfloat16, HYBRID_SEQ, HYBRID_SEQ, True, 1024): (
         "hymba_tp8", f"hymba-1.5b TP-8 rank's prefill shape (4 Q / 4 gathered KV, dh 64, "
                      f"{HYBRID_SEQ} tokens, window 1024)"),
-    (2, 2, 64, torch.bfloat16, ENC_FRAMES, ENC_FRAMES, False, None): (
+    (BATCH, 2, 2, 64, torch.bfloat16, ENC_FRAMES, ENC_FRAMES, False, None): (
         "whisper_tp4_encoder", f"whisper-tiny TP-4 rank's encoder shape (2 of 8 padded heads, "
                                f"dh 64, {ENC_FRAMES} frames, no mask)"),
-    (2, 2, 64, torch.bfloat16, PROMPT, ENC_FRAMES, False, None): (
+    (BATCH, 2, 2, 64, torch.bfloat16, PROMPT, ENC_FRAMES, False, None): (
         "whisper_tp4_cross", f"whisper-tiny TP-4 rank's cross-attention shape ({PROMPT} x "
                              f"{ENC_FRAMES}, 2 heads, no mask)"),
-    (2, 2, 64, torch.bfloat16, PROMPT, PROMPT, True, None): (
+    (BATCH, 2, 2, 64, torch.bfloat16, PROMPT, PROMPT, True, None): (
         "whisper_tp4_decoder", f"whisper-tiny TP-4 rank's decoder self-attention shape "
                                f"({PROMPT} tokens, 2 heads, causal)")}
 
@@ -886,8 +903,8 @@ FLASH_TIMED = {
 def flash_bound_ms(B, H, K, Sq, dh, q_offset, valid_kv, causal,
                    dtype, window: int | None = None) -> tuple[float, str]:
     """Least time for the work these inputs need: 4 flops per (q, k) pair
-    and head dim over the unmasked pairs (causal, and inside the window),
-    against reading q, k, v and writing o once."""
+    and head dim over the unmasked pairs (causal, and inside the window)
+    at FLASH_PEAK_FLOPS, against reading q, k, v and writing o once."""
     def keys(i):
         hi = min(valid_kv, q_offset + i + 1) if causal else valid_kv
         lo = 0 if window is None else max(0, q_offset + i + 1 - window)
@@ -897,38 +914,48 @@ def flash_bound_ms(B, H, K, Sq, dh, q_offset, valid_kv, causal,
     flops = 4.0 * B * H * dh * pairs
     elem = torch.finfo(dtype).bits // 8
     nbytes = elem * B * dh * (2 * H * Sq + 2 * K * valid_kv)
-    t_ops = flops / PEAK_FLOPS[dtype]
+    t_ops = flops / FLASH_PEAK_FLOPS[dtype]
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def wgmma_sass_counts() -> dict[str, dict[str, int]]:
-    """Per instantiation of flash_attention_wgmma_kernel in the built
-    library's SASS (``cuobjdump -sass``): its wgmma (HGMMA) and TMA
-    (UTMALDG, UTMASTG) instructions."""
+# per flash kernel, its instantiations (one per head size it takes; the
+# f32 kernel's in two copy widths) and the instructions counted in each
+FLASH_SASS = {
+    "flash_attention_wgmma_kernel": (len(fa.WGMMA_HEAD_DIMS), ("HGMMA", "UTMALDG", "UTMASTG")),
+    "flash_attention_tf32x3_kernel": (2 * len(fa.HEAD_DIMS), ("HMMA.TF32",)),
+}
+
+
+def flash_sass_counts() -> dict[str, dict[str, dict[str, int]]]:
+    """Per kernel of FLASH_SASS and per instantiation, in the built
+    library's SASS (``cuobjdump -sass``): its instructions of FLASH_SASS,
+    an op with a suffix counting the lines of that op that carry the
+    suffix (a TF32 HMMA is ``HMMA.1688.F32.TF32``)."""
     tool = pathlib.Path(_build.nvcc_path()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(_build.library().path)],
                           capture_output=True, text=True, check=True).stdout
-    counts, fn = {}, None
+    counts, fn = {kernel: {} for kernel in FLASH_SASS}, None
     for line in sass.splitlines():
         if "Function : " in line:
-            fn = line.split("Function : ")[1].strip()
-            fn = fn if "flash_attention_wgmma_kernel" in fn else None
-            if fn is not None:
-                counts[fn] = dict.fromkeys(("HGMMA", "UTMALDG", "UTMASTG"), 0)
+            name = line.split("Function : ")[1].strip()
+            kernel = next((k for k in FLASH_SASS if k in name), None)
+            fn = None if kernel is None else counts[kernel].setdefault(
+                name, dict.fromkeys(FLASH_SASS[kernel][1], 0))
         elif fn is not None:
-            for op in counts[fn]:
-                counts[fn][op] += f" {op}" in line
+            for op in fn:
+                head, _, suffix = op.partition(".")
+                fn[op] += f" {head}" in line and (not suffix or f".{suffix}" in line)
     return counts
 
 
 def check_flash(dev, gen, smi: str) -> dict:
-    sass = wgmma_sass_counts()
-    check(len(sass) == len(fa.WGMMA_HEAD_DIMS)
-          and all(c["HGMMA"] and c["UTMALDG"] and c["UTMASTG"] for c in sass.values()),
-          f"flash_attention_wgmma_kernel's SASS: {sass}")
-    print(f"[check] flash_attention_wgmma_kernel in the library's SASS: "
-          + "; ".join(f"{', '.join(f'{n} {op}' for op, n in c.items())}" for c in sass.values()))
+    for kernel, sass in flash_sass_counts().items():
+        n = FLASH_SASS[kernel][0]
+        check(len(sass) == n and all(all(c.values()) for c in sass.values()),
+              f"{kernel}'s SASS: {sass}")
+        print(f"[check] {kernel} in the library's SASS, {n} instantiations: "
+              + "; ".join(", ".join(f"{m} {op}" for op, m in c.items()) for c in sass.values()))
     main = {}
     for B, H, K, Sq, Skv, dh, causal, window, off, valid, dt in FLASH_CASES:
         q = torch.randn(B, H, Sq, dh, device=dev, generator=gen).to(dt)
@@ -959,13 +986,14 @@ def check_flash(dev, gen, smi: str) -> dict:
             tail = f"; over the first {cut} keys only it would err by {lost_err:.3g}"
         print(f"[check] flash B={B} H={H} K={K} Sq={Sq} Skv={Skv} dh={dh} "
               f"{kw} {dt}, route {route}: max abs err {err:.3g} (tol {tol:.3g}){tail}")
-        timed = (H, K, dh, dt, Sq, Skv, causal, window)
-        if B == BATCH and off == 0 and timed in FLASH_TIMED:
+        timed = (B, H, K, dh, dt, Sq, Skv, causal, window)
+        if off == 0 and valid is None and timed in FLASH_TIMED:
             main[timed] = err, (q, k, v)
     timing = {}
-    for (H, K, dh, dt, Sq, Skv, causal, window), (err, (q, k, v)) in main.items():
-        bound, by = flash_bound_ms(BATCH, H, K, Sq, dh, 0, Skv, causal, dt, window)
-        key, shape = FLASH_TIMED[(H, K, dh, dt, Sq, Skv, causal, window)]
+    for timed, (err, (q, k, v)) in main.items():
+        B, H, K, dh, dt, Sq, Skv, causal, window = timed
+        bound, by = flash_bound_ms(B, H, K, Sq, dh, 0, Skv, causal, dt, window)
+        key, shape = FLASH_TIMED[timed]
         if window is None:
             library = lambda: F.scaled_dot_product_attention(   # noqa: E731
                 q, k, v, is_causal=causal, enable_gqa=True)
@@ -986,7 +1014,7 @@ def check_flash(dev, gen, smi: str) -> dict:
             "bound_ms": bound, "bound_by": by, "library_ms": time_ms(library, 20)}
         t = timing[key]
         print(f"[time] [{smi}] flash_attention_bhsd {shape}, {dt}, route {fa.route(dt, dh)}: "
-              f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({by}), plain "
+              f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4g} ms ({by}), plain "
               f"{t['plain_ms']:.4f} ms, F.scaled_dot_product_attention"
               f"{' with the window mask' if window else f' (is_causal={causal})'} "
               f"{t['library_ms']:.4f} ms")
@@ -995,11 +1023,13 @@ def check_flash(dev, gen, smi: str) -> dict:
         "name": "flash_attention_bhsd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:85",
-        "bf16_routes": {"wgmma": {"kernel": "flash_attention_wgmma_kernel",
-                                  "head_dims": list(fa.WGMMA_HEAD_DIMS)},
-                        "mma": {"kernel": "flash_attention_mma_kernel",
-                                "head_dims": [d for d in fa.HEAD_DIMS
-                                              if d not in fa.WGMMA_HEAD_DIMS]}},
+        "routes": {"wgmma": {"kernel": "flash_attention_wgmma_kernel", "dtype": "bf16",
+                             "head_dims": list(fa.WGMMA_HEAD_DIMS)},
+                   "mma": {"kernel": "flash_attention_mma_kernel", "dtype": "bf16",
+                           "head_dims": [d for d in fa.HEAD_DIMS
+                                         if d not in fa.WGMMA_HEAD_DIMS]},
+                   "tf32x3": {"kernel": "flash_attention_tf32x3_kernel", "dtype": "f32",
+                              "head_dims": list(fa.HEAD_DIMS)}},
         **own, **timing}}
 
 
@@ -1129,8 +1159,8 @@ def prefill_launches(cfg, kernel: str) -> int:
 def check_small_model(dev, arch: str) -> None:
     """Prefill + 4 decode steps of the f32 smoke model; the path's kernels
     launch once per layer each in the prefill (whisper's flash also per
-    encoder layer and cross-attention, over 130 frames) and never in
-    decode."""
+    encoder layer and cross-attention, over 130 frames; every flash
+    launch on the "tf32x3" route) and never in decode."""
     cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32,
                               **SMALL_OVERRIDES.get(arch, {}))
     cpu = Model(cfg, device="cpu").init(0)
@@ -1145,7 +1175,7 @@ def check_small_model(dev, arch: str) -> None:
     def launched():
         return [ops.launch_counts()[k] for k in kernels]
 
-    before = launched()
+    before, routes = launched(), ops.route_launch_counts()["flash_attention_bhsd"]
     lc, cc = cpu.apply_prefill(toks, frames, max_len=136)
     lg, cg = gpu.apply_prefill(toks.to(dev), None if frames is None else frames.to(dev),
                                max_len=136)
@@ -1162,10 +1192,13 @@ def check_small_model(dev, arch: str) -> None:
         tok = lc.argmax(-1)
     check(err < 1e-3, f"small decode logits differ by {err}")
     check(launched() == [n + m for n, m in zip(before, per)], f"decode launched {kernels}")
+    flash = dict(zip(kernels, per)).get("flash_attention_bhsd", 0)
+    check(ops.route_launch_counts()["flash_attention_bhsd"]
+          == {**routes, "tf32x3": routes["tf32x3"] + flash}, f"small {arch} flash routes")
     note = f" {SMALL_OVERRIDES[arch]}" if arch in SMALL_OVERRIDES else ""
     print(f"[check] {cfg.name} f32{note} on the card vs the CPU: prefill + 4 decode "
           f"steps, max logit diff {err:.3g}, greedy tokens equal, {' and '.join(kernels)} "
-          f"launched {per} times (prefill only)")
+          f"launched {per} times (prefill only{'; flash on the tf32x3 route' * bool(flash)})")
 
 
 def check_small_training(dev, rt, mode: str, codec: str | None, planned=None,

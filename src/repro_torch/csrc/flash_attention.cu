@@ -12,9 +12,11 @@
 // Three kernels, chosen by dtype and dh alone (the wrapper's route()):
 //   bf16, dh 64 and 128   flash_attention_wgmma_kernel  (route "wgmma")
 //   bf16, dh 16, 32, 80   flash_attention_mma_kernel    (route "mma")
-//   f32, every dh         flash_attention_kernel        (route "cuda_cores")
+//   f32, every dh         flash_attention_tf32x3_kernel (route "tf32x3")
 // dh 64 and 128 cover every full-width configuration; 16, 32 and 80 only
-// smoke models and small ranks.
+// smoke models and small ranks.  f32 runs on no full-width path: the f32
+// smoke models, the padded TP-8 f32 check and the serve example's f32
+// rank.
 //
 // Bound on this card: operations.  At the serving shape (B=4, H=16, K=2,
 // S=1024, dh=128, causal) one call does 17.2 GFLOP over the unmasked
@@ -88,9 +90,55 @@
 // transposes).  So they refuse bf16 tensors whose base or strides are
 // not 16-byte aligned.
 //
-// f32 inputs run the first version's kernel: f32 FMAs on the CUDA cores
-// (67 TFLOP/s peak).  TF32 tensor cores keep about three decimal digits,
-// short of the 2e-3 that f32 callers are held to.
+// tf32x3 (f32 inputs; the sm_80 instruction set):
+//   * What bounds it: operations at f32 accuracy.  The CUDA cores' f32
+//     FMAs peak at 67 TFLOP/s; the tensor cores run TF32 at 495, but one
+//     TF32 product keeps about 2^-11 of each operand, short of the 2e-3
+//     that f32 callers are held to.  Split each operand as hi = tf32(x)
+//     (rounded to nearest), lo = x - hi (read as tf32) and take lo*hi +
+//     hi*lo + hi*hi (mma.cuh's split_tf32 and mma_tf32x3, the small terms
+//     first): about 2^-21 of each product, the precision of CUTLASS's
+//     "fast f32", at 495 / 3 TFLOP/s.  At the
+//     serving shape that bound is 3 x 17.2 GFLOP / 495 TFLOP/s = 0.1042
+//     ms (0.2567 ms on the CUDA cores).
+//   * S = Q K^T and O += P V are mma.sync m16n8k8 tf32 products, three
+//     into one f32 accumulator.  A block owns 64 query rows of one
+//     (batch, head), 16 a warp, and walks 32-key tiles (two blocks an SM
+//     at dh 128).  mma.sync and not wgmma: tf32 wgmma takes both operands
+//     K-major only, so V (key-major rows) would need a transposed copy of
+//     every tile and the split hi / lo copies of K and V in shared
+//     memory; mma.sync takes fragments from registers, where the split
+//     costs three instructions a value.
+//   * Fragments without shuffles.  The sums of both products run over an
+//     axis whose order is free, so A's column t stands for element 2t of
+//     a k-step and column t + 4 for 2t + 1: Q and K fragments are 8-byte
+//     shared loads, S's accumulators are P's A-fragment as they stand,
+//     and V's B-fragment pairs two dim blocks in one 8-byte load a row
+//     (ldmatrix has no 32-bit transpose).  Staged rows are padded so
+//     that every fragment load is free of bank conflicts (TfTiles).
+//   * Registers: at dh 128, 64 accumulator floats a thread for O and 16
+//     for S; Q's split fragments held whole would take 128 more, so Q
+//     stays in shared memory and is read and split per k-step.
+//   * K and V double-buffered by cp.async, 16 bytes a copy where every
+//     base and stride allow it and 4 bytes otherwise (one kernel
+//     templated on the width, so every f32 view is taken); rows past
+//     Skv zero-filled.  Dynamic shared memory 256 (3 dh + 20) bytes a
+//     block: 17408 at dh 16, 54272 at 64, 103424 at 128.
+//   * Softmax once per score: each thread owns its fragment's scores,
+//     row max and sum meet through quad shuffles, one ex2.approx per
+//     score with log2(e) folded into the scale; element masks only on
+//     tiles that cross an edge; tiles outside the band never loaded;
+//     longest query tiles first, as the bf16 kernels.
+//   * Measured through the C entry point (tools/flash_report.py
+//     --baseline --variants f32, on an H100 80GB HBM3 at 700 W): 0.3200
+//     ms at the serving shape, 33% of the 0.1042 ms bound, against 2.08-
+//     2.10 ms for the CUDA-core kernel it replaced and 1.74 for f32
+//     scaled_dot_product_attention; max error 1.6e-6 of the output's
+//     largest magnitude.  With one TF32 product 0.1700 ms (error 4.1e-4),
+//     loads only 0.0990, 64-key tiles (one block an SM) 0.4907, the split
+//     by cvt.rna 0.4457, hi truncated 0.3369.  So the split's and the
+//     fragments' instructions, from two warps a scheduler, bound it, not
+//     the tensor pipe.
 
 #include <climits>
 
@@ -103,7 +151,8 @@ constexpr float kNegInf = -1e30f;
 
 // 2^x by the MUFU's ex2.approx, subnormal results flushed to 0: one
 // instruction where exp2f wraps it in range handling.  Its relative
-// error (about 2^-22) is far below the bf16 rounding of P.
+// error (about 2^-22) is far below the bf16 rounding of P, and level with
+// the f32 kernel's 3xTF32 products.
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -126,146 +175,300 @@ struct FlashArgs {
 };
 
 // ---------------------------------------------------------------------------
-// f32: CUDA cores
+// f32: tensor cores at f32 accuracy (3xTF32 mma.sync)
 // ---------------------------------------------------------------------------
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 32;
-constexpr int kThreadsPerRow = 4;
-constexpr int kThreads = kBlockQ * kThreadsPerRow;
+constexpr int kTfWarps = 4;
+constexpr int kTfRows = 16 * kTfWarps;     // query rows per block, 16 per warp
+constexpr int kTfKeys = 32;                // keys per tile
+constexpr int kTfThreads = 32 * kTfWarps;
 
-// Four threads share a query row: thread `sub` owns the dims
-// 16c + 4sub .. 16c + 4sub + 3, so a row's four threads read four
-// neighbouring float4s of a staged K or V row and the partial q.k sums
-// meet through two warp shuffles.
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const FlashArgs a) {
-  constexpr int kChunks = DH / 16;      // float4 groups owned by a thread
-  __shared__ __align__(16) float k_tile[kBlockK * DH];
-  __shared__ __align__(16) float v_tile[kBlockK * DH];
+// Staged rows, in floats.  With g = lane / 4 and t = lane % 4, a warp
+// reads Q and K as 8-byte pairs at (row g, column 2t) and V as 8-byte
+// pairs at (row 2t, column 2g); an 8-byte load is served per half-warp.
+// Q and K rows of DH + 8 floats put (g, 2t) at bank 8g + 2t (or 24g + 2t),
+// V rows of DH + 4 put (2t, 2g) at bank 8t + 2g: 32 distinct banks each.
+template <int DH>
+struct TfTiles {
+  static constexpr int kQK = DH + 8;
+  static constexpr int kV = DH + 4;
+  static constexpr int kQ = kTfRows * kQK;    // floats
+  static constexpr int kK = kTfKeys * kQK;
+  static constexpr int kVT = kTfKeys * kV;
+  // Q, then K[2], then V[2]: 256 (3 DH + 20) bytes, 103424 at dh 128
+  static constexpr int kBytes = (kQ + 2 * kK + 2 * kVT) * 4;
+};
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (a.H / a.K);
-  const int row = threadIdx.x / kThreadsPerRow;
-  const int sub = threadIdx.x % kThreadsPerRow;
-  const int qi = qt * kBlockQ + row;
-  const bool row_ok = qi < a.Sq;
-  const int qpos = qi + a.q_offset;
-
-  const T* qp = static_cast<const T*>(a.q) + b * a.qs.b + h * a.qs.h;
-  const T* kp = static_cast<const T*>(a.k) + b * a.ks.b + kh * a.ks.h;
-  const T* vp = static_cast<const T*>(a.v) + b * a.vs.b + kh * a.vs.h;
-
-  float4 qr[kChunks], acc[kChunks];
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    const int d = c * 16 + sub * 4;
-    if (row_ok) {
-      const T* src = qp + static_cast<long long>(qi) * a.qs.s + d;
-      qr[c] = make_float4(to_float(src[0]), to_float(src[1]),
-                          to_float(src[2]), to_float(src[3]));
+// ROWS rows of DH floats from `src` (row stride `ld`) into shared rows of
+// STRIDE floats at `dst`, VEC bytes a cp.async (16, or 4 for views that
+// are not 16-byte aligned); rows at or past `avail` are zero-filled.
+template <int DH, int ROWS, int STRIDE, int VEC>
+__device__ __forceinline__ void load_f32_rows(uint32_t dst, const float* src, long long ld,
+                                              int row0, int avail) {
+  constexpr int kPer = VEC / 4;            // floats a copy
+  constexpr int kCopies = ROWS * (DH / kPer);
+  constexpr int kPasses = (kCopies + kTfThreads - 1) / kTfThreads;
+  const auto copy = [&](int i) {
+    const int c = threadIdx.x + i * kTfThreads;
+    if (kCopies % kTfThreads != 0 && c >= kCopies) return;   // a part pass
+    const int r = c / (DH / kPer), col = (c % (DH / kPer)) * kPer;
+    const bool ok = row0 + r < avail;
+    const float* g = ok ? src + (row0 + r) * ld + col : src;
+    const uint32_t d = dst + (r * STRIDE + col) * 4;
+    if constexpr (VEC == 16) {
+      cp_async_16(d, g, ok);
     } else {
-      qr[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+      cp_async_4(d, g, ok);
     }
-    acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  float m = kNegInf, l = 0.f;
-
-  // kv range this query tile can see; tiles outside it are skipped
-  const int last_q = min(qt * kBlockQ + kBlockQ, a.Sq) - 1 + a.q_offset;
-  const int first_q = qt * kBlockQ + a.q_offset;
-  int k_end = a.valid_kv;
-  if (a.causal) k_end = min(k_end, last_q + 1);
-  int k_begin = 0;
-  if (a.window > 0) k_begin = max(0, first_q - a.window + 1);
-  k_begin = (k_begin / kBlockK) * kBlockK;
-
-  const float4* k4 = reinterpret_cast<const float4*>(k_tile);
-  const float4* v4 = reinterpret_cast<const float4*>(v_tile);
-
-  for (int k0 = k_begin; k0 < k_end; k0 += kBlockK) {
-    __syncthreads();   // the previous tile is no longer read
-    for (int idx = threadIdx.x; idx < kBlockK * DH; idx += kThreads) {
-      const int j = idx / DH, d = idx % DH;
-      const int kpos = k0 + j;
-      float kv = 0.f, vv = 0.f;   // zeros past Skv keep 0 * v finite
-      if (kpos < a.Skv) {
-        kv = to_float(kp[static_cast<long long>(kpos) * a.ks.s + d]);
-        vv = to_float(vp[static_cast<long long>(kpos) * a.vs.s + d]);
-      }
-      k_tile[idx] = kv;
-      v_tile[idx] = vv;
-    }
-    __syncthreads();
-
-    float sc[kBlockK];
-    float m_cur = kNegInf;
+  };
+  if constexpr (VEC == 16) {
 #pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        const float4 kk = k4[j * (DH / 4) + c * 4 + sub];
-        dot += qr[c].x * kk.x + qr[c].y * kk.y + qr[c].z * kk.z + qr[c].w * kk.w;
-      }
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      const int kpos = k0 + j;
-      bool ok = kpos < a.valid_kv;
-      if (a.causal) ok = ok && kpos <= qpos;
-      if (a.window > 0) ok = ok && kpos > qpos - a.window;
-      sc[j] = ok ? dot * a.scale : kNegInf;
-      m_cur = fmaxf(m_cur, sc[j]);
-    }
-    const float m_new = fmaxf(m, m_cur);
-    const bool safe = m_new > kNegInf / 2;
-    const float alpha = safe ? expf(m - m_new) : 1.f;
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      acc[c].x *= alpha; acc[c].y *= alpha; acc[c].z *= alpha; acc[c].w *= alpha;
-    }
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
-      const float p = safe ? expf(sc[j] - m_new) : 0.f;
-      psum += p;
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        const float4 vv = v4[j * (DH / 4) + c * 4 + sub];
-        acc[c].x += p * vv.x; acc[c].y += p * vv.y;
-        acc[c].z += p * vv.z; acc[c].w += p * vv.w;
-      }
-    }
-    l = alpha * l + psum;
-    m = m_new;
-  }
-
-  if (!row_ok) return;
-  const float denom = l == 0.f ? 1.f : l;
-  T* op = static_cast<T*>(a.o) + b * a.os.b + h * a.os.h +
-          static_cast<long long>(qi) * a.os.s;
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    const int d = c * 16 + sub * 4;
-    op[d + 0] = from_float<T>(acc[c].x / denom);
-    op[d + 1] = from_float<T>(acc[c].y / denom);
-    op[d + 2] = from_float<T>(acc[c].z / denom);
-    op[d + 3] = from_float<T>(acc[c].w / denom);
+    for (int i = 0; i < kPasses; ++i) copy(i);
+  } else {
+    // up to 64 copies a tile: unrolled whole, their addresses were held
+    // across the tile loop and spilled
+#pragma unroll 4
+    for (int i = 0; i < kPasses; ++i) copy(i);
   }
 }
 
-int launch_f32(const FlashArgs& a, int B, int dh, cudaStream_t stream) {
-  if (a.H > 65535 || B > 65535) return kRefused;
-  const dim3 grid((a.Sq + kBlockQ - 1) / kBlockQ, a.H, B);
-  switch (dh) {
-    case 16: flash_attention_kernel<float, 16><<<grid, kThreads, 0, stream>>>(a); break;
-    case 32: flash_attention_kernel<float, 32><<<grid, kThreads, 0, stream>>>(a); break;
-    case 64: flash_attention_kernel<float, 64><<<grid, kThreads, 0, stream>>>(a); break;
-    case 80: flash_attention_kernel<float, 80><<<grid, kThreads, 0, stream>>>(a); break;
-    case 128: flash_attention_kernel<float, 128><<<grid, kThreads, 0, stream>>>(a); break;
-    default: return kRefused;
+template <int DH, int VEC>
+__global__ void __launch_bounds__(kTfThreads, 2)
+flash_attention_tf32x3_kernel(const FlashArgs a, int n_qtiles, int B) {
+  using T = TfTiles<DH>;
+  constexpr int kN = kTfKeys / 8;       // 8-key blocks of S, k-steps of P V
+  extern __shared__ __align__(128) unsigned char tf_smem[];
+  float* const sq = reinterpret_cast<float*>(tf_smem);
+  float* const sk = sq + T::kQ;         // two buffers
+  float* const sv = sk + 2 * T::kK;
+
+  // longest query tiles first over the whole grid; heads vary fastest
+  const int h = blockIdx.x % a.H;
+  const int rest = blockIdx.x / a.H;
+  const int b = rest % B;
+  const int qt = n_qtiles - 1 - rest / B;
+  const int kvh = h / (a.H / a.K);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q0 = qt * kTfRows;
+
+  const auto* qp = static_cast<const float*>(a.q) + b * a.qs.b + h * a.qs.h;
+  const auto* kp = static_cast<const float*>(a.k) + b * a.ks.b + kvh * a.ks.h;
+  const auto* vp = static_cast<const float*>(a.v) + b * a.vs.b + kvh * a.vs.h;
+
+  // kv tiles this query tile can see; tiles outside are never loaded
+  const int last_q = min(q0 + kTfRows, a.Sq) - 1 + a.q_offset;
+  int k_end = a.valid_kv;
+  if (a.causal) k_end = min(k_end, last_q + 1);
+  int k_begin = 0;
+  if (a.window > 0) k_begin = max(0, q0 + a.q_offset - a.window + 1);
+  k_begin = (k_begin / kTfKeys) * kTfKeys;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kTfKeys - 1) / kTfKeys : 0;
+
+  load_f32_rows<DH, kTfRows, T::kQK, VEC>(smem_u32(sq), qp, a.qs.s, q0, a.Sq);
+  cp_async_commit();
+  if (n_tiles > 0) {
+    load_f32_rows<DH, kTfKeys, T::kQK, VEC>(smem_u32(sk), kp, a.ks.s, k_begin, a.Skv);
+    load_f32_rows<DH, kTfKeys, T::kV, VEC>(smem_u32(sv), vp, a.vs.s, k_begin, a.Skv);
   }
+  cp_async_commit();
+
+  // this warp's 16 rows and the keys they can see
+  const int wq0 = q0 + 16 * warp;
+  const bool warp_rows = wq0 < a.Sq;
+  const int w_first = wq0 + a.q_offset;
+  const int w_last = min(wq0 + 16, a.Sq) - 1 + a.q_offset;
+  int wk_end = a.valid_kv, wk_begin = 0;
+  if (a.causal) wk_end = min(wk_end, w_last + 1);
+  if (a.window > 0) wk_begin = max(0, w_first - a.window + 1);
+  // a thread's two rows, g and g + 8 of the warp's 16, see the keys in
+  // [kmin, kmax)
+  int kmin[2], kmax[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = w_first + g + 8 * r;
+    kmax[r] = a.causal ? min(a.valid_kv, qpos + 1) : a.valid_kv;
+    kmin[r] = a.window > 0 ? qpos - a.window + 1 : INT_MIN;
+  }
+  const float scale_log2 = a.scale * 1.4426950408889634f;
+  const float* qw = sq + 16 * warp * T::kQK;    // this warp's Q rows
+
+  float o[DH / 8][4];
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = k_begin + it * kTfKeys;
+    const int buf = it & 1;
+    if (it + 1 < n_tiles) {             // the next tile loads while this one computes
+      load_f32_rows<DH, kTfKeys, T::kQK, VEC>(smem_u32(sk + (buf ^ 1) * T::kK), kp, a.ks.s,
+                                             k0 + kTfKeys, a.Skv);
+      load_f32_rows<DH, kTfKeys, T::kV, VEC>(smem_u32(sv + (buf ^ 1) * T::kVT), vp, a.vs.s,
+                                            k0 + kTfKeys, a.Skv);
+    }
+    cp_async_commit();
+    cp_async_wait_all_but_newest();     // Q and tile `it` have landed
+    __syncthreads();
+
+    if (warp_rows && k0 < wk_end && k0 + kTfKeys > wk_begin) {
+      const float* kb = sk + buf * T::kK;
+      const float* vb = sv + buf * T::kVT;
+
+      // S = Q K^T: 16 x 32, 4 accumulators of 16 x 8.  A sum over dims
+      // takes them in any order, so A's column t stands for dim 2t of the
+      // k-step and column t + 4 for dim 2t + 1 (B's rows likewise): each
+      // fragment pair is one 8-byte load.  Q is read and split per k-step,
+      // as its split fragments held whole would take 4 DH registers.
+      float s[kN][4];
+#pragma unroll
+      for (int j = 0; j < kN; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DH / 8; ++kk) {
+        const float2 qa = *reinterpret_cast<const float2*>(qw + g * T::kQK + 8 * kk + 2 * t);
+        const float2 qb =
+            *reinterpret_cast<const float2*>(qw + (g + 8) * T::kQK + 8 * kk + 2 * t);
+        uint32_t qh[4], ql[4];
+        split_tf32(qa.x, qh[0], ql[0]);
+        split_tf32(qb.x, qh[1], ql[1]);
+        split_tf32(qa.y, qh[2], ql[2]);
+        split_tf32(qb.y, qh[3], ql[3]);
+#pragma unroll
+        for (int j = 0; j < kN; ++j) {
+          const float2 kf =
+              *reinterpret_cast<const float2*>(kb + (8 * j + g) * T::kQK + 8 * kk + 2 * t);
+          uint32_t h0, l0, h1, l1;
+          split_tf32(kf.x, h0, l0);
+          split_tf32(kf.y, h1, l1);
+          mma_tf32x3(s[j], qh, ql, h0, h1, l0, l1);
+        }
+      }
+
+      // element masks only on a tile that crosses an edge of the band
+      const bool interior = k0 + kTfKeys <= a.valid_kv &&
+                            (!a.causal || k0 + kTfKeys - 1 <= w_first) &&
+                            (a.window <= 0 || k0 > w_last - a.window);
+      if (!interior) {
+#pragma unroll
+        for (int j = 0; j < kN; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = k0 + j * 8 + 2 * t + (e & 1);
+            if (kpos < kmin[e >> 1] || kpos >= kmax[e >> 1]) s[j][e] = kNegInf;
+          }
+        }
+      }
+
+      // online softmax, one ex2 per score; a row's max meets over its quad
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+      }
+      float alpha[2], ms[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        // a row with no valid key so far keeps ms = 0: its scores and old
+        // max (kNegInf) give ex2 of about -1e29, that is 0
+        ms[r] = mx[r] > kNegInf / 2 ? mx[r] * scale_log2 : 0.f;
+        alpha[r] = exp2_approx(fmaf(m[r], scale_log2, -ms[r]));
+        m[r] = mx[r];
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        o[j][0] *= alpha[0]; o[j][1] *= alpha[0];
+        o[j][2] *= alpha[1]; o[j][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = exp2_approx(fmaf(s[j][e], scale_log2, -ms[e >> 1]));
+          l[e >> 1] += s[j][e];
+        }
+      }
+
+      // O += P V, a k-step per key block j.  With A's column t standing
+      // for key 2t of the block and column t + 4 for key 2t + 1, S's
+      // accumulators are P's A-fragment as they stand (a0..a3 = c0, c2,
+      // c1, c3), and V's B-fragment is rows 2t and 2t + 1.  B's column g
+      // is dim 2g of a 16-dim pair of blocks for the first block and
+      // 2g + 1 for the second, so one 8-byte load a row feeds both, and a
+      // thread's outputs are 4 neighbouring dims: 16d + 4t .. 16d + 4t + 3.
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        uint32_t ph[4], pl[4];
+        split_tf32(s[j][0], ph[0], pl[0]);
+        split_tf32(s[j][2], ph[1], pl[1]);
+        split_tf32(s[j][1], ph[2], pl[2]);
+        split_tf32(s[j][3], ph[3], pl[3]);
+        const float* v0 = vb + (8 * j + 2 * t) * T::kV + 2 * g;
+#pragma unroll
+        for (int d = 0; d < DH / 16; ++d) {
+          const float2 x0 = *reinterpret_cast<const float2*>(v0 + 16 * d);
+          const float2 x1 = *reinterpret_cast<const float2*>(v0 + T::kV + 16 * d);
+          uint32_t h0, l0, h1, l1;
+          split_tf32(x0.x, h0, l0);
+          split_tf32(x1.x, h1, l1);
+          mma_tf32x3(o[2 * d], ph, pl, h0, h1, l0, l1);
+          split_tf32(x0.y, h0, l0);
+          split_tf32(x1.y, h1, l1);
+          mma_tf32x3(o[2 * d + 1], ph, pl, h0, h1, l0, l1);
+        }
+      }
+    }
+    __syncthreads();    // buffer `buf` is refilled at it + 1
+  }
+  cp_async_wait_all();                  // Q's copy, where no tile was walked
+  if (!warp_rows) return;
+
+  // O / l: row g + 8r, dims 16d + 4t .. + 3 from blocks 2d and 2d + 1
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / (l[r] == 0.f ? 1.f : l[r]);
+  }
+  auto* op = static_cast<float*>(a.o) + b * a.os.b + h * a.os.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wq0 + g + 8 * r;
+    if (row >= a.Sq) continue;
+    float* dst = op + row * a.os.s + 4 * t;
+#pragma unroll
+    for (int d = 0; d < DH / 16; ++d) {
+      const float4 val = make_float4(o[2 * d][2 * r] * inv[r], o[2 * d + 1][2 * r] * inv[r],
+                                     o[2 * d][2 * r + 1] * inv[r],
+                                     o[2 * d + 1][2 * r + 1] * inv[r]);
+      if constexpr (VEC == 16) {
+        *reinterpret_cast<float4*>(dst + 16 * d) = val;
+      } else {
+        dst[16 * d] = val.x;
+        dst[16 * d + 1] = val.y;
+        dst[16 * d + 2] = val.z;
+        dst[16 * d + 3] = val.w;
+      }
+    }
+  }
+}
+
+template <int DH, int VEC>
+int launch_tf32x3_dh(const FlashArgs& a, int B, cudaStream_t stream) {
+  // above 48 KB the dynamic shared memory has to be asked for, once
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_attention_tf32x3_kernel<DH, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      TfTiles<DH>::kBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int n_qtiles = (a.Sq + kTfRows - 1) / kTfRows;
+  const long long blocks = static_cast<long long>(n_qtiles) * a.H * B;
+  if (blocks > 0x7fffffffLL) return kRefused;
+  flash_attention_tf32x3_kernel<DH, VEC><<<static_cast<unsigned>(blocks), kTfThreads,
+                                           TfTiles<DH>::kBytes, stream>>>(a, n_qtiles, B);
   return launch_status();
 }
 
@@ -868,18 +1071,43 @@ int launch_wgmma_dh(const FlashArgs& a, int B, cudaStream_t stream) {
 }
 
 // 16-byte cp.async and stores: every base and every stride that is used
-// (an axis of extent 1 is never stepped) a multiple of 8 bf16 values
+// (an axis of extent 1 is never stepped) a multiple of 16 bytes, kPer16
+// values (8 bf16, 4 f32)
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-bool step_ok(long long stride, int extent) { return extent == 1 || stride % 8 == 0; }
+template <int kPer16>
 bool strides_ok(const Strides& s, int B, int heads, int rows) {
+  const auto step_ok = [](long long stride, int extent) {
+    return extent == 1 || stride % kPer16 == 0;
+  };
   return step_ok(s.b, B) && step_ok(s.h, heads) && step_ok(s.s, rows);
+}
+
+// f32 takes any strides: 16-byte copies and stores where q, k, v and o
+// all allow them, 4-byte ones otherwise (one kernel, two instantiations)
+int launch_tf32x3(const FlashArgs& a, int B, int dh, cudaStream_t stream) {
+  const bool v16 = aligned16(a.q) && aligned16(a.k) && aligned16(a.v) && aligned16(a.o) &&
+                   strides_ok<4>(a.qs, B, a.H, a.Sq) && strides_ok<4>(a.ks, B, a.K, a.Skv) &&
+                   strides_ok<4>(a.vs, B, a.K, a.Skv) && strides_ok<4>(a.os, B, a.H, a.Sq);
+  switch (dh) {
+    case 16: return v16 ? launch_tf32x3_dh<16, 16>(a, B, stream)
+                        : launch_tf32x3_dh<16, 4>(a, B, stream);
+    case 32: return v16 ? launch_tf32x3_dh<32, 16>(a, B, stream)
+                        : launch_tf32x3_dh<32, 4>(a, B, stream);
+    case 64: return v16 ? launch_tf32x3_dh<64, 16>(a, B, stream)
+                        : launch_tf32x3_dh<64, 4>(a, B, stream);
+    case 80: return v16 ? launch_tf32x3_dh<80, 16>(a, B, stream)
+                        : launch_tf32x3_dh<80, 4>(a, B, stream);
+    case 128: return v16 ? launch_tf32x3_dh<128, 16>(a, B, stream)
+                         : launch_tf32x3_dh<128, 4>(a, B, stream);
+    default: return kRefused;
+  }
 }
 
 int launch_bf16(const FlashArgs& a, int B, int dh, cudaStream_t stream) {
   if (!aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v) || !aligned16(a.o))
     return kRefused;
-  if (!strides_ok(a.qs, B, a.H, a.Sq) || !strides_ok(a.ks, B, a.K, a.Skv) ||
-      !strides_ok(a.vs, B, a.K, a.Skv) || !strides_ok(a.os, B, a.H, a.Sq))
+  if (!strides_ok<8>(a.qs, B, a.H, a.Sq) || !strides_ok<8>(a.ks, B, a.K, a.Skv) ||
+      !strides_ok<8>(a.vs, B, a.K, a.Skv) || !strides_ok<8>(a.os, B, a.H, a.Sq))
     return kRefused;
   switch (dh) {
     case 16: return launch_mma_dh<16>(a, B, stream);
@@ -910,7 +1138,7 @@ extern "C" int flash_attention_launch(
               {v_sb, v_sh, v_ss}, {o_sb, o_sh, o_ss},
               scale, causal, window, q_offset, valid_kv};
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) return launch_f32(a, B, dh, st);
+  if (dtype == kF32) return launch_tf32x3(a, B, dh, st);
   if (dtype == kBF16) return launch_bf16(a, B, dh, st);
   return kRefused;
 }

@@ -9,10 +9,13 @@ contiguous), mask ragged lengths themselves and need no padding of dh.
 On the card the dtype and the head size alone choose the kernel
 (``route``): bf16 at dh 64 and 128 runs the Hopper kernel (TMA loads
 into an mbarrier ring, warp-specialised wgmma), bf16 at 16, 32 and 80
-the mma.sync kernel, f32 the CUDA-core kernel.  Each launch is counted
-in ``.launches`` and, by route, in ``.route_launches``.  bf16 kernels
-copy 16 bytes at a time (TMA or cp.async), so a bf16 tensor's base and
-strides must be 16-byte aligned; f32 takes any strides.
+the mma.sync kernel, f32 the tensor cores at f32 accuracy (each f32
+operand split into TF32 hi + lo, three mma.sync products for each).
+Each launch is counted in ``.launches`` and, by route, in
+``.route_launches``.  bf16 kernels copy 16 bytes at a time (TMA or
+cp.async), so a bf16 tensor's base and strides must be 16-byte aligned;
+f32 takes any strides (16-byte copies where they allow, 4-byte ones
+otherwise).
 """
 
 from __future__ import annotations
@@ -25,9 +28,15 @@ from . import _build, ref
 
 HEAD_DIMS = (16, 32, 64, 80, 128)
 WGMMA_HEAD_DIMS = (64, 128)
-ROUTES = ("wgmma", "mma", "cuda_cores")
-# keys per tile of each route's kernel (kWgKeys, kBc, kBlockK)
-KEY_TILE = {"wgmma": 128, "mma": 64, "cuda_cores": 32}
+ROUTES = ("wgmma", "mma", "tf32x3")
+# keys per tile of each route's kernel (kWgKeys, kBc, kTfKeys)
+KEY_TILE = {"wgmma": 128, "mma": 64, "tf32x3": 32}
+# The f32 route's distance from f32 attention, as a share of the output's
+# largest magnitude.  Three TF32 products keep about 2^-21 of each product,
+# one 2^-11: tests/test_torch_kernels.py's emulation of both at smoke shapes
+# errs by 1.8e-7-4.1e-7 and 4.7e-4-6.1e-4 of the largest magnitude, so
+# this sits 49x above the first and 23x below the second.
+TF32X3_TOL = 2e-5
 _CODES = {torch.float32: _build.F32, torch.bfloat16: _build.BF16}
 
 
@@ -35,9 +44,10 @@ def route(dtype: torch.dtype, dh: int) -> str:
     """The kernel a call on the card runs, as ``flash_attention_launch``
     picks it: "wgmma" (``flash_attention_wgmma_kernel``) for bf16 at dh 64
     and 128, "mma" (``flash_attention_mma_kernel``) for bf16 at the other
-    head sizes, "cuda_cores" (``flash_attention_kernel``) for f32."""
+    head sizes, "tf32x3" (``flash_attention_tf32x3_kernel``, 3xTF32
+    ``mma.sync``) for f32 at every head size."""
     if dtype == torch.float32:
-        return "cuda_cores"
+        return "tf32x3"
     return "wgmma" if dh in WGMMA_HEAD_DIMS else "mma"
 
 

@@ -42,7 +42,7 @@ def vector_launch_counts() -> dict[str, int]:
 
 def route_launch_counts(fake: bool = False) -> dict[str, dict[str, int]]:
     """Launches by route (the kernel a call ran, for the wrappers that
-    pick among several: flash attention's "wgmma", "mma", "cuda_cores");
+    pick among several: flash attention's "wgmma", "mma", "tf32x3");
     ``fake``: the shape-only calls, by the route a real call would take."""
     attr = "route_fake_launches" if fake else "route_launches"
     return {name: dict(getattr(fn, attr)) for name, fn in KERNELS.items()

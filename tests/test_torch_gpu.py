@@ -13,10 +13,12 @@ vector or the scalar kernel; slot packing and fused pack+quantize are
 bit-equal, past 2^31 elements too, and the fused kernel on trees that take
 every branch of its span walk; flash
 attention agrees within
-tests/test_kernels.py's tolerances (f32 2e-3 on the CUDA cores, bf16 3e-2
-on the tensor cores, whose P is rounded to bf16), and bf16 at dh 64 and
-128 runs on the "wgmma" route (TMA and wgmma; ``-k flash`` runs these
-alone); the SSD chunk
+tests/test_kernels.py's tolerances (f32 2e-3, bf16 3e-2: P is rounded to
+bf16), each case counted on its route; bf16 at dh 64 and 128 runs on the
+"wgmma" route (TMA and wgmma), f32 on the "tf32x3" route (3xTF32
+mma.sync, also on views off 16 bytes) and at the qwen2.5-3b shape within
+``TF32X3_TOL`` of the plain f32 output, which one TF32 product would miss
+(``-k flash`` runs these alone); the SSD chunk
 within 1e-4 of its plain output's largest magnitude (f32 inputs: f32
 arithmetic in both, summed in another order; bf16 inputs: the tensor
 cores, with the f32 operands split into bf16 hi + lo).  The SSD chunk
@@ -382,6 +384,15 @@ FLASH_CASES = [
     (2, 130, 200, 4, 2, 80, True, 50, "bf16", 3e-2),
     (2, 200, 200, 16, 2, 128, True, 100, "bf16", 3e-2),
     (1, 130, 200, 16, 2, 128, False, 70, "bf16", 3e-2),
+    # f32 on the tensor cores (3xTF32): every head size, ragged Sq and Skv
+    # off the 64-row and 32-key tiles, windows, non-causal, H/K = 8
+    (2, 130, 200, 8, 1, 16, True, None, "f32", 2e-3),
+    (2, 200, 130, 4, 2, 32, False, None, "f32", 2e-3),
+    (2, 130, 130, 8, 1, 64, True, 64, "f32", 2e-3),
+    (2, 130, 200, 4, 2, 80, True, 50, "f32", 2e-3),
+    (2, 200, 200, 16, 2, 128, True, 100, "f32", 2e-3),
+    (1, 130, 200, 16, 2, 128, False, 70, "f32", 2e-3),
+    (1, 77, 45, 8, 1, 32, True, None, "f32", 2e-3),
 ]
 
 
@@ -392,12 +403,76 @@ def test_flash_attention_vs_plain(cuda, case):
     q = torch.randn(B, H, Sq, dh, device=cuda, generator=g).to(TDT[dt])
     k = torch.randn(B, K, Skv, dh, device=cuda, generator=g).to(TDT[dt])
     v = torch.randn(B, K, Skv, dh, device=cuda, generator=g).to(TDT[dt])
+    route = tfa.route(TDT[dt], dh)
     for kw in (dict(), dict(q_offset=Skv - Sq + 3, valid_kv=Skv - 5)):
+        before = ops.route_launch_counts()["flash_attention_bhsd"]
         got = tfa.flash_attention_bhsd(q, k, v, causal=causal, window=window, **kw)
         want = tfa.flash_attention_bhsd_plain(q, k, v, causal=causal,
                                               window=window, **kw)
         torch.cuda.synchronize()
+        assert ops.route_launch_counts()["flash_attention_bhsd"] == {
+            **before, route: before[route] + 1}, kw
         assert (got.float() - want.float()).abs().max().item() < tol, kw
+
+
+@pytest.fixture
+def full_f32_matmul():
+    """The plain version's products in full f32, whatever a test before
+    set (TF32 matmuls would put the yardstick at the TF32 product's error)."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_flash_attention_f32_at_the_qwen_shape_is_3xtf32_accurate(cuda, full_f32_matmul):
+    """f32 at the qwen2.5-3b prefill shape (4 x 1024, 16 Q / 2 KV heads of
+    128, causal) on the "tf32x3" route, within ``TF32X3_TOL`` (2e-5) of the
+    plain f32 output's largest magnitude: the 3-product split meets it
+    (1.6e-6 on an H100 80GB HBM3 at 700 W) and one TF32 product misses it
+    (4.1e-4 there, as a variant of tools/flash_report.py; 4.7e-4-6.1e-4 in
+    tests/test_torch_kernels.py's emulation); the 2e-3 that f32 callers
+    are held to stays as it is."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(4, 16, 1024, 128, device=cuda, generator=g)
+    k = torch.randn(4, 2, 1024, 128, device=cuda, generator=g)
+    v = torch.randn(4, 2, 1024, 128, device=cuda, generator=g)
+    before = ops.route_launch_counts()["flash_attention_bhsd"]["tf32x3"]
+    got = tfa.flash_attention_bhsd(q, k, v, causal=True)
+    want = tfa.flash_attention_bhsd_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert ops.route_launch_counts()["flash_attention_bhsd"]["tf32x3"] == before + 1
+    err = (got - want).abs().max().item()
+    assert err <= tfa.TF32X3_TOL * want.abs().max().item(), err
+
+
+def test_flash_attention_f32_views_off_16_bytes(cuda):
+    """f32 views whose base is one float off 16 bytes and whose row stride
+    is odd (67 floats) run on the "tf32x3" route through its 4-byte copies
+    and stores, into an ``out=`` view laid out the same way, and match the
+    plain version; the values around the output view stay as they were."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+
+    def view(heads, rows):
+        flat = torch.randn(1 + 2 * heads * rows * 67, device=cuda, generator=g)
+        return flat, flat[1:].view(2, heads, rows, 67)[..., :64]
+
+    (_, q), (_, k), (_, v) = view(4, 130), view(2, 150), view(2, 150)
+    buf, out = view(4, 130)
+    kept = buf.clone()
+    assert q.data_ptr() % 16 == 4 and q.stride() == (4 * 130 * 67, 130 * 67, 67, 1)
+    kw = dict(causal=True, window=50, q_offset=20, valid_kv=140)
+    before = ops.route_launch_counts()["flash_attention_bhsd"]
+    got = tfa.flash_attention_bhsd(q, k, v, out=out, **kw)
+    want = tfa.flash_attention_bhsd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got is out
+    assert ops.route_launch_counts()["flash_attention_bhsd"] == {
+        **before, "tf32x3": before["tf32x3"] + 1}
+    assert (out - want).abs().max().item() < 2e-3 * min(1.0, want.abs().max().item())
+    inside = torch.zeros_like(buf, dtype=torch.bool)
+    inside[1:].view(2, 4, 130, 67)[..., :64] = True
+    assert torch.equal(buf[~inside], kept[~inside])
 
 
 @pytest.mark.parametrize("Sq, causal", [(1500, False), (1024, False), (1024, True)])

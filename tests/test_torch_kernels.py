@@ -346,14 +346,89 @@ def test_flash_attention_fully_masked_row_is_zero():
 @pytest.mark.parametrize("dt, dh, want", [
     ("bf16", 64, "wgmma"), ("bf16", 128, "wgmma"),
     ("bf16", 16, "mma"), ("bf16", 32, "mma"), ("bf16", 80, "mma"),
-    ("f32", 16, "cuda_cores"), ("f32", 64, "cuda_cores"), ("f32", 128, "cuda_cores")])
+    ("f32", 16, "tf32x3"), ("f32", 64, "tf32x3"), ("f32", 128, "tf32x3")])
 def test_flash_attention_route_by_dtype_and_head_size(dt, dh, want):
     """The kernel a call on the card runs is a pure function of the dtype
     and the head size: the Hopper kernel for bf16 at dh 64 and 128 (every
     full-width configuration), mma.sync for bf16 at 16, 32 and 80, the
-    CUDA cores for f32."""
+    3xTF32 mma.sync kernel for f32."""
     assert tfa.route(TDT[dt], dh) == want
-    assert set(tfa.ROUTES) == {"wgmma", "mma", "cuda_cores"}
+    assert set(tfa.ROUTES) == {"wgmma", "mma", "tf32x3"}
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
+    nearest with ties away from zero, 10 mantissa bits kept, by integer
+    arithmetic on the f32 bit pattern (adding half of the dropped 13 bits'
+    unit carries into the kept ones), as the kernel's ``split_tf32``."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_read(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` as the tensor core reads a TF32 operand: its top 19 bits
+    (the low 13 cleared)."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _matmul_tf32(a: torch.Tensor, b: torch.Tensor, products: int) -> torch.Tensor:
+    """a @ b in f32 from TF32 operands: one product of the rounded
+    operands, or three of the split ones as the f32 kernel takes them (hi
+    = TF32(x), lo = x - hi read by the tensor core; lo * hi + hi * lo +
+    hi * hi, ``mma_tf32x3``).  A product of two TF32 values is exact in
+    f32, so only the sums round, as in the tensor core's f32 accumulator."""
+    ah, bh = _tf32(a), _tf32(b)
+    if products == 1:
+        return ah @ bh
+    al, bl = _tf32_read(a - ah), _tf32_read(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _attention_tf32(q, k, v, products: int) -> torch.Tensor:
+    """Causal GQA attention, head-major, as the f32 kernel computes it:
+    both products through ``_matmul_tf32``, the softmax in f32 on the
+    unnormalised P, divided by the row sum at the end."""
+    rep = q.shape[1] // k.shape[1]
+    k, v = k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1)
+    s = _matmul_tf32(q, k.transpose(-1, -2), products) / np.sqrt(q.shape[-1])
+    keep = torch.ones(q.shape[2], k.shape[2], dtype=torch.bool).tril()
+    p = torch.exp(s.masked_fill(~keep, -torch.inf) - s.amax(-1, keepdim=True))
+    return _matmul_tf32(p, v, products) / p.sum(-1, keepdim=True)
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    """The emulated TF32 rounding on values whose dropped bits sit just
+    under, at and over half a unit of the 10th mantissa bit."""
+    one = np.float32(1.0)
+    unit = np.float32(2.0 ** -10)
+    x = torch.tensor([1 + unit * 0.4999, 1 + unit * 0.5, 1 + unit * 0.5001,
+                      -(1 + unit * 1.5), 3 * unit, 0.0], dtype=torch.float32)
+    want = torch.tensor([one, 1 + unit, 1 + unit, -(1 + 2 * unit), 3 * unit, 0.0])
+    assert torch.equal(_tf32(x), want)
+
+
+@pytest.mark.parametrize("B, S, H, K, dh", [(2, 130, 4, 2, 64), (1, 96, 8, 1, 128),
+                                             (2, 64, 2, 1, 16)])
+def test_tf32x3_split_meets_the_f32_tolerance_one_product_misses(B, S, H, K, dh):
+    """The f32 kernel's accuracy claim where there is no card: attention
+    through the 3-product split (emulated TF32 rounding) is within
+    ``TF32X3_TOL`` of the f64 result's largest magnitude, the tolerance
+    that tests/test_torch_gpu.py holds the kernel to at the qwen2.5-3b
+    shape, and a single TF32 product is not."""
+    rng = np.random.default_rng(B * S + dh)
+    q, k, v = (rng.normal(size=shape).astype(np.float32)
+               for shape in ((B, H, S, dh), (B, K, S, dh), (B, K, S, dh)))
+    rep = H // K
+    kr, vr = np.repeat(k, rep, axis=1), np.repeat(v, rep, axis=1)
+    s = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64), kr.astype(np.float64)) / np.sqrt(dh)
+    s = np.where(np.tril(np.ones((S, S), dtype=bool)), s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    want = np.einsum("bhqk,bhkd->bhqd", p / p.sum(-1, keepdims=True), vr.astype(np.float64))
+    tol = tfa.TF32X3_TOL * np.abs(want).max()
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    err = {n: np.abs(_attention_tf32(tq, tk, tv, n).double().numpy() - want).max()
+           for n in (3, 1)}
+    assert err[3] <= tol / 10, err
+    assert err[1] > tol * 10, err
 
 
 @pytest.mark.parametrize("dt, dh", [("bf16", 64), ("bf16", 128), ("bf16", 80), ("f32", 64)])

@@ -21,16 +21,20 @@ the fused pack+quantize.
    width (128, 64 bits or narrower).  For the wgmma flash kernel it
    checks that the registers a block holds at launch cover what its
    warpgroups ask for after setmaxnreg (a shortfall would stall the
-   consumers for good), and exits 1 if not.
+   consumers for good), and for the f32 (tf32x3) flash kernel that no
+   instantiation spills and each has HMMA instructions; it exits 1 if
+   not.
 3. On a card, prints the card's name and power limit and times with CUDA
    events:
    - flash attention at every timed prefill shape of chip_smoke.py
-     (FLASH_TIMED, bf16, B=4) and at the qwen2.5-3b shape in f32, each
-     beside its bound and ``F.scaled_dot_product_attention`` on the same
-     inputs, with the route the call takes; with ``--baseline DIR``, the
-     flash kernels of another checkout (e.g. the parent commit unpacked
-     by ``git archive``) built from its csrc/ and timed in turns with
-     this tree's (baseline, this tree, this tree, baseline);
+     (FLASH_TIMED: bf16 and f32 at the qwen2.5-3b shape, bf16 at the
+     other full-width shapes, bf16 and f32 at the serve example's rank),
+     each beside its bound and ``F.scaled_dot_product_attention`` on the
+     same inputs, with the route the call takes; with ``--baseline DIR``,
+     the flash kernels of another checkout (e.g. the parent commit
+     unpacked by ``git archive``) built from its csrc/ and timed in turns
+     with this tree's (baseline, this tree, this tree, baseline); with
+     ``--variants [bf16|f32]``, FLASH_VARIANTS of that dtype's kernel;
    - the SSD chunk at the mamba2-2.7b prefill shape (b=4, s=1024, h=80,
      p=64, g=1, n=128, q=128) in f32 and in bf16 at the heads per block
      the kernel picks and at 4, 8 and 16, each beside its bound and with
@@ -93,6 +97,9 @@ SASS_OPS = ("HMMA", "HGMMA", "UTMALDG", "UTMASTG")
 # threads must hold at launch
 WGMMA_SMEM = {dh: 1024 + (128 + 2 * 2 * 128) * dh * 2 + 8 * 5 for dh in fa.WGMMA_HEAD_DIMS}
 WGMMA_ASKED = 128 * 24 + 256 * 240
+# TfTiles<DH>::kBytes: 64 query rows and 2 x 32 key rows of dh + 8 floats,
+# 2 x 32 value rows of dh + 4
+TF32X3_SMEM = {dh: 4 * (64 * (dh + 8) + 64 * (dh + 8) + 64 * (dh + 4)) for dh in fa.HEAD_DIMS}
 SSD_SHAPE = (4, 1024, 80, 64, 1, 128, 128)     # b, s, h, p, g, n, q
 SSD_HEADS_PER_BLOCK = (0, 4, 8, 16)             # 0: the kernel's pick
 SEGMENT = 3_085_938_688                         # qwen2.5-3b's bf16 gradient segment
@@ -197,6 +204,9 @@ def smem_note(label: str) -> str:
     if label.startswith("flash_attention_wgmma"):
         dh = int(re.search(r"(\d+)>", label).group(1))
         return f"; {WGMMA_SMEM[dh]} bytes of dynamic shared memory per block"
+    if label.startswith("flash_attention_tf32x3"):
+        dh = int(re.search(r"<(\d+)", label).group(1))
+        return f"; {TF32X3_SMEM[dh]} bytes of dynamic shared memory per block"
     if label.startswith("ssd_chunk"):
         return f"; dynamic shared memory per block {ssd_smem(label)}"
     return ""
@@ -224,7 +234,8 @@ def short(name: str) -> str:
 
 def compile_and_inspect(source: pathlib.Path) -> bool:
     """Steps 1-2; False when a wgmma kernel's registers at launch fall
-    short of what setmaxnreg asks for, or it has no HGMMA or UTMALDG."""
+    short of what setmaxnreg asks for, or it has no HGMMA or UTMALDG, or
+    a tf32x3 kernel spills or has no HMMA."""
     tmp_root = _build.BUILD_DIR.parent / "report"
     tmp_root.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=tmp_root) as tmp:
@@ -281,6 +292,12 @@ def compile_and_inspect(source: pathlib.Path) -> bool:
             print(f"[ptxas] {label}: {held} registers held at launch, {WGMMA_ASKED} asked "
                   f"for after setmaxnreg")
             ok = ok and held >= WGMMA_ASKED and c["HGMMA"] > 0 and c["UTMALDG"] > 0
+        if label.startswith("flash_attention_tf32x3"):
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                               " ".join(ptxas.get(mangled, [])))
+            spilled = spills is None or spills.group(1) != "0" or spills.group(2) != "0"
+            print(f"[ptxas] {label}: {'spills' if spilled else 'no spills'}")
+            ok = ok and not spilled and c["HMMA"] > 0
     for line in warnings:
         print(f"[ptxas] {line}")
     return ok
@@ -318,22 +335,20 @@ def flash_launcher(lib, q, k, v, out, causal: bool, window):
 
 
 def time_flash_shapes(smi: str, baseline: pathlib.Path | None) -> None:
-    from chip_smoke import BATCH, FLASH_TIMED, flash_bound_ms
+    from chip_smoke import FLASH_TIMED, flash_bound_ms
 
     base = build_baseline(baseline, "flash_attention.cu") if baseline is not None else None
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for (H, K, dh, dt, Sq, Skv, causal, window), (_, shape) in FLASH_TIMED.items():
-        if dt == torch.float32 and (H, K, dh) != (16, 2, 128):
-            continue
-        q = torch.randn(BATCH, H, Sq, dh, device="cuda", generator=gen).to(dt)
-        k = torch.randn(BATCH, K, Skv, dh, device="cuda", generator=gen).to(dt)
-        v = torch.randn(BATCH, K, Skv, dh, device="cuda", generator=gen).to(dt)
+    for (B, H, K, dh, dt, Sq, Skv, causal, window), (_, shape) in FLASH_TIMED.items():
+        q = torch.randn(B, H, Sq, dh, device="cuda", generator=gen).to(dt)
+        k = torch.randn(B, K, Skv, dh, device="cuda", generator=gen).to(dt)
+        v = torch.randn(B, K, Skv, dh, device="cuda", generator=gen).to(dt)
         kw = dict(causal=causal, window=window)
         want = fa.flash_attention_bhsd_plain(q, k, v, **kw).float()
         err = (fa.flash_attention_bhsd(q, k, v, **kw).float() - want).abs().max().item()
-        bound, by = flash_bound_ms(BATCH, H, K, Sq, dh, 0, Skv, causal, dt, window)
+        bound, by = flash_bound_ms(B, H, K, Sq, dh, 0, Skv, causal, dt, window)
         line = [f"[time] [{smi}] flash_attention_bhsd {shape}, {dt}, route "
-                f"{fa.route(dt, dh)}: max abs err {err:.3g}; bound {bound:.4f} ms ({by})"]
+                f"{fa.route(dt, dh)}: max abs err {err:.3g}; bound {bound:.4g} ms ({by})"]
         # both trees through the C entry point straight, then through the
         # wrapper (whose Python adds host time to every call)
         out = torch.empty_like(q)
@@ -358,6 +373,9 @@ def time_flash_shapes(smi: str, baseline: pathlib.Path | None) -> None:
             lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
                 q, k, v, attn_mask=mask, enable_gqa=True)
         line.append(f"F.scaled_dot_product_attention {time_ms(lib):.4f} ms")
+        if dt == torch.float32:
+            line.append(f"max abs err {err / want.abs().max().item():.3g} of the largest "
+                        f"magnitude (TF32X3_TOL {fa.TF32X3_TOL})")
         print("; ".join(line))
 
 
@@ -365,66 +383,109 @@ def _constant(name: str, old: int, new: int) -> tuple:
     return ("flash_attention.cu", f"constexpr int {name} = {old};", f"constexpr int {name} = {new};")
 
 
-# name: (the head size it is timed at, or None for both; edits).  The
-# wgmma kernel's design space (key tile, ring stages, blocks per SM), and
-# ablations that drop one part of a tile's work, timed only (their
-# outputs are wrong by design).
+_BF16, _F32 = torch.bfloat16, torch.float32
+# name: (the dtype whose kernel it edits, the head size it is timed at or
+# None for every one, edits).  The wgmma kernel's design space (key tile,
+# ring stages, blocks per SM) and the tf32x3 kernel's (key tile, the
+# split's rounding), and ablations that drop one part of a tile's work,
+# timed only (their outputs are wrong by design).
 FLASH_VARIANTS = {
-    "64-key tiles, 2 stages": (None, [_constant("kWgKeys", 128, 64)]),
-    "64-key tiles, 4 stages": (None, [_constant("kWgKeys", 128, 64),
-                                      _constant("kWgStages", 2, 4)]),
-    "128-key tiles, 3 stages": (None, [_constant("kWgStages", 2, 3)]),
+    "64-key tiles, 2 stages": (_BF16, None, [_constant("kWgKeys", 128, 64)]),
+    "64-key tiles, 4 stages": (_BF16, None, [_constant("kWgKeys", 128, 64),
+                                             _constant("kWgStages", 2, 4)]),
+    "128-key tiles, 3 stages": (_BF16, None, [_constant("kWgStages", 2, 3)]),
     # at 2 blocks a SM a block holds 80 registers a thread at launch, so a
     # consumer gets 104 of them: only dh 64 at 64-key tiles fits
-    "64-key tiles, 2 blocks per SM": (64, [
+    "64-key tiles, 2 blocks per SM": (_BF16, 64, [
         _constant("kWgKeys", 128, 64), _constant("kConsumerRegs", 240, 104),
         ("flash_attention.cu", "__launch_bounds__(kWgThreads, 1)",
          "__launch_bounds__(kWgThreads, 2)")]),
-    "ablation: no exp2 (timing only)": (None, [
+    "ablation: no exp2 (timing only)": (_BF16, None, [
         ("flash_attention.cu", "exp2_approx(fmaf(s[i], scale_log2, -ms[r]))",
          "fmaf(s[i], scale_log2, -ms[r])")]),
-    "ablation: no Q K^T, S = 0 (timing only)": (None, [
+    "ablation: no Q K^T, S = 0 (timing only)": (_BF16, None, [
         ("flash_attention.cu", "      float s[kWgKeys / 2];", "      float s[kWgKeys / 2] = {};"),
         ("flash_attention.cu", "        wgmma_ss(\n", "        if (kk < 0) wgmma_ss(\n")]),
-    "ablation: no P V (timing only)": (None, [
+    "ablation: no P V (timing only)": (_BF16, None, [
         ("flash_attention.cu", "          wgmma_m64n64k16_rs_tb(\n",
          "          if (kc < 0) wgmma_m64n64k16_rs_tb(\n")]),
-    "ablation: consumers skip every tile, loads only (timing only)": (None, [
+    "ablation: consumers skip every tile, loads only (timing only)": (_BF16, None, [
         ("flash_attention.cu", "    if (wg_rows && k0 < wk_end && k0 + kWgKeys > wk_begin) {",
          "    if (false) {")]),
+    "tf32x3: 64-key tiles (one block an SM at dh 128)": (_F32, None, [
+        _constant("kTfKeys", 32, 64)]),
+    # the split as first written: hi and lo each rounded by cvt.rna.tf32.f32
+    "tf32x3: split by cvt.rna.tf32.f32 twice": (_F32, None, [
+        ("mma.cuh", "  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
+         "  lo = __float_as_uint(x - __uint_as_float(hi));",
+         '  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(hi) : "f"(x));\n  hi &= 0xffffe000u;\n'
+         '  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));')]),
+    # hi by truncation (one instruction fewer a value; lo then up to a
+    # whole tf32 unit of x, so the split keeps about 2^-20 of it)
+    "tf32x3: hi truncated": (_F32, None, [
+        ("mma.cuh", "  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;",
+         "  hi = __float_as_uint(x) & 0xffffe000u;")]),
+    # hi by Veltkamp's split on the FP32 pipe: c = x (2^13 + 1), hi = c -
+    # (c - x) would keep 11 significant bits, but nvcc contracts c - x into
+    # an FMA, so hi keeps more and the split loses 2^-11 (error and timing
+    # only)
+    "tf32x3: split by Veltkamp (FP32 pipe)": (_F32, None, [
+        ("mma.cuh", "  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
+         "  lo = __float_as_uint(x - __uint_as_float(hi));",
+         "  const float c = x * 8193.0f;\n  const float h = c - (c - x);\n"
+         "  hi = __float_as_uint(h);\n  lo = __float_as_uint(x - h);")]),
+    "tf32x3: 8 warps (128 query rows a block, one block an SM at dh 128)": (_F32, None, [
+        _constant("kTfWarps", 4, 8),
+        ("flash_attention.cu", "__launch_bounds__(kTfThreads, 2)",
+         "__launch_bounds__(kTfThreads, 1)")]),
+    "tf32x3: 16-key tiles, 3 blocks an SM": (_F32, None, [
+        _constant("kTfKeys", 32, 16),
+        ("flash_attention.cu", "__launch_bounds__(kTfThreads, 2)",
+         "__launch_bounds__(kTfThreads, 3)")]),
+    "ablation: tf32x3, one TF32 product (error and timing only)": (_F32, None, [
+        ("mma.cuh", "  mma_tf32(d, al, bh0, bh1);\n  mma_tf32(d, ah, bl0, bl1);\n", "")]),
+    "ablation: tf32x3, warps skip every tile, loads only (timing only)": (_F32, None, [
+        ("flash_attention.cu",
+         "    if (warp_rows && k0 < wk_end && k0 + kTfKeys > wk_begin) {", "    if (false) {")]),
 }
 # the shapes the variants are timed at: FLASH_TIMED's keys
-FLASH_VARIANT_SHAPES = (None, "chameleon", "qwen3_moe_tp1", "whisper_encoder", "hymba")
+FLASH_VARIANT_SHAPES = (None, "chameleon", "qwen3_moe_tp1", "whisper_encoder", "hymba", "f32")
 
 
-def time_flash_variants(smi: str) -> None:
-    from chip_smoke import BATCH, FLASH_TIMED, device_ms, flash_bound_ms
+def time_flash_variants(smi: str, which: str) -> None:
+    """FLASH_VARIANTS of the bf16 or the f32 kernel (``which``, or
+    "all"), each built from an edited copy of csrc/ and timed beside this
+    tree's kernel at FLASH_VARIANT_SHAPES of its dtype."""
+    from chip_smoke import FLASH_TIMED, device_ms, flash_bound_ms
 
+    dtypes = {"all": (_BF16, _F32), "bf16": (_BF16,), "f32": (_F32,)}[which]
+    variants = {name: v for name, v in FLASH_VARIANTS.items() if v[0] in dtypes}
     libs = build_edited("flash_attention.cu", "flash",
-                        {name: edits for name, (_, edits) in FLASH_VARIANTS.items()})
+                        {name: edits for name, (_, _, edits) in variants.items()})
     shipped = _build.library()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for (H, K, dh, dt, Sq, Skv, causal, window), (key, shape) in FLASH_TIMED.items():
-        if key not in FLASH_VARIANT_SHAPES or dt != torch.bfloat16:
+    for (B, H, K, dh, dt, Sq, Skv, causal, window), (key, shape) in FLASH_TIMED.items():
+        if key not in FLASH_VARIANT_SHAPES or dt not in dtypes:
             continue
-        q = torch.randn(BATCH, H, Sq, dh, device="cuda", generator=gen).to(dt)
-        k = torch.randn(BATCH, K, Skv, dh, device="cuda", generator=gen).to(dt)
-        v = torch.randn(BATCH, K, Skv, dh, device="cuda", generator=gen).to(dt)
+        q = torch.randn(B, H, Sq, dh, device="cuda", generator=gen).to(dt)
+        k = torch.randn(B, K, Skv, dh, device="cuda", generator=gen).to(dt)
+        v = torch.randn(B, K, Skv, dh, device="cuda", generator=gen).to(dt)
         want = fa.flash_attention_bhsd_plain(q, k, v, causal=causal, window=window).float()
         out = torch.empty_like(q)
-        bound, by = flash_bound_ms(BATCH, H, K, Sq, dh, 0, Skv, causal, dt, window)
+        bound, by = flash_bound_ms(B, H, K, Sq, dh, 0, Skv, causal, dt, window)
         base = flash_launcher(shipped, q, k, v, out, causal, window)
-        print(f"[ablation] [{smi}] flash {shape}: bound {bound:.4f} ms ({by}); this tree "
+        print(f"[ablation] [{smi}] flash {shape}, {dt}: bound {bound:.4f} ms ({by}); this tree "
               f"{time_ms(base):.4f} ms, device time {device_ms(base):.4f} ms")
-        for name, (only, _) in FLASH_VARIANTS.items():
-            if only not in (None, dh):
+        for name, (vdt, only, _) in variants.items():
+            if vdt != dt or only not in (None, dh):
                 continue
             fn = flash_launcher(libs[name], q, k, v, out, causal, window)
             fn()
             err = (out.float() - want).abs().max().item()
-            print(f"[ablation] [{smi}] flash {shape}: {name}: {time_ms(fn):.4f} ms, device time "
-                  f"{device_ms(fn):.4f} ms, max abs err {err:.3g}")
-        print(f"[ablation] [{smi}] flash {shape}: this tree again {time_ms(base):.4f} ms")
+            print(f"[ablation] [{smi}] flash {shape}, {dt}: {name}: {time_ms(fn):.4f} ms, device "
+                  f"time {device_ms(fn):.4f} ms, max abs err {err:.3g} ({err / want.abs().max():.3g} "
+                  f"of the largest magnitude)")
+        print(f"[ablation] [{smi}] flash {shape}, {dt}: this tree again {time_ms(base):.4f} ms")
 
 
 def time_ssd_prefill_shape(smi: str) -> None:
@@ -656,13 +717,15 @@ def main() -> int:
                          "the repository whose kernel is timed beside this tree's")
     ap.add_argument("--inspect-only", action="store_true",
                     help="compile and inspect (steps 1-2), time nothing")
-    ap.add_argument("--variants", action="store_true",
-                    help="with flash_attention.cu: also build and time FLASH_VARIANTS")
+    ap.add_argument("--variants", nargs="?", const="all", choices=("all", "bf16", "f32"),
+                    help="with flash_attention.cu: also build and time FLASH_VARIANTS (of "
+                         "one dtype's kernel, or all)")
     args = ap.parse_args()
     source = _build.CSRC / args.source
     if not compile_and_inspect(source):
         print("flash_report: a wgmma kernel would not get the registers setmaxnreg asks "
-              "for, or has no HGMMA or UTMALDG instruction", file=sys.stderr)
+              "for, or has no HGMMA or UTMALDG instruction, or a tf32x3 kernel spills or "
+              "has no HMMA", file=sys.stderr)
         return 1
     if torch.cuda.is_available() and not args.inspect_only:
         smi = card()
@@ -675,7 +738,7 @@ def main() -> int:
         else:
             time_flash_shapes(smi, args.baseline)
             if args.variants:
-                time_flash_variants(smi)
+                time_flash_variants(smi, args.variants)
     return 0
 
 
