@@ -22,12 +22,16 @@
    output over the whole tiles only), the wgmma kernel's HGMMA, UTMALDG
    and UTMASTG instructions and the f32 kernel's TF32 HMMA instructions
    counted in the library's SASS, the SSD chunk
-   within 1e-4 of its plain output's largest magnitude (bf16 on the
-   tensor cores, f32 on the CUDA cores; at the JAX suite's SSD shapes, at
-   p = 100 / n = 16, also as column slices of one conv output, at the
-   shapes that test the bf16 kernel's runs of heads, at mamba2-2.7b's
-   prefill shape in bf16 and f32, and as the model hands them over at a
-   mamba2-2.7b TP-2 rank's 40 heads and at hymba-1.5b's 32 heads of
+   within 1e-4 of its plain output's largest magnitude (both dtypes on
+   the tensor cores, each case counted as one launch: bf16 by bf16
+   products of hi + lo splits, f32 at f32 accuracy by 3xTF32 mma.sync,
+   its TF32 HMMA instructions counted in the SASS; at
+   the JAX suite's SSD shapes, at p = 100 / n = 16, also as column slices
+   of one conv output, at the shapes that test the kernels' runs of
+   heads, at mamba2-2.7b's
+   prefill shape in bf16 and f32, and as the model hands them over at
+   mamba2-2.7b's 80 heads in f32, a TP-2 rank's 40 heads in bf16 and f32
+   and at hymba-1.5b's 32 heads of
    p 100, n 16 over 4 x 2048 tokens; flash also at hymba-1.5b's 25 Q / 5
    KV heads of 64, window 1024 over 2048 tokens, timed beside SDPA with
    the window as a boolean mask).  Each kernel is timed with CUDA events beside
@@ -42,8 +46,9 @@
 3. Smoke-size models on the card against the same models on the CPU:
    qwen2.5-3b, mamba2-2.7b and hymba-1.5b prefill and decode (f32, logits
    within 1e-3, equal tokens; hymba launches flash and the SSD chunk once
-   per layer each), 3 hier + int8 training steps of the smoke mamba2 and
-   hymba (losses within 1e-4), and 3 qwen training steps for each gradient sync of
+   per layer each, every flash launch on the tf32x3 route), 3 hier + int8
+   training steps of the smoke mamba2 and hymba (losses within 1e-4), and
+   3 qwen training steps for each gradient sync of
    TRAIN_RUNS (hier, hier_pipelined, hier_zero1, hier_overlap and fsdp
    with int8 on the pod hop, hier_border_rs with bf16) through the same
    process groups (gloo for the CPU, NCCL for the card), losses within
@@ -86,7 +91,8 @@
    and in f32 against TP 1 with the gated norm over the same two channel
    groups (each rank takes it over its own channels, so TP 2 is another
    function than TP 1, ROADMAP R18; the bf16 difference from TP 1 is
-   printed), logits within SSM_TP_F32_TOL, and the smoke
+   printed), logits within SSM_TP_F32_TOL (the SSD chunk launched once
+   per layer in each f32 prefill), and the smoke
    mamba2 and hymba trained at TP 2 as (c) (their ranks share the loss;
    each rank's B/C copy takes its own gradient, R16, so not the norm).
    Flash is also checked at the TP paths' local heads (8 Q / 1 KV and
@@ -227,7 +233,9 @@
    prefill, 4 of each codec kernel per transfer, none in decode, its
    cache shard at the padded local heads); then the same 8-rank world in
    f32 at PAD_F32_LAYERS layers, the tree drawn on the CPU and copied to
-   the card: last-token logits within PAD_F32_TOL of the CPU's largest,
+   the card (each rank's card prefill launching the SSD chunk once per
+   layer): last-token logits within PAD_F32_TOL of
+   the CPU's largest,
    equal greedy tokens (the padded heads draw another tree than TP 1, and
    TP 8 maps Q to KV heads otherwise, ROADMAP R23, so TP 1 is no
    oracle); whisper-tiny served at TP 4 (6 heads padded to 8, 2 Q / 2 KV
@@ -341,11 +349,11 @@ from repro_torch.train.train_step import (  # noqa: E402
 
 # NVIDIA H100 SXM data sheet, dense rates without sparsity
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-# f32 flash runs on the tensor cores at f32 accuracy: three TF32 products
-# (hi/lo splits) for each f32 product, at TF32's 495 TFLOP/s.  The f32
-# SSD chunk still runs on the CUDA cores, at PEAK_FLOPS[torch.float32].
-FLASH_PEAK_FLOPS = {torch.bfloat16: PEAK_FLOPS[torch.bfloat16], torch.float32: 495e12 / 3}
+# per input dtype, the rate the kernels' products run at: bf16 on the
+# tensor cores; f32 (flash and the SSD chunk) on the tensor cores at f32
+# accuracy, three TF32 products (hi/lo splits) for each f32 product, at
+# TF32's 495 TFLOP/s
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-3}
 
 ARCH = "qwen2.5-3b"
@@ -904,7 +912,7 @@ def flash_bound_ms(B, H, K, Sq, dh, q_offset, valid_kv, causal,
                    dtype, window: int | None = None) -> tuple[float, str]:
     """Least time for the work these inputs need: 4 flops per (q, k) pair
     and head dim over the unmasked pairs (causal, and inside the window)
-    at FLASH_PEAK_FLOPS, against reading q, k, v and writing o once."""
+    at PEAK_FLOPS, against reading q, k, v and writing o once."""
     def keys(i):
         hi = min(valid_kv, q_offset + i + 1) if causal else valid_kv
         lo = 0 if window is None else max(0, q_offset + i + 1 - window)
@@ -914,34 +922,36 @@ def flash_bound_ms(B, H, K, Sq, dh, q_offset, valid_kv, causal,
     flops = 4.0 * B * H * dh * pairs
     elem = torch.finfo(dtype).bits // 8
     nbytes = elem * B * dh * (2 * H * Sq + 2 * K * valid_kv)
-    t_ops = flops / FLASH_PEAK_FLOPS[dtype]
+    t_ops = flops / PEAK_FLOPS[dtype]
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-# per flash kernel, its instantiations (one per head size it takes; the
-# f32 kernel's in two copy widths) and the instructions counted in each
-FLASH_SASS = {
+# per kernel, its instantiations (flash's one per head size it takes; the
+# f32 flash kernel's in two copy widths) and the instructions counted in
+# each: the wgmma kernel's HGMMA and TMA, the f32 kernels' TF32 HMMA
+KERNEL_SASS = {
     "flash_attention_wgmma_kernel": (len(fa.WGMMA_HEAD_DIMS), ("HGMMA", "UTMALDG", "UTMASTG")),
     "flash_attention_tf32x3_kernel": (2 * len(fa.HEAD_DIMS), ("HMMA.TF32",)),
+    "ssd_chunk_tf32x3_kernel": (1, ("HMMA.TF32",)),
 }
 
 
-def flash_sass_counts() -> dict[str, dict[str, dict[str, int]]]:
-    """Per kernel of FLASH_SASS and per instantiation, in the built
-    library's SASS (``cuobjdump -sass``): its instructions of FLASH_SASS,
+def sass_counts() -> dict[str, dict[str, dict[str, int]]]:
+    """Per kernel of KERNEL_SASS and per instantiation, in the built
+    library's SASS (``cuobjdump -sass``): its instructions of KERNEL_SASS,
     an op with a suffix counting the lines of that op that carry the
     suffix (a TF32 HMMA is ``HMMA.1688.F32.TF32``)."""
     tool = pathlib.Path(_build.nvcc_path()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(_build.library().path)],
                           capture_output=True, text=True, check=True).stdout
-    counts, fn = {kernel: {} for kernel in FLASH_SASS}, None
+    counts, fn = {kernel: {} for kernel in KERNEL_SASS}, None
     for line in sass.splitlines():
         if "Function : " in line:
             name = line.split("Function : ")[1].strip()
-            kernel = next((k for k in FLASH_SASS if k in name), None)
+            kernel = next((k for k in KERNEL_SASS if k in name), None)
             fn = None if kernel is None else counts[kernel].setdefault(
-                name, dict.fromkeys(FLASH_SASS[kernel][1], 0))
+                name, dict.fromkeys(KERNEL_SASS[kernel][1], 0))
         elif fn is not None:
             for op in fn:
                 head, _, suffix = op.partition(".")
@@ -949,13 +959,21 @@ def flash_sass_counts() -> dict[str, dict[str, dict[str, int]]]:
     return counts
 
 
-def check_flash(dev, gen, smi: str) -> dict:
-    for kernel, sass in flash_sass_counts().items():
-        n = FLASH_SASS[kernel][0]
+def check_sass(prefix: str) -> None:
+    """Every instantiation of the KERNEL_SASS kernels named ``prefix...``
+    is in the library and holds each of its instructions."""
+    for kernel, sass in sass_counts().items():
+        if not kernel.startswith(prefix):
+            continue
+        n = KERNEL_SASS[kernel][0]
         check(len(sass) == n and all(all(c.values()) for c in sass.values()),
               f"{kernel}'s SASS: {sass}")
-        print(f"[check] {kernel} in the library's SASS, {n} instantiations: "
+        print(f"[check] {kernel} in the library's SASS, {n} instantiation{'s' * (n > 1)}: "
               + "; ".join(", ".join(f"{m} {op}" for op, m in c.items()) for c in sass.values()))
+
+
+def check_flash(dev, gen, smi: str) -> dict:
+    check_sass("flash_attention")
     main = {}
     for B, H, K, Sq, Skv, dh, causal, window, off, valid, dt in FLASH_CASES:
         q = torch.randn(B, H, Sq, dh, device=dev, generator=gen).to(dt)
@@ -1036,10 +1054,11 @@ def check_flash(dev, gen, smi: str) -> dict:
 SSD_CASES = [
     # (b, s, h, p, g, n, chunk, dtype, view): tests/test_kernels.py:46-52,
     # G = 2 with H = 8 (h // (H / G) is not h % G), p = 100 and n = 16 (a
-    # shape check), the bf16 cases the tensor-core kernel's grid has to get
-    # right (6 heads over 2 groups: runs of heads that do not divide the
-    # group; G = 2, H = 8; q = 96; p = 100 and n = 16 as column slices of one
-    # conv output, rows 8-byte aligned only), then the mamba2-2.7b prefill
+    # shape check), the cases the tensor-core kernels' grid has to get
+    # right, in bf16 and f32 (6 heads over 2 groups: runs of heads that do
+    # not divide the group; G = 2, H = 8; q = 96; p = 100 and n = 16 as
+    # column slices of one conv output, bf16 rows 8-byte aligned only),
+    # then the mamba2-2.7b prefill
     (2, 256, 4, 32, 1, 64, 64, torch.float32, False),
     (1, 128, 2, 64, 2, 32, 32, torch.float32, False),
     (1, 128, 8, 32, 2, 32, 32, torch.float32, False),
@@ -1050,22 +1069,31 @@ SSD_CASES = [
     (1, 128, 8, 32, 2, 32, 32, torch.bfloat16, False),
     (1, 192, 4, 64, 1, 64, 96, torch.bfloat16, False),
     (2, 256, 4, 100, 1, 16, 128, torch.bfloat16, True),
+    (1, 256, 6, 64, 2, 64, 64, torch.float32, False),
+    (1, 192, 4, 64, 1, 64, 96, torch.float32, False),
+    (2, 256, 4, 100, 1, 16, 128, torch.float32, True),
     (BATCH, PROMPT, 80, 64, 1, 128, 128, torch.bfloat16, False),
-    (BATCH, PROMPT, 80, 64, 1, 128, 128, torch.float32, False),
-    # as the model hands them over (column slices of the conv output): a
-    # mamba2-2.7b TP-2 rank's prefill (40 of the 80 heads) and hymba-1.5b's
+    # as the model hands them over (column slices of the conv output): the
+    # f32 mamba2-2.7b prefill, a TP-2 rank's (40 of the 80 heads, which
+    # pick_parts splits into other runs) in bf16 and f32, and hymba-1.5b's
     # prefill (32 heads of p 100, n 16, 4 x 2048 tokens)
+    (BATCH, PROMPT, 80, 64, 1, 128, 128, torch.float32, True),
     (BATCH, PROMPT, 40, 64, 1, 128, 128, torch.bfloat16, True),
+    (BATCH, PROMPT, 40, 64, 1, 128, 128, torch.float32, True),
     (BATCH, HYBRID_SEQ, 32, 100, 1, 16, 128, torch.bfloat16, True),
     # a hymba-1.5b TP-8 rank's 4 heads (d_inner 3200 / 8 channels), in bf16
     # and in f32 at the f32 check's prompt
     (BATCH, HYBRID_SEQ, 4, 100, 1, 16, 128, torch.bfloat16, True),
     (1, PAD_F32_PROMPT, 4, 100, 1, 16, 128, torch.float32, True),
 ]
-# the timed SSD cases beside the row's own: (s, h, p) -> the row's key
-SSD_TIMED = {(PROMPT, 40, 64): "mamba2_tp2", (HYBRID_SEQ, 32, 100): "hymba",
-             (HYBRID_SEQ, 4, 100): "hymba_tp8"}
+# the timed SSD cases beside the row's own: (s, h, p, dtype) -> the row's key
+SSD_TIMED = {(PROMPT, 40, 64, torch.bfloat16): "mamba2_tp2",
+             (PROMPT, 40, 64, torch.float32): "mamba2_tp2_f32",
+             (HYBRID_SEQ, 32, 100, torch.bfloat16): "hymba",
+             (HYBRID_SEQ, 4, 100, torch.bfloat16): "hymba_tp8"}
 SSD_TOL = 1e-4      # of the plain output's largest magnitude
+# the kernel ssd.cu's launcher runs for each input dtype
+SSD_KERNELS = {torch.bfloat16: "ssd_chunk_mma_kernel", torch.float32: "ssd_chunk_tf32x3_kernel"}
 
 
 def ssd_inputs(dev, gen, b, s, h, p, g, n, dt, view=False):
@@ -1089,9 +1117,10 @@ def ssd_inputs(dev, gen, b, s, h, p, g, n, dt, view=False):
 
 def ssd_bound_ms(b, s, h, p, g, n, q, dt) -> tuple[float, str]:
     """x, dt, A, B and C read once, y_diag and states written once in f32,
-    against the products the function needs at the peak rate of the input
-    type: C B^T once per (b, chunk, group) and scores x once per head,
-    each over the causal half (j <= i), and x^T (B w) once per head."""
+    against the products the function needs at the input type's rate of
+    PEAK_FLOPS (f32: 3xTF32): C B^T once per (b, chunk, group) and
+    scores x once per head, each over the causal half (j <= i), and
+    x^T (B w) once per head."""
     elem = torch.finfo(dt).bits // 8
     nc = s // q
     nbytes = (elem * b * s * (h * p + 2 * g * n) + 4 * b * s * h + 4 * h
@@ -1103,10 +1132,14 @@ def ssd_bound_ms(b, s, h, p, g, n, q, dt) -> tuple[float, str]:
 
 
 def check_ssd(dev, gen, smi: str) -> dict:
+    check_sass("ssd_chunk")
     row, timed = {}, {}
     for b, s, h, p, g, n, q, dt, view in SSD_CASES:
         args = ssd_inputs(dev, gen, b, s, h, p, g, n, dt, view)
+        before = ssd.ssd_chunk_call.launches
         got = ssd.ssd_chunk_call(*args, q)
+        check(ssd.ssd_chunk_call.launches == before + 1,
+              f"ssd_chunk {b, s, h, p, g, n, q, dt}: not launched")
         want = ssd.ssd_chunk_plain(*args, q)
         errs = [(a - w).abs().max().item() for a, w in zip(got, want)]
         mags = [w.abs().max().item() for w in want]
@@ -1114,7 +1147,7 @@ def check_ssd(dev, gen, smi: str) -> dict:
             check(err <= SSD_TOL * mag, f"ssd_chunk {b, s, h, p, g, n, q, dt} {what}: "
                                         f"err {err} against |max| {mag}")
         print(f"[check] ssd_chunk (b, s, h, p, g, n) = {(b, s, h, p, g, n)}, q {q}, {dt}"
-              f"{', conv slices' if view else ''}: "
+              f"{', conv slices' if view else ''}, {SSD_KERNELS[dt]}: "
               f"max abs err y_diag {errs[0]:.3g} (|y| <= {mags[0]:.3g}), states "
               f"{errs[1]:.3g} (<= {mags[1]:.3g}); tol {SSD_TOL} of the largest")
         if b != BATCH:
@@ -1123,8 +1156,9 @@ def check_ssd(dev, gen, smi: str) -> dict:
                   "ms": time_ms(lambda: ssd.ssd_chunk_call(*args, q), 20),
                   "plain_ms": time_ms(lambda: ssd.ssd_chunk_plain(*args, q), 5)}
         timing["bound_ms"], timing["bound_by"] = ssd_bound_ms(b, s, h, p, g, n, q, dt)
-        key = SSD_TIMED.get((s, h, p))
+        key = SSD_TIMED.get((s, h, p, dt))
         shape = {None: "mamba2-2.7b prefill shape", "mamba2_tp2": "mamba2-2.7b TP-2 rank's "
+                 "prefill shape (40 heads)", "mamba2_tp2_f32": "mamba2-2.7b TP-2 rank's "
                  "prefill shape (40 heads)", "hymba": "hymba-1.5b prefill shape (32 heads, p "
                  "100, n 16, 4 x 2048)", "hymba_tp8": "hymba-1.5b TP-8 rank's prefill shape "
                  "(4 heads, p 100, n 16, 4 x 2048)"}[key]
@@ -1135,8 +1169,10 @@ def check_ssd(dev, gen, smi: str) -> dict:
             timed[key] = timing
         elif dt == torch.bfloat16:
             row = {"name": "ssd_chunk", "route": "cuda", "source": "src/repro_torch/csrc/ssd.cu",
-                   "replaces": "src/repro/kernels/ssd.py:59", **timing,
-                   "library_ms": None}       # no one PyTorch call computes it
+                   "replaces": "src/repro/kernels/ssd.py:59",
+                   "kernels_by_dtype": {str(d).removeprefix("torch."): k
+                                        for d, k in SSD_KERNELS.items()},
+                   **timing, "library_ms": None}       # no one PyTorch call computes it
         else:
             row["f32"] = timing
     return {"ssd_chunk": {**row, **timed}}
@@ -1713,10 +1749,11 @@ def pack_against_cat(pieces, parts, padded: int, smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 MATMUL_KEYS = ("gemm", "nvjet", "xmma", "cutlass", "cublas", "splitk")
-# the f32 flash_attention_kernel and the bf16 flash_attention_mma_kernel;
-# the f32 ssd_chunk_kernel and the bf16 ssd_chunk_mma_kernel
+# every flash kernel (flash_attention_wgmma_kernel, _mma_kernel,
+# _tf32x3_kernel); the f32 ssd_chunk_tf32x3_kernel and the bf16
+# ssd_chunk_mma_kernel
 SERVE_GROUPS = (("flash_attention", ("flash_attention",)),
-                ("ssd_chunk", ("ssd_chunk_kernel", "ssd_chunk_mma_kernel")),
+                ("ssd_chunk", ("ssd_chunk_tf32x3_kernel", "ssd_chunk_mma_kernel")),
                 ("matmul", MATMUL_KEYS),
                 ("int8 codec", ("quant_int8_kernel", "dequant_int8")))
 SERVE_RANGES = ("ssd_inter_chunk", "causal_conv1d")
@@ -2543,8 +2580,10 @@ def _tp_rank(rank: int, world: int, job: str, out_dir: str, device: str = "cuda"
         out["counts"], out["vector"] = ops.launch_counts(), ops.vector_launch_counts()
         if job == "ssm_serve":      # after the main path's counts: the f32 function
             free_memory()
+            before = ops.launch_counts()["ssd_chunk"]
             out["logits_f32"] = ssm_f32_logits(
                 dev, runtime_for_groups(pods=1, data_per_pod=1, tp=world))
+            out["ssd_launches_f32"] = ops.launch_counts()["ssd_chunk"] - before
         if job == HYBRID_ARCH:      # after the main path's counts: card against CPU
             free_memory()
             out["f32"] = padded_f32_serve(dev, world)
@@ -2669,17 +2708,22 @@ def serve_ssm_tp(dev, smi: str) -> tuple[dict[str, int], dict]:
     exact, its cache shard's shapes).  Then the function in f32: each
     rank's prefill logits within SSM_TP_F32_TOL of TP 1's with the gated
     norm over the same two channel groups (``grouped_gated_norm``, R18),
-    from the same seed.  How far the f32 TP-2 logits lie from plain TP 1
-    (R18) is printed."""
+    from the same seed, every f32 prefill (TP 1's two and each rank's)
+    launching ssd_chunk once per layer.  How far the
+    f32 TP-2 logits lie from plain TP 1 (R18) is printed."""
     cfg = get_config(SSM_ARCH)
     tp = 2
     cfg32 = dataclasses.replace(cfg, n_layers=SSM_TP_DEPTH, dtype=torch.float32)
     model = Model(cfg32, runtime_for_groups(), dev).init(0)
     prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
                            generator=torch.Generator().manual_seed(1)).to(dev)
+    before = ops.launch_counts()["ssd_chunk"]
     plain32 = model.apply_prefill(prompt)[0][:, -1, :cfg.vocab_size].cpu()
     with grouped_gated_norm(tp):
         grouped32 = model.apply_prefill(prompt)[0][:, -1, :cfg.vocab_size].cpu()
+    f32_launches = ops.launch_counts()["ssd_chunk"] - before
+    check(f32_launches == 2 * SSM_TP_DEPTH,
+          f"mamba2-2.7b TP 1's two f32 prefills launched ssd_chunk {f32_launches} times")
     del model
     free_memory()
     ranks = _spawn_tp("ssm_serve", tp)
@@ -2705,6 +2749,9 @@ def serve_ssm_tp(dev, smi: str) -> tuple[dict[str, int], dict]:
         check(all(res["vector"][k] == res["counts"][k] for k in res["vector"]),
               f"{label} rank {r}: vector launches {res['vector']} of {res['counts']}")
         check(res["cache_shapes"] == want_shapes, f"{label} rank {r} cache {res['cache_shapes']}")
+        check(res["ssd_launches_f32"] == SSM_TP_DEPTH,
+              f"{label} rank {r}: the f32 prefill launched ssd_chunk "
+              f"{res['ssd_launches_f32']} times")
         check(res["raw_transfer_exact"] and res["cache_finite"],
               f"{label} rank {r}: raw transfer exact {res['raw_transfer_exact']}, cache "
               f"finite {res['cache_finite']}")
@@ -2813,6 +2860,7 @@ def padded_f32_serve(dev, tp: int) -> dict:
         prompt = torch.randint(0, cfg.vocab_size, (1, PAD_F32_PROMPT),
                                generator=torch.Generator().manual_seed(2))
         out = {}
+        before = ops.launch_counts()["ssd_chunk"]
         for name, model in (("gpu", gpu), ("cpu", cpu)):
             _, decode = make_serve_steps(model)
             logits, caches = model.apply_prefill(prompt.to(model.device))
@@ -2823,6 +2871,7 @@ def padded_f32_serve(dev, tp: int) -> dict:
                 toks.append(tok)
             out[name] = {"logits": logits[:, -1].cpu(), "tokens": torch.cat(toks, 1).cpu()}
             del caches
+        out["ssd_launches"] = ops.launch_counts()["ssd_chunk"] - before   # the card's prefill
         del cpu, gpu
         free_memory()
         return out
@@ -2913,6 +2962,10 @@ def serve_padded(smi: str, arch: str) -> tuple[dict[str, int], dict]:
         check(torch.equal(toks["gpu"], toks["cpu"]),
               f"{label}, f32: card tokens {toks['gpu'].tolist()} against the CPU's "
               f"{toks['cpu'].tolist()}")
+        for r, res in enumerate(ranks):
+            check(res["f32"]["ssd_launches"] == PAD_F32_LAYERS,
+                  f"{label} rank {r}, f32: ssd_chunk launched {res['f32']['ssd_launches']} "
+                  f"times")
         print(f"[pad] {label}, f32 at {PAD_F32_LAYERS} layers, 1 x {PAD_F32_PROMPT} tokens, "
               f"card against the CPU in the same {tp}-rank world: last-token logits max abs "
               f"diff {diff:.4g} (tol {PAD_F32_TOL} x the largest {scale:.4g}), "

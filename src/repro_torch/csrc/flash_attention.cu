@@ -149,16 +149,6 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 
-// 2^x by the MUFU's ex2.approx, subnormal results flushed to 0: one
-// instruction where exp2f wraps it in range handling.  Its relative
-// error (about 2^-22) is far below the bf16 rounding of P, and level with
-// the f32 kernel's 3xTF32 products.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 struct Strides {
   long long b, h, s;   // in elements; the dh axis has stride 1
 };

@@ -1,9 +1,9 @@
 // Tensor-core building blocks shared by the sm_80-style kernels (flash
-// attention's bf16 mma and f32 tf32x3 kernels, the bf16 SSD chunk):
-// cp.async copies into shared memory, ldmatrix fragment loads, the
-// mma.sync m16n8k16 bf16 product and the m16n8k8 tf32 product, both with
-// f32 accumulators, and the hi + lo splits that keep f32 accuracy
-// through them.
+// attention's bf16 mma and f32 tf32x3 kernels, the SSD chunk's bf16 and
+// f32 kernels): cp.async copies into shared memory, ldmatrix fragment
+// loads, the mma.sync m16n8k16 bf16 product and the m16n8k8 tf32
+// product, both with f32 accumulators, the hi + lo splits that keep f32
+// accuracy through them, and ex2.approx.
 #pragma once
 
 #include "common.cuh"
@@ -120,4 +120,14 @@ __device__ __forceinline__ void mma_tf32x3(float (&d)[4], const uint32_t (&ah)[4
   mma_tf32(d, al, bh0, bh1);
   mma_tf32(d, ah, bl0, bl1);
   mma_tf32(d, ah, bh0, bh1);
+}
+
+// 2^x by the MUFU's ex2.approx, subnormal results flushed to 0: one
+// instruction where exp2f wraps it in range handling.  Its relative
+// error (about 2^-22) is far below a bf16 rounding, and level with the
+// 3xTF32 products of the f32 kernels.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }

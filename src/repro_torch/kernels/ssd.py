@@ -1,5 +1,5 @@
-"""Mamba2 SSD chunk: the wrapper of the CUDA kernel in ``csrc/ssd.cu``
-and its plain version.
+"""Mamba2 SSD chunk: the wrapper of the CUDA kernels in ``csrc/ssd.cu``
+(one per input dtype, both on the tensor cores) and its plain version.
 
 The within-chunk part of the JAX package's ``kernels/ssd.py``
 (``ssd_chunk_call``), per (batch, chunk, head): the decay-masked
@@ -84,12 +84,13 @@ def ssd_chunk_call(x, dt, A, B, C, chunk: int, *, heads_per_block: int = 0):
     (b, s, g, n) in x's dtype, s a multiple of ``chunk`` -> (y_diag
     (b, nc, q, h, p) f32, states (b, nc, h, p, n) f32).
 
-    bf16 runs on the tensor cores, one block per (batch, chunk) and run
-    of at most ``heads_per_block`` heads of one group (0: the kernel picks
-    the runs by wave count; at most 32, and as many as a block's shared
-    memory holds); f32 runs one block per head and takes only 0.  On the
-    card it raises ``NoBackwardError`` under autograd when an input
-    requires grad (the kernel has no backward)."""
+    Both dtypes run on the tensor cores, one block per (batch, chunk) and
+    run of heads of one group: bf16 by bf16 products of hi + lo splits,
+    at most ``heads_per_block`` heads a block (0: the kernel picks the runs
+    by wave count; at most 32, and as many as a block's shared memory
+    holds); f32 by three TF32 products for each f32 one (3xTF32), and
+    takes only 0.  On the card it raises ``NoBackwardError`` under
+    autograd when an input requires grad (the kernel has no backward)."""
     if x.device.type == "cpu":
         return ssd_chunk_plain(x, dt, A, B, C, chunk)
     _build.refuse_autograd("ssd_chunk", x, dt, A, B, C)

@@ -19,9 +19,10 @@ bf16), each case counted on its route; bf16 at dh 64 and 128 runs on the
 mma.sync, also on views off 16 bytes) and at the qwen2.5-3b shape within
 ``TF32X3_TOL`` of the plain f32 output, which one TF32 product would miss
 (``-k flash`` runs these alone); the SSD chunk
-within 1e-4 of its plain output's largest magnitude (f32 inputs: f32
-arithmetic in both, summed in another order; bf16 inputs: the tensor
-cores, with the f32 operands split into bf16 hi + lo).  The SSD chunk
+within 1e-4 of its plain output's largest magnitude (f32 inputs: the
+tensor cores at f32 accuracy, 3xTF32, and at the mamba2-2.7b shape
+within 1e-5; bf16 inputs: the tensor cores, with the f32 operands split
+into bf16 hi + lo).  The SSD chunk
 and flash attention, which have no backward, refuse to run under
 autograd with an input that requires grad.  Three f32 smoke
 training steps with ``hier_overlap`` (its buckets synced inside the
@@ -772,11 +773,22 @@ SSD_CASES = [
     (2, 128, 4, 32, 1, 64, 64, "bf16"),
     (2, 256, 4, 100, 1, 16, 128, "bf16"),
     (4, 1024, 80, 64, 1, 128, 128, "bf16"),
-    # the bf16 tensor-core kernel's grid: 6 heads over 2 groups (runs of
-    # heads that do not divide a group), G = 2 with H = 8, q = 96
+    # the tensor-core kernels' grid: 6 heads over 2 groups (runs of heads
+    # that do not divide a group), G = 2 with H = 8, q = 96
     (1, 256, 6, 64, 2, 64, 64, "bf16"),
     (1, 128, 8, 32, 2, 32, 32, "bf16"),
     (1, 192, 4, 64, 1, 64, 96, "bf16"),
+    # the same grid in f32 (3xTF32), p = 100 with n = 16 and the
+    # mamba2-2.7b prefill's shape; then p and n 4 past a multiple of 8 (x's
+    # garbage columns, C B^T's zero-filled k), and p 120 and 128 at q = n =
+    # 128, where one x buffer is all that fits
+    (1, 256, 6, 64, 2, 64, 64, "f32"),
+    (1, 192, 4, 64, 1, 64, 96, "f32"),
+    (2, 256, 4, 100, 1, 16, 128, "f32"),
+    (4, 1024, 80, 64, 1, 128, 128, "f32"),
+    (1, 128, 2, 36, 1, 20, 32, "f32"),
+    (1, 256, 4, 120, 1, 128, 128, "f32"),
+    (1, 256, 2, 128, 1, 128, 128, "f32"),
 ]
 
 
@@ -816,24 +828,102 @@ def test_ssd_chunk_bf16_heads_per_block(cuda, heads_per_block):
         assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
 
 
-@pytest.mark.parametrize("shape", [(2, 256, 4, 100, 1, 16, 128), (2, 256, 8, 64, 1, 128, 128),
-                                   (1, 128, 8, 32, 2, 32, 64)])
-def test_ssd_chunk_bf16_conv_slices(cuda, shape):
-    """x, B and C as column slices of one bf16 conv output, as the model
-    hands them over; at p = 100 the rows are only 8 bytes aligned."""
-    b, s, h, p, g, n, chunk = shape
-    gen = torch.Generator(device=cuda).manual_seed(1)
-    conv = torch.randn(b, s, h * p + 2 * g * n, device=cuda, generator=gen).to(torch.bfloat16)
+CONV_SLICE_SHAPES = [(2, 256, 4, 100, 1, 16, 128), (2, 256, 8, 64, 1, 128, 128),
+                     (1, 128, 8, 32, 2, 32, 64)]
+
+
+def _conv_slices(shape, dtype, dev):
+    """x, dt, A, B, C with x, B and C column slices of one conv output in
+    ``dtype``, as the model hands them over."""
+    b, s, h, p, g, n, _ = shape
+    gen = torch.Generator(device=dev).manual_seed(1)
+    conv = torch.randn(b, s, h * p + 2 * g * n, device=dev, generator=gen).to(dtype)
     x = conv[..., :h * p].unflatten(-1, (h, p))
     Bm = conv[..., h * p:h * p + g * n].unflatten(-1, (g, n))
     Cm = conv[..., h * p + g * n:].unflatten(-1, (g, n))
-    dt = torch.rand(b, s, h, device=cuda, generator=gen) * 0.19 + 0.01
-    A = -(torch.rand(h, device=cuda, generator=gen) * 3.5 + 0.5)
-    got = tssd.ssd_chunk_call(x, dt, A, Bm, Cm, chunk)
-    want = tssd.ssd_chunk_plain(x, dt, A, Bm, Cm, chunk)
+    dt = torch.rand(b, s, h, device=dev, generator=gen) * 0.19 + 0.01
+    A = -(torch.rand(h, device=dev, generator=gen) * 3.5 + 0.5)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+@pytest.mark.parametrize("shape", CONV_SLICE_SHAPES)
+def test_ssd_chunk_conv_slices(cuda, shape, dt):
+    """x, B and C as column slices of one conv output, as the model hands
+    them over: at p = 100 bf16 rows are only 8 bytes aligned, f32 rows 16
+    bytes aligned but 100 floats apart."""
+    args = _conv_slices(shape, TDT[dt], cuda)
+    got = tssd.ssd_chunk_call(*args, shape[-1])
+    want = tssd.ssd_chunk_plain(*args, shape[-1])
     torch.cuda.synchronize()
     for g_, w in zip(got, want):
         assert (g_ - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+# 4 x 8 blocks of 8 heads, which the launcher splits into runs of 2 heads
+# (4 runs a group fill one wave of 132 SMs): head 0's block prefetches
+# head 1's x while head 0 computes
+NAN_NEIGHBOUR_SHAPES = [(4, 1024, 8, 100, 1, 16, 128), (4, 1024, 8, 64, 1, 128, 128),
+                        (4, 512, 8, 36, 1, 20, 64)]
+
+
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+@pytest.mark.parametrize("shape", NAN_NEIGHBOUR_SHAPES)
+def test_ssd_chunk_nan_beside_its_operands_stays_out(cuda, shape, dt):
+    """NaN next to every region the kernels stage or read reaches no other
+    output than the plain version's NaN: x, B and C are column slices of
+    one conv output with NaN in the 4 columns after each; head 1's x is
+    NaN throughout (the buffer next to head 0's, filled while head 0
+    computes); row 5 of C is NaN in the first chunk (a row of C B^T, whose
+    tiles follow B in shared memory).  The kernels' passes read past a
+    staged row into the next region and throw those columns away, so the
+    outputs are NaN exactly where the plain version's are (head 1; y_diag's
+    row 5 of that chunk) and within 1e-4 of it elsewhere."""
+    b, s, h, p, g, n, chunk = shape
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    hp, gn = h * p, g * n
+    conv = torch.randn(b, s, hp + 2 * gn + 12, device=cuda, generator=gen)
+    for c0 in (hp, hp + gn + 4, hp + 2 * gn + 8):
+        conv[..., c0:c0 + 4] = torch.nan
+    conv[..., p:2 * p] = torch.nan                              # head 1's x
+    conv[0, 5, hp + gn + 8:hp + 2 * gn + 8] = torch.nan         # C's row 5, batch 0
+    conv = conv.to(TDT[dt])
+    x = conv[..., :hp].unflatten(-1, (h, p))
+    Bm = conv[..., hp + 4:hp + 4 + gn].unflatten(-1, (g, n))
+    Cm = conv[..., hp + gn + 8:hp + 2 * gn + 8].unflatten(-1, (g, n))
+    dtv = torch.rand(b, s, h, device=cuda, generator=gen) * 0.19 + 0.01
+    A = -(torch.rand(h, device=cuda, generator=gen) * 3.5 + 0.5)
+    got = tssd.ssd_chunk_call(x, dtv, A, Bm, Cm, chunk)
+    want = tssd.ssd_chunk_plain(x, dtv, A, Bm, Cm, chunk)
+    torch.cuda.synchronize()
+    y_nan = torch.zeros(b, s // chunk, chunk, h, p, dtype=torch.bool, device=cuda)
+    y_nan[:, :, :, 1] = True
+    y_nan[0, 0, 5] = True
+    st_nan = torch.zeros(b, s // chunk, h, p, n, dtype=torch.bool, device=cuda)
+    st_nan[:, :, 1] = True
+    for what, g_, w, nan in zip(("y_diag", "states"), got, want, (y_nan, st_nan)):
+        assert torch.equal(w.isnan(), nan), f"plain {what}"
+        assert torch.equal(g_.isnan(), nan), (
+            f"{what}: {(g_.isnan() & ~nan).sum().item()} NaN outside the plain version's")
+        err = (g_[~nan] - w[~nan]).abs().max().item()
+        assert err <= 1e-4 * w[~nan].abs().max().item(), f"{what}: {err}"
+
+
+def test_ssd_chunk_f32_at_the_mamba2_shape_is_3xtf32_accurate(cuda, full_f32_matmul):
+    """f32 at the mamba2-2.7b prefill shape (4 x 1024, 80 heads of p 64,
+    n 128, q 128) through the 3xTF32 kernel: y_diag and the states within
+    1e-5 of the plain f32 version's largest magnitude (its products in
+    full f32), ten times inside the 1e-4 the kernel is held to elsewhere;
+    one TF32 product would miss 1e-4 (tests/test_torch_ssm.py)."""
+    before = tssd.ssd_chunk_call.launches
+    args = _ssd_inputs((4, 1024, 80, 64, 1, 128, 128, "f32"), cuda)
+    got = tssd.ssd_chunk_call(*args)
+    want = tssd.ssd_chunk_plain(*args)
+    torch.cuda.synchronize()
+    assert tssd.ssd_chunk_call.launches == before + 1
+    for what, g_, w in zip(("y_diag", "states"), got, want):
+        err = ((g_ - w).abs().max() / w.abs().max()).item()
+        assert err <= 1e-5, f"{what}: {err:.3g} of the largest magnitude"
 
 
 def test_ssd_chunk_refuses_heads_per_block(cuda):
@@ -842,7 +932,7 @@ def test_ssd_chunk_refuses_heads_per_block(cuda):
         tssd.ssd_chunk_call(*args, heads_per_block=33)      # more than 32
     args = _ssd_inputs((1, 128, 4, 32, 1, 32, 64, "f32"), cuda)
     with pytest.raises(ValueError):
-        tssd.ssd_chunk_call(*args, heads_per_block=2)       # f32: one block per head
+        tssd.ssd_chunk_call(*args, heads_per_block=2)       # f32: the launcher picks
 
 
 def test_ssd_chunked_strided_views(cuda):

@@ -11,6 +11,7 @@ import ctypes
 import re
 
 from _hypothesis_compat import hypothesis, st
+from _tf32_emulation import matmul_tf32, tf32
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +27,7 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import quant as tquant
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import ssd as tssd
 
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -356,43 +358,16 @@ def test_flash_attention_route_by_dtype_and_head_size(dt, dh, want):
     assert set(tfa.ROUTES) == {"wgmma", "mma", "tf32x3"}
 
 
-def _tf32(x: torch.Tensor) -> torch.Tensor:
-    """f32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
-    nearest with ties away from zero, 10 mantissa bits kept, by integer
-    arithmetic on the f32 bit pattern (adding half of the dropped 13 bits'
-    unit carries into the kept ones), as the kernel's ``split_tf32``."""
-    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
-
-
-def _tf32_read(x: torch.Tensor) -> torch.Tensor:
-    """f32 ``x`` as the tensor core reads a TF32 operand: its top 19 bits
-    (the low 13 cleared)."""
-    return (x.view(torch.int32) & -0x2000).view(torch.float32)
-
-
-def _matmul_tf32(a: torch.Tensor, b: torch.Tensor, products: int) -> torch.Tensor:
-    """a @ b in f32 from TF32 operands: one product of the rounded
-    operands, or three of the split ones as the f32 kernel takes them (hi
-    = TF32(x), lo = x - hi read by the tensor core; lo * hi + hi * lo +
-    hi * hi, ``mma_tf32x3``).  A product of two TF32 values is exact in
-    f32, so only the sums round, as in the tensor core's f32 accumulator."""
-    ah, bh = _tf32(a), _tf32(b)
-    if products == 1:
-        return ah @ bh
-    al, bl = _tf32_read(a - ah), _tf32_read(b - bh)
-    return (al @ bh + ah @ bl) + ah @ bh
-
-
 def _attention_tf32(q, k, v, products: int) -> torch.Tensor:
     """Causal GQA attention, head-major, as the f32 kernel computes it:
-    both products through ``_matmul_tf32``, the softmax in f32 on the
+    both products through ``matmul_tf32``, the softmax in f32 on the
     unnormalised P, divided by the row sum at the end."""
     rep = q.shape[1] // k.shape[1]
     k, v = k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1)
-    s = _matmul_tf32(q, k.transpose(-1, -2), products) / np.sqrt(q.shape[-1])
+    s = matmul_tf32(q, k.transpose(-1, -2), products) / np.sqrt(q.shape[-1])
     keep = torch.ones(q.shape[2], k.shape[2], dtype=torch.bool).tril()
     p = torch.exp(s.masked_fill(~keep, -torch.inf) - s.amax(-1, keepdim=True))
-    return _matmul_tf32(p, v, products) / p.sum(-1, keepdim=True)
+    return matmul_tf32(p, v, products) / p.sum(-1, keepdim=True)
 
 
 def test_tf32_rounding_is_round_to_nearest_ties_away():
@@ -403,7 +378,7 @@ def test_tf32_rounding_is_round_to_nearest_ties_away():
     x = torch.tensor([1 + unit * 0.4999, 1 + unit * 0.5, 1 + unit * 0.5001,
                       -(1 + unit * 1.5), 3 * unit, 0.0], dtype=torch.float32)
     want = torch.tensor([one, 1 + unit, 1 + unit, -(1 + 2 * unit), 3 * unit, 0.0])
-    assert torch.equal(_tf32(x), want)
+    assert torch.equal(tf32(x), want)
 
 
 @pytest.mark.parametrize("B, S, H, K, dh", [(2, 130, 4, 2, 64), (1, 96, 8, 1, 128),
@@ -448,6 +423,23 @@ def test_flash_attention_shape_only_call_counts_on_its_route(dt, dh):
     assert (fn.launches, fn.fake_launches) == (before[0], before[1] + 1)
     assert tops.route_launch_counts() == before[2]
     assert tops.route_launch_counts(fake=True)["flash_attention_bhsd"] == fakes
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_ssd_chunk_shape_only_call_counts_apart(dt):
+    """The SSD chunk's shape-only call, in either input dtype, counts in
+    ``.fake_launches`` and not in ``.launches``, and gives f32 outputs of
+    the kernel's shapes."""
+    fn = tssd.ssd_chunk_call
+    x = torch.empty(2, 256, 4, 64, dtype=TDT[dt], device="meta")
+    dtv = torch.empty(2, 256, 4, device="meta")
+    A = torch.empty(4, device="meta")
+    Bm = torch.empty(2, 256, 1, 128, dtype=TDT[dt], device="meta")
+    before = (fn.launches, fn.fake_launches)
+    y, st = fn(x, dtv, A, Bm, Bm, 128)
+    assert y.shape == (2, 2, 128, 4, 64) and st.shape == (2, 2, 4, 64, 128)
+    assert y.dtype == st.dtype == torch.float32
+    assert (fn.launches, fn.fake_launches) == (before[0], before[1] + 1)
 
 
 def test_reset_launch_counts_clears_the_routes():

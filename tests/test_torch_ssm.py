@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _tf32_emulation import matmul_tf32
 
 from repro.configs import get_config as jax_config
 from repro.kernels import ops as jops
@@ -279,6 +280,58 @@ def test_ssd_chunk_bf16_split_emulation_within_tolerance(split):
     for what, a, w in zip(("y_diag", "states"), got, want):
         rel = ((a - w).abs().max() / w.abs().max()).item()
         assert (rel <= 1e-4) == split, f"{what}: max error {rel:.3g} of the largest magnitude"
+
+
+def _ssd_chunk_tf32_emulation(x, dt, A, B, C, chunk: int, products: int):
+    """The f32 kernel's products in plain PyTorch (csrc/ssd.cu's
+    ``ssd_chunk_tf32x3_kernel``): C B^T, S x with S = C B^T exp(seg) dt_j,
+    and (x w)^T B, each from TF32 operands (``matmul_tf32``: three
+    products of hi + lo splits, or one of the rounded operands)."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    q, nc, rep = chunk, s // chunk, h // g
+    xh = x.reshape(b, nc, q, h, p).permute(0, 1, 3, 2, 4)          # (b, nc, h, j, p)
+    dtf = dt.reshape(b, nc, q, h)
+    Bg = B.reshape(b, nc, q, g, n).permute(0, 1, 3, 2, 4)          # (b, nc, g, j, n)
+    Cg = C.reshape(b, nc, q, g, n).permute(0, 1, 3, 2, 4)
+    cs = torch.cumsum(dtf * A, dim=2).permute(0, 1, 3, 2)           # (b, nc, h, q)
+    seg = cs[..., :, None] - cs[..., None, :]                       # (b, nc, h, i, j)
+    seg = torch.where(torch.tril(torch.ones((q, q), dtype=torch.bool)), seg, ref.NEG_INF)
+    cb = matmul_tf32(Cg, Bg.transpose(-1, -2), products).repeat_interleave(rep, dim=2)
+    dth = dtf.permute(0, 1, 3, 2)                                    # (b, nc, h, q)
+    S = cb * torch.exp(seg) * dth[..., None, :]
+    y = matmul_tf32(S, xh, products).permute(0, 1, 3, 2, 4)         # (b, nc, i, h, p)
+    w = dth * torch.exp(cs[..., -1:] - cs)
+    st = matmul_tf32((xh * w[..., None]).transpose(-1, -2), Bg.repeat_interleave(rep, dim=2),
+                     products)
+    return y, st
+
+
+@pytest.mark.parametrize("products", [3, 1])
+@pytest.mark.parametrize("p, n", [(64, 128), (100, 16)], ids=["mamba2", "hymba"])
+def test_ssd_chunk_tf32x3_split_emulation_within_tolerance(p, n, products):
+    """Why the f32 kernel takes three TF32 products for each f32 one: at
+    mamba2-2.7b's chunk shape (p 64, n 128) and hymba-1.5b's (p 100, n
+    16), q 128, with chip_smoke's input distributions, three products of
+    the hi + lo splits keep y_diag and the states within 1e-5 of the plain
+    f32 output's largest magnitude (ten times inside the 1e-4 the kernel
+    is held to on the card); one product of the rounded operands misses
+    1e-4."""
+    b, s, h, g, chunk = 1, 256, 4, 1, 128
+    rng = np.random.default_rng(p + n)
+    x = torch.from_numpy(rng.normal(size=(b, s, h, p)).astype(np.float32))
+    dt = torch.from_numpy(rng.uniform(0.01, 0.2, size=(b, s, h)).astype(np.float32))
+    A = torch.from_numpy(-rng.uniform(0.5, 4.0, size=(h,)).astype(np.float32))
+    Bm = torch.from_numpy(rng.normal(size=(b, s, g, n)).astype(np.float32))
+    Cm = torch.from_numpy(rng.normal(size=(b, s, g, n)).astype(np.float32))
+    got = _ssd_chunk_tf32_emulation(x, dt, A, Bm, Cm, chunk, products)
+    want = ssd.ssd_chunk_plain(x, dt, A, Bm, Cm, chunk)
+    for what, a, w in zip(("y_diag", "states"), got, want):
+        rel = ((a - w).abs().max() / w.abs().max()).item()
+        if products == 3:
+            assert rel <= 1e-5, f"{what}: max error {rel:.3g} of the largest magnitude"
+        else:
+            assert rel > 1e-4, f"{what}: max error {rel:.3g} of the largest magnitude"
 
 
 def test_ssd_chunk_strided_views_match_contiguous():

@@ -4,7 +4,7 @@ flash attention (the default), the Mamba2 SSD chunk, the int8 codec, or
 the fused pack+quantize.
 
     python3 tools/flash_report.py                     # csrc/flash_attention.cu
-    python3 tools/flash_report.py --source ssd.cu     # csrc/ssd.cu
+    python3 tools/flash_report.py --source ssd.cu [--baseline DIR] [--variants f32]
     python3 tools/flash_report.py --source quant.cu   # csrc/quant.cu
     python3 tools/flash_report.py --source pack.cu [--baseline DIR]
 
@@ -21,9 +21,9 @@ the fused pack+quantize.
    width (128, 64 bits or narrower).  For the wgmma flash kernel it
    checks that the registers a block holds at launch cover what its
    warpgroups ask for after setmaxnreg (a shortfall would stall the
-   consumers for good), and for the f32 (tf32x3) flash kernel that no
-   instantiation spills and each has HMMA instructions; it exits 1 if
-   not.
+   consumers for good), and for the f32 (tf32x3) kernels of flash and
+   the SSD chunk that no instantiation spills and each has HMMA
+   instructions; it exits 1 if not.
 3. On a card, prints the card's name and power limit and times with CUDA
    events:
    - flash attention at every timed prefill shape of chip_smoke.py
@@ -35,10 +35,17 @@ the fused pack+quantize.
      unpacked by ``git archive``) built from its csrc/ and timed in turns
      with this tree's (baseline, this tree, this tree, baseline); with
      ``--variants [bf16|f32]``, FLASH_VARIANTS of that dtype's kernel;
-   - the SSD chunk at the mamba2-2.7b prefill shape (b=4, s=1024, h=80,
-     p=64, g=1, n=128, q=128) in f32 and in bf16 at the heads per block
-     the kernel picks and at 4, 8 and 16, each beside its bound and with
-     the rate its f32 outputs are stored at;
+   - the SSD chunk through the C entry point at the mamba2-2.7b prefill
+     shape (b=4, s=1024, h=80, p=64, g=1, n=128, q=128) and at
+     hymba-1.5b's (b=4, s=2048, h=32, p=100, g=1, n=16) in f32 and bf16,
+     and at a mamba2-2.7b TP-2 rank's (h=40) in bf16, each beside its
+     bound; with ``--baseline DIR``, the SSD kernels of another checkout
+     built from its csrc/ssd.cu and timed in turns with this tree's
+     (baseline, this tree, this tree, baseline); with ``--variants f32``,
+     SSD_VARIANTS of the f32 kernel; then in bf16 at the mamba2-2.7b
+     shape at the heads per block the kernel picks and at 4, 8 and 16,
+     each beside its bound and with the rate its f32 outputs are stored
+     at;
    - the shared-scale codec's streaming kernels at their main path
      shapes: amax_block and quant_scaled on qwen2.5-3b's bf16 gradient
      segment (3,085,938,688 values), dequant_int8 from int32 to bf16 on
@@ -101,6 +108,14 @@ WGMMA_ASKED = 128 * 24 + 256 * 240
 # 2 x 32 value rows of dh + 4
 TF32X3_SMEM = {dh: 4 * (64 * (dh + 8) + 64 * (dh + 8) + 64 * (dh + 4)) for dh in fa.HEAD_DIMS}
 SSD_SHAPE = (4, 1024, 80, 64, 1, 128, 128)     # b, s, h, p, g, n, q
+# the SSD chunk's shapes timed through the C entry point: mamba2-2.7b's,
+# a mamba2-2.7b TP-2 rank's (40 heads) and hymba-1.5b's prefill; the
+# variants run at the f32 ones
+_HYMBA = (4, 2048, 32, 100, 1, 16, 128)
+SSD_TIMED = {("mamba2-2.7b", torch.float32): SSD_SHAPE, ("hymba-1.5b", torch.float32): _HYMBA,
+             ("mamba2-2.7b", torch.bfloat16): SSD_SHAPE,
+             ("mamba2-2.7b TP-2 rank", torch.bfloat16): (4, 1024, 40, 64, 1, 128, 128),
+             ("hymba-1.5b", torch.bfloat16): _HYMBA}
 SSD_HEADS_PER_BLOCK = (0, 4, 8, 16)             # 0: the kernel's pick
 SEGMENT = 3_085_938_688                         # qwen2.5-3b's bf16 gradient segment
 KV_LEAF = (36, 4, 1024, 2, 128)                 # one qwen2.5-3b cache leaf
@@ -185,16 +200,18 @@ def round16(v: int) -> int:
 
 
 def ssd_smem(label: str) -> str:
-    """Dynamic shared memory per block of ssd.cu's kernels at SSD_SHAPE:
-    smem_bytes (f32) and mma_smem_bytes (bf16, at the 20 heads per block
-    the launcher picks there)."""
+    """Dynamic shared memory per block of ssd.cu's kernels at SSD_SHAPE, at
+    the 20 heads per block the launchers pick there: mma_smem_bytes (bf16)
+    and tf_smem_bytes (f32, two x buffers)."""
     _, _, _, p, _, n, q = SSD_SHAPE
+    heads, qt = 20, q // 16
     if "mma" in label:
-        heads, qt = 20, q // 16
         nbytes = (4 * q * (round16(n) + 8) + qt * (qt + 1) * 512 + 12 * heads * q
                   + 4 * q * (round16(p) + 8))
-        return f"{nbytes} bytes at {SSD_SHAPE} with {heads} heads"
-    return f"{4 * q * (2 * (n + 4) + p + 16 * 4 + 3)} bytes at {SSD_SHAPE}"
+    else:
+        nbytes = 4 * (2 * q * ((p + 7) // 8 * 8 + 4) + q * (round16(n) + 4)
+                      + qt * (qt + 1) * 128 + 3 * heads * q)
+    return f"{nbytes} bytes at {SSD_SHAPE} with {heads} heads"
 
 
 def smem_note(label: str) -> str:
@@ -235,7 +252,7 @@ def short(name: str) -> str:
 def compile_and_inspect(source: pathlib.Path) -> bool:
     """Steps 1-2; False when a wgmma kernel's registers at launch fall
     short of what setmaxnreg asks for, or it has no HGMMA or UTMALDG, or
-    a tf32x3 kernel spills or has no HMMA."""
+    a tf32x3 kernel (flash's or the SSD chunk's) spills or has no HMMA."""
     tmp_root = _build.BUILD_DIR.parent / "report"
     tmp_root.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=tmp_root) as tmp:
@@ -292,7 +309,7 @@ def compile_and_inspect(source: pathlib.Path) -> bool:
             print(f"[ptxas] {label}: {held} registers held at launch, {WGMMA_ASKED} asked "
                   f"for after setmaxnreg")
             ok = ok and held >= WGMMA_ASKED and c["HGMMA"] > 0 and c["UTMALDG"] > 0
-        if label.startswith("flash_attention_tf32x3"):
+        if "tf32x3" in label:
             spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                                " ".join(ptxas.get(mangled, [])))
             spilled = spills is None or spills.group(1) != "0" or spills.group(2) != "0"
@@ -488,26 +505,158 @@ def time_flash_variants(smi: str, which: str) -> None:
         print(f"[ablation] [{smi}] flash {shape}, {dt}: this tree again {time_ms(base):.4f} ms")
 
 
-def time_ssd_prefill_shape(smi: str) -> None:
+def _ssd(old: str, new: str) -> tuple:
+    return ("ssd.cu", old, new)
+
+
+_SSD_PARTS = "  a.parts = pick_parts(batch * a.nc * a.G, rep, max_heads);\n"
+_SSD_ROWS = "    for (int pd = 0; has_rows && pd < PT; pd += kPassTiles) {"
+_SSD_STATES = "    for (int p0 = np0; has_state && p0 < np1; p0 += kPassTiles) {"
+# name: edits of csrc/ (the f32 kernel's design space: heads per block,
+# one x buffer, expf for ex2.approx, the small terms' accumulator; and
+# ablations that drop one part of a head's work or the split of one
+# operand, timed only: their outputs are wrong by design)
+SSD_VARIANTS = {
+    **{f"{k} heads per block": [_ssd(_SSD_PARTS, f"  a.parts = (rep + {k - 1}) / {k};\n")]
+       for k in (4, 8, 10, 16)},
+    "one x buffer (no prefetch)": [_ssd(
+        "  a.xbufs = tf_smem_bytes(a.Q, a.P, a.N, 1, 2) <= static_cast<size_t>(kMaxSmem) ? 2 : 1;",
+        "  a.xbufs = 1;")],
+    "expf for ex2.approx": [_ssd("sDt, sCs, sW, kLog2e);", "sDt, sCs, sW, 1.f);"),
+                            _ssd("exp2_approx(e", "expf(e")],
+    **{f"y_diag's key loop unrolled by {k}": [
+        _ssd("#pragma unroll 2\n      for (int kb = 0; kb < 2 * (rt + 1); ++kb) {",
+             f"#pragma unroll {k}\n      for (int kb = 0; kb < 2 * (rt + 1); ++kb) {{")]
+       for k in (1, 4)},
+    **{f"the states' key loop unrolled by {k}": [
+        _ssd("#pragma unroll 1\n      for (int j = 2 * t; j < Q; j += 8) {",
+             f"#pragma unroll {k}\n      for (int j = 2 * t; j < Q; j += 8) {{")]
+       for k in (2, 4)},
+    # the first design's passes: a guard on each tile past p or past the
+    # warp's tiles of n
+    "tile guards in the passes": [
+        _ssd("for (int dp = 0; dp < kPassTiles; ++dp) {\n          const float2 x0",
+             "for (int dp = 0; dp < kPassTiles; ++dp) {\n          if (pd + dp >= PT) continue;\n"
+             "          const float2 x0"),
+        _ssd("for (int pr = 0; pr < kPassTiles; ++pr) {\n          const float2 b0",
+             "for (int pr = 0; pr < kPassTiles; ++pr) {\n          if (p0 + pr >= np1) continue;\n"
+             "          const float2 b0")],
+    # the small terms into a zeroed accumulator, added after: the chain
+    # into d is one product, not three
+    "small terms apart": [
+        ("mma.cuh", "  mma_tf32(d, al, bh0, bh1);\n  mma_tf32(d, ah, bl0, bl1);\n"
+         "  mma_tf32(d, ah, bh0, bh1);\n",
+         "  float s[4] = {0.f, 0.f, 0.f, 0.f};\n  mma_tf32(s, al, bh0, bh1);\n"
+         "  mma_tf32(s, ah, bl0, bl1);\n  mma_tf32(d, ah, bh0, bh1);\n"
+         "  d[0] += s[0]; d[1] += s[1]; d[2] += s[2]; d[3] += s[3];\n")],
+    "ablation: one TF32 product (error and timing only)": [
+        ("mma.cuh", "  mma_tf32(d, al, bh0, bh1);\n  mma_tf32(d, ah, bl0, bl1);\n", "")],
+    # the split instructions a pre-split B (states) or x (y_diag) would
+    # save, at most: the operand's bits as hi and as lo, loads and products
+    # as they are
+    "ablation: B not split in the states (timing only)": [
+        _ssd(f"split_tf32({v}0.{c}, bh0, bl0);\n          split_tf32({v}1.{c}, bh1, bl1);",
+             f"bh0 = bl0 = __float_as_uint({v}0.{c});\n          "
+             f"bh1 = bl1 = __float_as_uint({v}1.{c});") for v, c in (("b", "x"), ("b", "y"))],
+    "ablation: x not split in y_diag (timing only)": [
+        _ssd(f"split_tf32({v}0.{c}, bh0, bl0);\n          split_tf32({v}1.{c}, bh1, bl1);",
+             f"bh0 = bl0 = __float_as_uint({v}0.{c});\n          "
+             f"bh1 = bl1 = __float_as_uint({v}1.{c});") for v, c in (("x", "x"), ("x", "y"))],
+    "ablation: no y_diag (timing only)": [_ssd(_SSD_ROWS, _SSD_ROWS.replace("has_rows", "false"))],
+    "ablation: no states (timing only)": [_ssd(_SSD_STATES, _SSD_STATES.replace("has_state", "false"))],
+    "ablation: loads, scans and C B^T only (timing only)": [
+        _ssd(_SSD_ROWS, _SSD_ROWS.replace("has_rows", "false")),
+        _ssd(_SSD_STATES, _SSD_STATES.replace("has_state", "false"))],
+}
+
+
+def ssd_launcher(lib, args, y, st, q: int, heads_per_block: int = 0):
+    """A call of ``lib``'s ssd_chunk_launch as the wrapper makes it, into
+    ``y`` and ``st``."""
+    x, dt, A, B, C = args
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    call = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+            ssd._CODES[x.dtype], y.data_ptr(), st.data_ptr(), b, s, h, g, p, n, q,
+            *x.stride()[:3], *dt.stride()[:3], *B.stride()[:3], *C.stride()[:3],
+            heads_per_block, _build.stream_handle(x.device))
+    return lambda: _build.check(lib.ssd_chunk_launch(*call), "ssd_chunk")
+
+
+def ssd_error(got, want) -> float:
+    """The larger of y_diag's and the states' max error, as a share of the
+    plain output's largest magnitude."""
+    return max(((a - w).abs().max() / w.abs().max()).item() for a, w in zip(got, want))
+
+
+def time_ssd_shapes(smi: str, baseline: pathlib.Path | None, variants: bool) -> None:
+    """The SSD chunk at SSD_TIMED through the C entry point, beside its
+    bound, the baseline's kernel in turns and (f32) SSD_VARIANTS."""
+    from chip_smoke import ssd_bound_ms, ssd_inputs
+
+    base = build_baseline(baseline, "ssd.cu") if baseline is not None else None
+    libs = build_edited("ssd.cu", "ssd", SSD_VARIANTS) if variants else {}
+    shipped = _build.library()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False     # the plain version in full f32
+    for (name, dtype), (b, s, h, p, g, n, q) in SSD_TIMED.items():
+        args = ssd_inputs("cuda", gen, b, s, h, p, g, n, dtype, view=True)
+        want = ssd.ssd_chunk_plain(*args, q)
+        # the kernel's outputs are contiguous (the plain version's y_diag is a
+        # permuted einsum result, so not empty_like)
+        y, st = (torch.empty(w.shape, device="cuda") for w in want)
+        bound, by = ssd_bound_ms(b, s, h, p, g, n, q, dtype)
+        this = ssd_launcher(shipped, args, y, st, q)
+        this()
+        err = ssd_error((y, st), want)
+        line = [f"[time] [{smi}] ssd_chunk {dtype} {name} prefill {(b, s, h, p, g, n, q)}, conv "
+                f"slices: bound {bound:.4f} ms ({by}); max error {err:.3g} of the largest "
+                f"magnitude"]
+        if base is None:
+            ms = time_ms(this, 20)
+            line.append(f"this tree {ms:.4f} ms ({bound / ms:.1%} of the bound)")
+        else:
+            before = ssd_launcher(base, args, y, st, q)
+            before()
+            base_err = ssd_error((y, st), want)
+            times = [time_ms(fn, 20) for fn in (before, this, this, before)]
+            line.append(f"baseline {times[0]:.4f} / {times[3]:.4f} ms (max error {base_err:.3g})"
+                        f", this tree {times[1]:.4f} / {times[2]:.4f} ms ({bound / times[1]:.1%} "
+                        f"/ {bound / times[2]:.1%} of the bound)")
+        print("; ".join(line))
+        if dtype != torch.float32:
+            continue
+        for vname, lib in libs.items():
+            fn = ssd_launcher(lib, args, y, st, q)
+            fn()
+            verr = ssd_error((y, st), want)
+            ms = time_ms(fn, 20)
+            print(f"[ablation] [{smi}] ssd_chunk f32 {name}: {vname}: {ms:.4f} ms "
+                  f"({bound / ms:.1%} of the bound), max error {verr:.3g} of the largest "
+                  f"magnitude")
+        if libs:
+            print(f"[ablation] [{smi}] ssd_chunk f32 {name}: this tree again "
+                  f"{time_ms(this, 20):.4f} ms")
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def time_ssd_heads_per_block(smi: str) -> None:
     from chip_smoke import ssd_bound_ms, ssd_inputs
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     b, s, h, p, g, n, q = SSD_SHAPE
     out_bytes = 4 * b * s * h * p + 4 * b * (s // q) * h * p * n   # y_diag and states, f32
-    for dt in (torch.float32, torch.bfloat16):
-        args = ssd_inputs("cuda", gen, b, s, h, p, g, n, dt)
-        want = ssd.ssd_chunk_plain(*args, q)
-        bound, by = ssd_bound_ms(b, s, h, p, g, n, q, dt)
-        for hpb in (0,) if dt == torch.float32 else SSD_HEADS_PER_BLOCK:
-            got = ssd.ssd_chunk_call(*args, q, heads_per_block=hpb)
-            err = max(((a - w).abs().max() / w.abs().max()).item() for a, w in zip(got, want))
-            ms = time_ms(lambda: ssd.ssd_chunk_call(*args, q, heads_per_block=hpb))
-            runs = "one block per head" if dt == torch.float32 else (
-                f"heads per block {hpb or 'picked'}")
-            print(f"[time] [{smi}] ssd_chunk {SSD_SHAPE}, {dt}, {runs}: {ms:.4f} ms, "
-                  f"bound {bound:.4f} ms ({by}), {ms / bound:.1f}x the bound; f32 outputs "
-                  f"stored at {out_bytes / ms / 1e9:.3f} TB/s; max error {err:.3g} of the "
-                  f"largest magnitude")
+    args = ssd_inputs("cuda", gen, b, s, h, p, g, n, torch.bfloat16)
+    want = ssd.ssd_chunk_plain(*args, q)
+    bound, by = ssd_bound_ms(b, s, h, p, g, n, q, torch.bfloat16)
+    for hpb in SSD_HEADS_PER_BLOCK:
+        err = ssd_error(ssd.ssd_chunk_call(*args, q, heads_per_block=hpb), want)
+        ms = time_ms(lambda: ssd.ssd_chunk_call(*args, q, heads_per_block=hpb))
+        print(f"[time] [{smi}] ssd_chunk {SSD_SHAPE}, torch.bfloat16, heads per block "
+              f"{hpb or 'picked'}: {ms:.4f} ms, bound {bound:.4f} ms ({by}), {ms / bound:.1f}x "
+              f"the bound; f32 outputs stored at {out_bytes / ms / 1e9:.3f} TB/s; max error "
+              f"{err:.3g} of the largest magnitude")
 
 
 def bind(path: pathlib.Path) -> ctypes.CDLL:
@@ -713,24 +862,25 @@ def main() -> int:
                     choices=("flash_attention.cu", "ssd.cu", "quant.cu", "pack.cu"),
                     help="the source under src/repro_torch/csrc/ to inspect and time")
     ap.add_argument("--baseline", type=pathlib.Path, default=None,
-                    help="with --source pack.cu or flash_attention.cu: another checkout of "
-                         "the repository whose kernel is timed beside this tree's")
+                    help="with --source pack.cu, flash_attention.cu or ssd.cu: another "
+                         "checkout of the repository whose kernel is timed beside this tree's")
     ap.add_argument("--inspect-only", action="store_true",
                     help="compile and inspect (steps 1-2), time nothing")
     ap.add_argument("--variants", nargs="?", const="all", choices=("all", "bf16", "f32"),
                     help="with flash_attention.cu: also build and time FLASH_VARIANTS (of "
-                         "one dtype's kernel, or all)")
+                         "one dtype's kernel, or all); with ssd.cu: SSD_VARIANTS (f32)")
     args = ap.parse_args()
     source = _build.CSRC / args.source
     if not compile_and_inspect(source):
         print("flash_report: a wgmma kernel would not get the registers setmaxnreg asks "
-              "for, or has no HGMMA or UTMALDG instruction, or a tf32x3 kernel spills or "
-              "has no HMMA", file=sys.stderr)
+              "for, or has no HGMMA or UTMALDG instruction, or a tf32x3 kernel (flash's or "
+              "the SSD chunk's) spills or has no HMMA", file=sys.stderr)
         return 1
     if torch.cuda.is_available() and not args.inspect_only:
         smi = card()
         if source.stem == "ssd":
-            time_ssd_prefill_shape(smi)
+            time_ssd_shapes(smi, args.baseline, bool(args.variants))
+            time_ssd_heads_per_block(smi)
         elif source.stem == "quant":
             time_codec_shapes(smi)
         elif source.stem == "pack":
