@@ -86,8 +86,8 @@
    hier + int8, 3 steps on the card and on the CPU in the same world:
    losses and grad norms within 1e-4, the codec and pack kernels once per
    step on each rank's segment; then the SSM families: mamba2-2.7b served
-   at TP 2 (SSM_TP_DEPTH = 16 of its 64 layers, to keep the script within
-   ~10 minutes; 40 heads per rank), checked as TP 1 is,
+   at TP 2 (SSM_TP_DEPTH = 8 of its 64 layers, to keep the script within
+   its time limit; 40 heads per rank), checked as TP 1 is,
    and in f32 against TP 1 with the gated norm over the same two channel
    groups (each rank takes it over its own channels, so TP 2 is another
    function than TP 1, ROADMAP R18; the bf16 difference from TP 1 is
@@ -222,15 +222,24 @@
    row (no flash: training attention is plain).  Phase 2 checks and times
    flash at the four new shapes (whisper's encoder, cross-attention and
    decoder, chameleon's prefill) and phase 3 holds both smoke models on the
-   card against the CPU, whisper with 130 frames.
+   card against the CPU, whisper with 130 frames.  (c) Right after (b),
+   whisper-tiny at full width in f32 with sequence parallelism at TP 2
+   over 2 data ranks (4 gloo processes on the card) under hier_overlap +
+   int8, where every layer's b2 is no input of the loss (ROADMAP R22):
+   SP_OVERLAP_STEPS steps on the card against the same world on the CPU
+   (losses and grad norms within 1e-4), the pack and each codec kernel
+   once per bucket per step on each rank, the unread b2 leaves counted
+   down before the backward and their buckets synced before its last
+   gradient; the graph walk's host ms per step printed.
 12. Head padding under tensor parallelism and GPipe, after the SSM
    families' TP phases (``--phases padding``, ``--phases pp``):
-   hymba-1.5b served at TP 8 at full width and all 32 layers (25 Q heads
-   padded to 32, its 5 KV heads replicated and gathered per Q head: 4 Q /
-   4 KV and 4 SSM heads a rank), 8 spawned ranks on the card over gloo,
-   4 x 2048 tokens, the cache raw and int8, PAD_GEN greedy tokens, each rank
-   checked as the TP-1 path is (32 flash and 32 ssd_chunk launches per
-   prefill, 4 of each codec kernel per transfer, none in decode, its
+   hymba-1.5b served at TP 8 at full width and PAD_LAYERS of its 32
+   layers (25 Q heads padded to 32, its 5 KV heads replicated and
+   gathered per Q head: 4 Q / 4 KV and 4 SSM heads a rank), 8 spawned
+   ranks on the card over gloo, 4 x 2048 tokens, the cache raw and int8,
+   PAD_GEN greedy tokens, each rank checked as the TP-1 path is (a flash
+   and an ssd_chunk launch per layer per prefill, 4 of each codec kernel
+   per transfer, none in decode, its
    cache shard at the padded local heads); then the same 8-rank world in
    f32 at PAD_F32_LAYERS layers, the tree drawn on the CPU and copied to
    the card (each rank's card prefill launching the SSD chunk once per
@@ -384,8 +393,14 @@ PAD_SERVE = {HYBRID_ARCH: 8, ENCDEC_ARCH: 4}
 # greedy tokens of the padded serving phases: a decode step of hymba-1.5b on
 # 8 one-card gloo ranks took 2.84 s (97 collectives a step, each a CUDA
 # tensor staged through the host while 8 processes share the card), so its
-# 3 x 16 steps would take ~136 s of the script's budget; it decodes 4
-PAD_GEN = {HYBRID_ARCH: 4, ENCDEC_ARCH: GEN}
+# 3 x 16 steps would take ~136 s of the script's budget; it decodes 4, and
+# whisper-tiny at TP 4 too
+PAD_GEN = {HYBRID_ARCH: 4, ENCDEC_ARCH: 4}
+# the padded serving phases' depth: hymba-1.5b at TP 8 serves 4 of its 32
+# layers (its layers are alike; at 32 its two prefills and 12 decode steps
+# took ~60 of the phase's 94 s, and the whole script 1156.5 s of its 1200 on
+# a slow host once whisper's SP hier_overlap phase came); whisper-tiny all
+PAD_LAYERS = {HYBRID_ARCH: 4}
 PAD_F32_LAYERS, PAD_F32_PROMPT, PAD_F32_GEN = 4, 1280, 4
 PAD_F32_TOL = 1e-3      # of the CPU's largest logit
 # GPipe over a pod group of 2 (2 ranks on the card over gloo) against one
@@ -1320,15 +1335,14 @@ def check_sync_parity(gpu, rt, mode: str, tcfg: TrainConfig) -> str:
     b = {k: torch.from_numpy(v).long().to(gpu.device) for k, v in synth_batch(
         DataConfig(vocab_size=cfg.vocab_size, global_batch=2, seq_len=64), 7).items()}
 
-    def backward():
+    def loss():
         with torch.enable_grad():
-            lval, _ = loss_lib.sharded_xent(gpu.apply_train(b["tokens"])[0], b["labels"], rt,
-                                            cfg.vocab_size)
-            return torch.autograd.grad(lval, params)
+            return loss_lib.sharded_xent(gpu.apply_train(b["tokens"])[0], b["labels"], rt,
+                                         cfg.vocab_size)[0]
 
     for p in params:
         p.requires_grad_(True)
-    raw = backward()
+    raw = torch.autograd.grad(loss(), params)
     card, host = [g.clone() for g in raw], [g.cpu() for g in raw]
     if mode == "hier_overlap":
         tree = gpu.param_tree()
@@ -1337,8 +1351,9 @@ def check_sync_parity(gpu, rt, mode: str, tcfg: TrainConfig) -> str:
             overlap.tree_hier_psum_overlap(_map_tree(tree, lambda t: by_id[id(t)]), ccfg,
                                            packed=tcfg.packed)
         sync = overlap.BucketSync(tree, ccfg, packed=tcfg.packed)
-        with sync.attached():
-            inside = backward()
+        lval = loss()
+        with sync.attached(lval):
+            inside = torch.autograd.grad(lval, params)
         check(all(bits_equal(a, c) for a, c in zip(inside, card)),
               "hier_overlap: the hook executor differs from the sync after the backward")
         synced = (card, host)
@@ -2380,13 +2395,15 @@ def train_full_width(dev, smi: str, mode: str, codec: str | None, arch: str = AR
     check(res["peak_mem_gb"] < total_gb, f"peak {res['peak_mem_gb']} GB of {total_gb} GB")
     losses = [r["loss"] for r in res["records"]]
     frames = f" and {TRAIN_BATCH} x {cfg.enc_seq} frames" if cfg.n_enc_layers else ""
+    walk = ("" if mode != "hier_overlap" else "; the unread walk's host ms per step "
+            f"{[round(r['walk_ms'], 3) for r in res['records']]}")
     print(f"[train] [{smi}] {res['arch']} ({res['params']} params, bf16, {cfg.n_layers} "
           f"layers), {mode} + {codec} over a pod and a data group of one, {TRAIN_BATCH} x "
           f"{seq} tokens{frames}: "
           f"step {res['step_ms']:.3f} ms (median of steps 1-{TRAIN_STEPS - 1}), "
           f"{res['tokens_per_s']:.1f} tokens/s, peak memory {res['peak_mem_gb']:.3f} GB of "
           f"the card's {total_gb:.3f} GB, losses {losses}; launches per step {want}, "
-          f"before the steps {boot}")
+          f"before the steps {boot}{walk}")
     res["counts"] = counts
     return res
 
@@ -2473,15 +2490,23 @@ def train_planned_paths(dev, smi: str) -> tuple[dict, dict]:
 
 TP_DEPTH = 4          # phase (b)'s layers: TP 4, replicated KV
 TP_TRAIN_STEPS = 3
-# mamba2-2.7b at TP 2: 16 of its 64 layers, so that the script stays within
-# ~10 minutes (at 64 layers the whole run took 940.7 s on a slow host)
-SSM_TP_DEPTH = 16
+# mamba2-2.7b at TP 2: 8 of its 64 layers, so that the script stays within
+# its 1200 s (16 until whisper's SP hier_overlap phase came; at 64 layers the
+# whole run once took 940.7 s on a slow host)
+SSM_TP_DEPTH = 8
 # the f32 smoke models trained at TP 2 (and hymba's at TP 8, its heads
 # padded): job -> (arch, TP size)
 # the TP-8 job's grad norms, card against CPU (train_tp)
 TP8_NORM_TOL = 1e-3
 TP_TRAIN_JOBS = {"train": (ARCH, 2), "moe_train": (MOE_ARCH, 2), "ssm_train": (SSM_ARCH, 2),
                  "hybrid_train": (HYBRID_ARCH, 2), "hybrid_train8": (HYBRID_ARCH, 8)}
+# whisper-tiny trained with sequence parallelism at TP 2 under
+# hier_overlap + int8 (its GELU MLPs' b2 unread, R22): SP_OVERLAP_DATA data
+# ranks x TP 2 as gloo processes on the one card, a global batch of
+# SP_OVERLAP_BATCH rows of 1500 frames and SP_OVERLAP_SEQ tokens (one row
+# a data rank: cut from training's 4 x 1024 to keep the CPU twin short)
+SP_OVERLAP_TP, SP_OVERLAP_DATA = 2, 2
+SP_OVERLAP_BATCH, SP_OVERLAP_SEQ, SP_OVERLAP_STEPS = 2, 256, 3
 
 
 def tp_logit_tol(layers: int, tp: int) -> float:
@@ -2508,7 +2533,7 @@ def tp_logit_tol(layers: int, tp: int) -> float:
 # (``tools/ssm_tp_norm.py``, on the CPU); at full width the per-layer part
 # is sqrt(5) larger (K 5120 against 1024), 1.6e-3, and the bound takes 12x
 # that for the card's GEMMs, which split K otherwise (at 64 layers the
-# card read 1.848e-3 of 4.262; SSM_TP_DEPTH's 16 layers grow less).  R18
+# card read 1.848e-3 of 4.262; SSM_TP_DEPTH's 8 layers grow less).  R18
 # alone moves the logits by O(1) of the largest (1.77 of 1.33 at d_model
 # 256, f32; 5.575 of 4.262 on the card at 64 layers).
 SSM_TP_F32_TOL = 2e-2
@@ -2559,10 +2584,13 @@ def _tp_rank(rank: int, world: int, job: str, out_dir: str, device: str = "cuda"
             out = _tp_train(dev, world, TP_TRAIN_JOBS[job][0])
         elif job == "pp":
             out = _pp_rank(dev)
+        elif job == "sp_overlap":
+            out = _sp_overlap_train(dev)
         elif job in PAD_SERVE:
             arch = job
             out = disaggregated.run(arch, batch=BATCH, gen=PAD_GEN[arch], device=dev, tp=world,
-                                    prompt_len=HYBRID_SEQ if arch == HYBRID_ARCH else PROMPT)
+                                    prompt_len=HYBRID_SEQ if arch == HYBRID_ARCH else PROMPT,
+                                    layers=PAD_LAYERS.get(arch))
         elif job == "elastic":
             out = _elastic_rank(dev, rank, out_dir)
         elif job == "ssm_serve":
@@ -2620,6 +2648,56 @@ def _tp_train(dev, tp: int, arch: str) -> dict:
             launches.append({k: after[k] - before[k] for k in after})
             metrics.append((m["loss"], m["grad_norm"], m["gated"]))
         out[name] = {"metrics": metrics, "launches": launches}
+    return out
+
+
+def _sp_overlap_train(dev) -> dict:
+    """One rank of whisper-tiny at its published widths in f32, sequence
+    parallel at TP SP_OVERLAP_TP over SP_OVERLAP_DATA data ranks, under
+    hier_overlap + int8: SP_OVERLAP_STEPS steps on the CPU, then on the
+    card from the same parameters and this rank's rows of the same
+    batches.  Per step the metrics, the host ms (card), the launches, the
+    walk's host ms and the sync's event log; the bucket count and the
+    buckets that hold a layer's (and so an unread b2); the seconds from
+    the job's start to its first step."""
+    t_start = time.perf_counter()
+    rt = runtime_for_groups(pods=1, data_per_pod=SP_OVERLAP_DATA, tp=SP_OVERLAP_TP, sp=True)
+    cfg = dataclasses.replace(get_config(ENCDEC_ARCH), dtype=torch.float32)
+    cpu = Model(cfg, rt, device="cpu").init(0)
+    gpu = copy.deepcopy(cpu, {id(rt): rt}).to(dev)
+    tcfg = TrainConfig(comm_mode="hier_overlap", dcn_compression="int8",
+                       opt=opt_lib.OptConfig(lr=1e-3, warmup_steps=1))
+    specs = overlap.partition_tree(cpu.param_tree(), tcfg.bucket_cap_mb << 20)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, global_batch=SP_OVERLAP_BATCH,
+                      seq_len=SP_OVERLAP_SEQ, enc_seq=cfg.enc_seq, d_model=cfg.d_model)
+    rows = train_launch.dp_rows(dist.get_rank(), SP_OVERLAP_BATCH, 1, SP_OVERLAP_DATA,
+                                SP_OVERLAP_TP)
+    out = {"buckets": len(specs),
+           "layer_buckets": [spec.index for spec in specs
+                             if any(key in ("layers", "enc_layers") for key, _, _ in spec.entries)]}
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        step_fn, _ = make_train_step(model, tcfg)
+        opt = opt_lib.adam_init(opt_lib.flat_params(model.train_leaves())[0])
+        steps = []
+        if model is gpu:
+            ops.reset_launch_counts()
+        else:
+            out["setup_s"] = time.perf_counter() - t_start
+        for i in range(SP_OVERLAP_STEPS):
+            b = {k: torch.from_numpy(v[rows]).to(model.device,
+                                                 torch.long if k != "enc" else None)
+                 for k, v in synth_batch(dcfg, i).items()}
+            before = ops.launch_counts()
+            t0 = time.perf_counter()
+            m = step_fn(opt, b)
+            if model is gpu:
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            after = ops.launch_counts()
+            steps.append({k: m[k] for k in ("loss", "grad_norm", "gated", "walk_ms",
+                                            "sync_events")}
+                         | {"ms": ms, "launches": {k: after[k] - before[k] for k in after}})
+        out[name] = steps
     return out
 
 
@@ -2839,6 +2917,77 @@ def train_tp(smi: str, arch: str = ARCH, tp: int = 2) -> dict[str, int]:
     return total
 
 
+def check_unread_order(events: list, layer_buckets: list[int], n_buckets: int,
+                       n_unread: int, what: str) -> None:
+    """A hier_overlap step's event log with unread parameters: ``n_unread``
+    of them, counted down before the backward, in exactly the buckets that
+    hold layers; every bucket synced once, in index order; and each bucket
+    holding one synced before the backward's last gradient arrived."""
+    unread = [b for e, b in events if e == "unread"]
+    check(len(unread) == n_unread and sorted(set(unread)) == layer_buckets
+          and events[:n_unread] == [("unread", b) for b in unread],
+          f"{what}: unread {unread}, layer buckets {layer_buckets}")
+    check([b for e, b in events if e == "sync"] == list(range(n_buckets)),
+          f"{what}: syncs {[b for e, b in events if e == 'sync']}")
+    last_grad = max(i for i, (e, _) in enumerate(events) if e == "grad")
+    check(all(events.index(("sync", b)) < last_grad for b in layer_buckets),
+          f"{what}: a bucket holding an unread b2 synced after the backward's last gradient")
+
+
+def train_sp_overlap(smi: str) -> dict[str, int]:
+    """whisper-tiny at its published widths, f32, with sequence parallelism
+    at TP 2 under hier_overlap + int8 (``_sp_overlap_train`` on
+    SP_OVERLAP_DATA x TP 2 gloo ranks on the one card): losses and grad
+    norms within 1e-4 (relative) card against CPU, the finite gate open,
+    pack_slots and each codec kernel once per bucket per step on each
+    rank and nothing on the CPU side, and in every step's event log the
+    unread b2 leaves (one a layer) counted down first and each of their
+    buckets synced before the backward's last gradient."""
+    ranks = _spawn_tp("sp_overlap", SP_OVERLAP_TP * SP_OVERLAP_DATA)
+    cfg = get_config(ENCDEC_ARCH)
+    n, layer_buckets = ranks[0]["buckets"], ranks[0]["layer_buckets"]
+    want = dict.fromkeys(ranks[0]["counts"], 0) | dict.fromkeys(
+        ("pack_slots", "amax_block", "quant_scaled", "dequant_int8"), n)
+    total = dict.fromkeys(ranks[0]["counts"], 0)
+    for r, res in enumerate(ranks):
+        check((res["buckets"], res["layer_buckets"]) == (n, layer_buckets),
+              f"whisper SP rank {r}: buckets {res['buckets']}, {res['layer_buckets']}")
+        for i, (g, c) in enumerate(zip(res["gpu"], res["cpu"])):
+            what = f"whisper SP hier_overlap rank {r} step {i}"
+            check(g["launches"] == want, f"{what}: launches {g['launches']}")
+            check(not any(c["launches"].values()), f"{what}: the CPU step launched kernels")
+            check(not (g["gated"] or c["gated"]), f"{what}: the finite gate tripped")
+            check(abs(g["loss"] - c["loss"]) / abs(c["loss"]) < 1e-4
+                  and abs(g["grad_norm"] - c["grad_norm"]) / abs(c["grad_norm"]) < 1e-4,
+                  f"{what}: card {g['loss'], g['grad_norm']} against CPU "
+                  f"{c['loss'], c['grad_norm']}")
+            for side, step in (("card", g), ("CPU", c)):
+                check_unread_order(step["sync_events"], layer_buckets, n,
+                                   cfg.n_layers + cfg.n_enc_layers, f"{what} ({side})")
+        for k, v in res["counts"].items():
+            total[k] += v
+    gm, cm = ranks[0]["gpu"], ranks[0]["cpu"]
+    errs = [max(abs(g[k] - c[k]) / abs(c[k]) for g, c in zip(gm, cm))
+            for k in ("loss", "grad_norm")]
+    losses, norms = ([f"{step[k]:.6f}" for step in gm] for k in ("loss", "grad_norm"))
+    card_ms, cpu_ms, card_walk, cpu_walk = ([round(step[k], 3) for step in steps]
+                                            for k, steps in (("ms", gm), ("ms", cm),
+                                                             ("walk_ms", gm),
+                                                             ("walk_ms", cm)))
+    per_step = {k: v for k, v in want.items() if v}
+    print(f"[tp] [{smi}] whisper-tiny ({cfg.n_enc_layers} + {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, f32) with sequence parallelism at TP {SP_OVERLAP_TP} x data "
+          f"{SP_OVERLAP_DATA}, hier_overlap + int8, {SP_OVERLAP_STEPS} steps of "
+          f"{SP_OVERLAP_BATCH} x {SP_OVERLAP_SEQ} tokens and {cfg.enc_seq} frames a row, gloo "
+          f"on one card: losses {losses}, grad norms {norms}, max relative diff from the "
+          f"CPU's run: losses {errs[0]:.3g}, grad norms {errs[1]:.3g} (tol 1e-4); card step "
+          f"ms {card_ms}, CPU step ms {cpu_ms}, a rank's set-up {ranks[0]['setup_s']:.1f} s; "
+          f"{n} buckets, the unread b2 leaves in {layer_buckets}, synced before "
+          f"the backward's last gradient; the walk's host ms per step, card {card_walk}, CPU "
+          f"{cpu_walk}; launches per step and rank {per_step}")
+    return total
+
+
 # ---------------------------------------------------------------------------
 # Head padding under TP, and GPipe over the pod group
 # ---------------------------------------------------------------------------
@@ -2880,7 +3029,7 @@ def padded_f32_serve(dev, tp: int) -> dict:
 
 
 def _cache_shapes(cfg, tp: int, prompt: int) -> dict[str, list[int]]:
-    """A TP rank's cache leaves (hybrid or encoder-decoder) at full depth:
+    """A TP rank's cache leaves (hybrid or encoder-decoder) at ``cfg``'s depth:
     the local KV heads (the gathered Q heads where KV is replicated), the
     local conv channels and SSM heads, the cross cache's frames."""
     kl = cfg.local_q_heads(tp) if cfg.kv_replicated(tp) else cfg.padded_kv_heads(tp) // tp
@@ -2900,7 +3049,8 @@ def _cache_shapes(cfg, tp: int, prompt: int) -> dict[str, list[int]]:
 
 def serve_padded(smi: str, arch: str) -> tuple[dict[str, int], dict]:
     """hymba-1.5b at TP 8 (4 x 2048 tokens) or whisper-tiny at TP 4 (4 x
-    1024 tokens, 4 x 1500 frames), full width and depth, one spawned rank
+    1024 tokens, 4 x 1500 frames), full width (hymba at PAD_LAYERS of its
+    layers, whisper at full depth), one spawned rank
     a TP index on the card over gloo, each through ``disaggregated.run``
     and checked as the TP-1 path is: flash (and ssd_chunk) once per layer
     per prefill (whisper's flash 12 times), the codec 4 times per int8
@@ -2913,6 +3063,7 @@ def serve_padded(smi: str, arch: str) -> tuple[dict[str, int], dict]:
     the greedy tokens equal.  Returns the launches summed over the ranks
     and what was measured."""
     cfg, tp = get_config(arch), PAD_SERVE[arch]
+    cfg = dataclasses.replace(cfg, n_layers=PAD_LAYERS.get(arch, cfg.n_layers))
     prompt = HYBRID_SEQ if arch == HYBRID_ARCH else PROMPT
     ranks = _spawn_tp(arch, tp)
     label = (f"{arch} TP {tp} ({cfg.padded_heads(tp)} Q / {cfg.padded_kv_heads(tp)} KV heads "
@@ -3888,6 +4039,10 @@ def phase_table() -> list[tuple]:
            lambda r, a=arch, n=layers: train_full_width(r.dev, r.smi, "hier", "int8", a,
                                                         layers=n))
           for arch, layers in EV_TRAINED]
+    # whisper-tiny with sequence parallelism at TP 2 under hier_overlap, its
+    # b2 leaves unread (R22), on 4 one-card gloo ranks
+    t.append((f"train_sp_overlap:{ENCDEC_ARCH}", True, False, False,
+              lambda r: train_sp_overlap(r.smi)))
     # runtime robustness: (a) the guard and the chaos engine at full
     # width, (b) checkpoint and resume, (c) elastic re-planning on four
     # ranks
@@ -3937,7 +4092,7 @@ SLICES = {
     "examples": ("example:quickstart", "example:train_lm", "example:serve_disaggregated"),
     "encdec_vlm": ("flash",) + tuple(
         f"{p}:{a}" for p in ("serve", "profile_serving", "small_model", "train")
-        for a in (ENCDEC_ARCH, VLM_ARCH)),
+        for a in (ENCDEC_ARCH, VLM_ARCH)) + (f"train_sp_overlap:{ENCDEC_ARCH}",),
 }
 
 
@@ -4065,6 +4220,7 @@ def report(run: Run) -> None:
     tp_counts["train_hymba_tp8"] = out[f"train_tp8:{HYBRID_ARCH}"]
     tp_counts["serve_moe_tp2"], moe_tp = out["serve_moe_tp"]
     tp_counts["train_moe_tp2"] = out[f"train_tp:{MOE_ARCH}"]
+    tp_counts["train_whisper_sp_overlap"] = out[f"train_sp_overlap:{ENCDEC_ARCH}"]
     train_profile = {mode: out[f"profile_training:{mode}"] for mode, _ in TRAIN_RUNS}
     train_profile["planned"] = out["profile_training:planned"]
 

@@ -13,7 +13,10 @@ XLA may start bucket i's sync while the backward still produces later
 buckets.  The port does it eagerly: ``BucketSync`` hooks every
 parameter, counts each bucket down as its gradients arrive inside the
 backward, and syncs a bucket as soon as it and every bucket before it
-are complete, so every rank issues its collectives in index order.
+are complete, so every rank issues its collectives in index order.  A
+parameter the loss does not read counts its bucket down with a zero
+gradient before the backward starts, as the reference syncs the zeros
+``jax.grad`` gives it.
 ``tree_hier_psum_overlap`` is the same sync run after the backward on a
 tree of gradients; both write the synced values into the gradients they
 are given (the synced buffer is cast back to each leaf's dtype), so the
@@ -31,6 +34,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 from typing import Any, Sequence
 
 import torch
@@ -281,18 +285,52 @@ def tree_hier_psum_overlap(tree: Any, cfg, cap_bytes: int = DEFAULT_CAP_BYTES,
     return tree
 
 
+def reached_leaves(loss: torch.Tensor) -> set[int]:
+    """The ids of the leaf tensors that the autograd graph of ``loss``
+    reaches: a walk from ``loss.grad_fn`` through ``next_functions`` that
+    collects each ``AccumulateGrad`` node's ``variable`` (DDP's
+    ``find_unused_parameters`` makes the same walk).  A non-reentrant
+    checkpoint records its forward graph as it runs, so the walk sees its
+    parameters; a reentrant one would hide them."""
+    ids: set[int] = set()
+    seen = set()
+    stack = [] if loss.grad_fn is None else [loss.grad_fn]
+    while stack:
+        fn = stack.pop()
+        if fn in seen:
+            continue
+        seen.add(fn)
+        var = getattr(fn, "variable", None)
+        if var is not None:
+            ids.add(id(var))
+        stack.extend(nxt for nxt, _ in fn.next_functions if nxt is not None)
+    return ids
+
+
 class BucketSync:
     """The readiness chain, run eagerly inside the backward.
 
     ``BucketSync(params, cfg, cap_bytes, packed)`` plans the buckets of a
-    parameter tree; within ``with sync.attached():`` a hook on every
+    parameter tree; within ``with sync.attached(loss):`` a hook on every
     parameter takes its gradient as the backward produces it and counts
     its bucket down.  A bucket is synced (``sync_bucket``, or with
     ``packed=False`` ``sync_bucket_unpacked``, in a ``grad_sync``
     profiler range) as soon as it and every bucket with a lower index are
     complete; the gradients that ``torch.autograd.grad`` returns then hold
-    the synced values.  ``events`` logs ("grad", bucket) per gradient and
-    ("sync", bucket) per sync, in order."""
+    the synced values.
+
+    A parameter that the graph of ``loss`` does not reach (the GELU MLP's
+    ``b2`` under sequence parallelism, ROADMAP R22) gets no gradient from
+    the backward.  ``attached`` finds those before the backward starts
+    (``reached_leaves``) and counts them down at once, each with a zero
+    gradient of its shape and dtype, so that its bucket syncs as soon as
+    its read leaves arrive; ``fill`` hands the synced zeros (zero, as the
+    reference's sync of ``jax.grad``'s zeros gives) to the step.  The
+    unread set depends on the model and the runtime only, so every rank
+    issues the same syncs in the same order.  ``events`` logs ("unread",
+    bucket) per unread parameter, ("grad", bucket) per gradient and
+    ("sync", bucket) per sync, in order; ``walk_ms`` is the walk's host
+    time."""
 
     def __init__(self, params: Any, cfg, cap_bytes: int = DEFAULT_CAP_BYTES,
                  packed: bool = True):
@@ -314,16 +352,25 @@ class BucketSync:
             for k, part in enumerate(packing.leaf_parts(piece)):
                 self._params.append((part, bucket, pi, k))
         self.events: list[tuple[str, int]] = []
+        self.walk_ms = 0.0
 
-    def _hook(self, bucket: int, pi: int, k: int):
+    def _arrived(self, bucket: int, pi: int, k: int, grad: torch.Tensor, event: str) -> None:
+        """Part ``k`` of piece ``pi`` holds ``grad``: count its bucket down
+        and sync every bucket that is complete with all before it."""
+        self._grads[pi][k] = grad
+        self._pending[bucket] -= 1
+        self.events.append((event, bucket))
+        while self._next < self.n_buckets and self._pending[self._next] == 0:
+            self._sync(self._next)
+            self._next += 1
+
+    def _hook(self, param: torch.Tensor, bucket: int, pi: int, k: int):
         def hook(grad: torch.Tensor) -> torch.Tensor:
+            if id(param) in self._unread:
+                raise RuntimeError("a parameter the graph walk did not reach took a "
+                                   "gradient (a reentrant checkpoint hides its parameters)")
             grad = grad.contiguous()   # the returned tensor is the captured gradient
-            self._grads[pi][k] = grad
-            self._pending[bucket] -= 1
-            self.events.append(("grad", bucket))
-            while self._next < self.n_buckets and self._pending[self._next] == 0:
-                self._sync(self._next)
-                self._next += 1
+            self._arrived(bucket, pi, k, grad, "grad")
             return grad
         return hook
 
@@ -340,14 +387,25 @@ class BucketSync:
         self.events.append(("sync", bucket))
 
     @contextlib.contextmanager
-    def attached(self):
-        """Hooks on for the block; on a normal exit every bucket must have
-        been synced, else it raises."""
+    def attached(self, loss: torch.Tensor):
+        """Hooks on for the block, in which the caller runs the backward of
+        ``loss``; the parameters that its graph does not reach are counted
+        down before the block starts.  On a normal exit every bucket must
+        have been synced, else it raises."""
         self._grads: list = [[None] * n for n in self._n_parts]
         self._pending = [sum(self._n_parts[pi] for pi in pis) for pis in self._bucket_pieces]
         self._next = 0
+        self._unread: dict[int, torch.Tensor] = {}
         self.events.clear()
-        handles = [p.register_hook(self._hook(b, pi, k)) for p, b, pi, k in self._params]
+        t0 = time.perf_counter()
+        reached = reached_leaves(loss)
+        self.walk_ms = (time.perf_counter() - t0) * 1e3
+        for p, b, pi, k in self._params:
+            if id(p) not in reached:
+                self._unread[id(p)] = zero = torch.zeros_like(
+                    p, memory_format=torch.contiguous_format)
+                self._arrived(b, pi, k, zero, "unread")
+        handles = [p.register_hook(self._hook(p, b, pi, k)) for p, b, pi, k in self._params]
         try:
             yield self
         finally:
@@ -356,3 +414,9 @@ class BucketSync:
         if self._next != self.n_buckets:
             raise RuntimeError(f"the backward synced {self._next} of {self.n_buckets} "
                                f"gradient buckets")
+
+    def fill(self, params: Sequence[torch.Tensor], grads: Sequence) -> list[torch.Tensor]:
+        """``grads`` as ``torch.autograd.grad(loss, params, allow_unused=True)``
+        returns them after ``attached(loss)``, each None (a parameter the
+        loss does not read) replaced by that parameter's synced zeros."""
+        return [self._unread[id(p)] if g is None else g for p, g in zip(params, grads)]

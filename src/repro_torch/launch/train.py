@@ -621,6 +621,8 @@ def run(arch: str = "qwen2.5-3b", *, smoke: bool = False, steps: int = 4,
                    "ms_per_step": timing["dt"] * 1e3, "gated": m["gated"],
                    "launches": {k: after[k] - before[k] for k in after},
                    "verdict": verdict, "guard_ms": guard_ms}
+            if "walk_ms" in m:
+                rec["walk_ms"] = m["walk_ms"]
             records.append(rec)
             if step % log_every == 0:
                 log(json.dumps(rec))

@@ -224,7 +224,9 @@ def make_train_step(model: Model, tcfg: TrainConfig):
     place, and returns the metrics synced over the data-parallel group
     as Python numbers: loss (the cross-entropy plus ``aux_weight`` times the
     MoE aux loss), grad_norm, aux, mean_logp and ``gated`` (the
-    finite gate skipped the update).  Without a data-parallel group there
+    finite gate skipped the update); ``hier_overlap`` adds ``walk_ms``, the
+    host time of ``BucketSync``'s walk for unread parameters, and
+    ``sync_events``, its event log.  Without a data-parallel group there
     is no sync (the reference's single-device step)."""
     rt = model.rt
     ccfg = tcfg.comm_config(rt)
@@ -235,13 +237,6 @@ def make_train_step(model: Model, tcfg: TrainConfig):
     # hier_overlap syncs each bucket inside the backward; without a
     # data-parallel group it is the plain step too
     overlapped = tcfg.comm_mode == "hier_overlap" and rt.dp_group is not None
-    if overlapped and rt.sp and rt.tp > 1 and model.cfg.family == "encdec":
-        # the GELU MLP's b2 is no input of the loss under sequence parallelism
-        # (R22): its gradient never arrives, so its bucket would never sync
-        raise NotImplementedError(
-            f"{model.cfg.name} with sequence parallelism under hier_overlap: a parameter "
-            f"the loss does not read never fills its bucket; the encoder-decoder family "
-            f"trains with sequence parallelism under the modes that sync after the backward")
     fsdp = tcfg.comm_mode == "fsdp"
     hop = tcfg.manual_config(rt) if fsdp else None
 
@@ -269,9 +264,12 @@ def make_train_step(model: Model, tcfg: TrainConfig):
             del logits
             lval = lval + tcfg.aux_weight * aux
             if overlap is not None:
-                # the gradients come back synced, bucket by bucket
-                with overlap.attached():
-                    grads = list(torch.autograd.grad(lval, params))
+                # the gradients come back synced, bucket by bucket; a
+                # parameter the loss does not read (R22) takes its bucket's
+                # synced zeros
+                with overlap.attached(lval):
+                    grads = torch.autograd.grad(lval, params, allow_unused=True)
+                grads = overlap.fill(params, grads)
             else:
                 # a parameter the loss does not read (the GELU MLP's b2 under
                 # sequence parallelism, R22) takes a zero gradient, as jax.grad
@@ -340,6 +338,8 @@ def make_train_step(model: Model, tcfg: TrainConfig):
             out = dict(zip(("loss", "grad_norm", "aux", "mean_logp"), m.tolist()))
             ok = math.isfinite(out["loss"]) and math.isfinite(out["grad_norm"])
             out["gated"] = tcfg.finite_gate and not ok
+        if overlap is not None:
+            out["walk_ms"], out["sync_events"] = overlap.walk_ms, list(overlap.events)
         if out["gated"]:
             return out
         if zero1:

@@ -23,11 +23,13 @@ package, f32 smoke whisper-tiny (2 encoder and 2 decoder layers, d_model
   training steps each of ``hier`` + int8, ``hier`` + int8 with sequence
   parallelism (ROADMAP R22: the reference's encoder then runs on a
   sequence gathered tp-fold, so it computes another function; the port
-  mirrors it; ``hier_overlap`` with SP is refused by name, as its unread
-  ``b2`` would never fill its bucket) and ``fsdp`` + int8 at d_ff 1024
-  (the encoder has FSDP dims of its own): every rank's losses and grad
-  norms within 1e-3 of its own device's, its parameters within 2 lr, all
-  but 0.1% within 1e-4.
+  mirrors it), ``fsdp`` + int8 at d_ff 1024 (the encoder has FSDP dims
+  of its own) and ``hier_overlap`` + int8 with sequence parallelism, each
+  layer a bucket (the unread ``b2`` of every layer counted down before
+  the backward, its bucket synced inside it; the reference syncs the
+  zeros ``jax.grad`` gives after the backward): every rank's losses and
+  grad norms within 1e-3 of its own device's, its parameters within 2 lr,
+  all but 0.1% within 1e-4.
 * whisper-tiny at TP 4 builds its 6 heads padded to 8 (2 Q / 2 KV a
   rank); ``tests/test_torch_padding.py`` serves it.
 """
@@ -44,7 +46,12 @@ WORLD, GB, S, N_STEPS = 8, 4, 32, 3
 LR, WARMUP = 1e-3, 1
 FSDP_D_FF = 1024      # w1 at TP 2: 2 x 64 x 512 = 2^16 values, sharded over data too
 # (comm mode, pod-hop codec, sequence parallelism) of the eight-rank runs
-TRAIN_CASES = [("hier", "int8", False), ("hier", "int8", True), ("fsdp", "int8", False)]
+TRAIN_CASES = [("hier", "int8", False), ("hier", "int8", True), ("fsdp", "int8", False),
+               ("hier_overlap", "int8", True)]
+# hier_overlap's bucket cap in MiB, on both sides: 0 puts each layer and
+# each top-level key in a bucket of its own, so every layer's unread b2
+# (R22) sits in its own bucket
+OVERLAP_CAP_MB = 0
 TP, SB, SS, GEN = 2, 2, 24, 4
 CACHE_LEAVES = (("kv", "k"), ("kv", "v"), ("kv", "length"), ("cross", "k"), ("cross", "v"),
                 ("cross", "length"))
@@ -52,6 +59,12 @@ CACHE_LEAVES = (("kv", "k"), ("kv", "v"), ("kv", "length"), ("cross", "k"), ("cr
 
 def case_id(mode: str, codec, sp: bool) -> str:
     return f"{mode}_{codec}{'_sp' if sp else ''}"
+
+
+def case_kwargs(mode: str) -> dict:
+    """The TrainConfig arguments of a training case beside its mode, codec
+    and optimizer (either package's)."""
+    return {"bucket_cap_mb": OVERLAP_CAP_MB} if mode == "hier_overlap" else {}
 
 
 def batch(step: int, vocab: int, enc_seq: int, d_model: int) -> dict:
@@ -131,7 +144,7 @@ def _jax_main(out_dir: str, part: str) -> None:
         params = jax.tree.map(jnp.asarray, nest(np.load(
             os.path.join(out_dir, f"params_{'fsdp' if fsdp else 'base'}.npz"))))
         tcfg = JaxTrainConfig(comm_mode=mode, dcn_compression=codec,
-                              opt=JaxOpt(lr=LR, warmup_steps=WARMUP))
+                              opt=JaxOpt(lr=LR, warmup_steps=WARMUP), **case_kwargs(mode))
         build, _ = jax_train_step(model, tcfg, mesh=mesh, donate=False)
         shapes = jax.tree.map(lambda p: jax.ShapeDtypeStruct(p.shape, p.dtype), params)
         step, _ = build(shapes)
@@ -218,7 +231,7 @@ def _gloo_rank(rank: int, store_path: str, out_dir: str) -> None:
                                     device="cpu", fsdp=2 if fsdp else 1)
             step_fn, _ = make_train_step(model, TrainConfig(
                 comm_mode=mode, dcn_compression=codec,
-                opt=opt_lib.OptConfig(lr=LR, warmup_steps=WARMUP)))
+                opt=opt_lib.OptConfig(lr=LR, warmup_steps=WARMUP), **case_kwargs(mode)))
             opt = opt_lib.adam_init(opt_lib.flat_params(model.train_leaves())[0])
             metrics = []
             for i in range(N_STEPS):
@@ -229,12 +242,6 @@ def _gloo_rank(rank: int, store_path: str, out_dir: str) -> None:
                 metrics.append((m["loss"], m["grad_norm"]))
             key = case_id(mode, codec, sp)
             out[f"{key}/metrics"] = np.asarray(metrics)
-            if sp:
-                try:
-                    make_train_step(model, TrainConfig(comm_mode="hier_overlap"))
-                    out["overlap_sp_refusal"] = np.asarray("")
-                except NotImplementedError as e:
-                    out["overlap_sp_refusal"] = np.asarray(str(e))
             for path, leaf in zip(model.param_specs(), model.train_leaves()):
                 out[f"{key}/param/{'/'.join(path)}"] = (
                     torch.stack(leaf) if isinstance(leaf, list) else leaf).detach().numpy()
@@ -747,16 +754,6 @@ def test_training_2x2x2_matches_jax(results, mode, codec, sp):
     if mode == "fsdp":
         # the encoder's column-parallel w1 is sharded over model and data
         assert ranks[0][f"{key}/param/enc_layers/mlp/w1"].shape == (2, 64 // 2, FSDP_D_FF // 2)
-
-
-def test_sp_under_hier_overlap_is_refused_by_name(results):
-    """Under sequence parallelism at TP 2 the GELU MLP's b2 is no input of
-    the loss (ROADMAP R22), so hier_overlap's bucket holding it would never
-    sync: every rank refuses the pair by name when it builds the step."""
-    _, ranks = results
-    for rank, got in enumerate(ranks):
-        assert "whisper-tiny-smoke with sequence parallelism under hier_overlap" in str(
-            got["overlap_sp_refusal"]), f"rank {rank}"
 
 
 def test_sequence_parallel_encoder_is_another_function_r22(results):

@@ -698,13 +698,12 @@ def test_smoke_training_on_card_matches_cpu(cuda, mode):
         params, _ = opt_lib.flat_params(leaves)
         b = {k: torch.from_numpy(v).long().to(cuda) for k, v in synth_batch(dcfg, 7).items()}
 
-        def backward():
+        def loss():
             with torch.enable_grad():
-                lval, _ = loss_lib.sharded_xent(gpu.apply_train(b["tokens"])[0], b["labels"],
-                                                rt, cfg.vocab_size)
-                return torch.autograd.grad(lval, params)
+                return loss_lib.sharded_xent(gpu.apply_train(b["tokens"])[0], b["labels"],
+                                             rt, cfg.vocab_size)[0]
 
-        raw = backward()
+        raw = torch.autograd.grad(loss(), params)
         card, host = [g.clone() for g in raw], [g.cpu() for g in raw]
         if mode == "hier_overlap":
             tree = gpu.param_tree()
@@ -712,8 +711,9 @@ def test_smoke_training_on_card_matches_cpu(cuda, mode):
                 by_id = dict(zip(map(id, params), grads))
                 overlap.tree_hier_psum_overlap(_map_tree(tree, lambda t: by_id[id(t)]), ccfg)
             sync = overlap.BucketSync(tree, ccfg)
-            with sync.attached():
-                inside = backward()
+            lval = loss()
+            with sync.attached(lval):
+                inside = torch.autograd.grad(lval, params)
             assert all(torch.equal(a, c) for a, c in zip(inside, card))
             synced = (card, host)
         else:

@@ -21,7 +21,15 @@
   pod hop: the gradients it syncs inside the backward are bit-equal to
   ``tree_hier_psum_overlap`` run after the backward, and its event log
   shows bucket 0 synced before the first gradient of the last bucket
-  arrived, every bucket synced in index order.
+  arrived, every bucket synced in index order, in the order it had
+  before it looked for unread leaves.  On a small tree whose loss leaves
+  one leaf of a middle bucket unread, packed and per leaf: that leaf's
+  gradient is the zeros its bucket's sync wrote, the bucket syncs before
+  any later bucket's gradient arrives, every gradient equals the sync
+  after the backward of the materialized gradients, and a read leaf left
+  out of the backward makes ``attached`` raise.  On the four ranks as
+  (data 2, model 2): the smoke whisper's unread leaves under sequence
+  parallelism are its ``b2`` leaves, on every rank.
 * An unknown comm mode fails with the schedule registry's error, as in
   the reference.
 * A one-rank gloo world (pod and data groups of one member, in a spawned
@@ -61,6 +69,7 @@ PLAN_CASES = {"plan_per_leaf": (None, False), "plan_packed": ("hier", True),
 PLAN_DCN_BPS = 1e9        # the planned cases' per-chip pod link, bytes/s
 OVERLAP_CAP_MB = 1        # hier_overlap's bucket cap in the four-rank runs
 FSDP_D_FF = 512           # the fsdp runs' d_ff: w_gate/w_up/w_down reach 2 x 64 x 512 = 2^16
+WHISPER_CAP_BYTES = 1 << 16   # one layer a bucket for the smoke whisper at TP 2
 
 
 def sharded(mode: str) -> bool:
@@ -243,8 +252,54 @@ def _gloo_rank(rank: int, store_path: str, out_dir: str) -> None:
                 losses.append(m["loss"])
             np.save(os.path.join(out_dir, f"rank{rank}_losses_{mode}_{codec}.npy"),
                     np.asarray(losses))
+        _whisper_unread(rank, out_dir)
     finally:
         dist.destroy_process_group()
+
+
+def _whisper_unread(rank: int, out_dir: str) -> None:
+    """The smoke whisper with sequence parallelism at TP 2 on the four
+    ranks cut as (pod 1, data 2, model 2), each data rank on a batch of
+    its own, under hier_overlap + int8 with one layer a bucket: the
+    leaves BucketSync finds unread, its event log, and whether their
+    gradients came back as zeros."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import overlap
+    from repro_torch.launch.mesh import runtime_for_groups
+    from repro_torch.models import Model
+    from repro_torch.train import loss as loss_lib
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import TrainConfig
+
+    rt = runtime_for_groups(pods=1, data_per_pod=2, tp=2, sp=True)
+    cfg = dataclasses.replace(get_config("whisper-tiny", smoke=True), dtype=torch.float32)
+    model = Model(cfg, rt, device="cpu").init(0)
+    leaves = model.train_leaves()
+    names = {id(t): "/".join(path) + (f"/{i}" if isinstance(leaf, list) else "")
+             for path, leaf in zip(model.param_specs(), leaves)
+             for i, t in enumerate(leaf if isinstance(leaf, list) else [leaf])}
+    params, _ = opt_lib.flat_params(leaves)
+    for p in params:
+        p.requires_grad_(True)
+    rng = np.random.default_rng(700 + rank // 2)           # this rank's data index
+    tokens, labels = (torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, S))).long()
+                      for _ in range(2))
+    enc = torch.from_numpy(rng.normal(size=(2, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    ccfg = TrainConfig(comm_mode="hier_overlap", dcn_compression="int8").comm_config(rt)
+    sync = overlap.BucketSync(model.param_tree(), ccfg, WHISPER_CAP_BYTES)
+    with torch.enable_grad():
+        lval, _ = loss_lib.sharded_xent(model.apply_train(tokens, enc)[0], labels, rt,
+                                        cfg.vocab_size)
+    with sync.attached(lval):
+        raw = torch.autograd.grad(lval, params, allow_unused=True)
+    grads = sync.fill(params, raw)
+    np.savez(os.path.join(out_dir, f"rank{rank}_whisper_unread.npz"),
+             unread=np.asarray(sorted(names[id(p)] for p, g in zip(params, raw) if g is None)),
+             zeros=np.asarray(all(bool((g == 0).all()) for g, r in zip(grads, raw)
+                                  if r is None)),
+             events=np.asarray([f"{e} {b}" for e, b in sync.events]))
 
 
 def _one_rank_zero1(out_dir: str, lr: float) -> None:
@@ -407,6 +462,29 @@ def test_train_step_four_ranks_matches_jax(four_rank_losses, mode, codec):
                 np.testing.assert_array_equal(got[name], jshards[f"rank{r}/{name}"])
 
 
+def test_whisper_sp_unread_leaves_are_the_b2s(four_rank_losses):
+    """The smoke whisper with sequence parallelism at TP 2 on (data 2,
+    model 2): the leaves the loss does not read are exactly the encoder's
+    and the decoder's GELU MLP ``b2`` (ROADMAP R22), the same set on every
+    rank though each data rank trains on its own batch; their gradients
+    come back as zeros, and each bucket holding one syncs, in index order,
+    before the backward's last gradient arrives."""
+    cfg = get_config("whisper-tiny", smoke=True)
+    want = sorted([f"enc_layers/mlp/b2/{i}" for i in range(cfg.n_enc_layers)]
+                  + [f"layers/mlp/b2/{i}" for i in range(cfg.n_layers)])
+    for r in range(WORLD):
+        got = np.load(four_rank_losses / f"rank{r}_whisper_unread.npz")
+        assert list(got["unread"]) == want, f"rank {r}"
+        assert bool(got["zeros"]), f"rank {r}"
+        events = [(e, int(b)) for e, b in (x.split() for x in got["events"])]
+        held = sorted({b for e, b in events if e == "unread"})
+        assert len(held) == cfg.n_layers + cfg.n_enc_layers      # one layer a bucket
+        syncs = [b for e, b in events if e == "sync"]
+        assert syncs == list(range(len(syncs)))
+        last_grad = max(i for i, (e, _) in enumerate(events) if e == "grad")
+        assert all(events.index(("sync", b)) < last_grad for b in held), f"rank {r}"
+
+
 def test_four_rank_plan_is_the_reference_and_resolves_to_int8():
     """The planned cases' plan: the reference's, hier_overlap on the
     per-leaf path, and the smoke model's buckets (tens of KiB) resolve to
@@ -473,11 +551,14 @@ def _bucket_sync_run(out_dir: str) -> None:
     """hier_overlap's sync in a gloo world of one (int8 on the pod hop):
     the gradients of one batch synced after the backward by
     tree_hier_psum_overlap, then synced inside a second, identical
-    backward by BucketSync; both, and the hook executor's event log."""
+    backward by BucketSync; both, and the hook executor's event log.
+    Then the small tree of ``_small_tree`` on both data paths: the same
+    pair with its unread leaf, which bucket's sync wrote that leaf's
+    gradient, and the error of a backward that leaves a read leaf out."""
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     import torch.distributed as dist
 
-    from repro_torch.core import overlap
+    from repro_torch.core import overlap, packing
     from repro_torch.core.collectives import CommConfig
     from repro_torch.launch.mesh import runtime_for_groups
     from repro_torch.train import loss as loss_lib
@@ -495,24 +576,100 @@ def _bucket_sync_run(out_dir: str) -> None:
             p.requires_grad_(True)
         b = {k: torch.from_numpy(v).long() for k, v in batch(0, cfg.vocab_size).items()}
 
-        def grads():
+        def loss():
             logits, _ = model.apply_train(b["tokens"])
-            lval, _ = loss_lib.sharded_xent(logits, b["labels"], rt, cfg.vocab_size)
-            return torch.autograd.grad(lval, params)
+            return loss_lib.sharded_xent(logits, b["labels"], rt, cfg.vocab_size)[0]
 
-        after = dict(zip(map(id, params), grads()))
+        after = dict(zip(map(id, params), torch.autograd.grad(loss(), params)))
         tree = model.param_tree()
         overlap.tree_hier_psum_overlap(_map_tensors(tree, lambda t: after[id(t)]), ccfg,
                                        cap_bytes=OVERLAP_CAP_MB << 20)
         sync = overlap.BucketSync(tree, ccfg, OVERLAP_CAP_MB << 20)
-        with sync.attached():
-            inside = grads()
-        np.savez(os.path.join(out_dir, "bucket_sync.npz"),
-                 events=np.asarray([(e == "sync", bucket) for e, bucket in sync.events]),
-                 **{f"after{i}": after[id(p)].numpy() for i, p in enumerate(params)},
-                 **{f"inside{i}": g.numpy() for i, g in enumerate(inside)})
+        lval = loss()
+        with sync.attached(lval):
+            inside = torch.autograd.grad(lval, params)
+        out = {"events": np.asarray([f"{e} {bk}" for e, bk in sync.events]),
+               **{f"after{i}": after[id(p)].numpy() for i, p in enumerate(params)},
+               **{f"inside{i}": g.numpy() for i, g in enumerate(inside)}}
+
+        # which bucket's sync wrote each gradient part
+        written: dict[int, int] = {}
+        plain = {"packed": overlap.sync_bucket, "per_leaf": overlap.sync_bucket_unpacked}
+
+        def recording(fn):
+            def wrapped(*args):
+                pieces = args[2] if fn is plain["packed"] else args[0]
+                for piece in pieces:
+                    for part in packing.leaf_parts(piece):
+                        written[part.data_ptr()] = len([e for e in sync.events
+                                                        if e[0] == "sync"])
+                return fn(*args)
+            return wrapped
+
+        overlap.sync_bucket = recording(plain["packed"])
+        overlap.sync_bucket_unpacked = recording(plain["per_leaf"])
+        for path in ("packed", "per_leaf"):
+            tree, params, small_loss = _small_tree()
+            packed = path == "packed"
+            after = torch.autograd.grad(small_loss(), params, materialize_grads=True)
+            by_id = dict(zip(map(id, params), after))
+            overlap.tree_hier_psum_overlap(_map_tensors(tree, lambda t: by_id[id(t)]), ccfg,
+                                           cap_bytes=SMALL_CAP_BYTES, packed=packed)
+            sync = overlap.BucketSync(tree, ccfg, SMALL_CAP_BYTES, packed=packed)
+            written.clear()
+            lval = small_loss()
+            with sync.attached(lval):
+                raw = torch.autograd.grad(lval, params, allow_unused=True)
+            grads = sync.fill(params, raw)
+            out[f"{path}/unread"] = np.asarray([i for i, g in enumerate(raw) if g is None])
+            out[f"{path}/written_by"] = np.asarray([written.get(g.data_ptr(), -1)
+                                                    for g in grads])
+            out[f"{path}/events"] = np.asarray([f"{e} {bk}" for e, bk in sync.events])
+            out[f"{path}/walk_ms"] = np.asarray(sync.walk_ms)
+            for i, (a, g) in enumerate(zip(after, grads)):
+                out[f"{path}/after{i}"], out[f"{path}/inside{i}"] = a.numpy(), g.numpy()
+            # a read leaf left out of the backward never delivers its gradient
+            lval = small_loss()
+            try:
+                with sync.attached(lval):
+                    torch.autograd.grad(lval, params[:SMALL_LEFT_OUT] + params[SMALL_LEFT_OUT + 1:],
+                                        allow_unused=True)
+                out[f"{path}/left_out"] = np.asarray("")
+            except RuntimeError as e:
+                out[f"{path}/left_out"] = np.asarray(str(e))
+        np.savez(os.path.join(out_dir, "bucket_sync.npz"), **out)
     finally:
         dist.destroy_process_group()
+
+
+# The small tree's bucket cap: one layer (8 x 8 + 8 f32 values) a bucket,
+# so the buckets are lm_head, layer 2, layer 1, layer 0, embed
+SMALL_CAP_BYTES = 300
+SMALL_UNREAD = 4          # index in ``_small_tree``'s params of layer 1's b
+SMALL_LEFT_OUT = 3        # layer 1's w, read: left out of a backward
+
+
+def _small_tree():
+    """A three-layer tree whose loss never reads layer 1's bias: (the
+    tree, its parameters lm_head, w0, b0, w1, b1, w2, b2, embed, the
+    loss as a function)."""
+    gen = torch.Generator().manual_seed(3)
+
+    def leaf(*shape):
+        return torch.randn(*shape, generator=gen).requires_grad_(True)
+
+    tree = {"lm_head": leaf(8, 8), "layers": [{"w": leaf(8, 8), "b": leaf(8)} for _ in range(3)],
+            "embed": leaf(8, 8)}
+    x = torch.randn(4, 8, generator=gen)
+
+    def loss():
+        h = x @ tree["embed"]
+        for i, lp in enumerate(tree["layers"]):
+            h = torch.tanh(h @ lp["w"] + (0 if i == 1 else lp["b"]))
+        return (h @ tree["lm_head"]).square().mean()
+
+    params = [tree["lm_head"]] + [t for lp in tree["layers"] for t in (lp["w"], lp["b"])]
+    return tree, params + [tree["embed"]], loss
 
 
 def _map_tensors(tree, fn):
@@ -523,7 +680,10 @@ def _map_tensors(tree, fn):
     return {k: _map_tensors(v, fn) for k, v in tree.items()}
 
 
-def test_bucket_sync_in_the_backward_equals_the_sync_after_it(tmp_path):
+@pytest.fixture(scope="module")
+def bucket_sync(tmp_path_factory):
+    """``_bucket_sync_run``'s results, in a spawned gloo world of one."""
+    tmp_path = tmp_path_factory.mktemp("bucket_sync")
     _, _, params = _jax_setup()
     np.savez(tmp_path / "params.npz", **_flat_tree(jax.tree.map(np.asarray, params)))
     proc = multiprocessing.get_context("spawn").Process(target=_bucket_sync_run,
@@ -534,17 +694,63 @@ def test_bucket_sync_in_the_backward_equals_the_sync_after_it(tmp_path):
         proc.kill()
         proc.join(timeout=10)
     assert proc.exitcode == 0
-    got = np.load(tmp_path / "bucket_sync.npz")
+    return np.load(tmp_path / "bucket_sync.npz")
+
+
+# The smoke qwen2.5-3b's event log under a 1 MiB cap, as the hook executor
+# gave it before it looked for unread leaves: final_norm's gradient and
+# sync, the 24 gradients of both layers and their sync, embed's
+QWEN_EVENTS = ["grad 0", "sync 0"] + ["grad 1"] * 24 + ["sync 1", "grad 2", "sync 2"]
+
+
+def test_bucket_sync_in_the_backward_equals_the_sync_after_it(bucket_sync):
+    got = bucket_sync
     n = len([k for k in got.files if k.startswith("after")])
     assert n == 2 + 12 * 2                         # embed, final_norm, 12 leaves x 2 layers
     for i in range(n):
         np.testing.assert_array_equal(got[f"inside{i}"], got[f"after{i}"])
-    events = [("sync" if s else "grad", int(b)) for s, b in got["events"]]
+    events = [tuple(e.split()) for e in got["events"]]
+    events = [(e, int(b)) for e, b in events]
     syncs = [b for e, b in events if e == "sync"]
     assert syncs == [0, 1, 2]                      # final_norm, both layers, embed
     assert events.index(("sync", 0)) < events.index(("grad", 2))
     assert events.index(("sync", 1)) < events.index(("grad", 2))
     assert events[-1] == ("sync", 2)
+    # no unread leaf, and the order the executor had before it looked for any
+    assert list(got["events"]) == QWEN_EVENTS
+
+
+@pytest.mark.parametrize("path", ["packed", "per_leaf"])
+def test_unread_leaf_syncs_inside_the_backward(bucket_sync, path):
+    """Layer 1's bias, which the loss never reads, in bucket 2 of 5: the
+    backward gives it no gradient; BucketSync counts it down before the
+    backward, so bucket 2 syncs as soon as layer 1's weight arrives,
+    before any gradient of layer 0 or embed; the zeros it holds are the
+    tensor that bucket's sync wrote, and every gradient equals
+    tree_hier_psum_overlap of the materialized gradients bit for bit."""
+    got = bucket_sync
+    assert list(got[f"{path}/unread"]) == [SMALL_UNREAD]
+    events = [(e, int(b)) for e, b in (x.split() for x in got[f"{path}/events"])]
+    assert events[0] == ("unread", 2)              # before the backward
+    assert [b for e, b in events if e == "sync"] == [0, 1, 2, 3, 4]
+    first_late = min(events.index(("grad", b)) for b in (3, 4))
+    assert events.index(("sync", 2)) < first_late
+    assert events.index(("sync", 2)) == events.index(("grad", 2)) + 1
+    written = list(got[f"{path}/written_by"])
+    assert written == [0, 3, 3, 2, 2, 1, 1, 4]     # each part by its bucket's sync
+    zero = got[f"{path}/inside{SMALL_UNREAD}"]
+    assert zero.shape == (8,) and zero.dtype == np.float32 and not zero.any()
+    for i in range(8):
+        np.testing.assert_array_equal(got[f"{path}/inside{i}"], got[f"{path}/after{i}"])
+    assert float(got[f"{path}/walk_ms"]) > 0
+
+
+@pytest.mark.parametrize("path", ["packed", "per_leaf"])
+def test_attached_raises_when_a_read_leaf_never_delivers(bucket_sync, path):
+    """Layer 1's weight is read but left out of the backward's inputs: its
+    hook never fires, bucket 2 never completes, and ``attached`` raises
+    on the way out."""
+    assert str(bucket_sync[f"{path}/left_out"]) == "the backward synced 2 of 5 gradient buckets"
 
 
 def test_zero1_one_rank_matches_jax(tmp_path):
